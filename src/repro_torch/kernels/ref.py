@@ -1,0 +1,25 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function is the mathematical definition of its kernel with no tiling
+or hardware concerns.  The wrappers in ``kernels/`` take them for CPU
+tensors; on the card they are only the yardstick the kernels are held to,
+with TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``) so the
+product is full float32 like the reference.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def fused_mlp(x: torch.Tensor, ws: Sequence[torch.Tensor],
+              bs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Whole-MLP chain (hidden ReLU, linear head) in float32 — the plain
+    version of the whole-MLP forward kernel."""
+    y = x.to(torch.float32)
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        y = y @ w.to(torch.float32) + b.to(torch.float32)
+        if i < len(ws) - 1:
+            y = torch.relu(y)
+    return y.to(x.dtype)

@@ -1,0 +1,86 @@
+"""Package rules of the PyTorch/CUDA port.
+
+- No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
+  ``jax`` or the reference package ``repro`` (checked on the AST, so a
+  lazy import inside a function counts too).
+- Entry points run on the card unless the caller asks for the CPU:
+  ``GANDSE(..., device=None)`` and ``Explorer(...)`` without a device
+  raise where no CUDA device is present.
+- Importing the kernel module builds nothing (the CPU tests import every
+  module; the kernel is built at its first launch, on the card).
+"""
+import ast
+import pathlib
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module.split(".")[0], node.lineno
+
+
+def test_port_files_are_found():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "src/repro_torch/kernels/fused_mlp.py" in names
+    assert "src/repro_torch/core/dse_api.py" in names
+    assert "chip_smoke.py" in names
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[p.relative_to(ROOT).as_posix() for p in FILES])
+def test_no_jax_or_reference_imports(path):
+    bad = [(m, ln) for m, ln in _imported_roots(path) if m in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_gandse_defaults_to_the_card(monkeypatch):
+    from repro_torch.core.dse_api import GANDSE
+    from repro_torch.design_models import DnnWeaverModel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GANDSE(DnnWeaverModel())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GANDSE(DnnWeaverModel(), device="cuda")
+    assert GANDSE(DnnWeaverModel(), device="cpu").device.type == "cpu"
+
+
+def test_explorer_defaults_to_the_card(monkeypatch):
+    from repro_torch.core.explorer import Explorer
+    from repro_torch.core.gan import GANConfig
+    from repro_torch.design_models import DnnWeaverModel
+    model = DnnWeaverModel()
+    cfg = GANConfig(n_net=model.net_space.n_dims)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Explorer(model, None, {"layers": []}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Explorer(model, None, {"layers": []}, cfg, device="cuda")
+    ex = Explorer(model, None, {"layers": []}, cfg, device="cpu")
+    assert ex.device == torch.device("cpu")
+
+
+def test_training_is_not_ported_yet():
+    from repro_torch.core.dse_api import GANDSE
+    from repro_torch.design_models import DnnWeaverModel
+    with pytest.raises(NotImplementedError):
+        GANDSE(DnnWeaverModel(), device="cpu").train(64, 1)
+
+
+def test_kernel_module_import_builds_nothing():
+    from repro_torch.kernels import fused_mlp as FM
+    assert FM._LIB is None or FM.build_info
+    assert FM.SOURCE.exists() and FM.SOURCE.suffix == ".cu"
+    assert "arch=compute_90a,code=sm_90a" in FM.NVCC_FLAGS
