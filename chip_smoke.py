@@ -2,21 +2,35 @@
 
     python3 chip_smoke.py [--out results.json]
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version at the serving path's shapes (both
-models' G at 64 rows, im2col's also at 1024), then drives
-``GANDSE.attach`` + ``explore_batch`` (64 tasks, generator at the paper's
-11 x 2048 width, random weights from a fixed seed) on dnnweaver and im2col
-through the kernel, checks the Selections, and breaks one more warm call
-down (G against the select, the device's busy share, the top kernels).
-Exits non-zero on any
-failure, and when no CUDA device is present.  The last line of output is
-``{"ok": true, "device": {...}}``; the lines before it are the kernel
-table (JSON) and the card's name and power limit.
+Builds the port's CUDA kernels from the sources in this checkout (one
+nvcc per source, in parallel) and holds each against its plain PyTorch
+version at the main path's shapes: the whole-MLP forward at the serving
+path's (both models' G at 64 rows, im2col's also at 1024), and the dense
+layer's forward, dx and dW/db kernels at Algorithm 1's (batch 1024;
+2048 -> 2048, G's head 2048 -> 73, D's first layer 81 -> 2048, D's head
+2048 -> 2).  Then, with the paper's G and D (11 x 2048, batch 1024,
+random weights from fixed seeds):
+
+- one Algorithm 1 step on im2col through the kernels against the same
+  step on the plain versions (losses, every gradient, the new params),
+  its launches, its time and a profile;
+- the serving path: ``GANDSE.attach`` + ``explore_batch`` (64 tasks) on
+  dnnweaver and im2col, the Selections checked, one warm call profiled;
+- the training path: ``GANDSE.train`` on im2col (4096 rows, 2 epochs of 4
+  steps), then ``explore_batch`` of 64 tasks on the trained G;
+- a reduced-scale quality run on dnnweaver at
+  ``experiments/run_comparison.py``'s scale (3 x 256, 8000 rows, 8
+  epochs, 200 hard tasks), its satisfied count beside the reference's.
+
+Exits non-zero on any failure, and when no CUDA device is present.  The
+last line of output is ``{"ok": true, "device": {...}}``; the lines before
+it are the kernel table (JSON) and the card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import dataclasses
 import json
 import os
 import statistics
@@ -30,18 +44,41 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 from repro_torch.core import dse_api as dse  # noqa: E402
+from repro_torch.core import explorer as ex  # noqa: E402
 from repro_torch.core import fused_select as fs  # noqa: E402
 from repro_torch.core import gan as G  # noqa: E402
+from repro_torch.core import train as T  # noqa: E402
 from repro_torch.dataset import generator as gen_mod  # noqa: E402
 from repro_torch.design_models import DnnWeaverModel, Im2colModel  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import fused_dense as fd  # noqa: E402
 from repro_torch.kernels import fused_mlp as fm  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.optim import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense, no sparsity)
 PEAK_F32_FLOPS = 67e12      # float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # HBM3
 N_TASKS = 64
 TOL = 1e-4                  # max|y_k - y_ref| <= TOL * max(1, max|y_ref|)
+BATCH = 1024                # Algorithm 1's batch (Table 4)
+#: Algorithm 1's dense-layer shapes (M, K, N, relu) at 11 x 2048
+DENSE_SHAPES = {
+    "hidden 2048->2048": (BATCH, 2048, 2048, True),
+    "G head 2048->73": (BATCH, 2048, 73, False),
+    "D first 81->2048": (BATCH, 81, 2048, True),
+    "D head 2048->2": (BATCH, 2048, 2, False),
+}
+#: the dense kernels: wrapper, TPU kernel it replaces
+DENSE_KERNELS = {
+    "dense_forward_f32": (fd.dense_forward,
+                          "src/repro/kernels/fused_mlp.py:71"),
+    "dense_dx_f32": (fd.dense_dx, "src/repro/kernels/fused_mlp.py:121"),
+    "dense_dw_db_f32": (fd.dense_dw_db, "src/repro/kernels/fused_mlp.py:143"),
+}
+#: the reference's quality run on dnnweaver (EXPERIMENTS.md, a CPU run of
+#: experiments/run_comparison.py): satisfied of 200, mean candidates
+REF_QUALITY = (93, 2.4)
 
 
 def smi() -> str:
@@ -75,9 +112,325 @@ def mlp_bound_ms(m: int, ws, bs) -> tuple:
     n_bytes = 4 * (m * d_in + sum(w.numel() for w in ws)
                    + sum(b.numel() for b in bs) + m * d_out)
     flops = sum(2 * m * w.shape[0] * w.shape[1] + m * w.shape[1] for w in ws)
+    return bound(n_bytes, flops)
+
+
+def zero_counts() -> None:
+    fm.fused_mlp.launches = 0
+    for wrapper, _ in DENSE_KERNELS.values():
+        wrapper.launches = 0
+
+
+def counts() -> dict:
+    out = {"mlp_forward_f32": fm.fused_mlp.launches}
+    out.update({name: w.launches for name, (w, _) in DENSE_KERNELS.items()})
+    return out
+
+
+def build_all() -> None:
+    """Phase 1: one nvcc per source, started together."""
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(fm.load_library), pool.submit(fd.load_library)]:
+            f.result()
+    for name, info in build.build_info.items():
+        print(f"built {name} -> {info['path']} in {info['seconds']:.1f} s",
+              flush=True)
+        print(str(info["log"]).strip(), flush=True)
+
+
+def bound(n_bytes: float, flops: float) -> tuple:
     t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES, flops / PEAK_F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def dense_bound_ms(kernel: str, m: int, k: int, n: int, relu: bool) -> tuple:
+    """Least time for one dense kernel on this card: each operand read once
+    and each output written once over HBM, against its float32 flops (the
+    2·M·K·N product, the bias adds or db sums, the mask multiplies) at the
+    non-tensor peak."""
+    dy_y = m * n * (2 if relu else 1)         # dy, and y for the mask
+    mask = m * n if relu else 0
+    if kernel == "dense_forward_f32":
+        return bound(4 * (m * k + k * n + n + m * n), 2 * m * k * n + m * n)
+    if kernel == "dense_dx_f32":
+        return bound(4 * (dy_y + k * n + m * k), 2 * m * k * n + mask)
+    return bound(4 * (m * k + dy_y + k * n + n), 2 * m * k * n + m * n + mask)
+
+
+def flash_bound_ms() -> tuple:
+    """Reckoned bound of the reference's still unported ``_flash_kernel``
+    at ``benchmarks/bench_kernels.py``'s shapes (float32 q 1x8x512x64,
+    k and v 1x2x512x64, causal): q, k, v read once and the output written
+    once, against the 4·D flops of QKᵀ and PV for each of the S(S+1)/2
+    causal pairs of each head, at the non-tensor float32 peak.  No port
+    runs it; this keeps PERF.md's kernel table free of a missing bound."""
+    b, h, hkv, s, d = 1, 8, 2, 512, 64
+    n_bytes = 4 * (2 * b * h * s * d + 2 * b * hkv * s * d)
+    flops = 4 * d * b * h * s * (s + 1) // 2
+    return bound(n_bytes, flops)
+
+
+def _err(got, want) -> float:
+    return float((got - want).abs().max()) if want.numel() else 0.0
+
+
+def _hold(label: str, got, want) -> float:
+    """got finite and within TOL·max(1, max|want|) of want."""
+    assert got.shape == want.shape, (label, got.shape, want.shape)
+    assert bool(torch.isfinite(got).all()), f"{label}: not finite"
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    err = _err(got, want)
+    assert err <= TOL * scale, f"{label}: {err} > {TOL * scale}"
+    return err
+
+
+def check_dense() -> dict:
+    """Phase 2b: each dense kernel against its plain version at Algorithm
+    1's shapes; two calls give the same bits; CUDA-event medians of the
+    kernel, the plain version and one library call."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {name: {} for name in DENSE_KERNELS}
+    for label, (m, k, n, relu) in DENSE_SHAPES.items():
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        w = torch.randn(k, n, generator=gen, device="cuda") * (2.0 / k) ** 0.5
+        b = torch.randn(n, generator=gen, device="cuda") * 0.1
+        dy = torch.randn(m, n, generator=gen, device="cuda")
+        y = ref.fused_dense(x, w, b, relu)
+        g = dy * (y > 0) if relu else dy
+        calls = {
+            "dense_forward_f32": (
+                lambda: fd.dense_forward(x, w, b, relu),
+                lambda: ref.fused_dense(x, w, b, relu),
+                (lambda: torch.relu_(torch.addmm(b, x, w))) if relu
+                else (lambda: torch.addmm(b, x, w))),
+            "dense_dx_f32": (
+                lambda: fd.dense_dx(dy, y, w, relu),
+                lambda: ref.dense_dx(dy, y, w, relu),
+                lambda: (dy * (y > 0) if relu else dy) @ w.t()),
+            "dense_dw_db_f32": (
+                lambda: fd.dense_dw_db(x, dy, y, relu),
+                lambda: ref.dense_dw_db(x, dy, y, relu),
+                lambda: (x.t() @ g, g.sum(0))),
+        }
+        for name, (kern, plain, library) in calls.items():
+            got, want = kern(), plain()
+            again = kern()
+            torch.cuda.synchronize()
+            got, want, again = (t if isinstance(t, tuple) else (t,)
+                                for t in (got, want, again))
+            err = max(_hold(f"{name} {label}", a, b_)
+                      for a, b_ in zip(got, want))
+            assert all(torch.equal(a, c) for a, c in zip(got, again)), \
+                f"{name} {label}: two calls differ"
+            bnd, by = dense_bound_ms(name, m, k, n, relu)
+            rows[name][label] = dict(
+                max_abs_err=err, ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                library_ms=cuda_ms(library), bound_ms=bnd, bound_by=by)
+            print(f"dense {name} {label}: " + json.dumps(rows[name][label]),
+                  flush=True)
+    return rows
+
+
+def check_step(model) -> dict:
+    """Phase 2c: one Algorithm 1 step at the paper's width from one state,
+    through the kernels, through the plain versions (use_fused=False) in
+    float32, and through the plain versions in float64, on the card.
+
+    The losses of the two float32 routes agree at TOL·max(1, |loss|), as
+    the kernels are held.  The gradients (read from the first Adam moment,
+    0.1·g after one step from zero moments) cannot be held to each other
+    element by element: a pre-activation within float32 rounding of 0
+    takes the other side of the ReLU mask in the other route, which moves
+    that unit's gradient for that row and everything below it, and across
+    the 23 layers between the losses and G's first layer that adds up to
+    about 1e-3 of a leaf's norm on an H100 (PERF.md).  So each route's
+    gradients are held to the float64 step's in the norm of each leaf: the
+    kernel route may be no further from it than TOL plus twice the plain
+    float32 route's distance.  The new params are not compared: Adam's
+    first step moves each weight by about ±lr whatever the gradient's
+    size, so a near-zero gradient whose sign differs moves a weight by
+    2·lr.  Counts the kernel route's launches, times warm steps of both
+    float32 routes (host clock ended by a synchronize), and profiles one
+    kernel-route step."""
+    cfg = G.GANConfig(n_net=model.net_space.n_dims)        # 11 x 2048
+    ds = gen_mod.generate_dataset(model, BATCH, seed=0)
+    batch = T.encode_dataset(model, ds, "cuda")
+    st = T.init_state(model, cfg, 0, "cuda")
+    args = (st.g_params, st.d_params, st.g_opt, st.d_opt, batch, st.rng)
+    plain_cfg = dataclasses.replace(cfg, use_fused=False)
+    steps = {"kernel": T.make_train_step(model, cfg)[2],
+             "plain": T.make_train_step(model, plain_cfg)[2]}
+    outs = {}
+    for route, step in steps.items():
+        zero_counts()
+        outs[route] = step(*args)
+        torch.cuda.synchronize()
+        if route == "kernel":
+            launches = counts()
+    f64 = lambda t: t.double() if t.is_floating_point() else t
+    args64 = tuple(tree_map(f64, a) for a in args)
+    outs["float64"] = steps["plain"](*args64)
+    (*k_out, k_met), (*p_out, p_met) = outs["kernel"], outs["plain"]
+    layers = cfg.g_hidden_layers + 1
+    want = {"dense_forward_f32": 3 * layers,
+            "dense_dx_f32": 3 * layers - 2, "dense_dw_db_f32": 2 * layers}
+    for name, n in want.items():
+        assert launches[name] == n, (name, launches[name], n)
+    for key in k_met:
+        a, b_ = float(k_met[key]), float(p_met[key])
+        assert abs(a - b_) <= TOL * max(1.0, abs(b_)), (key, a, b_)
+
+    def norm_err(a, b_):
+        return float(torch.linalg.vector_norm(a.double() - b_.double())) / \
+            max(float(torch.linalg.vector_norm(b_.double())), 1e-30)
+
+    grads = {}
+    for i, what in ((2, "G"), (3, "D")):
+        g = {r: [m / 0.1 for m in tree_leaves(outs[r][i].mu)]
+             for r in outs}
+        e_k = [norm_err(a, t) for a, t in zip(g["kernel"], g["float64"])]
+        e_p = [norm_err(a, t) for a, t in zip(g["plain"], g["float64"])]
+        for li, (ek, ep) in enumerate(zip(e_k, e_p)):
+            assert ek <= TOL + 2 * ep, \
+                f"{what} gradient leaf {li}: {ek} from float64, plain {ep}"
+        pairs = list(zip(g["kernel"], g["plain"]))
+        grads[what] = dict(
+            max_norm_err_kernel_vs_float64=max(e_k),
+            max_norm_err_plain_vs_float64=max(e_p),
+            max_norm_err_kernel_vs_plain=max(norm_err(a, b_)
+                                             for a, b_ in pairs),
+            max_abs_err_kernel_vs_plain=max(_err(a, b_) for a, b_ in pairs),
+            max_abs=max(float(b_.abs().max()) for _, b_ in pairs),
+            n=sum(b_.numel() for _, b_ in pairs))
+    assert torch.equal(k_out[4], p_out[4])
+
+    def ms_per_step(step, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    out = dict(metrics={k: float(v) for k, v in k_met.items()},
+               gradients=grads, launches=launches,
+               ms_per_step=ms_per_step(steps["kernel"]),
+               plain_ms_per_step=ms_per_step(steps["plain"]),
+               bound_ms_per_step=step_bound_ms(cfg, model),
+               profile=profile_step(steps["kernel"], args))
+    print("algorithm1 step: " + json.dumps(out), flush=True)
+    return out
+
+
+def step_bound_ms(cfg, model) -> float:
+    """Sum of the dense kernels' bounds over one step (36 forward, 34 dx,
+    24 dW/db at 11 layers): the step's least time if nothing else ran."""
+    g_dims = ([cfg.n_net + cfg.n_obj + cfg.noise_dim]
+              + [cfg.g_neurons] * cfg.g_hidden_layers
+              + [model.space.onehot_width])
+    d_dims = ([cfg.n_net + model.space.onehot_width + cfg.n_obj]
+              + [cfg.d_neurons] * cfg.d_hidden_layers + [2])
+    total = 0.0
+
+    def net(dims, fwd, dx_from, dw):
+        nonlocal total
+        for li, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
+            relu = li < len(dims) - 2
+            total += fwd * dense_bound_ms("dense_forward_f32", BATCH, k, n,
+                                          relu)[0]
+            total += dw * dense_bound_ms("dense_dw_db_f32", BATCH, k, n,
+                                         relu)[0]
+            total += sum(li >= f for f in dx_from) * dense_bound_ms(
+                "dense_dx_f32", BATCH, k, n, relu)[0]
+
+    net(g_dims, 1, (1,), 1)          # G: dx past its first layer
+    net(d_dims, 2, (0, 1), 1)        # D in G's loss (all) and in D's loss
+    return total
+
+
+def profile_step(step, args) -> dict:
+    """One warm step under torch.profiler: the device's busy time and idle
+    share, its launches, and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(profiled_wall_ms=1e3 * wall, device_busy_ms=busy_us / 1e3,
+                device_idle_share=1.0 - busy_us / 1e3 / (1e3 * wall),
+                device_launches=sum(e.count for e in dev),
+                top_kernels=[[e.key[:60], e.count,
+                              e.self_device_time_total / 1e3] for e in top])
+
+
+def drive_train(model) -> dict:
+    """Phase 4: GANDSE.train at the paper's width (4096 rows, 2 epochs of
+    4 steps of 1024), then explore_batch of 64 tasks on the trained G."""
+    cfg = G.GANConfig(n_net=model.net_space.n_dims)        # 11 x 2048
+    ds = gen_mod.generate_dataset(model, 4096, seed=0)
+    engine = dse.GANDSE(model, cfg)                         # the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = engine.train(n_data=4096, iters=2, seed=0, ds=ds)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    assert len(st.history) == 8, len(st.history)
+    assert all(np.isfinite(r[k]) for r in st.history for k in r), \
+        "non-finite training metrics"
+    tasks = gen_mod.generate_tasks(model, N_TASKS, seed=1)
+    res = engine.explore_batch(tasks, seed=0)
+    assert len(res) == N_TASKS
+    probs = engine._explorer.generator_probs_device(
+        tasks.net_idx, tasks.lat_obj, tasks.pow_obj,
+        seed=dse.row_seeds(0, N_TASKS))
+    assert bool(torch.isfinite(probs).all()), "trained G's probs not finite"
+    return dict(train_s=train_s, ms_per_step=1e3 * train_s / 8,
+                history=st.history,
+                explore_n_satisfied=sum(r.satisfied for r in res),
+                explore_mean_candidates=float(np.mean(
+                    [r.selection.n_candidates for r in res])))
+
+
+def quality_run() -> dict:
+    """Phase 5: GANDSE on dnnweaver at experiments/run_comparison.py's
+    scale (8000 rows, 8 epochs, 3 x 256, lr 1e-4, batch 512, threshold
+    0.2, 200 tasks with slack (1, 1); dataset seed 0, tasks seed 1, explore
+    seed 2).  Training must lower the mean loss_g of an epoch."""
+    model = DnnWeaverModel()
+    cfg = G.GANConfig(n_net=model.net_space.n_dims, w_critic=0.5).scaled(
+        layers=3, neurons=256, lr=1e-4, batch_size=512)
+    engine = dse.GANDSE(model, cfg, ex.ExplorerConfig(prob_threshold=0.2))
+    ds = gen_mod.generate_dataset(model, 8000, seed=0)
+    tasks = gen_mod.generate_tasks(model, 200, seed=1, slack=(1.0, 1.0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = engine.train(n_data=8000, iters=8, seed=0, ds=ds)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    engine.explore_tasks(tasks, seed=2)                     # warm
+    summary = dse.summarize(engine.explore_tasks(tasks, seed=2))
+    by_epoch = [np.mean([r["loss_g"] for r in st.history if r["iter"] == i])
+                for i in range(8)]
+    assert by_epoch[-1] < by_epoch[0], f"loss_g did not fall: {by_epoch}"
+    out = dict(train_s=train_s, steps=len(st.history),
+               loss_g_by_epoch=[float(v) for v in by_epoch],
+               n_satisfied=summary["n_satisfied"],
+               mean_candidates=summary["n_candidates"],
+               reference=dict(n_satisfied=REF_QUALITY[0],
+                              mean_candidates=REF_QUALITY[1]))
+    print("quality dnnweaver: " + json.dumps(out), flush=True)
+    return out
 
 
 def check_kernel() -> dict:
@@ -105,13 +458,9 @@ def _check_one(label: str, x, ws, bs) -> dict:
     y_k = fm.fused_mlp(x, ws, bs)
     y_r = ref.fused_mlp(x, ws, bs)
     torch.cuda.synchronize()
-    assert y_k.shape == y_r.shape == (m, ws[-1].shape[1]), y_k.shape
-    assert bool(torch.isfinite(y_k).all()), "kernel output not finite"
-    err = float((y_k - y_r).abs().max())
-    scale = max(1.0, float(y_r.abs().max()))
-    print(f"kernel check {label}: max_abs_err={err:.3e} "
-          f"(limit {TOL * scale:.3e})", flush=True)
-    assert err <= TOL * scale, f"kernel disagrees at {label}: {err}"
+    assert y_r.shape == (m, ws[-1].shape[1]), y_r.shape
+    err = _hold(f"whole-MLP kernel at {label}", y_k, y_r)
+    print(f"kernel check {label}: max_abs_err={err:.3e}", flush=True)
     # a row's result does not depend on the rows that share the call
     assert torch.equal(fm.fused_mlp(x[5:8].contiguous(), ws, bs), y_k[5:8])
 
@@ -261,25 +610,45 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # phase 1: build
-    fm.load_library()
-    print(f"built {fm.build_info['path']} in "
-          f"{fm.build_info['seconds']:.1f} s", flush=True)
-    print(fm.build_info["log"].strip(), flush=True)
+    # phase 1: build every kernel, one nvcc per source, in parallel
+    build_all()
 
-    # phase 2: kernel against its plain version
+    # phase 2: each kernel against its plain version; one full-width step
     kern = check_kernel()
+    dense = check_dense()
+    step = check_step(Im2colModel())
 
     # phase 3: the serving path, counts zeroed just before it
-    fm.fused_mlp.launches = 0
+    zero_counts()
     runs = {"dnnweaver": drive_path(DnnWeaverModel()),
             "im2col": drive_path(Im2colModel())}
-    launches = fm.fused_mlp.launches
-    print(f"fused_mlp launches on the serving path: {launches}", flush=True)
-    assert launches > 0, "the serving path never launched the kernel"
+    serve_launches = counts()
+    print(f"launches on the serving path: {json.dumps(serve_launches)}",
+          flush=True)
+    assert serve_launches["mlp_forward_f32"] > 0, \
+        "the serving path never launched the whole-MLP kernel"
     paths = {name: check_path(name, run) for name, run in runs.items()}
     for name, run in runs.items():
         paths[name]["profile"] = profile_path(name, run)
+
+    # phase 4: the training path, counts zeroed just before it
+    zero_counts()
+    train = drive_train(Im2colModel())
+    train_launches = counts()
+    print(f"launches on the training path: {json.dumps(train_launches)}",
+          flush=True)
+    print("GANDSE.train im2col: " + json.dumps(
+        {k: v for k, v in train.items() if k != "history"}), flush=True)
+    for name in DENSE_KERNELS:
+        assert train_launches[name] > 0, f"training never launched {name}"
+    assert train_launches["mlp_forward_f32"] > 0, \
+        "explore_batch on the trained G never launched the whole-MLP kernel"
+
+    # phase 5: quality at the reference's reduced scale
+    quality = quality_run()
+    flash = flash_bound_ms()
+    print(f"reckoned bound of the unported _flash_kernel: {flash[0]:.6f} ms "
+          f"({flash[1]})", flush=True)
 
     row = kern["im2col", N_TASKS]
     table = {"kernels": [{
@@ -287,18 +656,32 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlp_forward.cu",
         "replaces": "src/repro/kernels/fused_mlp.py:273",
-        "launches": launches,
+        "launches": serve_launches["mlp_forward_f32"],
         "max_abs_err": max(r["max_abs_err"] for r in kern.values()),
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
         "im2col_m1024": kern["im2col", 1024],
         "dnnweaver_m64": kern["dnnweaver", N_TASKS],
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dense_train.cu",
+        "replaces": replaces,
+        "launches": train_launches[name],
+        "max_abs_err": max(r["max_abs_err"] for r in dense[name].values()),
+        **{k: dense[name]["hidden 2048->2048"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "launches_per_step": step["launches"][name],
+        "shapes": {label: dense[name][label] for label in DENSE_SHAPES
+                   if label != "hidden 2048->2048"},
+    } for name, (_, replaces) in DENSE_KERNELS.items()]}
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": table["kernels"],
-                       "paths": paths, "build_s": fm.build_info["seconds"]},
+                       "paths": paths, "step": step, "train": train,
+                       "quality": quality, "flash_bound_ms": flash,
+                       "build": build.build_info},
                       fh, indent=1)
     print(json.dumps(table), flush=True)
     print(card, flush=True)

@@ -1,8 +1,16 @@
-"""Carry generator params between the two packages as numpy arrays.
+"""Carry params and whole train states between the two packages as numpy.
 
 The reference keeps params as ``{"layers": [{"w": (in, out), "b": (out,)},
-...]}`` pytrees; converted to numpy (``jax.tree.map(np.asarray, params)``)
-they come here, so this package never sees a ``jax.Array``.
+...]}`` pytrees and its train state as ``TrainState(g_params, d_params,
+g_opt, d_opt, rng)`` with ``AdamState(step, mu, nu)`` optimizer states.
+Converted to numpy (``jax.tree.map(np.asarray, ...)``) they come here, so
+this package never sees a ``jax.Array``.  The numpy form of a train state
+is ``{"g_params", "d_params", "g_opt": {"step", "mu", "nu"}, "d_opt":
+{...}, "rng"}``: float32 leaves, an int32 step, and the uint32 (2,) key.
+
+Use it to start both packages from one state: this package's own
+initialisation draws from a ``torch.Generator`` and does not reproduce
+``jax.random.normal``.
 """
 from __future__ import annotations
 
@@ -11,17 +19,54 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core.train import TrainState
+from repro_torch.optim import AdamState, tree_map
+
+
+def params_from_numpy(tree, device):
+    """numpy float32 leaves -> the port's float32 tensors on `device`."""
+    return tree_map(lambda a: torch.tensor(np.asarray(a, np.float32),
+                                           device=device), tree)
+
+
+def params_to_numpy(tree):
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
 
 def g_params_from_numpy(tree: Dict, device) -> Dict:
     """numpy ``{"layers": [{"w", "b"}, ...]}`` -> the port's float32
     params on `device`."""
-    return {"layers": [
-        {k: torch.tensor(np.asarray(p[k], np.float32), device=device)
-         for k in ("w", "b")}
-        for p in tree["layers"]]}
+    return params_from_numpy({"layers": tree["layers"]}, device)
 
 
 def g_params_to_numpy(params: Dict) -> Dict:
     """The port's params -> numpy ``{"layers": [{"w", "b"}, ...]}``."""
-    return {"layers": [{k: p[k].detach().cpu().numpy() for k in ("w", "b")}
-                       for p in params["layers"]]}
+    return params_to_numpy({"layers": params["layers"]})
+
+
+def train_state_from_numpy(tree: Dict, device) -> TrainState:
+    """The numpy form of a train state (see the module note) -> a
+    `TrainState` on `device`, with an empty history."""
+    def opt(o):
+        return AdamState(
+            step=torch.tensor(int(o["step"]), dtype=torch.int32, device=device),
+            mu=params_from_numpy(o["mu"], device),
+            nu=params_from_numpy(o["nu"], device))
+
+    rng = torch.tensor(np.asarray(tree["rng"], np.uint32).astype(np.int64),
+                       device=device)
+    return TrainState(params_from_numpy(tree["g_params"], device),
+                      params_from_numpy(tree["d_params"], device),
+                      opt(tree["g_opt"]), opt(tree["d_opt"]), rng)
+
+
+def train_state_to_numpy(state: TrainState) -> Dict:
+    """A `TrainState` -> its numpy form (see the module note)."""
+    def opt(o: AdamState):
+        return {"step": np.int32(int(o.step)), "mu": params_to_numpy(o.mu),
+                "nu": params_to_numpy(o.nu)}
+
+    return {"g_params": params_to_numpy(state.g_params),
+            "d_params": params_to_numpy(state.d_params),
+            "g_opt": opt(state.g_opt), "d_opt": opt(state.d_opt),
+            "rng": state.rng.cpu().numpy().astype(np.uint32)}

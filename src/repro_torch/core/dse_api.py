@@ -1,14 +1,14 @@
-"""High-level GANDSE API: the phases of Fig. 4 that serve exploration.
+"""High-level GANDSE API: the phases of Fig. 4.
 
 - Parsing phase:  ``parse_network`` (abstract layer description -> net params)
+- Training phase: ``GANDSE.train`` (Algorithm 1, ``core/train.py``, on the
+  engine's device), or trained params from elsewhere through ``attach``
+  (for example converted from the reference package with
+  ``repro_torch.convert``)
 - Exploration:    ``GANDSE.explore`` (G inference -> candidates -> Algorithm 2)
   and its batched twin ``GANDSE.explore_batch`` (G over the whole task
   batch on the card, then the streaming enumerate/score/select)
 - Implementation: ``GANDSE.emit_config`` (structured design artifact)
-
-The training phase (Algorithm 1) is not ported yet: ``GANDSE.train``
-raises, and generator params come in through ``attach`` (for example
-converted from the reference package with ``repro_torch.convert``).
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from repro_torch.core.explorer import (Explorer, ExplorerConfig,
                                        resolve_device, row_seeds)
 from repro_torch.core.fused_select import fused_select_batch
 from repro_torch.core.selector import Selection, select
-from repro_torch.dataset.generator import Dataset, DSETask
+from repro_torch.core.train import TrainState, train_gan
+from repro_torch.dataset.generator import Dataset, DSETask, generate_dataset
 from repro_torch.design_models.base import DesignModel
 
 
@@ -84,12 +85,27 @@ class GANDSE:
         self.explorer_cfg = explorer_cfg or ExplorerConfig()
         self.device = resolve_device(device)
         self.ds: Optional[Dataset] = None
+        self.state: Optional[TrainState] = None
         self._explorer: Optional[Explorer] = None
 
     # ---- training phase ----------------------------------------------------
     def train(self, n_data: int, iters: int, seed: int = 0, log_every: int = 0,
-              ds: Optional[Dataset] = None) -> None:
-        raise NotImplementedError("training lands in the next slice")
+              ds: Optional[Dataset] = None) -> TrainState:
+        """Algorithm 1 on this object's device (a dataset of `n_data` rows
+        from `seed` unless `ds` is given), then attach the trained G."""
+        self.ds = ds if ds is not None else generate_dataset(
+            self.model, n_data, seed=seed)
+        self.state = train_gan(self.model, self.ds, self.gan_cfg, iters=iters,
+                               seed=seed, log_every=log_every,
+                               device=self.device)
+        self.attach(self.ds, self.state.g_params)
+        return self.state
+
+    @property
+    def g_params(self) -> Optional[Dict]:
+        """Currently attached generator params (None before ``train()`` /
+        ``attach()``)."""
+        return None if self._explorer is None else self._explorer.g_params
 
     def attach(self, ds: Dataset, g_params: Dict) -> Explorer:
         """Serving entry: wire a dataset (for its normalizers) and generator
@@ -104,7 +120,7 @@ class GANDSE:
     # ---- exploration phase ---------------------------------------------------
     def explore(self, net_idx: np.ndarray, lat_obj: float, pow_obj: float,
                 seed: int = 0) -> DSEResult:
-        assert self._explorer is not None, "call attach() first"
+        assert self._explorer is not None, "call train() or attach() first"
         t0 = time.time()
         cands = self._explorer.candidates(net_idx, lat_obj, pow_obj, seed=seed)
         sel = select(self.model, net_idx, cands, lat_obj, pow_obj)
@@ -125,7 +141,7 @@ class GANDSE:
         repeat the last row and are discarded).  Models without a torch
         oracle fall back to the sequential host route.
         """
-        assert self._explorer is not None, "call attach() first"
+        assert self._explorer is not None, "call train() or attach() first"
         n_tasks = int(tasks.net_idx.shape[0])
         if n_tasks == 0:
             return []

@@ -252,7 +252,7 @@ class Explorer:
         probs = G.generator_apply(
             self.g_params, self.model.space, net_r.to(self.device),
             obj_r.to(self.device), noise_r.to(self.device),
-            use_fused=self.gan_cfg.use_fused)
+            use_fused=self.gan_cfg.use_fused, chained=True)
         return probs.reshape(t, n_s, -1).mean(dim=1)
 
     def generator_probs(self, net_idx: np.ndarray, lat_obj, pow_obj,

@@ -1,12 +1,18 @@
-"""The conditional GAN of GANDSE (paper §4, §6.1, Table 4) — inference half.
+"""The conditional GAN of GANDSE (paper §4, §6.1, Table 4).
 
 Generator  G(net_params, objectives, noise) -> per-config-group one-hot
            probability distributions (softmax per group).
+Discriminator D(net_params, config_onehot, objectives) -> satisfaction
+           logits (2-class one-hot, like other classification tasks).
 
-G is a multilayer perceptron with ReLU activations (Table 4).  Params are
-plain dicts of tensors in the reference layout; the forward runs through
-the whole-MLP kernel on the card.  The discriminator and the training
-losses belong to training, which is not ported yet.
+Both are multilayer perceptrons with ReLU activations and Adam optimizers
+(Table 4).  Params are plain dicts of tensors in the reference layout.  On
+the card, G's inference runs through the whole-MLP kernel (``chained``)
+and every training forward and backward through the dense kernels.
+
+Initial weights are drawn from a ``torch.Generator`` and do not reproduce
+the reference's ``jax.random.normal`` draws; to start both packages from
+one state, carry it across with ``repro_torch.convert``.
 """
 from __future__ import annotations
 
@@ -22,23 +28,33 @@ from repro_torch.nn import layers as L
 
 @dataclasses.dataclass(frozen=True)
 class GANConfig:
-    """Generator hyperparameters (paper Table 4).  The discriminator's and
-    the training settings come with training, which is not ported yet."""
+    """Hyperparameters (paper Table 4)."""
 
     n_net: int                    # encoded network-parameter width
     n_obj: int = 2                # latency + power objectives
     noise_dim: int = 8            # "small random numbers as noise"
     g_hidden_layers: int = 11
     g_neurons: int = 2048
-    #: None/True: the whole-MLP kernel on CUDA tensors (plain version on
-    #: CPU tensors); False: the plain version everywhere (an explicit
-    #: opt-out — see kernels/fused_mlp.py)
+    d_hidden_layers: int = 11
+    d_neurons: int = 2048
+    g_lr: float = 2e-5
+    d_lr: float = 2e-5
+    w_critic: float = 0.5
+    batch_size: int = 1024
+    #: None/True: the kernels on CUDA tensors (plain versions on CPU
+    #: tensors); False: the plain versions everywhere (an explicit opt-out
+    #: — see kernels/dispatch.py)
     use_fused: Optional[bool] = None
 
-    def scaled(self, layers: int, neurons: int) -> "GANConfig":
+    def scaled(self, layers: int, neurons: int, lr: Optional[float] = None,
+               batch_size: Optional[int] = None) -> "GANConfig":
         """Reduced-scale variant (CPU tests); same algorithm."""
-        return dataclasses.replace(self, g_hidden_layers=layers,
-                                   g_neurons=neurons)
+        return dataclasses.replace(
+            self,
+            g_hidden_layers=layers, d_hidden_layers=layers,
+            g_neurons=neurons, d_neurons=neurons,
+            g_lr=lr or self.g_lr, d_lr=lr or self.d_lr,
+            batch_size=batch_size or self.batch_size)
 
 
 def init_generator(gen: torch.Generator, cfg: GANConfig, space: ConfigSpace,
@@ -48,17 +64,39 @@ def init_generator(gen: torch.Generator, cfg: GANConfig, space: ConfigSpace,
     return L.mlp_init(gen, in_dim, hidden, space.onehot_width, device)
 
 
+def init_discriminator(gen: torch.Generator, cfg: GANConfig,
+                       space: ConfigSpace, device):
+    in_dim = cfg.n_net + space.onehot_width + cfg.n_obj
+    hidden = [cfg.d_neurons] * cfg.d_hidden_layers
+    return L.mlp_init(gen, in_dim, hidden, 2, device)
+
+
 def generator_apply(params, space: ConfigSpace, net_enc: torch.Tensor,
                     obj_enc: torch.Tensor, noise: torch.Tensor,
-                    use_fused: Optional[bool] = None) -> torch.Tensor:
-    """Returns (B, onehot_width) per-group softmax probabilities; the MLP
-    runs over the flattened row batch (the reference's chained route)."""
+                    use_fused: Optional[bool] = None,
+                    chained: bool = False) -> torch.Tensor:
+    """Returns (B, onehot_width) per-group softmax probabilities.
+
+    ``chained=True`` runs the MLP through the whole-MLP kernel, the
+    inference path; training leaves it False so every layer runs through
+    the dense kernels, whose backward it needs."""
     x = torch.cat([net_enc, obj_enc, noise], dim=-1)
-    logits = L.mlp_apply_chained(params, x, use_fused=use_fused)
+    if chained:
+        logits = L.mlp_apply_chained(params, x, use_fused=use_fused)
+    else:
+        logits = L.mlp_apply(params, x, use_fused=use_fused)
     t = device_tables(space, logits.device)
     padded = torch.where(t.mask, logits[..., t.gidx], float("-inf"))
     probs = torch.softmax(padded, dim=-1)        # pad -inf -> exactly 0
     return probs.reshape(*probs.shape[:-2], -1)[..., t.flat2pad]
+
+
+def discriminator_apply(params, net_enc: torch.Tensor,
+                        cfg_onehot: torch.Tensor, obj_enc: torch.Tensor,
+                        use_fused: Optional[bool] = None) -> torch.Tensor:
+    """Returns (B, 2) satisfaction logits ([False, True] classes)."""
+    x = torch.cat([net_enc, cfg_onehot, obj_enc], dim=-1)
+    return L.mlp_apply(params, x, use_fused=use_fused)
 
 
 def sample_noise(keys: torch.Tensor, cfg: GANConfig) -> torch.Tensor:
@@ -68,8 +106,41 @@ def sample_noise(keys: torch.Tensor, cfg: GANConfig) -> torch.Tensor:
     return prng.uniform(keys, cfg.noise_dim, -0.1, 0.1)
 
 
+def sample_train_noise(key: torch.Tensor, batch: int,
+                       cfg: GANConfig) -> torch.Tensor:
+    """Algorithm 1's noise: ``uniform(key, (batch, noise_dim), -0.1, 0.1)``
+    from ONE key — element i of the flattened (batch, noise_dim) draw
+    hashes counter i, so row r is not ``sample_noise`` of any key.
+    Bit-identical to the reference's ``sample_noise(rng, batch, cfg)``.
+    key (2,) -> (batch, noise_dim)."""
+    flat = prng.uniform(key, batch * cfg.noise_dim, -0.1, 0.1)
+    return flat.reshape(batch, cfg.noise_dim)
+
+
+# ---------------------------------------------------------------------------
+# losses (all cross-entropy, §6.1)
+# ---------------------------------------------------------------------------
+def grouped_cross_entropy(space: ConfigSpace, target_onehot: torch.Tensor,
+                          probs: torch.Tensor) -> torch.Tensor:
+    """E(Config_s, Config_g): summed per-group CE between the dataset
+    config (one-hot) and G's per-group distributions, as one sum over the
+    whole one-hot width (the target is one-hot within each group).  (B,)"""
+    return -torch.sum(target_onehot * torch.log(probs + 1e-9), dim=-1)
+
+
+# a training loss over dataset labels, not a feasibility judge: the oracle
+# guarantees finite metrics before they reach here.
+# lint: disable=nan-transparent-violation
+def satisfaction_ce(logits: torch.Tensor,
+                    sat_true: torch.Tensor) -> torch.Tensor:
+    """E(Sat, label): 2-class CE; sat_true is float (B,) in {0, 1}.  (B,)"""
+    labels = torch.stack([1.0 - sat_true, sat_true], dim=-1)  # [False, True]
+    return -torch.sum(labels * torch.log_softmax(logits, dim=-1), dim=-1)
+
+
 def decode_hard(space: ConfigSpace, probs: torch.Tensor) -> torch.Tensor:
-    """Per-group argmax -> (B, n_dims) int64 choice indices."""
+    """Per-group argmax -> (B, n_dims) int64 choice indices; a tie goes to
+    the first index, as ``jnp.argmax``'s does."""
     padded, _ = space.split_groups_padded(probs, fill=float("-inf"))
     return torch.argmax(padded, dim=-1)
 

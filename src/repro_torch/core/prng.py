@@ -8,6 +8,8 @@ module reproduces those three calls bit for bit:
 
 - ``prng_key(seed)``: a uint32 seed becomes the key ``(0, seed)``;
 - ``fold_in(key, s)``: ``threefry2x32(key, (0, s))``;
+- ``split(key, n)``: in partitionable mode key i of the split is
+  ``fold_in(key, i)`` (Algorithm 1's ``rng, nrng = split(rng)``);
 - ``uniform(key, n, lo, hi)``: the *partitionable* bit recipe — element
   i of the flattened shape hashes the 64-bit counter ``(hi=0, lo=i)`` and
   takes ``bits1 ^ bits2`` — then the float recipe: the top 23 bits become
@@ -64,6 +66,12 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK32
     y1, y2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data), data)
     return torch.stack([y1, y2], dim=-1)
+
+
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, n)``: (..., 2) keys -> (..., n, 2)."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    return fold_in(key[..., None, :], i)
 
 
 def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:

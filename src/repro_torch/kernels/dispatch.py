@@ -1,10 +1,11 @@
-"""Layer lists -> the whole-MLP forward, with the caller's opt-out.
+"""Layer lists -> the port's kernels, with the caller's opt-out.
 
 The device rule (a CPU tensor gets the plain version, a CUDA tensor the
-kernel or an exception) is the kernel wrapper's, ``kernels/fused_mlp.py``.
-This module adds only ``use_fused=False``: an explicit caller opt-out to
-the plain version (``kernels/ref.py``) on any device; None and True follow
-the wrapper's rule.
+kernel or an exception) is each kernel wrapper's: ``kernels/fused_mlp.py``
+(the whole-MLP forward) and ``kernels/fused_dense.py`` (the dense layer of
+training and its backward).  This module adds only ``use_fused=False``: an
+explicit caller opt-out to the plain version (``kernels/ref.py``) on any
+device; None and True follow the wrapper's rule.
 """
 from __future__ import annotations
 
@@ -12,15 +13,30 @@ from typing import List, Optional
 
 import torch
 
+from repro_torch.kernels import fused_dense as _fd
 from repro_torch.kernels import fused_mlp as _fm
 from repro_torch.kernels import ref as _ref
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+          relu: bool = True, use_fused: Optional[bool] = None) -> torch.Tensor:
+    """[relu](x @ w + b); x may carry leading batch dims (flattened to
+    rows).  Differentiable on both routes (the kernel route through
+    ``FusedDense``'s backward kernels)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if use_fused is False:
+        y = _ref.fused_dense(x2, w, b, relu)
+    else:
+        y = _fd.fused_dense(x2.contiguous(), w, b, relu)
+    return y.reshape(*lead, w.shape[-1])
 
 
 def mlp_chain(layers: List[dict], x: torch.Tensor, *,
               use_fused: Optional[bool] = None) -> torch.Tensor:
     """Whole-MLP forward (hidden ReLU, linear head) from an
-    ``mlp_init``-style layer list; x may carry leading batch dims
-    (flattened to rows)."""
+    ``mlp_init``-style layer list; x may carry leading batch dims (flattened
+    to rows)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     ws = [p["w"] for p in layers]

@@ -19,89 +19,45 @@ rows still fill the card) and reaches a fraction of that; PERF.md keeps
 its measured time beside the bound.
 
 The kernel is built with ``nvcc`` at first use from the sources in this
-package into ``kernels/build/`` (a plain C interface, loaded with ctypes)
-and launched on PyTorch's current stream.
+package into ``kernels/build/`` (``kernels/build.py``: a plain C
+interface, loaded with ctypes) and launched on PyTorch's current stream.
+Its 64 x 64 tile is ``csrc/dense_tile.cuh``, shared with the training
+kernels of ``kernels/fused_dense.py``.
 
-The device rule lives here, in ``fused_mlp``: a CPU tensor gets the plain
-version (``kernels/ref.py``); a CUDA tensor gets the kernel or an
-exception (a card that is not sm_90, a failed build, a refused launch) —
-nothing falls back.  ``kernels/dispatch.py`` only adds the caller's
+The device rule lives in each kernel's wrapper, here ``fused_mlp``: a CPU
+tensor gets the plain version (``kernels/ref.py``); a CUDA tensor gets the
+kernel or an exception (a card that is not sm_90, a failed build, a
+refused launch) — nothing falls back.  ``kernels/dispatch.py`` only adds the caller's
 ``use_fused=False`` opt-out.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
-from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Sequence
 
 import torch
 
+from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
 
-_HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "mlp_forward.cu"
-BUILD_DIR = _HERE / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
-#: filled by the first build in this process: seconds, library path,
-#: and ptxas's register / shared-memory report
-build_info: Dict[str, object] = {}
+SOURCE = _build.CSRC / "mlp_forward.cu"
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the whole-MLP CUDA kernel is built "
-                       "from source at first use and needs the CUDA toolkit")
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.mlp_forward_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ws = lib.mlp_forward_f32_workspace
+    ws.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    ws.restype = ctypes.c_longlong
 
 
 def load_library() -> ctypes.CDLL:
     """Build (once per source revision) and load the kernel library."""
-    global _LIB
-    with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        lib_path = BUILD_DIR / f"libmlp_forward-{tag}.so"
-        t0 = time.perf_counter()
-        log = ""
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-        fn = lib.mlp_forward_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        ws = lib.mlp_forward_f32_workspace
-        ws.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-        ws.restype = ctypes.c_longlong
-        build_info.update(seconds=time.perf_counter() - t0,
-                          path=str(lib_path), log=log)
-        _LIB = lib
-        return lib
+    return _build.load(SOURCE, _bind)
 
 
 def _check(x: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -110,24 +66,16 @@ def _check(x: torch.Tensor, ws: Sequence[torch.Tensor],
         raise ValueError(f"need one bias per weight, got {len(ws)} and {len(bs)}")
     if x.dim() != 2:
         raise ValueError(f"x must be (M, D_in), got shape {tuple(x.shape)}")
-    cap = torch.cuda.get_device_capability(x.device)
-    if cap != (9, 0):
-        raise RuntimeError(f"the whole-MLP kernel is built for sm_90a "
-                           f"(H100); {x.device} has capability {cap}")
+    _build.check_card(x.device, "the whole-MLP kernel")
     width = x.shape[1]
     for i, (w, b) in enumerate(zip(ws, bs)):
         if w.dim() != 2 or w.shape[0] != width or b.shape != (w.shape[1],):
             raise ValueError(f"layer {i}: w {tuple(w.shape)} / b "
                              f"{tuple(b.shape)} do not chain from width {width}")
         width = w.shape[1]
-    for name, t in [("x", x), *((f"w{i}", w) for i, w in enumerate(ws)),
-                    *((f"b{i}", b) for i, b in enumerate(bs))]:
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _build.check_operands(x.device, [
+        ("x", x), *((f"w{i}", w) for i, w in enumerate(ws)),
+        *((f"b{i}", b) for i, b in enumerate(bs))])
 
 
 def fused_mlp(x: torch.Tensor, ws: Sequence[torch.Tensor],

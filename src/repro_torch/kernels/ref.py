@@ -23,3 +23,31 @@ def fused_mlp(x: torch.Tensor, ws: Sequence[torch.Tensor],
         if i < len(ws) - 1:
             y = torch.relu(y)
     return y.to(x.dtype)
+
+
+def fused_dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                relu: bool) -> torch.Tensor:
+    """[relu](x @ w + b) in float32 — the plain version of the dense
+    forward kernel (differentiable by torch's own autograd)."""
+    y = x @ w + b
+    return torch.relu(y) if relu else y
+
+
+def _masked(dy: torch.Tensor, y: torch.Tensor, relu: bool) -> torch.Tensor:
+    """g = dy ⊙ [y > 0] (the ReLU mask recomputed from the saved output),
+    or dy itself for the linear head."""
+    return dy * (y > 0) if relu else dy
+
+
+def dense_dx(dy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+             relu: bool) -> torch.Tensor:
+    """dx = g @ wᵀ — the plain version of the dx kernel."""
+    return _masked(dy, y, relu) @ w.t()
+
+
+def dense_dw_db(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
+                relu: bool):
+    """(dW, db) = (xᵀ @ g, Σ_M g) — the plain version of the dW/db
+    kernel."""
+    g = _masked(dy, y, relu)
+    return x.t() @ g, g.sum(0)

@@ -37,12 +37,26 @@ def mlp_init(gen: torch.Generator, in_dim: int, hidden: Sequence[int],
 
 
 def mlp_apply(params, x: torch.Tensor,
-              activation: Callable[[torch.Tensor], torch.Tensor] = torch.relu
-              ) -> torch.Tensor:
-    """Plain layer-by-layer MLP: hidden layers with `activation`, linear
-    final layer (the per-layer training forward; its kernel is not ported
-    yet, so this stays plain torch)."""
+              activation: Callable[[torch.Tensor], torch.Tensor] = torch.relu,
+              use_fused: Optional[bool] = None) -> torch.Tensor:
+    """Layer-by-layer MLP: hidden layers with `activation`, linear final
+    layer — the training forward.  With ReLU every layer goes through
+    ``kernels/dispatch.dense`` (the dense kernels and their backward on
+    CUDA tensors; ``use_fused=False`` opts out to the plain version).  The
+    kernels hard-wire ReLU, so another activation raises on an explicit
+    ``use_fused=True`` and otherwise takes the plain path (it is never
+    replaced by ReLU)."""
     layers = params["layers"]
+    if activation is torch.relu:
+        for p in layers[:-1]:
+            x = D.dense(x, p["w"], p["b"], relu=True, use_fused=use_fused)
+        return D.dense(x, layers[-1]["w"], layers[-1]["b"], relu=False,
+                       use_fused=use_fused)
+    if use_fused:
+        raise ValueError(
+            "mlp_apply(use_fused=True) supports only torch.relu — the dense "
+            f"kernel hard-wires the ReLU epilogue; got {activation!r}. Pass "
+            "use_fused=None/False to use the plain path.")
     for p in layers[:-1]:
         x = activation(x @ p["w"] + p["b"])
     return x @ layers[-1]["w"] + layers[-1]["b"]

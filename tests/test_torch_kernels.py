@@ -1,12 +1,13 @@
-"""The port's whole-MLP forward against the reference package.
+"""The port's kernels against the reference package: the whole-MLP
+forward, and the dense layer of training with its two backward kernels.
 
-On the CPU the port's wrapper takes its plain version; these tests hold
-that plain version (and the dispatch around it) to the reference's Pallas
-megakernel in interpret mode and to its jnp oracle, on the same numpy
-inputs.  Tolerance: atol = rtol = 1e-5, float32 sums taken in another
-order.
+On the CPU each wrapper takes its plain version; these tests hold that
+plain version (and the dispatch and autograd around it) to the
+reference's Pallas kernels in interpret mode (under ``jax.vjp`` for the
+backward) and to its jnp oracle, on the same numpy inputs.  Tolerance:
+atol = rtol = 1e-5, float32 sums taken in another order.
 
-The ``cuda`` tests hold the CUDA kernel to the plain version on an H100
+The ``cuda`` tests hold each CUDA kernel to its plain version on an H100
 and skip elsewhere; they import nothing of the reference package, so they
 run on a machine without JAX:
 
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import dispatch as D
+from repro_torch.kernels import fused_dense as FD
 from repro_torch.kernels import fused_mlp as FM
 from repro_torch.kernels import ref
 from repro_torch.nn import layers as L
@@ -117,6 +119,139 @@ def test_mlp_init_shapes_and_scales():
     assert torch.equal(again["layers"][0]["w"], p["layers"][0]["w"])
 
 
+#: (M, K, N) of the dense layer: ragged, as Algorithm 1 sees them (inputs
+#: 16/37/81 wide, heads 2/29/73 wide)
+DENSE_SHAPES = [(37, 29, 73), (8, 16, 29), (5, 81, 2), (33, 64, 32), (1, 3, 1)]
+
+
+def _dense_inputs(rng, m, k, n):
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * (2.0 / k) ** 0.5).astype(np.float32)
+    b = (rng.normal(size=(n,)) * 0.1).astype(np.float32)
+    dy = rng.normal(size=(m, n)).astype(np.float32)
+    return x, w, b, dy
+
+
+def _pallas_dense_vjp(x, w, b, dy, relu):
+    """The reference's fused_dense in interpret mode: y and (dx, dW, db)
+    from its custom_vjp at cotangent dy, as numpy."""
+    jax, JFM, _ = _reference()
+    y, vjp = jax.vjp(lambda x, w, b: JFM.fused_dense(
+        x, w, b, relu=relu, interpret=True), x, w, b)
+    return [np.array(a) for a in (y, *vjp(jax.numpy.asarray(dy)))]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("m,k,n", DENSE_SHAPES)
+def test_plain_dense_kernels_match_pallas_vjp(m, k, n, relu, rng):
+    """The plain forward, dx and dW/db against the Pallas forward and its
+    backward kernels; the backward gets the reference's own y, so both
+    apply the same mask."""
+    x, w, b, dy = _dense_inputs(rng, m, k, n)
+    y, dx, dw, db = _pallas_dense_vjp(x, w, b, dy, relu)
+    t = torch.from_numpy
+    got_y = ref.fused_dense(t(x), t(w), t(b), relu)
+    got_dx = ref.dense_dx(t(dy), t(y), t(w), relu)
+    got_dw, got_db = ref.dense_dw_db(t(x), t(dy), t(y), relu)
+    for got, want, name in ((got_y, y, "y"), (got_dx, dx, "dx"),
+                            (got_dw, dw, "dw"), (got_db, db, "db")):
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("m,k,n", DENSE_SHAPES[:3])
+def test_fused_dense_autograd_on_cpu_matches_pallas_vjp(m, k, n, relu, rng):
+    """``FusedDense`` on CPU tensors (its three wrappers take their plain
+    versions; no launch is counted) against the reference's custom_vjp."""
+    x, w, b, dy = _dense_inputs(rng, m, k, n)
+    y, dx, dw, db = _pallas_dense_vjp(x, w, b, dy, relu)
+    tx, tw, tb = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    counts = (FD.dense_forward.launches, FD.dense_dx.launches,
+              FD.dense_dw_db.launches)
+    got = FD.fused_dense(tx, tw, tb, relu)
+    got.backward(torch.from_numpy(dy))
+    assert counts == (FD.dense_forward.launches, FD.dense_dx.launches,
+                      FD.dense_dw_db.launches)
+    for g, want, name in ((got.detach(), y, "y"), (tx.grad, dx, "dx"),
+                          (tw.grad, dw, "dw"), (tb.grad, db, "db")):
+        np.testing.assert_allclose(g.numpy(), want, rtol=TOL, atol=TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("needs", ["x", "wb", "w", "b", "xwb"])
+def test_fused_dense_runs_only_the_backward_kernels_it_needs(needs, rng,
+                                                             monkeypatch):
+    """dx runs only when x needs a gradient, dW/db only when w or b does —
+    the frozen D in G's loss launches dx alone."""
+    calls = []
+    for name in ("dense_dx", "dense_dw_db"):
+        orig = getattr(FD, name)
+        monkeypatch.setattr(FD, name, lambda *a, _o=orig, _n=name:
+                            (calls.append(_n), _o(*a))[1])
+    x, w, b, dy = (torch.from_numpy(a) for a in _dense_inputs(rng, 6, 5, 4))
+    x.requires_grad_("x" in needs)
+    w.requires_grad_("w" in needs)
+    b.requires_grad_("b" in needs)
+    FD.fused_dense(x, w, b).backward(dy)
+    assert calls.count("dense_dx") == ("x" in needs)
+    assert calls.count("dense_dw_db") == ("w" in needs or "b" in needs)
+    assert (x.grad is not None) == ("x" in needs)
+    assert (w.grad is not None) == ("w" in needs)
+    assert (b.grad is not None) == ("b" in needs)
+
+
+def test_fused_dense_takes_an_expanded_cotangent(rng):
+    """``mean``'s backward hands in a gradient with zero strides."""
+    x, w, b, _ = _dense_inputs(rng, 9, 7, 5)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+    FD.fused_dense(*leaves).mean().backward()
+    plain = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+    torch.relu(plain[0] @ plain[1] + plain[2]).mean().backward()
+    for a, p in zip(leaves, plain):
+        torch.testing.assert_close(a.grad, p.grad, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("use_fused", [None, True, False])
+@pytest.mark.parametrize("relu", [True, False])
+def test_dense_dispatch_on_cpu_matches_reference(use_fused, relu, rng):
+    """Leading dims flatten to rows; a CPU tensor gets the plain version
+    whatever `use_fused` says, and no kernel launch is counted."""
+    jax, _, _ = _reference()
+    from repro.kernels import dispatch as JD
+    x, w, b, _ = _dense_inputs(rng, 6, 16, 29)
+    x = x.reshape(2, 3, 16)
+    before = FD.dense_forward.launches
+    got = D.dense(torch.from_numpy(x), torch.from_numpy(w),
+                  torch.from_numpy(b), relu=relu, use_fused=use_fused)
+    assert FD.dense_forward.launches == before
+    want = JD.dense(jax.numpy.asarray(x), w, b, relu=relu, use_fused=False)
+    assert got.shape == (2, 3, 29)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+def test_mlp_apply_rejects_fused_non_relu_and_honors_it_otherwise(rng):
+    """The reference's contract: the kernels hard-wire ReLU, so another
+    activation raises on an explicit use_fused=True and takes the plain
+    path otherwise (never silently replaced by ReLU)."""
+    ws, bs = _mlp(rng, [8, 16, 16, 4])
+    params = {"layers": [{"w": torch.from_numpy(w), "b": torch.from_numpy(b)}
+                         for w, b in zip(ws, bs)]}
+    x = torch.from_numpy(rng.normal(size=(5, 8)).astype(np.float32))
+    with pytest.raises(ValueError, match="relu"):
+        L.mlp_apply(params, x, activation=torch.tanh, use_fused=True)
+    h = x
+    for p in params["layers"][:-1]:
+        h = torch.tanh(h @ p["w"] + p["b"])
+    want = h @ params["layers"][-1]["w"] + params["layers"][-1]["b"]
+    for use_fused in (None, False):
+        got = L.mlp_apply(params, x, activation=torch.tanh,
+                          use_fused=use_fused)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -178,3 +313,96 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(h100):
         FM.fused_mlp(torch.zeros(4, 5, device=h100).t(), ws, bs)  # layout
     with pytest.raises(ValueError):
         FM.fused_mlp(x, [ws[0].cpu(), ws[1]], bs)                # device
+
+
+#: (M, K, N) on the card: Algorithm 1's own (batch 1024; hidden 2048 ->
+#: 2048, G's head 2048 -> 73, D's first layer 81 -> 2048, D's head
+#: 2048 -> 2) and ragged small ones, split and unsplit
+CUDA_DENSE_SHAPES = DENSE_SHAPES + [
+    (1024, 2048, 2048), (1024, 2048, 73), (1024, 81, 2048), (1024, 2048, 2),
+    (129, 33, 64), (300, 16, 2048), (64, 1000, 520),
+]
+
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def _close(got, want, name):
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    assert got.shape == want.shape, name
+    assert err <= 1e-4 * scale, f"{name}: {err} > {1e-4 * scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("m,k,n", CUDA_DENSE_SHAPES)
+def test_cuda_dense_kernels_match_plain(m, k, n, relu, h100, rng):
+    x, w, b, dy = _on(h100, *_dense_inputs(rng, m, k, n))
+    counts = (FD.dense_forward.launches, FD.dense_dx.launches,
+              FD.dense_dw_db.launches)
+    y = FD.dense_forward(x, w, b, relu)
+    y_ref = ref.fused_dense(x, w, b, relu)
+    _close(y, y_ref, "y")
+    dx = FD.dense_dx(dy, y_ref, w, relu)
+    dw, db = FD.dense_dw_db(x, dy, y_ref, relu)
+    p_dw, p_db = ref.dense_dw_db(x, dy, y_ref, relu)
+    torch.cuda.synchronize()
+    _close(dx, ref.dense_dx(dy, y_ref, w, relu), "dx")
+    _close(dw, p_dw, "dw")
+    _close(db, p_db, "db")
+    assert (FD.dense_forward.launches, FD.dense_dx.launches,
+            FD.dense_dw_db.launches) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1024, 2048, 73), (1024, 81, 2048),
+                                   (37, 29, 73)])
+def test_cuda_dense_kernels_give_the_same_bits_twice(m, k, n, h100, rng):
+    """No atomics: two calls give identical bits (split reductions sum
+    their slices in order, db is summed by one block per column tile)."""
+    x, w, b, dy = _on(h100, *_dense_inputs(rng, m, k, n))
+    y = FD.dense_forward(x, w, b, True)
+    for fn, args in ((FD.dense_forward, (x, w, b, True)),
+                     (FD.dense_dx, (dy, y, w, True)),
+                     (FD.dense_dw_db, (x, dy, y, True))):
+        a, c = fn(*args), fn(*args)
+        for u, v in zip(a if isinstance(a, tuple) else (a,),
+                        c if isinstance(c, tuple) else (c,)):
+            assert torch.equal(u, v), fn.__name__
+
+
+@pytest.mark.cuda
+def test_cuda_fused_dense_backward_launches_its_kernels(h100, rng):
+    x, w, b, dy = _on(h100, *_dense_inputs(rng, 64, 37, 73))
+    w.requires_grad_()
+    b.requires_grad_()
+    counts = (FD.dense_dx.launches, FD.dense_dw_db.launches)
+    FD.fused_dense(x, w, b).backward(dy)            # x needs no gradient
+    assert (FD.dense_dx.launches, FD.dense_dw_db.launches) == \
+        (counts[0], counts[1] + 1)
+    plain_w, plain_b = (t.detach().clone().requires_grad_() for t in (w, b))
+    torch.relu(x @ plain_w + plain_b).backward(dy)
+    _close(w.grad, plain_w.grad, "dw")
+    _close(b.grad, plain_b.grad, "db")
+
+
+@pytest.mark.cuda
+def test_cuda_dense_wrappers_reject_what_the_kernels_do_not_take(h100):
+    x = torch.zeros(5, 4, device=h100)
+    w = torch.zeros(4, 3, device=h100)
+    b = torch.zeros(3, device=h100)
+    y = torch.zeros(5, 3, device=h100)
+    with pytest.raises(TypeError):
+        FD.dense_forward(x.double(), w, b, True)
+    with pytest.raises(ValueError):
+        FD.dense_forward(torch.zeros(5, 6, device=h100), w, b, True)  # K
+    with pytest.raises(ValueError):
+        FD.dense_forward(x, w, torch.zeros(4, device=h100), True)     # bias
+    with pytest.raises(ValueError):
+        FD.dense_dx(torch.zeros(3, 5, device=h100).t(), y, w, True)   # layout
+    with pytest.raises(ValueError):
+        FD.dense_dw_db(x, y.cpu(), y, True)                           # device
+    with pytest.raises(ValueError):
+        FD.dense_dw_db(x, y, torch.zeros(5, 4, device=h100), True)    # y shape
