@@ -22,6 +22,17 @@ random weights from fixed seeds):
   ``experiments/run_comparison.py``'s scale (3 x 256, 8000 rows, 8
   epochs, 200 hard tasks), its satisfied count beside the reference's.
 
+Then the LM serving path of gemma3-1b at full width (26 layers, d 1152,
+4 heads / 1 kv head of 256, d_ff 6912, vocab 262144; float32 params from
+seed 0): the flash-attention kernel against its plain version at the
+prefill's shapes (and ``bench_kernels.py``'s, a continued prefill, a
+non-causal one; float32 and bf16); ``make_prefill_step`` on 2 prompts of
+4096 tokens through the kernel (26 launches, asserted) and through the
+plain attention, their last-token logits compared; and the
+continuous-batching ``Engine`` (4 slots, cache 128) serving 8 requests of
+12 prompt tokens and 16 new ones, its logits at the prompts' last tokens
+held to the prefill step's.
+
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
 it are the kernel table (JSON) and the card's name and power limit.
@@ -50,15 +61,21 @@ from repro_torch.core import gan as G  # noqa: E402
 from repro_torch.core import train as T  # noqa: E402
 from repro_torch.dataset import generator as gen_mod  # noqa: E402
 from repro_torch.design_models import DnnWeaverModel, Im2colModel  # noqa: E402
+from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_dense as fd  # noqa: E402
 from repro_torch.kernels import fused_mlp as fm  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import base as MB  # noqa: E402
 from repro_torch.optim import tree_leaves, tree_map  # noqa: E402
+from repro_torch.train import step as TS  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense, no sparsity)
 PEAK_F32_FLOPS = 67e12      # float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # HBM3
+PEAK_BF16_FLOPS = 989e12    # bf16 in the tensor cores
 N_TASKS = 64
 TOL = 1e-4                  # max|y_k - y_ref| <= TOL * max(1, max|y_ref|)
 BATCH = 1024                # Algorithm 1's batch (Table 4)
@@ -76,6 +93,23 @@ DENSE_KERNELS = {
     "dense_dx_f32": (fd.dense_dx, "src/repro/kernels/fused_mlp.py:121"),
     "dense_dw_db_f32": (fd.dense_dw_db, "src/repro/kernels/fused_mlp.py:143"),
 }
+#: the flash kernel's shapes: (B, H, Hkv, Sq, Sk, D, causal, window,
+#: q_offset).  gemma3-1b's global and local layers at the prefill's 2 x
+#: 4096 tokens, benchmarks/bench_kernels.py's shape, a continued prefill
+#: (the last 1024 rows), and a non-causal case
+FLASH_SHAPES = {
+    "gemma3 global 2x4x4096x256": (2, 4, 1, 4096, 4096, 256, True, None, 0),
+    "gemma3 local 2x4x4096x256 w1024": (2, 4, 1, 4096, 4096, 256, True,
+                                        1024, 0),
+    "bench 1x8x512x64 kv2": (1, 8, 2, 512, 512, 64, True, None, 0),
+    "q_offset 3072 2x4x1024x256 kv4096": (2, 4, 1, 1024, 4096, 256, True,
+                                          None, 3072),
+    "non-causal 2x4x1024x256": (2, 4, 1, 1024, 1024, 256, False, None, 0),
+}
+BF16_TOL = 3e-2             # the reference's own bf16 kernel test
+LM_ARCH = "gemma3-1b"
+PREFILL = (2, 4096)         # prefill_32k cut in batch and length
+SERVE = dict(slots=4, cache_len=128, requests=8, prompt_len=12, max_new=16)
 #: the reference's quality run on dnnweaver (EXPERIMENTS.md, a CPU run of
 #: experiments/run_comparison.py): satisfied of 200, mean candidates
 REF_QUALITY = (93, 2.4)
@@ -117,20 +151,23 @@ def mlp_bound_ms(m: int, ws, bs) -> tuple:
 
 def zero_counts() -> None:
     fm.fused_mlp.launches = 0
+    fa.flash_attention.launches = 0
     for wrapper, _ in DENSE_KERNELS.values():
         wrapper.launches = 0
 
 
 def counts() -> dict:
-    out = {"mlp_forward_f32": fm.fused_mlp.launches}
+    out = {"mlp_forward_f32": fm.fused_mlp.launches,
+           "flash_attention_f32": fa.flash_attention.launches}
     out.update({name: w.launches for name, (w, _) in DENSE_KERNELS.items()})
     return out
 
 
 def build_all() -> None:
     """Phase 1: one nvcc per source, started together."""
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(fm.load_library), pool.submit(fd.load_library)]:
+    loads = (fm.load_library, fd.load_library, fa.load_library)
+    with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
+        for f in [pool.submit(load) for load in loads]:
             f.result()
     for name, info in build.build_info.items():
         print(f"built {name} -> {info['path']} in {info['seconds']:.1f} s",
@@ -158,17 +195,28 @@ def dense_bound_ms(kernel: str, m: int, k: int, n: int, relu: bool) -> tuple:
     return bound(4 * (m * k + dy_y + k * n + n), 2 * m * k * n + m * n + mask)
 
 
-def flash_bound_ms() -> tuple:
-    """Reckoned bound of the reference's still unported ``_flash_kernel``
-    at ``benchmarks/bench_kernels.py``'s shapes (float32 q 1x8x512x64,
-    k and v 1x2x512x64, causal): q, k, v read once and the output written
-    once, against the 4·D flops of QKᵀ and PV for each of the S(S+1)/2
-    causal pairs of each head, at the non-tensor float32 peak.  No port
-    runs it; this keeps PERF.md's kernel table free of a missing bound."""
-    b, h, hkv, s, d = 1, 8, 2, 512, 64
-    n_bytes = 4 * (2 * b * h * s * d + 2 * b * hkv * s * d)
-    flops = 4 * d * b * h * s * (s + 1) // 2
-    return bound(n_bytes, flops)
+def kept_pairs(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
+    """(query, key) pairs the masks keep for one head: what the kernel's
+    arithmetic scales with."""
+    qpos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_bound_ms(shape, dtype) -> tuple:
+    """Least time for one flash-attention call on this card: q, k, v read
+    once and o written once over HBM, against the 4·D flops of QKᵀ and PV
+    for every kept (query, key) pair at the peak rate of the inputs' type
+    (float32 outside the tensor cores, bf16 in them)."""
+    b, h, hkv, sq, sk, d, causal, window, q_offset = shape
+    size = torch.empty((), dtype=dtype).element_size()
+    n_bytes = size * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
+    flops = 4 * d * b * h * kept_pairs(sq, sk, causal, window, q_offset)
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def _err(got, want) -> float:
@@ -588,6 +636,182 @@ def profile_path(name: str, run: dict) -> dict:
     return out
 
 
+def check_flash() -> dict:
+    """Phase 6a: the flash-attention kernel against its plain version at
+    FLASH_SHAPES, float32 (TOL) and bf16 (BF16_TOL); two calls give the
+    same bits; CUDA-event medians of the kernel, the plain version and
+    one library call (``scaled_dot_product_attention`` with the same
+    boolean mask, a yardstick the port never calls)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = {}
+    for label, shape in FLASH_SHAPES.items():
+        b, h, hkv, sq, sk, d, causal, window, q_offset = shape
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        qpos = torch.arange(sq, device="cuda") + q_offset
+        kpos = torch.arange(sk, device="cuda")
+        keep = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+        if causal:
+            keep &= qpos[:, None] >= kpos[None, :]
+        if window:
+            keep &= qpos[:, None] - kpos[None, :] < window
+        q32 = torch.randn(b, h, sq, d, generator=gen, device="cuda")
+        k32 = torch.randn(b, hkv, sk, d, generator=gen, device="cuda")
+        v32 = torch.randn(b, hkv, sk, d, generator=gen, device="cuda")
+        for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            got, again = fa.flash_attention(q, k, v, **kw), \
+                fa.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and bool(torch.isfinite(got).all())
+            scale = max(1.0, float(want.float().abs().max()))
+            err = _err(got.float(), want.float())
+            assert err <= tol * scale, f"flash {label} {dtype}: {err}"
+            same = torch.equal(got, again)
+            assert same, f"flash {label} {dtype}: two calls differ"
+            bnd, by = flash_bound_ms(shape, dtype)
+            row = dict(
+                max_abs_err=err, tol=tol * scale, same_bits=same,
+                ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+                plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, **kw)),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=keep, enable_gqa=True)),
+                bound_ms=bnd, bound_by=by,
+                kept_pairs_per_head=kept_pairs(sq, sk, causal, window,
+                                               q_offset))
+            rows[label, str(dtype).split(".")[-1]] = row
+            print(f"flash {label} {dtype}: " + json.dumps(row), flush=True)
+    return rows
+
+
+def lm_model():
+    """gemma3-1b at full width, float32 params from seed 0 on the card."""
+    m = configs.get_arch(LM_ARCH)
+    params = MB.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            m, "cuda")
+    n_global = sum(seg.repeats for seg in m.segments for sp in seg.pattern
+                   if sp.cfg.window is None)
+    print(f"lm {m.name}: {MB.param_count(params)} params, {m.n_layers} "
+          f"layers ({n_global} global)", flush=True)
+    return m, params
+
+
+def _logits_agree(label: str, got, want) -> dict:
+    """Finite logits within TOL·max(1, max|want|), equal argmax per row."""
+    assert got.shape == want.shape, (label, got.shape, want.shape)
+    assert bool(torch.isfinite(got).all()), f"{label}: not finite"
+    scale = max(1.0, float(want.abs().max()))
+    err = _err(got, want)
+    assert err <= TOL * scale, f"{label}: {err} > {TOL * scale}"
+    assert torch.equal(got.argmax(-1), want.argmax(-1)), \
+        f"{label}: argmax differs"
+    return dict(max_abs_err=err, tol=TOL * scale, max_abs=float(
+        want.abs().max()))
+
+
+def prefill_bound_ms(m, b: int, s: int) -> dict:
+    """Least time of a prefill's parts at the float32 peak: the layers'
+    projections (wq, wkv, w_gate, w_up, w_down), wo, the tied logits, and
+    the flash kernel's kept pairs (each a product's 2·M·K·N flops)."""
+    out = {"projections": 0.0, "wo": 0.0, "flash": 0.0}
+    for seg in m.segments:
+        for spec in seg.pattern:
+            c, n = spec.cfg, seg.repeats * b * s
+            out["projections"] += seg.repeats * 2 * b * s * c.d_model * (
+                (c.n_heads + 2 * c.n_kv) * c.dh + 3 * c.d_ff)
+            out["wo"] += 2 * n * c.n_heads * c.dh * c.d_model
+            out["flash"] += seg.repeats * 4 * c.dh * b * c.n_heads * \
+                kept_pairs(s, s, True, c.window, 0)
+    out["logits"] = 2 * b * s * m.d_model * m.vocab
+    return {k: 1e3 * v / PEAK_F32_FLOPS for k, v in out.items()}
+
+
+def drive_prefill(m, params) -> dict:
+    """Phase 6b: make_prefill_step on PREFILL random prompts through the
+    kernel (its launches counted: one per layer) and through the plain
+    attention (use_fused=False), then warm times of both, interleaved."""
+    b, s = PREFILL
+    toks = torch.randint(0, m.vocab, (b, s), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0))
+    routes = {"kernel": TS.make_prefill_step(m),
+              "plain": TS.make_prefill_step(m, use_fused=False)}
+    zero_counts()
+    got = routes["kernel"](params, {"tokens": toks})
+    torch.cuda.synchronize()
+    launches = counts()
+    want = routes["plain"](params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert launches["flash_attention_f32"] == m.n_layers, launches
+    out = dict(launches=launches, bound_ms=prefill_bound_ms(m, b, s),
+               **_logits_agree("prefill logits", got, want))
+    times = {r: [] for r in routes}
+    for r in ("kernel", "plain", "plain", "kernel"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        routes[r](params, {"tokens": toks})
+        torch.cuda.synchronize()
+        times[r].append(1e3 * (time.perf_counter() - t0))
+    for r, ts in times.items():
+        out[f"{r}_ms_per_prefill"] = min(ts)
+        out[f"{r}_prompt_tok_per_s"] = b * s / (min(ts) / 1e3)
+    out["profile"] = profile_step(lambda: routes["kernel"](
+        params, {"tokens": toks}), ())
+    print("prefill: " + json.dumps(out), flush=True)
+    return out
+
+
+def drive_serve(m, params) -> dict:
+    """Phase 6c: the Engine (device=None: the card) serving SERVE's
+    requests, then its logits at the prompts' last tokens (plain decode
+    attention) held to make_prefill_step's on those prompts (kernel)."""
+    eng = serve.Engine(m, params, SERVE["slots"], SERVE["cache_len"])
+    assert eng.device.type == "cuda", eng.device
+    plen = SERVE["prompt_len"]
+    decode, at_prompt_end = eng._decode, {}
+
+    def capture(params_, toks, clock, states, start=None):
+        logits, states = decode(params_, toks, clock, states, start=start)
+        if clock == plen - 1:          # the first wave's last prompt token
+            at_prompt_end["logits"] = logits[:, 0].clone()
+        return logits, states
+
+    eng._decode = capture
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, m.vocab, size=plen).tolist()
+               for _ in range(SERVE["requests"])]
+    for r, p in enumerate(prompts):
+        eng.submit(serve.Request(rid=r, prompt=p, max_new=SERVE["max_new"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iters = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = sorted(eng.finished, key=lambda r: r.rid)
+    assert len(done) == SERVE["requests"], len(done)
+    assert all(len(r.out) == SERVE["max_new"] for r in done)
+    new_tokens = sum(len(r.out) for r in done)
+    first = torch.tensor(prompts[:SERVE["slots"]], device="cuda")
+    want = TS.make_prefill_step(m)(params, {"tokens": first})
+    weight_bytes = 4 * MB.param_count(params)
+    out = dict(engine_iters=iters, new_tokens=new_tokens, wall_s=wall,
+               new_tok_per_s=new_tokens / wall,
+               ms_per_decode_step=1e3 * wall / iters,
+               weights_read_ms=1e3 * weight_bytes / PEAK_HBM_BYTES,
+               **_logits_agree("engine vs prefill logits",
+                               at_prompt_end["logits"], want))
+    # one more decode step of the idle engine (its caches have room left)
+    toks = torch.zeros((SERVE["slots"], 1), dtype=torch.long, device="cuda")
+    start = torch.from_numpy(eng.start).to("cuda")
+    out["decode_step_profile"] = profile_step(lambda: decode(
+        params, toks, eng.clock, eng.states, start=start), ())
+    assert [r.out[0] for r in done[:SERVE["slots"]]] == \
+        want.argmax(-1).tolist()
+    print("serve: " + json.dumps(out), flush=True)
+    return out
+
+
 def _same(a, b) -> bool:
     if (a.cfg_idx is None) != (b.cfg_idx is None):
         return False
@@ -616,6 +840,7 @@ def main() -> int:
     # phase 2: each kernel against its plain version; one full-width step
     kern = check_kernel()
     dense = check_dense()
+    flash = check_flash()
     step = check_step(Im2colModel())
 
     # phase 3: the serving path, counts zeroed just before it
@@ -646,9 +871,20 @@ def main() -> int:
 
     # phase 5: quality at the reference's reduced scale
     quality = quality_run()
-    flash = flash_bound_ms()
-    print(f"reckoned bound of the unported _flash_kernel: {flash[0]:.6f} ms "
-          f"({flash[1]})", flush=True)
+
+    # phase 6: the LM serving path at full width, counts zeroed just before
+    # its prefill (inside drive_prefill)
+    m, params = lm_model()
+    prefill = drive_prefill(m, params)
+    lm_serve = drive_serve(m, params)
+    del params
+    per_prefill = {                    # the layers' kernel medians summed
+        k: sum(n * flash[label, "float32"][k] for label, n in (
+            ("gemma3 global 2x4x4096x256", 4),
+            ("gemma3 local 2x4x4096x256 w1024", 22)))
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print("flash per prefill (4 global + 22 local layers): "
+          + json.dumps(per_prefill), flush=True)
 
     row = kern["im2col", N_TASKS]
     table = {"kernels": [{
@@ -675,13 +911,27 @@ def main() -> int:
         "launches_per_step": step["launches"][name],
         "shapes": {label: dense[name][label] for label in DENSE_SHAPES
                    if label != "hidden 2048->2048"},
-    } for name, (_, replaces) in DENSE_KERNELS.items()]}
+    } for name, (_, replaces) in DENSE_KERNELS.items()] + [{
+        "name": "flash_attention_f32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:32",
+        "launches": prefill["launches"]["flash_attention_f32"],
+        "max_abs_err": max(r["max_abs_err"] for (_, t), r in flash.items()
+                           if t == "float32"),
+        **{k: flash["gemma3 global 2x4x4096x256", "float32"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "per_prefill": per_prefill,
+        "shapes": {f"{label} {t}": r for (label, t), r in flash.items()
+                   if (label, t) != ("gemma3 global 2x4x4096x256",
+                                     "float32")},
+    }]}
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": table["kernels"],
                        "paths": paths, "step": step, "train": train,
-                       "quality": quality, "flash_bound_ms": flash,
-                       "build": build.build_info},
+                       "quality": quality, "prefill": prefill,
+                       "serve": lm_serve, "build": build.build_info},
                       fh, indent=1)
     print(json.dumps(table), flush=True)
     print(card, flush=True)

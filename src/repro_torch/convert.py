@@ -1,4 +1,5 @@
-"""Carry params and whole train states between the two packages as numpy.
+"""Carry params and whole train states between the two packages as numpy:
+G's and D's params and train states, and the LM substrate's params.
 
 The reference keeps params as ``{"layers": [{"w": (in, out), "b": (out,)},
 ...]}`` pytrees and its train state as ``TrainState(g_params, d_params,
@@ -31,6 +32,19 @@ def params_from_numpy(tree, device):
 
 def params_to_numpy(tree):
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def lm_params_from_numpy(tree: Dict, device) -> Dict:
+    """The reference's LM params as numpy (``jax.tree.map(np.asarray,
+    params)``: ``{"embed": {"table"}, "segments": [[per-spec (repeats,
+    ...) stacks], ...], "ln_f": {"scale"}[, "lm_head"]}``) -> the port's
+    float32 tensors on `device`, in the same layout."""
+    return params_from_numpy(tree, device)
+
+
+def lm_params_to_numpy(params: Dict) -> Dict:
+    """The port's LM params -> numpy, in the reference's layout."""
+    return params_to_numpy(params)
 
 
 def g_params_from_numpy(tree: Dict, device) -> Dict:

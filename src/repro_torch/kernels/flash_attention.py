@@ -1,0 +1,119 @@
+"""GQA flash-attention forward on the card: the hand-written CUDA kernel in
+``csrc/flash_attention.cu`` and its wrapper.
+
+Replaces the Pallas kernel ``_flash_kernel`` (reference package,
+``kernels/flash_attention.py``, public ``flash_attention``): causal and
+sliding-window masks with the finite ``NEG_INF``, an online softmax in
+float32, the key tiles outside the band skipped, ``q_offset`` for a
+continued prefill, kv head = q head // group read in place.  float32 or
+bf16 in, float32 arithmetic, the output in q's dtype.  Head dims 16, 32,
+64, 128 and 256.
+
+The wrapper takes (B, H, S, D) tensors whose last dim is contiguous and
+passes the other three strides to the kernel, so a (B, S, H, D) tensor
+viewed with ``transpose(1, 2)`` is read in place; the output is allocated
+in q's own layout (``empty_like``), so ``nn/attention`` gets (B, S, H, D)
+back without a copy.
+
+Bound on an H100 SXM: the 4·D flops of QKᵀ and PV per kept (query, key)
+pair at the float32 rate (67 TFLOP/s); the bytes of q, k, v and o are two
+orders of magnitude smaller at the LM's shapes.
+
+The device rule lives here: a CPU tensor gets the plain version
+(``kernels/ref.flash_attention``); a CUDA tensor gets the kernel or an
+exception (a card that is not sm_90, a failed build, an unsupported head
+dim, dtype or layout, a refused launch) — nothing falls back.
+``kernels/ops.flash_attention`` adds only the caller's ``use_fused=False``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels import ref as _ref
+
+SOURCE = _build.CSRC / "flash_attention.cu"
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_ENTRY = {torch.float32: "flash_attention_f32",
+          torch.bfloat16: "flash_attention_bf16"}
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source revision) and load the kernel library."""
+    return _build.load(SOURCE, _bind)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"need q (B, H, Sq, D) and k, v (B, Hkv, Sk, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, _, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or h % k.shape[1]:
+        raise ValueError(f"k {tuple(k.shape)} does not fit q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not one the kernel is built for "
+                         f"{HEAD_DIMS}")
+    _build.check_card(q.device, "the flash-attention kernel")
+    if q.dtype not in _ENTRY:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    # the kernel reads 4 elements at a time along d: rows must be aligned
+    align = 16 if q.dtype == torch.float32 else 8
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.stride(3) != 1 or t.data_ptr() % align or any(
+                s % 4 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+            raise ValueError(f"{name} needs a contiguous, {align}-byte "
+                             f"aligned last dim, got strides {t.stride()}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """GQA attention forward: q (B, H, Sq, D), k and v (B, Hkv, Sk, D) ->
+    (B, H, Sq, D) in q's dtype and layout.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``flash_attention.launches``) or raise."""
+    if q.device.type == "cpu":
+        return _ref.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    _check(q, k, v)
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    b, h, sq, d = q.shape
+    out = torch.empty_like(q)           # q's layout where q is dense
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = getattr(lib, _ENTRY[q.dtype])(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            k.shape[1], sq, k.shape[2], d, strides, int(causal),
+            window or 0, q_offset, 1.0 / d ** 0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"{_ENTRY[q.dtype]} launch failed with CUDA "
+                           f"error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+#: calls that launched the kernel (not the CPU plain-version route)
+flash_attention.launches = 0  # type: ignore[attr-defined]

@@ -8,7 +8,7 @@ product is full float32 like the reference.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -51,3 +51,34 @@ def dense_dw_db(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
     kernel."""
     g = _masked(dy, y, relu)
     return x.t() @ g, g.sum(0)
+
+
+#: the finite mask value of the reference (``-inf`` would turn a fully
+#: masked tile into ``inf - inf = NaN`` in the online softmax)
+NEG_INF = -1e30
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Unblocked GQA attention, softmax in float32 — the plain version of
+    the flash-attention kernel.  q (B, H, Sq, D), k and v (B, Hkv, Sk, D);
+    q head h reads kv head h // (H // Hkv); query row i sits at absolute
+    position ``q_offset + i``.  Returns (B, H, Sq, D) in q's dtype."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, hkv, g, sq, d)
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qg.to(torch.float32),
+                          k.to(torch.float32)) / d ** 0.5
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    kpos = torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
+    return out.reshape(b, h, sq, d).to(q.dtype)

@@ -1,0 +1,219 @@
+"""The unified LM builder: a model is a stack of *segments*, each segment
+`repeats` copies of a short periodic *layer pattern* (a tuple of
+LayerSpecs), with params stacked per spec along a leading (repeats, ...)
+axis as in the reference.
+
+  * uniform archs (qwen3, stablelm, deepseek): one segment, pattern length 1
+  * gemma3 (5 local : 1 global): pattern [local x5, global], repeats 4,
+    plus a tail segment of 2 local layers
+
+The reference scans over repeats (``lax.scan``); here a Python loop runs
+the layers in the same order.  Only the ``"dense"`` kind is ported; the
+others (mlstm, slstm, whisper's enc/dec) raise ``NotImplementedError``
+(ROADMAP Queue 1 item 8).
+
+Decode states mirror the param stacks: per segment and spec,
+``{"kv": (k, v), "len": int}`` with k, v (repeats, B, span, Hkv, dh) and
+the shared count of cached tokens; decode writes the caches in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.nn import blocks as B
+from repro_torch.nn import layers as L
+from repro_torch.optim import tree_leaves, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """kind: dense | mlstm | slstm (cfg.n_experts / ssm_state select MoE /
+    hymba inside the dense block)."""
+
+    kind: str
+    cfg: B.BlockCfg
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    repeats: int
+    pattern: Tuple[LayerSpec, ...]
+
+    @property
+    def n_layers(self) -> int:
+        return self.repeats * len(self.pattern)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelCfg:
+    name: str
+    family: str                        # dense | moe | vlm | audio | ssm | hybrid
+    d_model: int
+    vocab: int
+    segments: Tuple[Segment, ...]
+    tied_embeddings: bool = True
+    # enc-dec (whisper): encoder segments; None for decoder-only models
+    enc_segments: Optional[Tuple[Segment, ...]] = None
+    enc_positions: str = "learned"     # whisper uses learned/sinusoidal abs pos
+    max_enc_len: int = 1500
+    sub_quadratic: bool = False        # eligible for long_500k
+    notes: str = ""
+
+    @property
+    def n_layers(self) -> int:
+        return sum(s.n_layers for s in self.segments)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
+                               f"item 8)")
+
+
+# ---------------------------------------------------------------------------
+# per-spec init/apply/decode dispatch
+# ---------------------------------------------------------------------------
+def spec_init(gen: torch.Generator, spec: LayerSpec, device):
+    if spec.kind == "dense":
+        return B.block_init(gen, spec.cfg, device)
+    raise _not_ported(f"layer kind {spec.kind!r}")
+
+
+def spec_apply(params, x, spec: LayerSpec, positions,
+               use_fused: Optional[bool] = None):
+    if spec.kind == "dense":
+        return B.block_apply(params, x, spec.cfg, positions,
+                             use_fused=use_fused)
+    raise _not_ported(f"layer kind {spec.kind!r}")
+
+
+def spec_state_init(spec: LayerSpec, batch: int, cache_len: int,
+                    device) -> Dict[str, Any]:
+    """Decode state of one layer: its KV cache (a ring of the window's
+    width for sliding-window layers) and the count of cached tokens."""
+    cfg = spec.cfg
+    if spec.kind == "dense":
+        span = cache_len if cfg.window is None else min(cfg.window, cache_len)
+        kv = tuple(torch.zeros((batch, span, cfg.n_kv, cfg.dh),
+                               dtype=torch.float32, device=device)
+                   for _ in range(2))
+        return {"kv": kv, "len": 0}
+    raise _not_ported(f"layer kind {spec.kind!r}")
+
+
+def spec_decode(params, x1, spec: LayerSpec, pos, state, start=None):
+    cfg = spec.cfg
+    if spec.kind == "dense":
+        return B.block_decode(params, x1, cfg, pos, state,
+                              ring=cfg.window is not None, start=start)
+    raise _not_ported(f"layer kind {spec.kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# whole-model init / forward / decode
+# ---------------------------------------------------------------------------
+def _layer(tree, r: int):
+    """Layer r of a (repeats, ...) stacked tree (views, no copy)."""
+    return tree_map(lambda a: a[r], tree)
+
+
+def _segment_init(gen: torch.Generator, seg: Segment, device):
+    """Per-spec stacked params: list over pattern of (repeats, ...) stacks."""
+    return [tree_map(lambda *xs: torch.stack(xs),
+                     *[spec_init(gen, spec, device)
+                       for _ in range(seg.repeats)])
+            for spec in seg.pattern]
+
+
+def init_params(gen: torch.Generator, m: ModelCfg, device) -> Dict[str, Any]:
+    """Random float32 params on `device`, drawn from `gen` (which must live
+    there).  They do not reproduce the reference's ``jax.random`` draws:
+    to compute from the reference's weights, convert them
+    (``convert.lm_params_from_numpy``)."""
+    if m.enc_segments is not None:
+        raise _not_ported("the whisper encoder-decoder")
+    p: Dict[str, Any] = {
+        "embed": L.embed_init(gen, m.vocab, m.d_model, device),
+        "segments": [_segment_init(gen, seg, device) for seg in m.segments],
+        "ln_f": L.rmsnorm_init(m.d_model, device),
+    }
+    if not m.tied_embeddings:
+        p["lm_head"] = torch.randn(m.d_model, m.vocab, generator=gen,
+                                   dtype=torch.float32, device=device) \
+            * (1.0 / m.d_model) ** 0.5
+    return p
+
+
+def _run_segments(segments_params, segs: Tuple[Segment, ...], x, positions,
+                  use_fused: Optional[bool] = None):
+    for seg_p, seg in zip(segments_params, segs):
+        for r in range(seg.repeats):
+            for spec, sp in zip(seg.pattern, seg_p):
+                x = spec_apply(_layer(sp, r), x, spec, positions,
+                               use_fused=use_fused)
+    return x
+
+
+def _head(params, m: ModelCfg, x):
+    x = L.rmsnorm_apply(params["ln_f"], x)
+    if m.tied_embeddings:
+        return L.embed_logits(params["embed"], x)
+    return x @ params["lm_head"]
+
+
+def forward(params, m: ModelCfg, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            use_fused: Optional[bool] = None) -> torch.Tensor:
+    """tokens (B, S) -> logits (B, S, V).  positions defaults to arange.
+    ``use_fused=False`` takes the plain attention instead of the kernel."""
+    if m.enc_segments is not None:
+        raise _not_ported("the whisper encoder-decoder")
+    x = L.embed_apply(params["embed"], tokens)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)[
+            None].expand(tokens.shape)
+    x = _run_segments(params["segments"], m.segments, x, positions,
+                      use_fused=use_fused)
+    return _head(params, m, x)
+
+
+def init_decode_state(params, m: ModelCfg, batch: int, cache_len: int):
+    """Per-segment decode states mirroring the param stacks, on the
+    params' device."""
+    device = params["ln_f"]["scale"].device
+    states = []
+    for seg in m.segments:
+        seg_states = []
+        for spec in seg.pattern:
+            st = spec_state_init(spec, batch, cache_len, device)
+            seg_states.append(dict(st, kv=tuple(
+                torch.stack([t] * seg.repeats) for t in st["kv"])))
+        states.append(seg_states)
+    return states
+
+
+def decode_step(params, m: ModelCfg, token: torch.Tensor, pos: int, states,
+                start: Optional[torch.Tensor] = None):
+    """One-token decode.  token (B, 1) int; pos the absolute position (an
+    int).  start: optional (B,) per-lane first valid KV position — the
+    stale-cache mask a continuous-batching engine passes when a batch lane
+    has been reused for a new request (every attention layer shares one
+    timeline, so one vector serves all layers).  Returns (logits (B, 1, V),
+    new states); the caches are updated in place."""
+    x = L.embed_apply(params["embed"], token)
+    pos_b = torch.full((token.shape[0], 1), pos, device=token.device)
+    new_states = []
+    for seg_p, seg, seg_st in zip(params["segments"], m.segments, states):
+        for r in range(seg.repeats):
+            for spec, sp, st in zip(seg.pattern, seg_p, seg_st):
+                x, _ = spec_decode(_layer(sp, r), x, spec, pos_b,
+                                   dict(st, kv=_layer(st["kv"], r)),
+                                   start=start)
+        new_states.append([dict(st, len=st["len"] + 1) for st in seg_st])
+    return _head(params, m, x), new_states
+
+
+def param_count(params) -> int:
+    return int(sum(t.numel() for t in tree_leaves(params)))

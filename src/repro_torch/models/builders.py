@@ -1,0 +1,59 @@
+"""Helpers that assemble ModelCfg objects: the dense decoders (uniform
+and gemma3's local:global interleave).  The hymba, xLSTM and whisper
+builders come with their blocks (ROADMAP Queue 1 item 8)."""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from repro_torch.models.base import LayerSpec, ModelCfg, Segment
+from repro_torch.nn.blocks import BlockCfg
+
+
+def _dense_spec(d, h, kv, dff, *, head_dim=0, qk_norm=False, window=None,
+                theta=10000.0, n_experts=0, top_k=2, ssm_state=0, mrope=None):
+    return LayerSpec(
+        "dense",
+        BlockCfg(d_model=d, n_heads=h, n_kv=kv, d_ff=dff, head_dim=head_dim,
+                 qk_norm=qk_norm, window=window, rope_theta=theta,
+                 n_experts=n_experts, top_k=top_k, ssm_state=ssm_state,
+                 mrope_sections=mrope),
+    )
+
+
+def decoder_arch(
+    name: str, family: str, n_layers: int, d_model: int, n_heads: int,
+    n_kv: int, d_ff: int, vocab: int, *,
+    head_dim: int = 0, qk_norm: bool = False, window: Optional[int] = None,
+    n_experts: int = 0, top_k: int = 2, ssm_state: int = 0,
+    mrope: Optional[Tuple[int, int, int]] = None, tied: bool = True,
+    theta: float = 10000.0, sub_quadratic: bool = False, notes: str = "",
+) -> ModelCfg:
+    spec = _dense_spec(d_model, n_heads, n_kv, d_ff, head_dim=head_dim,
+                       qk_norm=qk_norm, window=window, theta=theta,
+                       n_experts=n_experts, top_k=top_k, ssm_state=ssm_state,
+                       mrope=mrope)
+    return ModelCfg(name=name, family=family, d_model=d_model, vocab=vocab,
+                    segments=(Segment(n_layers, (spec,)),),
+                    tied_embeddings=tied, sub_quadratic=sub_quadratic,
+                    notes=notes)
+
+
+def local_global_arch(
+    name: str, family: str, n_layers: int, d_model: int, n_heads: int,
+    n_kv: int, d_ff: int, vocab: int, *, head_dim: int = 0,
+    local_window: int = 1024, locals_per_global: int = 5,
+    tied: bool = True, theta: float = 10000.0, notes: str = "",
+) -> ModelCfg:
+    """Gemma-3 style L:1 local:global interleave; tail layers stay local."""
+    loc = _dense_spec(d_model, n_heads, n_kv, d_ff, head_dim=head_dim,
+                      window=local_window, theta=theta)
+    glob = _dense_spec(d_model, n_heads, n_kv, d_ff, head_dim=head_dim,
+                       window=None, theta=theta)
+    period = locals_per_global + 1
+    reps, tail = divmod(n_layers, period)
+    segs = [Segment(reps, tuple([loc] * locals_per_global + [glob]))]
+    if tail:
+        segs.append(Segment(tail, (loc,)))
+    return ModelCfg(name=name, family=family, d_model=d_model, vocab=vocab,
+                    segments=tuple(segs), tied_embeddings=tied,
+                    sub_quadratic=True, notes=notes)

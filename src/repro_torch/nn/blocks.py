@@ -1,0 +1,177 @@
+"""The dense decoder block of the LM substrate: GQA / sliding-window /
+qk-norm attention and a SwiGLU FFN, as (init, apply, decode) functions on
+dict params in the reference's layout.
+
+Full-sequence attention runs through ``nn/attention.flash_attention``, so
+on the card through the flash-attention kernel; ``use_fused=False`` opts
+that one call out to the plain version and touches nothing else.  The
+MoE FFN (``n_experts > 0``), hymba's parallel SSM branch
+(``ssm_state > 0``), M-RoPE and the whisper blocks are not ported yet
+(ROADMAP Queue 1 item 8) and raise ``NotImplementedError``.
+
+Decode updates the KV cache in place (the reference returns a new cache):
+the caches of a segment are one (repeats, B, span, Hkv, dh) tensor, and a
+layer writes its slot through a view of it, so a step copies no cache.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.nn import attention as A
+from repro_torch.nn import layers as L
+
+_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 8)"
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockCfg:
+    """Static per-architecture block hyperparameters."""
+
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    head_dim: int = 0                   # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    window: Optional[int] = None        # sliding-window width (None = full)
+    rope_theta: float = 10000.0
+    n_experts: int = 0                  # 0 -> dense FFN
+    top_k: int = 2
+    ssm_state: int = 0                  # >0 -> hymba parallel SSM branch
+    mrope_sections: Optional[Tuple[int, int, int]] = None
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+
+def _check_dense(cfg: BlockCfg) -> None:
+    if cfg.n_experts:
+        raise NotImplementedError(f"the MoE FFN (n_experts={cfg.n_experts}) "
+                                  + _NOT_PORTED)
+    if cfg.ssm_state:
+        raise NotImplementedError(f"the hymba SSM branch (ssm_state="
+                                  f"{cfg.ssm_state}) " + _NOT_PORTED)
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError("M-RoPE " + _NOT_PORTED)
+
+
+def _normal(gen: torch.Generator, shape, scale: float, device):
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device) * scale
+
+
+# ---------------------------------------------------------------------------
+# attention sub-layer
+# ---------------------------------------------------------------------------
+def attn_init(gen: torch.Generator, cfg: BlockCfg, device):
+    dh = cfg.dh
+    s = (1.0 / cfg.d_model) ** 0.5
+    p = {
+        "wq": _normal(gen, (cfg.d_model, cfg.n_heads * dh), s, device),
+        "wkv": _normal(gen, (cfg.d_model, 2 * cfg.n_kv * dh), s, device),
+        "wo": _normal(gen, (cfg.n_heads * dh, cfg.d_model),
+                      (1.0 / (cfg.n_heads * dh)) ** 0.5, device),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = L.rmsnorm_init(dh, device)
+        p["k_norm"] = L.rmsnorm_init(dh, device)
+    return p
+
+
+def _qkv(params, x, cfg: BlockCfg, positions):
+    b, s, _ = x.shape
+    dh = cfg.dh
+    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, dh)
+    kv = (x @ params["wkv"]).reshape(b, s, 2 * cfg.n_kv, dh)
+    k, v = kv[:, :, : cfg.n_kv], kv[:, :, cfg.n_kv:]
+    if cfg.qk_norm:
+        q = L.rmsnorm_apply(params["q_norm"], q)
+        k = L.rmsnorm_apply(params["k_norm"], k)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_apply(params, x, cfg: BlockCfg, positions, *, causal: bool = True,
+               use_fused: Optional[bool] = None):
+    """Full-sequence attention: x (B, S, D) -> (B, S, D)."""
+    q, k, v = _qkv(params, x, cfg, positions)
+    o = A.flash_attention(q, k, v, causal=causal, window=cfg.window,
+                          use_fused=use_fused)
+    b, s, _, _ = q.shape
+    return o.reshape(b, s, -1) @ params["wo"]
+
+
+def attn_decode(params, x1, cfg: BlockCfg, pos, kv_cache, cache_len: int, *,
+                ring: bool = False, start=None):
+    """One-token decode.  kv_cache: (k (B, Sc, Hkv, dh), v), written in
+    place at slot ``cache_len`` (mod Sc on a ring); returns (y1, cache).
+    `pos` is the absolute position, (B, 1); `start` the optional (B,)
+    per-lane stale-KV mask (see ``decode_attention``)."""
+    q, k, v = _qkv(params, x1, cfg, pos)
+    kc, vc = kv_cache
+    slot = cache_len % kc.shape[1] if ring else cache_len
+    # a slot past a full cache raises IndexError here, where the
+    # reference's dynamic_update_slice clamps it onto the last slot
+    kc[:, slot] = k[:, 0].to(kc.dtype)
+    vc[:, slot] = v[:, 0].to(vc.dtype)
+    o = A.decode_attention(q, kc, vc, cache_len + 1, window=cfg.window,
+                           ring=ring, start=start)
+    return o.reshape(x1.shape[0], 1, -1) @ params["wo"], (kc, vc)
+
+
+# ---------------------------------------------------------------------------
+# FFN sub-layer (SwiGLU)
+# ---------------------------------------------------------------------------
+def ffn_init(gen: torch.Generator, cfg: BlockCfg, device):
+    s_in = (2.0 / cfg.d_model) ** 0.5
+    return {
+        "w_gate": _normal(gen, (cfg.d_model, cfg.d_ff), s_in, device),
+        "w_up": _normal(gen, (cfg.d_model, cfg.d_ff), s_in, device),
+        "w_down": _normal(gen, (cfg.d_ff, cfg.d_model),
+                          (1.0 / cfg.d_ff) ** 0.5, device),
+    }
+
+
+def ffn_apply(params, x, cfg: BlockCfg):
+    g = torch.nn.functional.silu(x @ params["w_gate"])
+    return (g * (x @ params["w_up"])) @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# the dense decoder block
+# ---------------------------------------------------------------------------
+def block_init(gen: torch.Generator, cfg: BlockCfg, device):
+    _check_dense(cfg)
+    return {
+        "ln1": L.rmsnorm_init(cfg.d_model, device),
+        "attn": attn_init(gen, cfg, device),
+        "ln2": L.rmsnorm_init(cfg.d_model, device),
+        "ffn": ffn_init(gen, cfg, device),
+    }
+
+
+def block_apply(params, x, cfg: BlockCfg, positions,
+                use_fused: Optional[bool] = None):
+    _check_dense(cfg)
+    h = L.rmsnorm_apply(params["ln1"], x)
+    x = x + attn_apply(params["attn"], h, cfg, positions, use_fused=use_fused)
+    h = L.rmsnorm_apply(params["ln2"], x)
+    return x + ffn_apply(params["ffn"], h, cfg)
+
+
+def block_decode(params, x1, cfg: BlockCfg, pos, state, *, ring: bool = False,
+                 start=None):
+    """state: {'kv': (k, v), 'len': int}; returns (y1, new state)."""
+    _check_dense(cfg)
+    h = L.rmsnorm_apply(params["ln1"], x1)
+    mix, kv = attn_decode(params["attn"], h, cfg, pos, state["kv"],
+                          state["len"], ring=ring, start=start)
+    x1 = x1 + mix
+    h = L.rmsnorm_apply(params["ln2"], x1)
+    return (x1 + ffn_apply(params["ffn"], h, cfg),
+            dict(state, kv=kv, len=state["len"] + 1))

@@ -1,8 +1,10 @@
-"""MLP layers as plain functions on tensors.
+"""Layers as plain functions on tensors: the MLP of G and D, and the LM
+substrate's RMSNorm, embedding and RoPE.
 
 Params keep the reference package's layout — ``{"layers": [{"w": (in,
-out), "b": (out,)}, ...]}`` — so the kernel reads ``x @ w`` directly and
-converted params compare like with like.
+out), "b": (out,)}, ...]}``, ``{"scale"}``, ``{"table": (vocab, dim)}`` —
+so the kernels read ``x @ w`` directly and converted params compare like
+with like.  LayerNorm and M-RoPE come with the models that use them.
 """
 from __future__ import annotations
 
@@ -67,3 +69,48 @@ def mlp_apply_chained(params, x: torch.Tensor,
     """Inference MLP forward (hidden ReLU, linear head) through the
     whole-MLP kernel on CUDA tensors (see ``kernels/fused_mlp.py``)."""
     return D.mlp_chain(params["layers"], x, use_fused=use_fused)
+
+
+# ---------------------------------------------------------------------------
+# the LM half: norms, embedding, RoPE
+# ---------------------------------------------------------------------------
+def rmsnorm_init(dim: int, device):
+    return {"scale": torch.ones(dim, dtype=torch.float32, device=device)}
+
+
+def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    var = x.to(torch.float32).square().mean(-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * params["scale"]).to(x.dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, device):
+    return {"table": torch.randn(vocab, dim, generator=gen,
+                                 dtype=torch.float32, device=device) * 0.02}
+
+
+def embed_apply(params, ids: torch.Tensor) -> torch.Tensor:
+    return params["table"][ids]
+
+
+def embed_logits(params, x: torch.Tensor) -> torch.Tensor:
+    """Tied-embedding output head."""
+    return x @ params["table"].t()
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: broadcastable (..., seq)."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)             # (half,)
+    ang = positions[..., :, None].to(torch.float32) * inv      # (..., seq, half)
+    ang = ang[..., None, :]                                    # (..., seq, 1, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,5 +1,6 @@
 """The port's kernels against the reference package: the whole-MLP
-forward, and the dense layer of training with its two backward kernels.
+forward, the dense layer of training with its two backward kernels, and
+the flash-attention forward.
 
 On the CPU each wrapper takes its plain version; these tests hold that
 plain version (and the dispatch and autograd around it) to the
@@ -406,3 +407,178 @@ def test_cuda_dense_wrappers_reject_what_the_kernels_do_not_take(h100):
         FD.dense_dw_db(x, y.cpu(), y, True)                           # device
     with pytest.raises(ValueError):
         FD.dense_dw_db(x, y, torch.zeros(5, 4, device=h100), True)    # y shape
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the plain version against the reference (CPU)
+# ---------------------------------------------------------------------------
+def _flash_reference():
+    jax, _, JREF = _reference()
+    from repro.kernels import flash_attention as JFA
+    return jax, JFA, JREF
+
+
+def _qkv(rng, b, h, hkv, sq, sk, d):
+    return (rng.normal(size=(b, h, sq, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2), (4, 1)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, None)])
+def test_plain_flash_matches_pallas_interpret(h, hkv, causal, window, rng):
+    """The grid of the reference's own kernel test: the plain version
+    within 2e-4 of the Pallas kernel in interpret mode and of the jnp
+    oracle."""
+    jax, JFA, JREF = _flash_reference()
+    q, k, v = _qkv(rng, 2, h, hkv, 256, 256, 32)
+    got = ref.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              causal=causal, window=window).numpy()
+    jq, jk, jv = map(jax.numpy.asarray, (q, k, v))
+    pallas = np.asarray(JFA.flash_attention(jq, jk, jv, causal=causal,
+                                            window=window, bq=64, bk=64,
+                                            interpret=True))
+    oracle = np.asarray(JREF.flash_attention(jq, jk, jv, causal=causal,
+                                             window=window))
+    np.testing.assert_allclose(got, pallas, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 3e-2)])
+def test_plain_flash_dtypes_match_pallas_interpret(dtype, tol, rng):
+    jax, JFA, _ = _flash_reference()
+    q, k, v = _qkv(rng, 1, 4, 2, 128, 128, 64)
+    jq, jk, jv = (jax.numpy.asarray(a, getattr(jax.numpy, dtype))
+                  for a in (q, k, v))
+    pallas = JFA.flash_attention(jq, jk, jv, bq=64, bk=64, interpret=True)
+    # the same rounded inputs on both sides
+    tq, tk, tv = (torch.from_numpy(np.array(a, np.float32)).to(
+        getattr(torch, dtype)) for a in (jq, jk, jv))
+    got = ref.flash_attention(tq, tk, tv)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(pallas, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def test_plain_flash_q_offset_matches_pallas_interpret(rng):
+    """A continued prefill: q rows 64.. at q_offset 64 against the whole
+    k/v, as the reference's kernel computes it, and equal to the rows of
+    the full pass."""
+    jax, JFA, _ = _flash_reference()
+    q, k, v = _qkv(rng, 1, 4, 2, 128, 128, 32)
+    jq, jk, jv = map(jax.numpy.asarray, (q, k, v))
+    pallas = np.asarray(JFA.flash_attention(jq[:, :, 64:], jk, jv,
+                                            q_offset=64, window=48, bq=32,
+                                            bk=32, interpret=True))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    part = ref.flash_attention(tq[:, :, 64:], tk, tv, q_offset=64, window=48)
+    np.testing.assert_allclose(part.numpy(), pallas, rtol=2e-4, atol=2e-4)
+    full = ref.flash_attention(tq, tk, tv, window=48)
+    np.testing.assert_allclose(part.numpy(), full[:, :, 64:].numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("use_fused", [None, True, False])
+def test_flash_ops_on_cpu_take_the_plain_version(use_fused, rng):
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    q, k, v = map(torch.from_numpy, _qkv(rng, 1, 4, 1, 40, 40, 16))
+    before = FA.flash_attention.launches
+    got = ops.flash_attention(q, k, v, window=9, use_fused=use_fused)
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v, window=9),
+                               rtol=0, atol=0)
+    assert FA.flash_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# flash attention on the card
+# ---------------------------------------------------------------------------
+#: (B, H, Hkv, Sq, Sk, D, causal, window, q_offset): every head dim, GQA
+#: groups 1/4/8, lengths no tile divides, the band's edges, a continued
+#: prefill, Sq != Sk both ways
+CUDA_FLASH_CASES = [
+    (1, 8, 2, 512, 512, 64, True, None, 0),      # bench_kernels.py's shape
+    (2, 4, 1, 1000, 1000, 256, True, None, 0),   # gemma3 global, ragged
+    (2, 4, 1, 1000, 1000, 256, True, 128, 0),    # gemma3 local, ragged
+    (1, 4, 4, 77, 77, 16, True, 9, 0),
+    (1, 4, 2, 130, 130, 32, False, None, 0),
+    (1, 2, 2, 200, 333, 128, False, 50, 0),
+    (1, 4, 1, 100, 300, 128, True, None, 200),   # q rows 200..299
+    (1, 4, 1, 64, 512, 256, True, 100, 448),
+    (3, 2, 1, 1, 1, 64, True, None, 0),
+]
+
+
+def _flash_close(got, want, tol, name):
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    assert err <= tol * scale, f"{name}: {err} > {tol * scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", CUDA_FLASH_CASES)
+def test_cuda_flash_matches_plain(case, dtype, tol, h100, rng):
+    from repro_torch.kernels import flash_attention as FA
+    b, h, hkv, sq, sk, d, causal, window, q_offset = case
+    q, k, v = (t.to(h100, dtype) for t in map(
+        torch.from_numpy, _qkv(rng, b, h, hkv, sq, sk, d)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, **kw)
+    again = FA.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 2
+    assert bool(torch.isfinite(got.float()).all())
+    _flash_close(got, want, tol, str(case))
+    assert torch.equal(got, again), "two calls differ"
+
+
+@pytest.mark.cuda
+def test_cuda_flash_reads_strided_views(h100, rng):
+    """(B, S, H, D) tensors passed as transpose(1, 2) views, v a slice of
+    a fused kv projection: read in place, the output in q's layout."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.nn import attention as A
+    b, s, h, hkv, d = 2, 300, 4, 1, 256
+    q = torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(np.float32))
+    kv = torch.from_numpy(rng.normal(size=(b, s, 2 * hkv, d)).astype(
+        np.float32))
+    q, kv = q.to(h100), kv.to(h100)
+    k, v = kv[:, :, :hkv], kv[:, :, hkv:]
+    got = A.flash_attention(q, k, v, window=64)
+    assert got.is_contiguous()
+    want = A.attention_reference(q, k, v, window=64)
+    _flash_close(got, want, 1e-4, "strided")
+    torch.testing.assert_close(
+        FA.flash_attention(q.transpose(1, 2).contiguous(),
+                           k.transpose(1, 2).contiguous(),
+                           v.transpose(1, 2).contiguous(), window=64),
+        got.transpose(1, 2), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rejects_what_the_kernel_does_not_take(h100):
+    from repro_torch.kernels import flash_attention as FA
+    q = torch.zeros(1, 4, 8, 64, device=h100)
+    k = torch.zeros(1, 2, 8, 64, device=h100)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(torch.zeros(1, 4, 8, 48, device=h100),
+                           torch.zeros(1, 2, 8, 48, device=h100),
+                           torch.zeros(1, 2, 8, 48, device=h100))
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError):
+        FA.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, torch.zeros(1, 3, 8, 64, device=h100), k)
+    with pytest.raises(ValueError):                         # last dim strided
+        FA.flash_attention(q, k, torch.zeros(1, 2, 64, 8, device=h100)
+                           .transpose(2, 3))
+    with pytest.raises(ValueError):                         # device
+        FA.flash_attention(q, k.cpu(), k)

@@ -4,8 +4,9 @@
   ``jax`` or the reference package ``repro`` (checked on the AST, so a
   lazy import inside a function counts too).
 - Entry points run on the card unless the caller asks for the CPU:
-  ``GANDSE(..., device=None)`` and ``Explorer(...)`` without a device
-  raise where no CUDA device is present.
+  ``GANDSE(..., device=None)``, ``Explorer(...)``, ``train_gan(...)`` and
+  the LM ``Engine(...)`` without a device raise where no CUDA device is
+  present.
 - Importing the kernel module builds nothing (the CPU tests import every
   module; the kernel is built at its first launch, on the card).
 """
@@ -39,6 +40,11 @@ def test_port_files_are_found():
     assert "src/repro_torch/core/train.py" in names
     assert "src/repro_torch/optim/adamw.py" in names
     assert "src/repro_torch/core/dse_api.py" in names
+    for mod in ("kernels/flash_attention", "kernels/ops", "nn/attention",
+                "nn/blocks", "models/base", "models/builders",
+                "configs/__init__", "configs/gemma3_1b", "train/step",
+                "launch/serve", "convert"):
+        assert f"src/repro_torch/{mod}.py" in names
     assert "chip_smoke.py" in names
 
 
@@ -75,7 +81,7 @@ def test_explorer_defaults_to_the_card(monkeypatch):
     assert ex.device == torch.device("cpu")
 
 
-def test_training_is_not_ported_yet(monkeypatch):
+def test_train_gan_defaults_to_the_card(monkeypatch):
     """Training is ported now; what this still pins is where it runs:
     ``train_gan(device=None)`` means the card and raises without one, and
     the CPU trains only when it is named."""
@@ -95,12 +101,27 @@ def test_training_is_not_ported_yet(monkeypatch):
     assert st.rng.device.type == "cpu" and len(st.history) == 1
 
 
+def test_engine_defaults_to_the_card(monkeypatch):
+    from repro_torch import configs
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import base as MB
+    m = configs.get_reduced("gemma3-1b")
+    params = MB.init_params(torch.Generator().manual_seed(0), m, "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(m, params, 2, 64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(m, params, 2, 64, device="cuda")
+    assert Engine(m, params, 2, 64, device="cpu").device.type == "cpu"
+
+
 def test_kernel_module_import_builds_nothing():
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_dense as FD
     from repro_torch.kernels import fused_mlp as FM
     assert set(build._LIBS) == set(build.build_info)
-    for mod in (FM, FD):
+    for mod in (FM, FD, FA):
         assert mod.SOURCE.exists() and mod.SOURCE.suffix == ".cu"
         assert mod.SOURCE.parent == build.CSRC
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
