@@ -8,8 +8,10 @@ version at the main path's shapes: the whole-MLP forward at the serving
 path's (both models' G at 64 rows, im2col's also at 1024), and the dense
 layer's forward, dx and dW/db kernels at Algorithm 1's (batch 1024;
 2048 -> 2048, G's head 2048 -> 73, D's first layer 81 -> 2048, D's head
-2048 -> 2).  Then, with the paper's G and D (11 x 2048, batch 1024,
-random weights from fixed seeds):
+2048 -> 2), the tensor-core pair (dx, dW/db: 3xTF32) also against a
+float64 product, with ptxas's report checked for spills.  Then, with the
+paper's G and D (11 x 2048, batch 1024, random weights from fixed
+seeds):
 
 - one Algorithm 1 step on im2col through the kernels against the same
   step on the plain versions (losses, every gradient, the new params),
@@ -76,6 +78,7 @@ from repro_torch.train import step as TS  # noqa: E402
 PEAK_F32_FLOPS = 67e12      # float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # HBM3
 PEAK_BF16_FLOPS = 989e12    # bf16 in the tensor cores
+PEAK_TF32_FLOPS = 495e12    # TF32 in the tensor cores
 N_TASKS = 64
 TOL = 1e-4                  # max|y_k - y_ref| <= TOL * max(1, max|y_ref|)
 BATCH = 1024                # Algorithm 1's batch (Table 4)
@@ -93,6 +96,8 @@ DENSE_KERNELS = {
     "dense_dx_f32": (fd.dense_dx, "src/repro/kernels/fused_mlp.py:121"),
     "dense_dw_db_f32": (fd.dense_dw_db, "src/repro/kernels/fused_mlp.py:143"),
 }
+#: the kernels on the tensor cores, three TF32 products a product (3xTF32)
+TF32_KERNELS = ("dense_dx_f32", "dense_dw_db_f32")
 #: the flash kernel's shapes: (B, H, Hkv, Sq, Sk, D, causal, window,
 #: q_offset).  gemma3-1b's global and local layers at the prefill's 2 x
 #: 4096 tokens, benchmarks/bench_kernels.py's shape, a continued prefill
@@ -175,24 +180,69 @@ def build_all() -> None:
         print(str(info["log"]).strip(), flush=True)
 
 
-def bound(n_bytes: float, flops: float) -> tuple:
-    t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES, flops / PEAK_F32_FLOPS
+def check_spills() -> dict:
+    """ptxas's report (-Xptxas -v) for each instantiation of the
+    tensor-core kernel: registers and no spill stores or loads."""
+    source, kernel = "dense_train.cu", "gemm_3xtf32_kernel"
+    log = str(build.build_info[source]["log"])
+    if not log:
+        print(f"{source} was loaded from an earlier build: no ptxas report",
+              flush=True)
+        return {}
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            name = line.split("Function properties for ")[1].strip()
+        elif name and kernel in name and "spill stores" in line:
+            stores, loads = (int(line.split(" bytes spill " + w)[0]
+                                 .split(",")[-1]) for w in ("stores",
+                                                            "loads"))
+            assert stores == 0 and loads == 0, f"{name} spills: {line}"
+            out[name] = dict(spill_stores=stores, spill_loads=loads)
+        elif name and kernel in name and "Used " in line:
+            out[name]["registers"] = int(line.split("Used ")[1].split()[0])
+            name = None
+    assert out, f"no {kernel} in the ptxas report of {source}"
+    print(f"{kernel}: {len(out)} instantiations, registers "
+          f"{sorted(v.get('registers') for v in out.values())}, no spills",
+          flush=True)
+    return out
+
+
+def bound(n_bytes: float, flops: float, peak: float = PEAK_F32_FLOPS) -> tuple:
+    t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def dense_bound_ms(kernel: str, m: int, k: int, n: int, relu: bool) -> tuple:
-    """Least time for one dense kernel on this card: each operand read once
-    and each output written once over HBM, against its float32 flops (the
-    2·M·K·N product, the bias adds or db sums, the mask multiplies) at the
-    non-tensor peak."""
+def dense_work(kernel: str, m: int, k: int, n: int, relu: bool) -> tuple:
+    """Bytes one dense kernel must move (each operand read once, each
+    output written once) and its float32 flops (the 2·M·K·N product, the
+    bias adds or db sums, the mask multiplies)."""
     dy_y = m * n * (2 if relu else 1)         # dy, and y for the mask
     mask = m * n if relu else 0
     if kernel == "dense_forward_f32":
-        return bound(4 * (m * k + k * n + n + m * n), 2 * m * k * n + m * n)
+        return 4 * (m * k + k * n + n + m * n), 2 * m * k * n + m * n
     if kernel == "dense_dx_f32":
-        return bound(4 * (dy_y + k * n + m * k), 2 * m * k * n + mask)
-    return bound(4 * (m * k + dy_y + k * n + n), 2 * m * k * n + m * n + mask)
+        return 4 * (dy_y + k * n + m * k), 2 * m * k * n + mask
+    return 4 * (m * k + dy_y + k * n + n), 2 * m * k * n + m * n + mask
+
+
+def simt_bound_ms(kernel: str, m: int, k: int, n: int, relu: bool) -> float:
+    """Least time for one dense kernel outside the tensor cores: its bytes
+    over HBM against its flops at the float32 SIMT peak."""
+    return bound(*dense_work(kernel, m, k, n, relu))[0]
+
+
+def dense_bound_ms(kernel: str, m: int, k: int, n: int, relu: bool) -> tuple:
+    """Least time for one dense kernel on this card, the way it computes:
+    the forward at the float32 SIMT peak (simt_bound_ms); the backward
+    pair on the tensor cores, its bytes over HBM against three TF32
+    products of 2·M·K·N flops at 495 TFLOP/s (operations, 3xTF32)."""
+    n_bytes, flops = dense_work(kernel, m, k, n, relu)
+    if kernel not in TF32_KERNELS:
+        return bound(n_bytes, flops)
+    return bound(n_bytes, 3 * 2 * m * k * n, PEAK_TF32_FLOPS)
 
 
 def kept_pairs(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
@@ -233,10 +283,29 @@ def _hold(label: str, got, want) -> float:
     return err
 
 
+def library_tf32_ms(fn) -> float:
+    """CUDA-event median of `fn` with TF32 allowed in float32 matmuls
+    (restored after): for information beside the float32 library time."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return cuda_ms(fn)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def library_dw_db(x, dy, y, relu: bool) -> tuple:
+    """dW and db in PyTorch calls from the kernel's own inputs (the mask
+    included, as dx's library call includes it)."""
+    g = dy * (y > 0) if relu else dy
+    return x.t() @ g, g.sum(0)
+
+
 def check_dense() -> dict:
     """Phase 2b: each dense kernel against its plain version at Algorithm
-    1's shapes; two calls give the same bits; CUDA-event medians of the
-    kernel, the plain version and one library call."""
+    1's shapes; two calls give the same bits; the tensor-core pair's
+    errors from a float64 product, each no more than 4x the plain float32
+    version's plus 1e-6·scale; CUDA-event medians of the kernel, the plain
+    version and one library call (float32, and with TF32 allowed)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     rows = {name: {} for name in DENSE_KERNELS}
     for label, (m, k, n, relu) in DENSE_SHAPES.items():
@@ -259,8 +328,11 @@ def check_dense() -> dict:
             "dense_dw_db_f32": (
                 lambda: fd.dense_dw_db(x, dy, y, relu),
                 lambda: ref.dense_dw_db(x, dy, y, relu),
-                lambda: (x.t() @ g, g.sum(0))),
+                lambda: library_dw_db(x, dy, y, relu)),
         }
+        g64 = g.double()
+        exact = {"dense_dx_f32": (g64 @ w.double().t(),),
+                 "dense_dw_db_f32": (x.double().t() @ g64, g64.sum(0))}
         for name, (kern, plain, library) in calls.items():
             got, want = kern(), plain()
             again = kern()
@@ -272,12 +344,35 @@ def check_dense() -> dict:
             assert all(torch.equal(a, c) for a, c in zip(got, again)), \
                 f"{name} {label}: two calls differ"
             bnd, by = dense_bound_ms(name, m, k, n, relu)
-            rows[name][label] = dict(
-                max_abs_err=err, ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
-                library_ms=cuda_ms(library), bound_ms=bnd, bound_by=by)
+            row = dict(max_abs_err=err)
+            if name in TF32_KERNELS:
+                row.update(float64_errors(f"{name} {label}", got, want,
+                                          exact[name]))
+            row.update(
+                ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
+                library_ms=cuda_ms(library),
+                library_tf32_ms=library_tf32_ms(library), bound_ms=bnd,
+                bound_by=by, simt_bound_ms=simt_bound_ms(name, m, k, n, relu),
+                bound_peak=("3xTF32, 495 TFLOP/s" if name in TF32_KERNELS
+                            else "float32 SIMT, 67 TFLOP/s"))
+            rows[name][label] = row
             print(f"dense {name} {label}: " + json.dumps(rows[name][label]),
                   flush=True)
     return rows
+
+
+def float64_errors(label: str, got, want, exact) -> dict:
+    """Max errors of the kernel's and the plain version's outputs from
+    the float64 product; the kernel's at most 4x the plain float32
+    version's plus 1e-6·scale (what a single-pass TF32 kernel misses)."""
+    e_k = e_p = 0.0
+    for a, p_, t in zip(got, want, exact):
+        ek, ep = _err(a.double(), t), _err(p_.double(), t)
+        scale = max(1.0, float(t.abs().max())) if t.numel() else 1.0
+        assert ek <= 4 * ep + 1e-6 * scale, \
+            f"{label}: {ek} from float64, plain float32 {ep}"
+        e_k, e_p = max(e_k, ek), max(e_p, ep)
+    return dict(max_abs_err_f64=e_k, plain_max_abs_err_f64=e_p)
 
 
 def check_step(model) -> dict:
@@ -836,6 +931,7 @@ def main() -> int:
 
     # phase 1: build every kernel, one nvcc per source, in parallel
     build_all()
+    spills = check_spills()
 
     # phase 2: each kernel against its plain version; one full-width step
     kern = check_kernel()
@@ -906,8 +1002,8 @@ def main() -> int:
         "replaces": replaces,
         "launches": train_launches[name],
         "max_abs_err": max(r["max_abs_err"] for r in dense[name].values()),
-        **{k: dense[name]["hidden 2048->2048"][k]
-           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: v for k, v in dense[name]["hidden 2048->2048"].items()
+           if k != "max_abs_err"},
         "launches_per_step": step["launches"][name],
         "shapes": {label: dense[name][label] for label in DENSE_SHAPES
                    if label != "hidden 2048->2048"},
@@ -931,7 +1027,8 @@ def main() -> int:
             json.dump({"card": card, "kernels": table["kernels"],
                        "paths": paths, "step": step, "train": train,
                        "quality": quality, "prefill": prefill,
-                       "serve": lm_serve, "build": build.build_info},
+                       "serve": lm_serve, "build": build.build_info,
+                       "ptxas_tensor_core_kernels": spills},
                       fh, indent=1)
     print(json.dumps(table), flush=True)
     print(card, flush=True)

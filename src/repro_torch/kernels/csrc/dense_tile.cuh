@@ -1,11 +1,13 @@
-// The float32 SIMT GEMM tile shared by the port's dense kernels
-// (mlp_forward.cu, dense_train.cu), for Hopper (sm_90a).
+// The float32 SIMT GEMM tile of the port's forward kernels (mlp_forward.cu,
+// dense_train.cu's dense_forward_f32), for Hopper (sm_90a); its
+// reduce_splits_kernel also sums the split slices of gemm_3xtf32.cuh, the
+// tensor-core tile of the backward kernels.
 //
 //   C (P, Q) = sum over r of A(p, r) * B(r, q)
 //
-// A and B are read in either layout, so one tile serves the forward
-// (x · W), the input gradient (g · Wᵀ, W read transposed in place) and the
-// weight gradient (xᵀ · g, x read transposed in place):
+// A and B are read in either layout (the transposed, masked and COLSUM
+// options have no caller since the backward kernels moved to
+// gemm_3xtf32.cuh; they go when the forward pair moves too):
 //   A_T false: A is stored (P, R) row-major;  A_T true: stored (R, P).
 //   B_T false: B is stored (R, Q) row-major;  B_T true: stored (Q, R).
 // An operand may carry a ReLU mask (MASK_A, MASK_B): a tensor of its own

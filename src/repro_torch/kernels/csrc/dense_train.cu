@@ -8,37 +8,42 @@
 // Replaces the Pallas kernels `_fused_dense_kernel`, `_dx_kernel` and
 // `_dw_db_kernel` (src/repro/kernels/fused_mlp.py, launched by `_forward` and
 // `_backward`, the custom_vjp of `fused_dense`).  Those run a sequential
-// reduction grid axis with an accumulator in VMEM; here each is one grid of
-// the 64 x 64 float32 tile of dense_tile.cuh, reducing inside the block:
+// reduction grid axis with an accumulator in VMEM; here each is one grid
+// that reduces inside the block:
 //
-// - forward: A = x, B = W, bias and ReLU in the epilogue.
-// - dx: A = dy with the mask from y applied as the tile is loaded, B = W
-//   read transposed in place (no Wᵀ copy).
-// - dW, db: A = x read transposed in place, B = dy masked on load; the
-//   blocks of the first K tile also sum g's columns over M for db in the
-//   same pass, as the TPU kernel's k_blk == 0 sweep does.  No atomics, so
-//   two calls give the same bits.
+// - forward: the 64 x 64 float32 SIMT tile of dense_tile.cuh, A = x,
+//   B = W, bias and ReLU in the epilogue.  A call with fewer tiles than
+//   the card's 132 SMs (the heads) splits K into K / 256 slices (at most
+//   8) through the caller's workspace.
+// - dx: under relu, one elementwise pass writes g = dy ⊙ [y > 0] to the
+//   workspace; then the 128 x 128 tensor-core tile of gemm_3xtf32.cuh
+//   (mma.sync TF32, each operand split into big + small: float32-accurate)
+//   with A = g and B = W read transposed in place (no Wᵀ copy).
+// - dW, db: the same mask pass and tile, A = x read transposed in place,
+//   B = g; the blocks of the first K tile also sum g's columns over M for
+//   db in the same pass, as the TPU kernel's k_blk == 0 sweep does.
 //
-// At Algorithm 1's batch (M = 1024) a 2048 -> 2048 layer has 512 output
-// tiles in each of the three, enough for the card.  A call with fewer
-// tiles than the card's 132 SMs (the heads, and dx of D's first layer,
-// 1024 x 81) splits its reduction into R / 256 slices (at most 8) through
-// the caller's workspace; dW never has to (its reduction is M).
+// Both backward kernels split their reduction where the output has too
+// few 128 x 128 tiles to fill the card (dx at D's first layer, 1024 x 81;
+// dW at D's first layer and at both heads), summing the slices in order.
+// No atomics anywhere, so two calls give the same bits.
 //
-// What bounds it: each kernel does 2·M·K·N flops and moves each operand
-// once; at a hidden layer that is 8.6 GFLOP against 34-42 MB, so the
-// float32 FMA rate (67 TFLOP/s on an H100 SXM, about 0.13 ms) bounds it,
-// not the bytes (about 0.01 ms).  This SIMT tile reaches a fraction of that
-// rate; wgmma with TMA under an explicit precision opt-in is later work.
+// What bounds them: each kernel does 2·M·K·N flops and moves each operand
+// once; at a hidden layer that is 8.6 GFLOP against 34-42 MB.  The
+// forward, in SIMT float32, is bound by the 67 TFLOP/s FMA rate (about
+// 0.13 ms); the backward pair, at three TF32 products, by 495 TFLOP/s
+// (about 0.052 ms); the bytes take about 0.01 ms.  The forward's move to
+// the tensor-core tile, and wgmma with TMA, are later work (PERF.md).
 #include "dense_tile.cuh"
+#include "gemm_3xtf32.cuh"
 
 namespace {
 
 constexpr int NUM_SMS = 132;
 
-// R slices for a C (p, q) with reduction r: split only when the output
-// tiles alone cannot occupy every SM
-int train_splits(int p, int q, int r) {
+// K slices of the forward's y (p, q): split only when the output tiles
+// alone cannot occupy every SM
+int forward_splits(int p, int q, int r) {
   const long long tiles = (long long)((p + dense_tile::BM - 1) / dense_tile::BM) *
                           ((q + dense_tile::BN - 1) / dense_tile::BN);
   return tiles >= NUM_SMS ? 1 : dense_tile::r_splits(r);
@@ -46,10 +51,20 @@ int train_splits(int p, int q, int r) {
 
 }  // namespace
 
-// Workspace (floats) that dense_forward_f32 (p = M, q = N, r = K) or
-// dense_dx_f32 (p = M, q = K, r = N) needs.
+// Workspace (floats) that dense_forward_f32 (p = M, q = N, r = K) needs.
 extern "C" long long dense_train_workspace(int p, int q, int r) {
-  return dense_tile::split_workspace(p, q, train_splits(p, q, r));
+  return dense_tile::split_workspace(p, q, forward_splits(p, q, r));
+}
+
+// Workspace (floats) that dense_dx_f32 and dense_dw_db_f32 need at a
+// layer x (M, K) -> y (M, N): g = dy ⊙ [y > 0] under relu, then the
+// partial tiles of a split reduction (dx: p = M, q = K, r = N; dW: p = K,
+// q = N, r = M).
+extern "C" long long dense_backward_workspace(int m, int k, int n,
+                                              int relu) {
+  const long long dx = gemm3::workspace(m, k, n);
+  const long long dw = gemm3::workspace(k, n, m);
+  return (relu ? (long long)m * n : 0) + (dx > dw ? dx : dw);
 }
 
 // y (M, N) = [relu](x (M, K) · w (K, N) + b (N,)).  All row-major and
@@ -60,35 +75,50 @@ extern "C" int dense_forward_f32(const float* x, const float* w,
                                  int relu, float* work, void* stream) {
   return dense_tile::launch_gemm<false, false>(
       x, nullptr, w, nullptr, b, y, work, nullptr, m, n, k,
-      train_splits(m, n, k), relu, static_cast<cudaStream_t>(stream));
+      forward_splits(m, n, k), relu, static_cast<cudaStream_t>(stream));
 }
 
+namespace {
+
+// g = dy ⊙ [y > 0] written to the head of work under relu, else dy itself;
+// *rest is the workspace past g.  Returns a CUDA error, 0 on success.
+int masked(const float* dy, const float* y, int m, int n, int relu,
+           float* work, const float** g, float** rest, cudaStream_t st) {
+  *g = dy;
+  *rest = work;
+  if (!relu) return 0;
+  *g = work;
+  *rest = work + (size_t)m * n;
+  return gemm3::launch_relu_mask(dy, y, work, (long long)m * n, st);
+}
+
+}  // namespace
+
 // dx (M, K) = (dy ⊙ [y > 0]) (M, N) · w (K, N)ᵀ; without relu the mask is
-// skipped (y may then be null).  work holds dense_train_workspace(m, k, n)
-// floats.
+// skipped (y may then be null).  work holds dense_backward_workspace(m, k,
+// n, relu) floats.
 extern "C" int dense_dx_f32(const float* dy, const float* y, const float* w,
                             float* dx, int m, int k, int n, int relu,
                             float* work, void* stream) {
-  const int splits = train_splits(m, k, n);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return relu ? dense_tile::launch_gemm<false, true, true>(
-                    dy, y, w, nullptr, nullptr, dx, work, nullptr, m, k, n,
-                    splits, 0, st)
-              : dense_tile::launch_gemm<false, true>(
-                    dy, nullptr, w, nullptr, nullptr, dx, work, nullptr, m, k,
-                    n, splits, 0, st);
+  const float* g;
+  float* rest;
+  const int err = masked(dy, y, m, n, relu, work, &g, &rest, st);
+  if (err) return err;
+  return gemm3::launch<false, true, false>(g, w, dx, nullptr, rest, m, k, n,
+                                           st);
 }
 
 // dw (K, N) = x (M, K)ᵀ · g and db (N,) = Σ_M g, g = dy ⊙ [y > 0] (relu)
-// or dy, in one pass.
+// or dy, in one pass.  work holds dense_backward_workspace(m, k, n, relu)
+// floats.
 extern "C" int dense_dw_db_f32(const float* x, const float* dy, const float* y,
                                float* dw, float* db, int m, int k, int n,
-                               int relu, void* stream) {
+                               int relu, float* work, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return relu ? dense_tile::launch_gemm<true, false, false, true, true>(
-                    x, nullptr, dy, y, nullptr, dw, nullptr, db, k, n, m, 1, 0,
-                    st)
-              : dense_tile::launch_gemm<true, false, false, false, true>(
-                    x, nullptr, dy, nullptr, nullptr, dw, nullptr, db, k, n, m,
-                    1, 0, st);
+  const float* g;
+  float* rest;
+  const int err = masked(dy, y, m, n, relu, work, &g, &rest, st);
+  if (err) return err;
+  return gemm3::launch<true, false, true>(x, g, dw, db, rest, k, n, m, st);
 }

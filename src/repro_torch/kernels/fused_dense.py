@@ -11,11 +11,15 @@ saves too.  Every G and D layer of the training step runs through them
 (``nn/layers.mlp_apply`` -> ``kernels/dispatch.dense`` -> ``fused_dense``).
 
 Bound on an H100 SXM at a hidden layer of the training step (M = 1024,
-K = N = 2048): 8.6 GFLOP each against 34-42 MB of operands, so the
-float32 FMA rate (about 0.13 ms per kernel) bounds all three.  The design
-(the 64 x 64 SIMT tile of ``csrc/dense_tile.cuh``, masks and transposes
-applied on the load, a split reduction only where the output has fewer
-tiles than SMs) is simple first; PERF.md keeps its times beside the bound.
+K = N = 2048): 8.6 GFLOP each against 34-42 MB of operands, so each is
+bound by operations.  The forward runs on the 64 x 64 SIMT tile of
+``csrc/dense_tile.cuh`` (float32 FMA rate, about 0.13 ms).  The two
+backward kernels run on the tensor cores (``csrc/gemm_3xtf32.cuh``:
+mma.sync TF32 with each operand split into big + small parts, three
+products, float32-accurate and held to the same tolerance; about 0.052
+ms at 495 TFLOP/s).  Masks and transposes are applied as the tiles land,
+and a reduction is split only where the output has too few tiles for the
+card; PERF.md keeps the times beside the bounds.
 
 The device rule lives in each kernel's wrapper (``dense_forward``,
 ``dense_dx``, ``dense_dw_db``): a CPU tensor gets the plain version
@@ -41,10 +45,12 @@ SOURCE = _build.CSRC / "dense_train.cu"
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dense_train_workspace.argtypes = [i, i, i]
-    lib.dense_train_workspace.restype = ctypes.c_longlong
+    lib.dense_backward_workspace.argtypes = [i, i, i, i]
+    for ws in (lib.dense_train_workspace, lib.dense_backward_workspace):
+        ws.restype = ctypes.c_longlong
     lib.dense_forward_f32.argtypes = [p, p, p, p, i, i, i, i, p, p]
     lib.dense_dx_f32.argtypes = [p, p, p, p, i, i, i, i, p, p]
-    lib.dense_dw_db_f32.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.dense_dw_db_f32.argtypes = [p, p, p, p, p, i, i, i, i, p, p]
     for fn in (lib.dense_forward_f32, lib.dense_dx_f32, lib.dense_dw_db_f32):
         fn.restype = ctypes.c_int
 
@@ -72,9 +78,7 @@ def _check(*operands: Tuple[str, torch.Tensor, Tuple[int, ...]]) -> None:
     _build.check_operands(device, ((name, t) for name, t, _ in operands))
 
 
-def _workspace(lib: ctypes.CDLL, p: int, q: int, r: int,
-               device: torch.device) -> torch.Tensor:
-    n = lib.dense_train_workspace(p, q, r)
+def _workspace(n: int, device: torch.device) -> torch.Tensor:
     return torch.empty(max(n, 1), dtype=torch.float32, device=device)
 
 
@@ -102,7 +106,7 @@ def dense_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     # the workspace is freed on return while the kernel may still run:
     # safe, because the caching allocator reuses it only for work queued
     # later on this same stream
-    work = _workspace(lib, m, n, k, x.device)
+    work = _workspace(lib.dense_train_workspace(m, n, k), x.device)
     with torch.cuda.device(x.device):
         _raise_on(lib.dense_forward_f32(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), m, k, n,
@@ -124,7 +128,8 @@ def dense_dx(dy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     if m == 0:
         return dx
     lib = load_library()
-    work = _workspace(lib, m, k, n, dy.device)
+    work = _workspace(lib.dense_backward_workspace(m, k, n, int(relu)),
+                      dy.device)
     with torch.cuda.device(dy.device):
         _raise_on(lib.dense_dx_f32(
             dy.data_ptr(), y.data_ptr(), w.data_ptr(), dx.data_ptr(), m, k, n,
@@ -147,11 +152,13 @@ def dense_dw_db(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
     if m == 0:
         return dw.zero_(), db.zero_()
     lib = load_library()
+    work = _workspace(lib.dense_backward_workspace(m, k, n, int(relu)),
+                      x.device)
     with torch.cuda.device(x.device):
         _raise_on(lib.dense_dw_db_f32(
             x.data_ptr(), dy.data_ptr(), y.data_ptr(), dw.data_ptr(),
-            db.data_ptr(), m, k, n, int(relu), _stream(x.device)),
-            "dense_dw_db_f32")
+            db.data_ptr(), m, k, n, int(relu), work.data_ptr(),
+            _stream(x.device)), "dense_dw_db_f32")
     dense_dw_db.launches += 1
     return dw, db
 

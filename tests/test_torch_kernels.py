@@ -254,6 +254,85 @@ def test_mlp_apply_rejects_fused_non_relu_and_honors_it_otherwise(rng):
 
 
 # ---------------------------------------------------------------------------
+# the backward kernels' 3xTF32 split, emulated on the CPU
+# ---------------------------------------------------------------------------
+def tf32_rna(a):
+    """float32 -> TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32`` rounds:
+    to nearest, ties away from zero (on the magnitude bits)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tf32_read(a):
+    """What a tensor core reads of a float32 operand: its top 19 bits."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_product(a, b, terms):
+    """a @ b as the backward kernels' tensor cores form it, each product
+    exact in float64: big·big alone (1xTF32) or with big·small and
+    small·big (3xTF32; small·small dropped).  big = tf32_rna(v), small =
+    v - big taken in float32 and read by the tensor cores as TF32, as in
+    the kernel."""
+    a_big, b_big = tf32_rna(a), tf32_rna(b)
+    a_small, b_small = _tf32_read(a - a_big), _tf32_read(b - b_big)
+    f = lambda u: u.astype(np.float64)
+    out = f(a_big) @ f(b_big)
+    if terms == 3:
+        out += f(a_small) @ f(b_big) + f(a_big) @ f(b_small)
+    return out
+
+
+def _backward_operands(kind, m, k, n, seed=0):
+    """(A, B) of dx = g·Wᵀ or dW = xᵀ·g at a dense layer (M, K, N), with
+    g = dy ⊙ [y > 0] and W He-scaled, as the training step feeds them."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * (2.0 / k) ** 0.5).astype(np.float32)
+    dy = rng.normal(size=(m, n)).astype(np.float32)
+    y = rng.normal(size=(m, n)).astype(np.float32)
+    g = dy * (y > 0).astype(np.float32)
+    return (g, w.T) if kind == "dx" else (x.T, g)
+
+
+def _scaled_err(got, want):
+    return float(np.abs(got - want).max()) / max(1.0, float(
+        np.abs(want).max()))
+
+
+#: (M, K, N): a hidden layer with M cut to 256, the narrow layers of
+#: Algorithm 1 (D's first 81 -> 2048, G's head -> 73, D's head -> 2) and a
+#: width no 4-float copy divides
+SPLIT_SHAPES = [(256, 2048, 2048), (256, 81, 2048), (256, 2048, 73),
+                (256, 2048, 2), (257, 81, 37)]
+
+
+@pytest.mark.parametrize("kind", ["dx", "dw"])
+@pytest.mark.parametrize("m,k,n", SPLIT_SHAPES)
+def test_3xtf32_split_is_float32_accurate(kind, m, k, n):
+    """The three-term TF32 product within 1e-6·max(1, max|ref|) of the
+    float64 product: the split costs the kernels nothing against their
+    1e-4 tolerance."""
+    a, b = _backward_operands(kind, m, k, n)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    assert _scaled_err(_tf32_product(a, b, 3), want) <= 1e-6
+
+
+def test_1xtf32_misses_the_kernel_tolerance():
+    """Why the split: one TF32 product of dx-shaped operands at a hidden
+    layer (M cut to 256) misses the 1e-4 tolerance, and the split gains
+    over two orders of magnitude on it."""
+    a, b = _backward_operands("dx", 256, 2048, 2048)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    one = _scaled_err(_tf32_product(a, b, 1), want)
+    three = _scaled_err(_tf32_product(a, b, 3), want)
+    assert one > 1e-4
+    assert three < one / 100
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 @pytest.fixture
@@ -322,6 +401,7 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(h100):
 CUDA_DENSE_SHAPES = DENSE_SHAPES + [
     (1024, 2048, 2048), (1024, 2048, 73), (1024, 81, 2048), (1024, 2048, 2),
     (129, 33, 64), (300, 16, 2048), (64, 1000, 520),
+    (257, 81, 37), (1024, 37, 2),    # 4-byte copies on every operand
 ]
 
 
@@ -359,7 +439,7 @@ def test_cuda_dense_kernels_match_plain(m, k, n, relu, h100, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(1024, 2048, 73), (1024, 81, 2048),
-                                   (37, 29, 73)])
+                                   (37, 29, 73), (1024, 2048, 2048)])
 def test_cuda_dense_kernels_give_the_same_bits_twice(m, k, n, h100, rng):
     """No atomics: two calls give identical bits (split reductions sum
     their slices in order, db is summed by one block per column tile)."""
@@ -372,6 +452,32 @@ def test_cuda_dense_kernels_give_the_same_bits_twice(m, k, n, h100, rng):
         for u, v in zip(a if isinstance(a, tuple) else (a,),
                         c if isinstance(c, tuple) else (c,)):
             assert torch.equal(u, v), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("m,k,n", [(1024, 2048, 2048), (1024, 81, 2048),
+                                   (1024, 2048, 73)])
+def test_cuda_dense_backward_is_float32_accurate(m, k, n, relu, h100, rng):
+    """The tensor-core backward kernels are no further from a float64
+    product than 4x the plain float32 product is, plus 1e-6·scale: what a
+    single-pass TF32 kernel (~1e3x further) cannot meet."""
+    x, w, b, dy = _on(h100, *_dense_inputs(rng, m, k, n))
+    y = ref.fused_dense(x, w, b, relu)
+    g64 = (dy * (y > 0) if relu else dy).double()
+    want = {"dx": g64 @ w.double().t(), "dw": x.double().t() @ g64,
+            "db": g64.sum(0)}
+    got = dict(zip(("dw", "db"), FD.dense_dw_db(x, dy, y, relu)),
+               dx=FD.dense_dx(dy, y, w, relu))
+    plain = dict(zip(("dw", "db"), ref.dense_dw_db(x, dy, y, relu)),
+                 dx=ref.dense_dx(dy, y, w, relu))
+    torch.cuda.synchronize()
+    for name, t in want.items():
+        scale = max(1.0, float(t.abs().max()))
+        e_kernel = float((got[name].double() - t).abs().max())
+        e_plain = float((plain[name].double() - t).abs().max())
+        assert e_kernel <= 4 * e_plain + 1e-6 * scale, \
+            f"{name}: {e_kernel} from float64, plain {e_plain}"
 
 
 @pytest.mark.cuda
