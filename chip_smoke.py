@@ -5,13 +5,14 @@
 Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, in parallel) and holds each against its plain PyTorch
 version at the main path's shapes: the whole-MLP forward at the serving
-path's (both models' G at 64 rows, im2col's also at 1024), and the dense
-layer's forward, dx and dW/db kernels at Algorithm 1's (batch 1024;
-2048 -> 2048, G's head 2048 -> 73, D's first layer 81 -> 2048, D's head
-2048 -> 2), the tensor-core pair (dx, dW/db: 3xTF32) also against a
-float64 product, with ptxas's report checked for spills.  Then, with the
-paper's G and D (11 x 2048, batch 1024, random weights from fixed
-seeds):
+path's (both models' G at 64 rows, im2col's also at 1024; a row's bits
+the same at 3, 64 and 1024 rows), and the dense layer's forward, dx and
+dW/db kernels at Algorithm 1's (batch 1024; 2048 -> 2048, G's head 2048
+-> 73, D's first layer 81 -> 2048, D's head 2048 -> 2); every one of
+these runs on the 3xTF32 tensor-core tile, so each is also held to a
+float64 product, and ptxas's report of both sources is checked for
+spills.  Then, with the paper's G and D (11 x 2048, batch 1024, random
+weights from fixed seeds):
 
 - one Algorithm 1 step on im2col through the kernels against the same
   step on the plain versions (losses, every gradient, the new params),
@@ -97,7 +98,7 @@ DENSE_KERNELS = {
     "dense_dw_db_f32": (fd.dense_dw_db, "src/repro/kernels/fused_mlp.py:143"),
 }
 #: the kernels on the tensor cores, three TF32 products a product (3xTF32)
-TF32_KERNELS = ("dense_dx_f32", "dense_dw_db_f32")
+TF32_KERNELS = ("dense_forward_f32", "dense_dx_f32", "dense_dw_db_f32")
 #: the flash kernel's shapes: (B, H, Hkv, Sq, Sk, D, causal, window,
 #: q_offset).  gemma3-1b's global and local layers at the prefill's 2 x
 #: 4096 tokens, benchmarks/bench_kernels.py's shape, a continued prefill
@@ -143,15 +144,29 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def mlp_bound_ms(m: int, ws, bs) -> tuple:
-    """Least time for the whole-MLP forward on this card: each input read
-    once and the output written once over HBM, against 2*M*K*N float32
-    FMA flops (+ the bias adds) at the non-tensor peak."""
+def mlp_work(m: int, ws, bs) -> tuple:
+    """Bytes the whole-MLP forward must move (each input read once, the
+    output written once) and its 2·M·K·N product flops per layer (the
+    bias adds apart)."""
     d_in, d_out = ws[0].shape[0], ws[-1].shape[1]
     n_bytes = 4 * (m * d_in + sum(w.numel() for w in ws)
                    + sum(b.numel() for b in bs) + m * d_out)
-    flops = sum(2 * m * w.shape[0] * w.shape[1] + m * w.shape[1] for w in ws)
-    return bound(n_bytes, flops)
+    return n_bytes, sum(2 * m * w.shape[0] * w.shape[1] for w in ws)
+
+
+def mlp_bound_ms(m: int, ws, bs) -> tuple:
+    """Least time for the whole-MLP forward on this card, the way it
+    computes: its bytes over HBM against three TF32 products at 495
+    TFLOP/s (3xTF32)."""
+    n_bytes, flops = mlp_work(m, ws, bs)
+    return bound(n_bytes, 3 * flops, PEAK_TF32_FLOPS)
+
+
+def mlp_simt_bound_ms(m: int, ws, bs) -> float:
+    """The same bound outside the tensor cores: the product and the bias
+    adds at the float32 SIMT peak."""
+    n_bytes, flops = mlp_work(m, ws, bs)
+    return bound(n_bytes, flops + m * sum(b.numel() for b in bs))[0]
 
 
 def zero_counts() -> None:
@@ -180,32 +195,40 @@ def build_all() -> None:
         print(str(info["log"]).strip(), flush=True)
 
 
+#: the sources whose tensor-core tile instantiations ptxas must not spill
+TILE_SOURCES = ("dense_train.cu", "mlp_forward.cu")
+
+
 def check_spills() -> dict:
     """ptxas's report (-Xptxas -v) for each instantiation of the
-    tensor-core kernel: registers and no spill stores or loads."""
-    source, kernel = "dense_train.cu", "gemm_3xtf32_kernel"
-    log = str(build.build_info[source]["log"])
-    if not log:
-        print(f"{source} was loaded from an earlier build: no ptxas report",
-              flush=True)
-        return {}
-    out, name = {}, None
-    for line in log.splitlines():
-        if "Function properties for " in line:
-            name = line.split("Function properties for ")[1].strip()
-        elif name and kernel in name and "spill stores" in line:
-            stores, loads = (int(line.split(" bytes spill " + w)[0]
-                                 .split(",")[-1]) for w in ("stores",
-                                                            "loads"))
-            assert stores == 0 and loads == 0, f"{name} spills: {line}"
-            out[name] = dict(spill_stores=stores, spill_loads=loads)
-        elif name and kernel in name and "Used " in line:
-            out[name]["registers"] = int(line.split("Used ")[1].split()[0])
-            name = None
-    assert out, f"no {kernel} in the ptxas report of {source}"
-    print(f"{kernel}: {len(out)} instantiations, registers "
-          f"{sorted(v.get('registers') for v in out.values())}, no spills",
-          flush=True)
+    tensor-core kernel in each source that holds it: registers and no
+    spill stores or loads."""
+    kernel, out = "gemm_3xtf32_kernel", {}
+    for source in TILE_SOURCES:
+        log = str(build.build_info[source]["log"])
+        if not log:
+            print(f"{source} was loaded from an earlier build: no ptxas "
+                  "report", flush=True)
+            continue
+        found, name = {}, None
+        for line in log.splitlines():
+            if "Function properties for " in line:
+                name = line.split("Function properties for ")[1].strip()
+            elif name and kernel in name and "spill stores" in line:
+                stores, loads = (int(line.split(" bytes spill " + w)[0]
+                                     .split(",")[-1]) for w in ("stores",
+                                                                "loads"))
+                assert stores == 0 and loads == 0, f"{name} spills: {line}"
+                found[name] = dict(spill_stores=stores, spill_loads=loads)
+            elif name and kernel in name and "Used " in line:
+                found[name]["registers"] = int(
+                    line.split("Used ")[1].split()[0])
+                name = None
+        assert found, f"no {kernel} in the ptxas report of {source}"
+        print(f"{kernel} in {source}: {len(found)} instantiations, "
+              f"registers {sorted(v.get('registers') for v in found.values())}"
+              ", no spills", flush=True)
+        out[source] = found
     return out
 
 
@@ -236,9 +259,8 @@ def simt_bound_ms(kernel: str, m: int, k: int, n: int, relu: bool) -> float:
 
 def dense_bound_ms(kernel: str, m: int, k: int, n: int, relu: bool) -> tuple:
     """Least time for one dense kernel on this card, the way it computes:
-    the forward at the float32 SIMT peak (simt_bound_ms); the backward
-    pair on the tensor cores, its bytes over HBM against three TF32
-    products of 2·M·K·N flops at 495 TFLOP/s (operations, 3xTF32)."""
+    on the tensor cores, its bytes over HBM against three TF32 products
+    of 2·M·K·N flops at 495 TFLOP/s (3xTF32)."""
     n_bytes, flops = dense_work(kernel, m, k, n, relu)
     if kernel not in TF32_KERNELS:
         return bound(n_bytes, flops)
@@ -302,10 +324,10 @@ def library_dw_db(x, dy, y, relu: bool) -> tuple:
 
 def check_dense() -> dict:
     """Phase 2b: each dense kernel against its plain version at Algorithm
-    1's shapes; two calls give the same bits; the tensor-core pair's
-    errors from a float64 product, each no more than 4x the plain float32
-    version's plus 1e-6·scale; CUDA-event medians of the kernel, the plain
-    version and one library call (float32, and with TF32 allowed)."""
+    1's shapes; two calls give the same bits; each kernel's errors from a
+    float64 product no more than 4x the plain float32 version's plus
+    1e-6·scale; CUDA-event medians of the kernel, the plain version and
+    one library call (float32, and with TF32 allowed)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     rows = {name: {} for name in DENSE_KERNELS}
     for label, (m, k, n, relu) in DENSE_SHAPES.items():
@@ -331,7 +353,9 @@ def check_dense() -> dict:
                 lambda: library_dw_db(x, dy, y, relu)),
         }
         g64 = g.double()
-        exact = {"dense_dx_f32": (g64 @ w.double().t(),),
+        y64 = x.double() @ w.double() + b.double()
+        exact = {"dense_forward_f32": (torch.relu(y64) if relu else y64,),
+                 "dense_dx_f32": (g64 @ w.double().t(),),
                  "dense_dw_db_f32": (x.double().t() @ g64, g64.sum(0))}
         for name, (kern, plain, library) in calls.items():
             got, want = kern(), plain()
@@ -345,16 +369,14 @@ def check_dense() -> dict:
                 f"{name} {label}: two calls differ"
             bnd, by = dense_bound_ms(name, m, k, n, relu)
             row = dict(max_abs_err=err)
-            if name in TF32_KERNELS:
-                row.update(float64_errors(f"{name} {label}", got, want,
-                                          exact[name]))
+            row.update(float64_errors(f"{name} {label}", got, want,
+                                      exact[name]))
             row.update(
                 ms=cuda_ms(kern), plain_ms=cuda_ms(plain),
                 library_ms=cuda_ms(library),
                 library_tf32_ms=library_tf32_ms(library), bound_ms=bnd,
                 bound_by=by, simt_bound_ms=simt_bound_ms(name, m, k, n, relu),
-                bound_peak=("3xTF32, 495 TFLOP/s" if name in TF32_KERNELS
-                            else "float32 SIMT, 67 TFLOP/s"))
+                bound_peak="3xTF32, 495 TFLOP/s")
             rows[name][label] = row
             print(f"dense {name} {label}: " + json.dumps(rows[name][label]),
                   flush=True)
@@ -513,7 +535,7 @@ def profile_step(step, args) -> dict:
     return dict(profiled_wall_ms=1e3 * wall, device_busy_ms=busy_us / 1e3,
                 device_idle_share=1.0 - busy_us / 1e3 / (1e3 * wall),
                 device_launches=sum(e.count for e in dev),
-                top_kernels=[[e.key[:60], e.count,
+                top_kernels=[[e.key[:110], e.count,
                               e.self_device_time_total / 1e3] for e in top])
 
 
@@ -579,7 +601,9 @@ def quality_run() -> dict:
 def check_kernel() -> dict:
     """Phase 2: the kernel against its plain version at the serving
     path's shapes: each model's G at full width with M = 64 (the main
-    path's rows), and im2col's also at M = 1024."""
+    path's rows), and im2col's also at M = 1024, the smaller batches the
+    leading rows of the larger; a row's bits are the same in a call of
+    3, 64 or 1024 rows (the 64-row and the 128-row tile)."""
     rows = {}
     for model, ms in ((Im2colModel(), (N_TASKS, 1024)),
                       (DnnWeaverModel(), (N_TASKS,))):
@@ -590,22 +614,50 @@ def check_kernel() -> dict:
         # nonzero biases so the epilogue is exercised
         bs = [torch.randn(p["b"].shape, generator=gen, device="cuda") * 0.1
               for p in params["layers"]]
+        x_all = torch.randn(max(ms), ws[0].shape[0], generator=gen,
+                            device="cuda")
+        ys = {}
         for m in ms:
-            x = torch.randn(m, ws[0].shape[0], generator=gen, device="cuda")
-            rows[model.name, m] = _check_one(f"{model.name} M={m}", x, ws, bs)
+            rows[model.name, m], ys[m] = _check_one(
+                f"{model.name} M={m}", x_all[:m], ws, bs)
+        # a row's result does not depend on the rows that share the call
+        ys[3] = fm.fused_mlp(x_all[5:8].contiguous(), ws, bs)
+        torch.cuda.synchronize()
+        for m in ms:
+            assert torch.equal(ys[3], ys[m][5:8]), \
+                f"{model.name}: rows 5:8 differ between M=3 and M={m}"
+            assert torch.equal(ys[min(ms)], ys[m][:min(ms)]), \
+                f"{model.name}: rows differ between M={min(ms)} and M={m}"
+        print(f"kernel rows {model.name}: the same bits at M = "
+              f"{sorted(ys)}", flush=True)
     return rows
 
 
-def _check_one(label: str, x, ws, bs) -> dict:
+def mlp_float64(x, ws, bs):
+    """The whole-MLP chain in float64 (hidden ReLU, linear head)."""
+    y = x.double()
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        y = y @ w.double() + b.double()
+        if i < len(ws) - 1:
+            y = torch.relu(y)
+    return y
+
+
+def _check_one(label: str, x, ws, bs) -> tuple:
+    """The kernel at one batch against its plain version and a float64
+    chain, twice for the same bits, then timed; returns (row, output)."""
     m = x.shape[0]
     y_k = fm.fused_mlp(x, ws, bs)
+    again = fm.fused_mlp(x, ws, bs)
     y_r = ref.fused_mlp(x, ws, bs)
+    y_64 = mlp_float64(x, ws, bs)
     torch.cuda.synchronize()
     assert y_r.shape == (m, ws[-1].shape[1]), y_r.shape
     err = _hold(f"whole-MLP kernel at {label}", y_k, y_r)
-    print(f"kernel check {label}: max_abs_err={err:.3e}", flush=True)
-    # a row's result does not depend on the rows that share the call
-    assert torch.equal(fm.fused_mlp(x[5:8].contiguous(), ws, bs), y_k[5:8])
+    assert torch.equal(y_k, again), f"whole-MLP {label}: two calls differ"
+    f64 = float64_errors(f"whole-MLP {label}", (y_k,), (y_r,), (y_64,))
+    print(f"kernel check {label}: max_abs_err={err:.3e} "
+          + json.dumps(f64), flush=True)
 
     def library():
         h = x
@@ -617,13 +669,16 @@ def _check_one(label: str, x, ws, bs) -> dict:
 
     bound, bound_by = mlp_bound_ms(m, ws, bs)
     row = dict(
-        max_abs_err=err,
+        max_abs_err=err, same_bits=True, **f64,
         ms=cuda_ms(lambda: fm.fused_mlp(x, ws, bs)),
         plain_ms=cuda_ms(lambda: ref.fused_mlp(x, ws, bs)),
         library_ms=cuda_ms(library),
-        bound_ms=bound, bound_by=bound_by)
+        library_tf32_ms=library_tf32_ms(library),
+        bound_ms=bound, bound_by=bound_by,
+        simt_bound_ms=mlp_simt_bound_ms(m, ws, bs),
+        bound_peak="3xTF32, 495 TFLOP/s")
     print(f"kernel times {label}: " + json.dumps(row), flush=True)
-    return row
+    return row, y_k
 
 
 def drive_path(model) -> dict:
@@ -725,7 +780,7 @@ def profile_path(name: str, run: dict) -> dict:
                profiled_wall_ms=1e3 * wall, device_busy_ms=busy_us / 1e3,
                device_idle_share=1.0 - busy_us / 1e3 / (1e3 * wall),
                device_launches=sum(e.count for e in dev),
-               top_kernels=[[e.key[:60], e.count,
+               top_kernels=[[e.key[:110], e.count,
                              e.self_device_time_total / 1e3] for e in top])
     print(f"profile {name}: " + json.dumps(out), flush=True)
     return out

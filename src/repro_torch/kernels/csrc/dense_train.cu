@@ -9,51 +9,35 @@
 // `_dw_db_kernel` (src/repro/kernels/fused_mlp.py, launched by `_forward` and
 // `_backward`, the custom_vjp of `fused_dense`).  Those run a sequential
 // reduction grid axis with an accumulator in VMEM; here each is one grid
-// that reduces inside the block:
+// that reduces inside the block, on the 128 x 128 tensor-core tile of
+// gemm_3xtf32.cuh (mma.sync TF32, each operand split into big + small:
+// float32-accurate):
 //
-// - forward: the 64 x 64 float32 SIMT tile of dense_tile.cuh, A = x,
-//   B = W, bias and ReLU in the epilogue.  A call with fewer tiles than
-//   the card's 132 SMs (the heads) splits K into K / 256 slices (at most
-//   8) through the caller's workspace.
+// - forward: A = x, B = W, both read as stored; the bias and ReLU in the
+//   tile's epilogue, after the full sum over K.
 // - dx: under relu, one elementwise pass writes g = dy ⊙ [y > 0] to the
-//   workspace; then the 128 x 128 tensor-core tile of gemm_3xtf32.cuh
-//   (mma.sync TF32, each operand split into big + small: float32-accurate)
-//   with A = g and B = W read transposed in place (no Wᵀ copy).
+//   workspace; then A = g and B = W read transposed in place (no Wᵀ
+//   copy).
 // - dW, db: the same mask pass and tile, A = x read transposed in place,
 //   B = g; the blocks of the first K tile also sum g's columns over M for
 //   db in the same pass, as the TPU kernel's k_blk == 0 sweep does.
 //
-// Both backward kernels split their reduction where the output has too
-// few 128 x 128 tiles to fill the card (dx at D's first layer, 1024 x 81;
-// dW at D's first layer and at both heads), summing the slices in order.
-// No atomics anywhere, so two calls give the same bits.
+// Each kernel splits its reduction where the output has too few 128 x 128
+// tiles to fill the card (gemm3::splits, from the shape alone: the
+// forward at the heads, dx at D's first layer, 1024 x 81, dW at D's first
+// layer and at both heads), summing the slices in order, then adding the
+// bias and applying ReLU.  No atomics anywhere, so two calls give the
+// same bits.
 //
 // What bounds them: each kernel does 2·M·K·N flops and moves each operand
-// once; at a hidden layer that is 8.6 GFLOP against 34-42 MB.  The
-// forward, in SIMT float32, is bound by the 67 TFLOP/s FMA rate (about
-// 0.13 ms); the backward pair, at three TF32 products, by 495 TFLOP/s
-// (about 0.052 ms); the bytes take about 0.01 ms.  The forward's move to
-// the tensor-core tile, and wgmma with TMA, are later work (PERF.md).
-#include "dense_tile.cuh"
+// once; at a hidden layer that is 8.6 GFLOP against 34-42 MB.  At three
+// TF32 products and 495 TFLOP/s that is about 0.052 ms; the bytes take
+// about 0.01 ms.  wgmma with TMA is later work (PERF.md).
 #include "gemm_3xtf32.cuh"
-
-namespace {
-
-constexpr int NUM_SMS = 132;
-
-// K slices of the forward's y (p, q): split only when the output tiles
-// alone cannot occupy every SM
-int forward_splits(int p, int q, int r) {
-  const long long tiles = (long long)((p + dense_tile::BM - 1) / dense_tile::BM) *
-                          ((q + dense_tile::BN - 1) / dense_tile::BN);
-  return tiles >= NUM_SMS ? 1 : dense_tile::r_splits(r);
-}
-
-}  // namespace
 
 // Workspace (floats) that dense_forward_f32 (p = M, q = N, r = K) needs.
 extern "C" long long dense_train_workspace(int p, int q, int r) {
-  return dense_tile::split_workspace(p, q, forward_splits(p, q, r));
+  return gemm3::workspace(p, q, r);
 }
 
 // Workspace (floats) that dense_dx_f32 and dense_dw_db_f32 need at a
@@ -73,9 +57,9 @@ extern "C" long long dense_backward_workspace(int m, int k, int n,
 extern "C" int dense_forward_f32(const float* x, const float* w,
                                  const float* b, float* y, int m, int k, int n,
                                  int relu, float* work, void* stream) {
-  return dense_tile::launch_gemm<false, false>(
-      x, nullptr, w, nullptr, b, y, work, nullptr, m, n, k,
-      forward_splits(m, n, k), relu, static_cast<cudaStream_t>(stream));
+  gemm3::Gemm g{x, w, y, m, n, k, gemm3::splits(m, n, k), work, b, relu};
+  return gemm3::launch<false, false, gemm3::BIAS>(
+      g, static_cast<cudaStream_t>(stream));
 }
 
 namespace {
@@ -105,8 +89,8 @@ extern "C" int dense_dx_f32(const float* dy, const float* y, const float* w,
   float* rest;
   const int err = masked(dy, y, m, n, relu, work, &g, &rest, st);
   if (err) return err;
-  return gemm3::launch<false, true, false>(g, w, dx, nullptr, rest, m, k, n,
-                                           st);
+  return gemm3::launch<false, true, gemm3::NONE>(
+      gemm3::Gemm{g, w, dx, m, k, n, gemm3::splits(m, k, n), rest}, st);
 }
 
 // dw (K, N) = x (M, K)ᵀ · g and db (N,) = Σ_M g, g = dy ⊙ [y > 0] (relu)
@@ -120,5 +104,7 @@ extern "C" int dense_dw_db_f32(const float* x, const float* dy, const float* y,
   float* rest;
   const int err = masked(dy, y, m, n, relu, work, &g, &rest, st);
   if (err) return err;
-  return gemm3::launch<true, false, true>(x, g, dw, db, rest, k, n, m, st);
+  gemm3::Gemm call{x, g, dw, k, n, m, gemm3::splits(k, n, m), rest};
+  call.colsum = db;
+  return gemm3::launch<true, false, gemm3::COLSUM>(call, st);
 }

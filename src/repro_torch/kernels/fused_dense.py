@@ -12,14 +12,14 @@ saves too.  Every G and D layer of the training step runs through them
 
 Bound on an H100 SXM at a hidden layer of the training step (M = 1024,
 K = N = 2048): 8.6 GFLOP each against 34-42 MB of operands, so each is
-bound by operations.  The forward runs on the 64 x 64 SIMT tile of
-``csrc/dense_tile.cuh`` (float32 FMA rate, about 0.13 ms).  The two
-backward kernels run on the tensor cores (``csrc/gemm_3xtf32.cuh``:
-mma.sync TF32 with each operand split into big + small parts, three
-products, float32-accurate and held to the same tolerance; about 0.052
-ms at 495 TFLOP/s).  Masks and transposes are applied as the tiles land,
-and a reduction is split only where the output has too few tiles for the
-card; PERF.md keeps the times beside the bounds.
+bound by operations.  All three run on the tensor cores
+(``csrc/gemm_3xtf32.cuh``: mma.sync TF32 with each operand split into
+big + small parts, three products, float32-accurate and held to the same
+tolerance; about 0.052 ms at 495 TFLOP/s).  The forward adds the bias
+and applies ReLU in the tile's epilogue; masks and transposes of the
+backward pair are applied before or as the tiles land; a reduction is
+split only where the output has too few tiles for the card.  PERF.md
+keeps the times beside the bounds.
 
 The device rule lives in each kernel's wrapper (``dense_forward``,
 ``dense_dx``, ``dense_dw_db``): a CPU tensor gets the plain version

@@ -8,21 +8,23 @@ accumulation.  The TPU kernel padded every layer onto one (h, h) square
 and kept the activations in VMEM; this kernel keeps each layer's own
 shape, masks the ragged edges, and ping-pongs the activations through two
 scratch buffers (about 512 KB at 64 rows, resident in the 50 MB L2).
-Layers with K >= 512 are split along K, with partial tiles in a workspace
-the wrapper allocates and a second kernel summing them in order.
+Each layer is one launch of the tensor-core tile of
+``csrc/gemm_3xtf32.cuh`` (3xTF32: float32-accurate), shared with the
+training kernels of ``kernels/fused_dense.py``, with the bias and ReLU in
+its epilogue.  Layers with K >= 512 are cut into K slices by K alone,
+summed in order either across the grid (partial tiles in a workspace the
+wrapper allocates, then a second kernel) or inside each block, whichever
+the shape favours; each way gives a row the same bits, so a row's bits do
+not depend on the batch.
 
 Bound on an H100 SXM: for the im2col generator at 64 rows (~42.1 M
-weights, ~169 MB read once, ~5.4 GFLOP) the float32 arithmetic at
-67 TFLOP/s (~81 us) outweighs the bytes at 3.35 TB/s (~51 us).  This first
-design is a plain register-tiled SIMT GEMM per layer (split along K so 64
-rows still fill the card) and reaches a fraction of that; PERF.md keeps
-its measured time beside the bound.
+weights, ~169 MB read once) the bytes at 3.35 TB/s (~51 us) outweigh
+three TF32 products at 495 TFLOP/s (~33 us); PERF.md keeps the measured
+time beside the bound.
 
 The kernel is built with ``nvcc`` at first use from the sources in this
 package into ``kernels/build/`` (``kernels/build.py``: a plain C
 interface, loaded with ctypes) and launched on PyTorch's current stream.
-Its 64 x 64 tile is ``csrc/dense_tile.cuh``, shared with the training
-kernels of ``kernels/fused_dense.py``.
 
 The device rule lives in each kernel's wrapper, here ``fused_mlp``: a CPU
 tensor gets the plain version (``kernels/ref.py``); a CUDA tensor gets the

@@ -254,7 +254,7 @@ def test_mlp_apply_rejects_fused_non_relu_and_honors_it_otherwise(rng):
 
 
 # ---------------------------------------------------------------------------
-# the backward kernels' 3xTF32 split, emulated on the CPU
+# the dense kernels' 3xTF32 split, emulated on the CPU
 # ---------------------------------------------------------------------------
 def tf32_rna(a):
     """float32 -> TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32`` rounds:
@@ -271,7 +271,7 @@ def _tf32_read(a):
 
 
 def _tf32_product(a, b, terms):
-    """a @ b as the backward kernels' tensor cores form it, each product
+    """a @ b as the dense kernels' tensor cores form it, each product
     exact in float64: big·big alone (1xTF32) or with big·small and
     small·big (3xTF32; small·small dropped).  big = tf32_rna(v), small =
     v - big taken in float32 and read by the tensor cores as TF32, as in
@@ -285,16 +285,27 @@ def _tf32_product(a, b, terms):
     return out
 
 
-def _backward_operands(kind, m, k, n, seed=0):
-    """(A, B) of dx = g·Wᵀ or dW = xᵀ·g at a dense layer (M, K, N), with
-    g = dy ⊙ [y > 0] and W He-scaled, as the training step feeds them."""
+def _split_operands(kind, m, k, n, seed=0):
+    """(A, B, bias) of the forward x·W + b, dx = g·Wᵀ or dW = xᵀ·g at a
+    dense layer (M, K, N), with g = dy ⊙ [y > 0] and W He-scaled, as the
+    training step feeds them; bias is None for the backward pair."""
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(m, k)).astype(np.float32)
     w = (rng.normal(size=(k, n)) * (2.0 / k) ** 0.5).astype(np.float32)
     dy = rng.normal(size=(m, n)).astype(np.float32)
     y = rng.normal(size=(m, n)).astype(np.float32)
     g = dy * (y > 0).astype(np.float32)
-    return (g, w.T) if kind == "dx" else (x.T, g)
+    if kind == "forward":
+        return x, w, (rng.normal(size=(n,)) * 0.1).astype(np.float32)
+    return ((g, w.T) if kind == "dx" else (x.T, g)) + (None,)
+
+
+def _tf32_layer(x, w, b, relu):
+    """The forward kernel's layer as its tile forms it: the 3xTF32 sum
+    rounded to float32, then + b in float32, then ReLU (the order of
+    `_fused_dense_kernel`'s epilogue)."""
+    y = _tf32_product(x, w, 3).astype(np.float32) + b
+    return np.maximum(y, np.float32(0)) if relu else y
 
 
 def _scaled_err(got, want):
@@ -309,22 +320,47 @@ SPLIT_SHAPES = [(256, 2048, 2048), (256, 81, 2048), (256, 2048, 73),
                 (256, 2048, 2), (257, 81, 37)]
 
 
-@pytest.mark.parametrize("kind", ["dx", "dw"])
+@pytest.mark.parametrize("kind", ["dx", "dw", "forward"])
 @pytest.mark.parametrize("m,k,n", SPLIT_SHAPES)
 def test_3xtf32_split_is_float32_accurate(kind, m, k, n):
     """The three-term TF32 product within 1e-6·max(1, max|ref|) of the
     float64 product: the split costs the kernels nothing against their
-    1e-4 tolerance."""
-    a, b = _backward_operands(kind, m, k, n)
+    1e-4 tolerance.  The forward also adds the bias and applies ReLU in
+    the kernel's order, against relu(x·W + b) in float64."""
+    a, b, bias = _split_operands(kind, m, k, n)
     want = a.astype(np.float64) @ b.astype(np.float64)
-    assert _scaled_err(_tf32_product(a, b, 3), want) <= 1e-6
+    if bias is None:
+        got = _tf32_product(a, b, 3)
+    else:
+        got = _tf32_layer(a, b, bias, True)
+        want = np.maximum(want + bias, 0.0)
+    assert _scaled_err(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("m,widths", [(64, [16, 512, 512, 512, 29]),
+                                      (64, [16, 256, 256, 73])])
+def test_3xtf32_whole_mlp_is_float32_accurate(m, widths):
+    """The whole-MLP chain layer by layer as the tile forms it (hidden
+    ReLU, linear head; the serving path's 64 rows, input 16, heads 29 and
+    73) within 1e-6·max(1, max|ref|) of the chain in float64."""
+    rng = np.random.default_rng(0)
+    ws, bs = _mlp(rng, widths)
+    x = rng.normal(size=(m, widths[0])).astype(np.float32)
+    got, want = x, x.astype(np.float64)
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        last = i == len(ws) - 1
+        got = _tf32_layer(got, w, b, not last)
+        want = want @ w.astype(np.float64) + b
+        want = want if last else np.maximum(want, 0.0)
+    assert got.shape == (m, widths[-1])
+    assert _scaled_err(got, want) <= 1e-6
 
 
 def test_1xtf32_misses_the_kernel_tolerance():
     """Why the split: one TF32 product of dx-shaped operands at a hidden
     layer (M cut to 256) misses the 1e-4 tolerance, and the split gains
     over two orders of magnitude on it."""
-    a, b = _backward_operands("dx", 256, 2048, 2048)
+    a, b, _ = _split_operands("dx", 256, 2048, 2048)
     want = a.astype(np.float64) @ b.astype(np.float64)
     one = _scaled_err(_tf32_product(a, b, 1), want)
     three = _scaled_err(_tf32_product(a, b, 3), want)
@@ -351,6 +387,9 @@ def h100():
     (129, [16, 33, 64, 73]),         # three row tiles, ragged
     (300, [16, 2048, 2048, 29]),     # K split into 8 slices
     (64, [16, 1000, 520, 73]),       # K split into 3 and 2 uneven slices
+    (64, [16, 2048, 2048, 29]),      # the 64-row tile, split
+    (65, [16, 300, 29]),             # the 128-row tile from 65 rows
+    (1024, [16, 2048, 2048, 73]),    # the 128-row tile, split
 ])
 def test_cuda_kernel_matches_plain(m, widths, h100, rng):
     ws, bs = _mlp(rng, widths)
@@ -368,16 +407,59 @@ def test_cuda_kernel_matches_plain(m, widths, h100, rng):
 
 @pytest.mark.cuda
 def test_cuda_kernel_rows_do_not_depend_on_the_batch(h100, rng):
-    """The K split depends on K alone, so a row's bits are the same in a
-    64-row call and a 3-row call (what keeps a task's Selection
-    independent of its batch)."""
+    """The K slices depend on K alone, and every tile and way of summing
+    them does a row's arithmetic the same, so a row's bits are the same
+    in a 1024-row call (slices folded in the block), a 300-row one
+    (128-row tile, split across the grid), a 64-row and a 3-row one
+    (64-row tile): what keeps a task's Selection independent of its
+    batch."""
     ws, bs = _mlp(rng, [16, 2048, 2048, 73])
-    x = torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(1024, 16)).astype(np.float32))
     tw = [torch.from_numpy(w).to(h100) for w in ws]
     tb = [torch.from_numpy(b).to(h100) for b in bs]
     full = FM.fused_mlp(x.to(h100), tw, tb)
+    mid = FM.fused_mlp(x[:300].contiguous().to(h100), tw, tb)
+    tasks = FM.fused_mlp(x[:64].contiguous().to(h100), tw, tb)
     part = FM.fused_mlp(x[5:8].contiguous().to(h100), tw, tb)
+    assert torch.equal(full[:300], mid)
+    assert torch.equal(full[:64], tasks)
     assert torch.equal(full[5:8], part)
+    assert torch.equal(tasks[5:8], part)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [64, 1024])
+def test_cuda_kernel_gives_the_same_bits_twice(m, h100, rng):
+    """No atomics: two calls of the whole MLP give identical bits."""
+    ws, bs = _mlp(rng, [16, 2048, 2048, 29])
+    x = torch.from_numpy(rng.normal(size=(m, 16)).astype(np.float32))
+    x, tw, tb = (x.to(h100), [torch.from_numpy(w).to(h100) for w in ws],
+                 [torch.from_numpy(b).to(h100) for b in bs])
+    assert torch.equal(FM.fused_mlp(x, tw, tb), FM.fused_mlp(x, tw, tb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,widths", [(64, [16, 2048, 2048, 2048, 29]),
+                                      (1024, [16, 2048, 2048, 73]),
+                                      (3, [16, 1000, 520, 73])])
+def test_cuda_whole_mlp_is_float32_accurate(m, widths, h100, rng):
+    """The whole-MLP kernel no further from the float64 chain than 4x the
+    plain float32 chain is, plus 1e-6·scale."""
+    ws, bs = _mlp(rng, widths)
+    x = torch.from_numpy(rng.normal(size=(m, widths[0])).astype(np.float32))
+    x, tw, tb = (x.to(h100), [torch.from_numpy(w).to(h100) for w in ws],
+                 [torch.from_numpy(b).to(h100) for b in bs])
+    want = x.double()
+    for i, (w, b) in enumerate(zip(tw, tb)):
+        want = want @ w.double() + b.double()
+        want = want if i == len(tw) - 1 else torch.relu(want)
+    got, plain = FM.fused_mlp(x, tw, tb), ref.fused_mlp(x, tw, tb)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.abs().max()))
+    e_kernel = float((got.double() - want).abs().max())
+    e_plain = float((plain.double() - want).abs().max())
+    assert e_kernel <= 4 * e_plain + 1e-6 * scale, \
+        f"{e_kernel} from float64, plain {e_plain}"
 
 
 @pytest.mark.cuda
@@ -478,6 +560,26 @@ def test_cuda_dense_backward_is_float32_accurate(m, k, n, relu, h100, rng):
         e_plain = float((plain[name].double() - t).abs().max())
         assert e_kernel <= 4 * e_plain + 1e-6 * scale, \
             f"{name}: {e_kernel} from float64, plain {e_plain}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("m,k,n", [(1024, 2048, 2048), (1024, 2048, 73),
+                                   (1024, 81, 2048), (1024, 2048, 2)])
+def test_cuda_dense_forward_is_float32_accurate(m, k, n, relu, h100, rng):
+    """The tensor-core forward kernel no further from [relu](x·W + b) in
+    float64 than 4x the plain float32 version is, plus 1e-6·scale."""
+    x, w, b, _ = _on(h100, *_dense_inputs(rng, m, k, n))
+    want = x.double() @ w.double() + b.double()
+    want = torch.relu(want) if relu else want
+    got = FD.dense_forward(x, w, b, relu)
+    plain = ref.fused_dense(x, w, b, relu)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.abs().max()))
+    e_kernel = float((got.double() - want).abs().max())
+    e_plain = float((plain.double() - want).abs().max())
+    assert e_kernel <= 4 * e_plain + 1e-6 * scale, \
+        f"{e_kernel} from float64, plain {e_plain}"
 
 
 @pytest.mark.cuda
