@@ -9,9 +9,9 @@ this package never sees a ``jax.Array``.  The numpy form of a train state
 is ``{"g_params", "d_params", "g_opt": {"step", "mu", "nu"}, "d_opt":
 {...}, "rng"}``: float32 leaves, an int32 step, and the uint32 (2,) key.
 
-Use it to start both packages from one state: this package's own
-initialisation draws from a ``torch.Generator`` and does not reproduce
-``jax.random.normal``.
+Use it to start both packages from one given state.  G's and D's own
+initialisation already reproduces the reference's from a seed; the LM
+substrate's draws from a ``torch.Generator`` and does not.
 """
 from __future__ import annotations
 

@@ -10,9 +10,9 @@ Both are multilayer perceptrons with ReLU activations and Adam optimizers
 the card, G's inference runs through the whole-MLP kernel (``chained``)
 and every training forward and backward through the dense kernels.
 
-Initial weights are drawn from a ``torch.Generator`` and do not reproduce
-the reference's ``jax.random.normal`` draws; to start both packages from
-one state, carry it across with ``repro_torch.convert``.
+Initial weights come from a threefry key through ``core/prng.normal``:
+the same key gives the reference's ``jax.random.normal`` weights, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -57,18 +57,21 @@ class GANConfig:
             batch_size=batch_size or self.batch_size)
 
 
-def init_generator(gen: torch.Generator, cfg: GANConfig, space: ConfigSpace,
+def init_generator(key: torch.Tensor, cfg: GANConfig, space: ConfigSpace,
                    device):
+    """G's weights from a threefry key ((2,) int64), as the reference's
+    ``init_generator`` draws them from the same key."""
     in_dim = cfg.n_net + cfg.n_obj + cfg.noise_dim
     hidden = [cfg.g_neurons] * cfg.g_hidden_layers
-    return L.mlp_init(gen, in_dim, hidden, space.onehot_width, device)
+    return L.mlp_init(key, in_dim, hidden, space.onehot_width, device)
 
 
-def init_discriminator(gen: torch.Generator, cfg: GANConfig,
+def init_discriminator(key: torch.Tensor, cfg: GANConfig,
                        space: ConfigSpace, device):
+    """D's weights from a threefry key, as `init_generator`."""
     in_dim = cfg.n_net + space.onehot_width + cfg.n_obj
     hidden = [cfg.d_neurons] * cfg.d_hidden_layers
-    return L.mlp_init(gen, in_dim, hidden, 2, device)
+    return L.mlp_init(key, in_dim, hidden, 2, device)
 
 
 def generator_apply(params, space: ConfigSpace, net_enc: torch.Tensor,

@@ -221,17 +221,15 @@ def encode_dataset(model: DesignModel, ds: Dataset,
 
 def init_state(model: DesignModel, cfg: G.GANConfig, seed: int,
                device) -> TrainState:
-    """A fresh train state on `device`: G and D weights from a
-    ``torch.Generator`` seeded with `seed` (they differ from the
-    reference's ``jax.random`` draws), zero Adam moments, and the
-    reference's own rng carry, ``split(PRNGKey(seed), 3)[0]`` (keys 1 and 2
-    seed the reference's weights)."""
+    """A fresh train state on `device`, the reference's own: ``rng, g_key,
+    d_key = split(PRNGKey(seed), 3)``, G's and D's weights drawn from
+    g_key and d_key (bit for bit the reference's), zero Adam moments, and
+    rng as the carry."""
     device = resolve_device(device)
     key = prng.prng_key(torch.tensor(seed, dtype=torch.int64))
-    rng = prng.split(key, 3)[0].to(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    g_params = G.init_generator(gen, cfg, model.space, device)
-    d_params = G.init_discriminator(gen, cfg, model.space, device)
+    rng, g_key, d_key = prng.split(key, 3).to(device)
+    g_params = G.init_generator(g_key, cfg, model.space, device)
+    d_params = G.init_discriminator(d_key, cfg, model.space, device)
     return TrainState(g_params, d_params, adam(cfg.g_lr).init(g_params),
                       adam(cfg.d_lr).init(d_params), rng)
 

@@ -6,18 +6,21 @@ Replaces the Pallas kernel ``_flash_kernel`` (reference package,
 sliding-window masks with the finite ``NEG_INF``, an online softmax in
 float32, the key tiles outside the band skipped, ``q_offset`` for a
 continued prefill, kv head = q head // group read in place.  float32 or
-bf16 in, float32 arithmetic, the output in q's dtype.  Head dims 16, 32,
-64, 128 and 256.
+bf16 in, float32-accurate arithmetic on the tensor cores (3xTF32 for
+float32; exact bf16 products and a bf16 hi + lo split of P for bf16), the
+output in q's dtype.  Head dims 16, 32, 64, 128 and 256.
 
 The wrapper takes (B, H, S, D) tensors whose last dim is contiguous and
 passes the other three strides to the kernel, so a (B, S, H, D) tensor
 viewed with ``transpose(1, 2)`` is read in place; the output is allocated
 in q's own layout (``empty_like``), so ``nn/attention`` gets (B, S, H, D)
-back without a copy.
+back without a copy.  Rows are copied 16 bytes at a time, so each row
+must start on a 16-byte boundary.
 
-Bound on an H100 SXM: the 4·D flops of QKᵀ and PV per kept (query, key)
-pair at the float32 rate (67 TFLOP/s); the bytes of q, k, v and o are two
-orders of magnitude smaller at the LM's shapes.
+Bound on an H100 SXM, the way the kernel computes: per kept (query, key)
+pair 12·D flops of TF32 products at 495 TFLOP/s (float32) or 6·D of bf16
+at 989 TFLOP/s; the bytes of q, k, v and o are two orders of magnitude
+smaller at the LM's shapes.
 
 The device rule lives here: a CPU tensor gets the plain version
 (``kernels/ref.flash_attention``); a CUDA tensor gets the kernel or an
@@ -68,17 +71,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     _build.check_card(q.device, "the flash-attention kernel")
     if q.dtype not in _ENTRY:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    # the kernel reads 4 elements at a time along d: rows must be aligned
-    align = 16 if q.dtype == torch.float32 else 8
+    # the kernel copies 16 bytes at a time along d: rows must be aligned
+    per16 = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, expected {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if t.stride(3) != 1 or t.data_ptr() % align or any(
-                s % 4 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
-            raise ValueError(f"{name} needs a contiguous, {align}-byte "
-                             f"aligned last dim, got strides {t.stride()}")
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+                s % per16 for s, n in zip(t.stride()[:3], t.shape[:3])
+                if n > 1):
+            raise ValueError(f"{name} needs a contiguous, 16-byte aligned "
+                             f"last dim, got strides {t.stride()}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

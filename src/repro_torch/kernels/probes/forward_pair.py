@@ -77,11 +77,13 @@ def device_ms(fn, reps: int = 5) -> float:
 
 def g_params():
     from repro_torch.core import gan as G
+    from repro_torch.core import prng
     from repro_torch.design_models import Im2colModel
     model = Im2colModel()
     cfg = G.GANConfig(n_net=model.net_space.n_dims)
     gen = torch.Generator(device="cuda").manual_seed(11)
-    params = G.init_generator(gen, cfg, model.space, "cuda")
+    params = G.init_generator(prng.prng_key(torch.tensor(11)), cfg,
+                              model.space, "cuda")
     ws = [p["w"] for p in params["layers"]]
     bs = [torch.randn(p["b"].shape, generator=gen, device="cuda") * 0.1
           for p in params["layers"]]

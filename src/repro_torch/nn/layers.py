@@ -12,29 +12,28 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels import dispatch as D
 
 
-def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, device,
-               scale: Optional[float] = None):
-    """He init (ReLU nets) unless `scale` is given; zero bias."""
-    s = scale if scale is not None else (2.0 / in_dim) ** 0.5
-    w = torch.randn(in_dim, out_dim, generator=gen, dtype=torch.float32,
-                    device=device) * s
-    return {"w": w, "b": torch.zeros(out_dim, dtype=torch.float32,
-                                     device=device)}
-
-
-def mlp_init(gen: torch.Generator, in_dim: int, hidden: Sequence[int],
+def mlp_init(key: torch.Tensor, in_dim: int, hidden: Sequence[int],
              out_dim: int, device):
-    """Hidden layers He-initialized, the linear head at 1/sqrt(fan_in).
-    `gen` must live on `device` (torch draws on the generator's device)."""
+    """The reference's ``mlp_init``, bit for bit: layer i draws its weights
+    ``normal(split(keys[i])[0], (in, out)) * s`` from ``keys =
+    split(key, n_layers)`` (``core/prng``; `key` a (2,) int64 threefry
+    key), with s the He scale (ReLU layers) or 1/sqrt(in) at the linear
+    head; zero biases.  All layers are drawn in one `prng.normals` call."""
     dims = [in_dim, *hidden, out_dim]
+    keys = prng.split(key.to(device), len(dims) - 1)
+    ws = prng.normals(prng.split(keys)[:, 0],
+                      [i * o for i, o in zip(dims[:-1], dims[1:])])
     layers = []
-    for i in range(len(dims) - 1):
-        last = i == len(dims) - 2
-        scale = (1.0 / dims[i]) ** 0.5 if last else None
-        layers.append(dense_init(gen, dims[i], dims[i + 1], device, scale))
+    for i, w in enumerate(ws):
+        last = i == len(ws) - 1
+        s = (1.0 / dims[i]) ** 0.5 if last else (2.0 / dims[i]) ** 0.5
+        layers.append({"w": w.reshape(dims[i], dims[i + 1]) * s,
+                       "b": torch.zeros(dims[i + 1], dtype=torch.float32,
+                                        device=device)})
     return {"layers": layers}
 
 

@@ -34,6 +34,7 @@ from repro_torch.convert import g_params_from_numpy, g_params_to_numpy
 from repro_torch.core import dse_api as API
 from repro_torch.core import explorer as E
 from repro_torch.core import gan as G
+from repro_torch.core import prng
 from repro_torch.core import shard
 from repro_torch.core.encoding import ConfigDim, ConfigSpace
 from repro_torch.core.fused_select import fused_select_batch
@@ -338,7 +339,7 @@ def test_explore_batch_rows_do_not_depend_on_batch_placement():
 def test_params_round_trip_and_pad_tasks_match_reference(rng):
     from repro.core import shard as jshard
     cfg = G.GANConfig(n_net=6).scaled(2, 16)
-    p = G.init_generator(torch.Generator().manual_seed(1), cfg,
+    p = G.init_generator(prng.prng_key(torch.tensor(1)), cfg,
                          Im2colModel().space, "cpu")
     back = g_params_from_numpy(g_params_to_numpy(p), "cpu")
     for a, b in zip(p["layers"], back["layers"]):

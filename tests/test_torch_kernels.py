@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels import dispatch as D
 from repro_torch.kernels import fused_dense as FD
 from repro_torch.kernels import fused_mlp as FM
@@ -107,15 +108,15 @@ def test_mlp_apply_matches_reference(rng):
 
 
 def test_mlp_init_shapes_and_scales():
-    gen = torch.Generator().manual_seed(0)
-    p = L.mlp_init(gen, 16, [256, 256], 29, "cpu")
+    key = prng.prng_key(torch.tensor(0))
+    p = L.mlp_init(key, 16, [256, 256], 29, "cpu")
     assert [tuple(q["w"].shape) for q in p["layers"]] == \
         [(16, 256), (256, 256), (256, 29)]
     assert all(float(q["b"].abs().max()) == 0.0 for q in p["layers"])
     # He init on hidden layers, 1/sqrt(fan_in) on the head
     assert abs(float(p["layers"][1]["w"].std()) - (2 / 256) ** 0.5) < 0.01
     assert abs(float(p["layers"][2]["w"].std()) - (1 / 256) ** 0.5) < 0.01
-    again = L.mlp_init(torch.Generator().manual_seed(0), 16, [256, 256], 29,
+    again = L.mlp_init(prng.prng_key(torch.tensor(0)), 16, [256, 256], 29,
                        "cpu")
     assert torch.equal(again["layers"][0]["w"], p["layers"][0]["w"])
 
@@ -701,6 +702,229 @@ def test_flash_ops_on_cpu_take_the_plain_version(use_fused, rng):
 
 
 # ---------------------------------------------------------------------------
+# the flash kernel's tensor-core arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+def _c_frags(c):
+    """A 16 x 8 accumulator as the lanes hold it: lane (gid, tig) has
+    (gid, 2tig), (gid, 2tig + 1), (gid + 8, 2tig), (gid + 8, 2tig + 1)."""
+    return [(c[g, 2 * t], c[g, 2 * t + 1], c[g + 8, 2 * t], c[g + 8, 2 * t + 1])
+            for g, t in (divmod(lane, 4) for lane in range(32))]
+
+
+def _mma_tf32(a, b):
+    """mma.m16n8k8 (TF32) of per-lane registers, placed as PTX lays them
+    out: a0 (gid, tig), a1 (gid + 8, tig), a2 (gid, tig + 4), a3 (gid + 8,
+    tig + 4); b0 (k = tig, n = gid), b1 (k = tig + 4, n = gid)."""
+    A, B = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a[lane]
+        B[t, g], B[t + 4, g] = b[lane]
+    return A @ B
+
+
+def _mma_bf16(a, b):
+    """mma.m16n8k16 (bf16) of per-lane registers of two values each: a0
+    (gid, 2tig + h), a1 (gid + 8, ...), a2 (gid, 2tig + 8 + h), a3;
+    b0 (k = 2tig + h, n = gid), b1 (k = 2tig + 8 + h, n = gid)."""
+    A, B = np.zeros((16, 16)), np.zeros((16, 8))
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for h in (0, 1):
+            A[g, 2 * t + h], A[g + 8, 2 * t + h] = a[lane][0][h], a[lane][1][h]
+            A[g, 2 * t + 8 + h] = a[lane][2][h]
+            A[g + 8, 2 * t + 8 + h] = a[lane][3][h]
+            B[2 * t + h, g], B[2 * t + 8 + h, g] = b[lane][0][h], b[lane][1][h]
+    return A @ B
+
+
+def _ldmatrix_x4(smem, addr, trans):
+    """ldmatrix .x4 (b16): lanes 8i..8i+7 give the rows of matrix i (8
+    values from (row, col)); lane t gets of each matrix the pair at row
+    t / 4, columns 2(t % 4) and + 1 (with .trans: at rows 2(t % 4) and + 1,
+    column t / 4)."""
+    regs = [[None] * 4 for _ in range(32)]
+    for i in range(4):
+        m = np.stack([smem[r, c:c + 8] for r, c in
+                      (addr(lane) for lane in range(8 * i, 8 * i + 8))])
+        for t in range(32):
+            r, c = divmod(t, 4)
+            regs[t][i] = ((m[2 * c, r], m[2 * c + 1, r]) if trans
+                          else (m[r, 2 * c], m[r, 2 * c + 1]))
+    return regs
+
+
+def test_flash_tf32_fragments_take_the_keys_in_a_permuted_order(rng):
+    """float32 P·V: the A fragment is the S accumulator as the lanes hold
+    it (a = c0, c2, c1, c3) and V's B fragment reads rows 2tig and
+    2tig + 1, so logical k = t is key 2t (t < 4) or 2(t - 4) + 1: the mma
+    gives P·V (float64, to rounding), and the float32 sum over keys in
+    that order is the natural order's up to float32 rounding."""
+    p = rng.random((16, 8))
+    v = rng.normal(size=(8, 8))
+    a = [(c0, c2, c1, c3) for c0, c1, c2, c3 in _c_frags(p)]
+    b = [(v[2 * t, g], v[2 * t + 1, g])
+         for g, t in (divmod(lane, 4) for lane in range(32))]
+    np.testing.assert_allclose(_mma_tf32(a, b), p @ v, rtol=1e-12,
+                               atol=1e-12)
+    order = [0, 2, 4, 6, 1, 3, 5, 7]
+    p32, v32 = p.astype(np.float32), v.astype(np.float32)
+    natural = np.zeros((16, 8), np.float32)
+    permuted = np.zeros((16, 8), np.float32)
+    for kn, kp in zip(range(8), order):
+        natural += p32[:, kn, None] * v32[kn]
+        permuted += p32[:, kp, None] * v32[kp]
+    bound = 8 * np.finfo(np.float32).eps * (np.abs(p32) @ np.abs(v32))
+    assert np.all(np.abs(natural - permuted) <= bound)
+
+
+def test_flash_bf16_fragments_from_ldmatrix(rng):
+    """bf16: Q's and K's fragments by ldmatrix, V's by ldmatrix .trans,
+    at the kernel's addresses (one warp's 16 rows, 16 keys, D = 32, two
+    8-column n-tiles), and P's A fragment from two n-tiles of S's
+    accumulator: the mma's give Q·Kᵀ and P·V."""
+    q, k = rng.normal(size=(16, 32)), rng.normal(size=(16, 32))
+    v, p = rng.normal(size=(16, 16)), rng.random((16, 16))
+    s = np.zeros((16, 16))
+    for kk in (0, 16):                       # scores(): two k-steps
+        a = _ldmatrix_x4(q, lambda l: (l % 8 + (l // 8 & 1) * 8,
+                                       kk + (l // 8 >> 1) * 8), False)
+        b = _ldmatrix_x4(k, lambda l: (l % 8 + (l // 8 >> 1) * 8,
+                                       kk + (l // 8 & 1) * 8), False)
+        s[:, 0:8] += _mma_bf16(a, [(r[0], r[1]) for r in b])
+        s[:, 8:16] += _mma_bf16(a, [(r[2], r[3]) for r in b])
+    np.testing.assert_allclose(s, q @ k.T, rtol=1e-12, atol=1e-12)
+    c0, c1 = _c_frags(p[:, 0:8]), _c_frags(p[:, 8:16])
+    a = [((x[0], x[1]), (x[2], x[3]), (y[0], y[1]), (y[2], y[3]))
+         for x, y in zip(c0, c1)]
+    b = _ldmatrix_x4(v, lambda l: (l % 8 + (l // 8 & 1) * 8,
+                                   (l // 8 >> 1) * 8), True)
+    o = np.concatenate([_mma_bf16(a, [(r[0], r[1]) for r in b]),
+                        _mma_bf16(a, [(r[2], r[3]) for r in b])], axis=1)
+    np.testing.assert_allclose(o, p @ v, rtol=1e-12, atol=1e-12)
+
+
+def _rz(x):
+    """float64 -> float32 rounded toward zero, as the tensor cores add
+    into their float32 accumulator."""
+    f = x.astype(np.float32)
+    return np.where(np.abs(f.astype(np.float64)) > np.abs(x),
+                    np.nextafter(f, np.float32(0)), f)
+
+
+def _bf16(x):
+    """float32 -> the nearest bf16 (ties to even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _flash_emulated(q, k, v, bk, kind):
+    """One head of causal attention as the kernel forms it: key tiles of
+    bk, the online softmax in float32, every mma an exact dot product
+    added to its chain's accumulator toward zero.  kind "tf32": Q·Kᵀ and
+    P·V in 3xTF32 (small·big, big·small, big·big), S in 32-wide d stages
+    and P·V over a tile in fresh chains, added in float32 (P·V's keys in
+    the kernel's order); "bf16": Q·Kᵀ in one chain of 16-wide steps, P
+    split into bf16 hi + lo, lo·V then hi·V; "bf16 single": P rounded to
+    bf16 once (what the split avoids).  Returns the float32 output
+    before any rounding to q's type."""
+    f64 = lambda x: x.astype(np.float64)
+    sq, d = q.shape
+    parts = lambda x: (_tf32_read(x - tf32_rna(x)), tf32_rna(x))
+    if kind == "tf32":
+        (qs, qb), (ks, kb), (vs, vb) = parts(q), parts(k), parts(v)
+    m = np.full(sq, -1e30, np.float32)
+    l = np.zeros(sq, np.float32)
+    o = np.zeros((sq, d), np.float32)
+    scale = np.float32(1 / d ** 0.5)
+    qpos = np.arange(sq)[:, None]
+    for k0 in range(0, sq, bk):
+        ks_ = slice(k0, k0 + bk)
+        s = np.zeros((sq, bk), np.float32)
+        if kind == "tf32":
+            for d0 in range(0, d, 32):
+                st = np.zeros((sq, bk), np.float32)
+                for kk in range(d0, min(d0 + 32, d), 8):
+                    dd = slice(kk, kk + 8)
+                    for a, b in ((qs, kb), (qb, ks), (qb, kb)):
+                        st = _rz(st + f64(a[:, dd]) @ f64(b[ks_, dd]).T)
+                s = s + st
+        else:
+            for kk in range(0, d, 16):
+                dd = slice(kk, kk + 16)
+                s = _rz(s + f64(q[:, dd]) @ f64(k[ks_, dd]).T)
+        keep = qpos >= np.arange(k0, k0 + bk)[None, :]
+        s = np.where(keep, s * scale, np.float32(-1e30))
+        m_new = np.maximum(m, s.max(1))
+        alpha = np.exp(m - m_new)
+        p = np.exp(s - m_new[:, None])
+        l = l * alpha + p.sum(1, dtype=np.float32)
+        m = m_new
+        t = np.zeros((sq, d), np.float32)
+        if kind == "tf32":
+            ps, pb = parts(p)
+            for kk in range(0, bk, 8):
+                idx = k0 + kk + np.array([0, 2, 4, 6, 1, 3, 5, 7])
+                for a, b in ((ps, vb), (pb, vs), (pb, vb)):
+                    t = _rz(t + f64(a[:, idx - k0]) @ f64(b[idx]))
+        else:
+            hi = _bf16(p)
+            terms = (hi,) if kind == "bf16 single" else (_bf16(p - hi), hi)
+            for kk in range(0, bk, 16):
+                for a in terms:
+                    t = _rz(t + f64(a[:, kk:kk + 16])
+                            @ f64(v[k0 + kk:k0 + kk + 16]))
+        o = o * alpha[:, None] + t
+    return o / np.maximum(l, np.float32(1e-30))[:, None]
+
+
+def _attention64(q, k, v):
+    s = q.astype(np.float64) @ k.astype(np.float64).T / q.shape[1] ** 0.5
+    s = np.where(np.tril(np.ones(s.shape, bool)), s, -1e30)
+    p = np.exp(s - s.max(1, keepdims=True))
+    return (p / p.sum(1, keepdims=True)) @ v.astype(np.float64)
+
+
+def _plain32(q, k, v):
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x))[None, None]
+    return ref.flash_attention(t(q), t(k), t(v))[0, 0].numpy()
+
+
+@pytest.mark.parametrize("s,d,bk", [(128, 64, 64), (96, 256, 32)])
+def test_flash_3xtf32_emulation_is_float32_accurate(s, d, bk):
+    """The float32 kernel's arithmetic (3xTF32 S in 32-wide stages, the
+    online softmax, 3xTF32 P·V in per-tile chains) within 2x the plain
+    float32 attention's error from float64 attention."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (rng.normal(size=(s, d)).astype(np.float32) for _ in range(3))
+    want = _attention64(q, k, v)
+    got = _flash_emulated(q, k, v, bk, "tf32")
+    plain = _plain32(q, k, v)
+    err, err_plain = (float(np.abs(x - want).max()) for x in (got, plain))
+    assert err <= 2 * err_plain, (err, err_plain)
+
+
+@pytest.mark.parametrize("s,d,bk", [(128, 64, 64), (96, 256, 32)])
+def test_flash_bf16_split_p_emulation_is_float32_accurate(s, d, bk):
+    """The bf16 kernel's arithmetic on bf16 inputs (exact products, P =
+    hi + lo): its bf16 output within 2x the plain version's bf16 output
+    error from float64 attention of the same inputs, and its float32
+    output before the last rounding within 2^-16·scale of it (P kept to
+    ~16 bits), where one bf16 rounding of P loses more than 2^-11."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (_bf16(rng.normal(size=(s, d))) for _ in range(3))
+    want = _attention64(q, k, v)
+    scale = max(1.0, float(np.abs(want).max()))
+    split = _flash_emulated(q, k, v, bk, "bf16")
+    err = float(np.abs(_bf16(split) - want).max())
+    err_plain = float(np.abs(_bf16(_plain32(q, k, v)) - want).max())
+    assert err <= 2 * err_plain, (err, err_plain)
+    assert float(np.abs(split - want).max()) <= 2.0 ** -16 * scale
+    single = _flash_emulated(q, k, v, bk, "bf16 single")
+    assert float(np.abs(single - want).max()) > 2.0 ** -11 * scale
+
+
+# ---------------------------------------------------------------------------
 # flash attention on the card
 # ---------------------------------------------------------------------------
 #: (B, H, Hkv, Sq, Sk, D, causal, window, q_offset): every head dim, GQA
@@ -716,6 +940,11 @@ CUDA_FLASH_CASES = [
     (1, 4, 1, 100, 300, 128, True, None, 200),   # q rows 200..299
     (1, 4, 1, 64, 512, 256, True, 100, 448),
     (3, 2, 1, 1, 1, 64, True, None, 0),
+    (2, 4, 2, 70, 70, 16, False, None, 0),
+    (1, 2, 1, 33, 97, 32, True, 20, 64),         # q rows 64..96, ragged
+    (1, 8, 8, 129, 129, 64, True, 31, 0),
+    (1, 4, 2, 300, 300, 128, True, None, 0),
+    (1, 4, 1, 200, 1000, 256, False, None, 0),
 ]
 
 
@@ -724,6 +953,17 @@ def _flash_close(got, want, tol, name):
     err = float((got.float() - want.float()).abs().max())
     assert got.shape == want.shape and got.dtype == want.dtype, name
     assert err <= tol * scale, f"{name}: {err} > {tol * scale}"
+
+
+def _within_one_bf16_ulp(got, want, name):
+    """bf16 outputs of two float32-accurate computations: within one bf16
+    ulp (at the larger of the two) plus 1e-5·scale, element by element."""
+    g, w = got.float(), want.float()
+    scale = max(1.0, float(w.abs().max()))
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    excess = float(((g - w).abs() - ulp).max())
+    assert excess <= 1e-5 * scale, f"{name}: {excess} past one bf16 ulp"
 
 
 @pytest.mark.cuda
@@ -744,6 +984,8 @@ def test_cuda_flash_matches_plain(case, dtype, tol, h100, rng):
     assert FA.flash_attention.launches == before + 2
     assert bool(torch.isfinite(got.float()).all())
     _flash_close(got, want, tol, str(case))
+    if dtype == torch.bfloat16:
+        _within_one_bf16_ulp(got, want, str(case))
     assert torch.equal(got, again), "two calls differ"
 
 
@@ -790,3 +1032,6 @@ def test_cuda_flash_rejects_what_the_kernel_does_not_take(h100):
                            .transpose(2, 3))
     with pytest.raises(ValueError):                         # device
         FA.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError):                  # rows 8-byte aligned
+        kb = torch.zeros(1, 2, 8, 68, device=h100, dtype=torch.bfloat16)
+        FA.flash_attention(q.bfloat16(), kb[..., :64], kb[..., :64])

@@ -104,6 +104,64 @@ def _fma_exact(a, b, c):
                                      int(np.asarray(x).view(np.uint32)) & 1))
 
 
+#: (a, b, c) whose float64 sum a*b + c lands exactly halfway between two
+#: float32 values while the exact sum does not (2^-24 (1 + 2^-15) times
+#: 1 - 2^-15 is 2^-24 - 2^-54; 641 * 6700417 is 2^32 + 1, so the last
+#: case's exact sum is 2^-127 + 2^-150 + 2^-182, halfway between two
+#: subnormals in float64), plus other subnormal results
+_P, _Q = np.float32(2.0**-24 * (1 + 2.0**-15)), np.float32(1 - 2.0**-15)
+FMA_EDGE_CASES = {
+    "halfway, tie to even right": (_P, _Q, np.float32(1.0)),
+    "halfway, tie to even wrong": (_P, _Q, np.float32(1 + 2.0**-23)),
+    "halfway, negated": (-_P, _Q, np.float32(-1 - 2.0**-23)),
+    "halfway, large": (_P * np.float32(2.0**60), _Q,
+                       np.float32(2.0**60 * (1 + 2.0**-23))),
+    "subnormal product": (np.float32(2.0**-70), np.float32(3 * 2.0**-70),
+                          np.float32(0.0)),
+    "subnormal sum": (np.float32(2.0**-75), np.float32(3 * 2.0**-75),
+                      np.float32(2.0**-149 * (1 - 2.0**-20))),
+    "subnormal halfway": (np.float32(641 * 2.0**-91),
+                          np.float32(6700417 * 2.0**-91),
+                          np.float32(2.0**-127)),
+    "zero": (np.float32(0.5), np.float32(-2.0), np.float32(1.0)),
+}
+
+
+@pytest.mark.parametrize("case", list(FMA_EDGE_CASES))
+def test_fma_f32_halfway_and_subnormal(case):
+    """The elements `fma_f32` redoes exactly: a float64 sum on a float32
+    halfway point (both sides of the tie) and subnormal results, with
+    tensor or Python-float multiplier and addend."""
+    a, b, c = FMA_EDGE_CASES[case]
+    want = np.float32(_fma_exact(a, b, c))
+    ta = torch.from_numpy(np.asarray([a, a], np.float32))
+    for bb, cc in ((torch.tensor([b, b]), torch.tensor([c, c])),
+                   (float(b), float(c))):
+        got = prng.fma_f32(ta, bb, cc).numpy()
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      np.full(2, want).view(np.uint32))
+
+
+def test_round_sqrt_repairs_one_ulp(rng):
+    """`_sqrt_f32` is correctly rounded, and `_round_sqrt` turns a first
+    value one ulp off either way (as torch's sqrt on the CPU sometimes
+    gives) into the correctly rounded one; 0, inf and NaN pass."""
+    a = np.concatenate([10.0 ** rng.uniform(-44, 38, 1 << 14),
+                        rng.uniform(0, 30, 1 << 14)]).astype(np.float32)
+    a = a[a > 0]
+    want = np.sqrt(a.astype(np.float64)).astype(np.float32)
+    ta = torch.from_numpy(a)
+    np.testing.assert_array_equal(prng._sqrt_f32(ta).numpy(), want)
+    for off in (-np.inf, np.inf):
+        cand = torch.from_numpy(np.nextafter(want, np.float32(off)))
+        np.testing.assert_array_equal(prng._round_sqrt(ta, cand).numpy(),
+                                      want)
+    ends = torch.tensor([0.0, np.inf, np.nan])
+    got = prng._sqrt_f32(ends).numpy()
+    assert got[0] == 0 and got[1] == np.inf and np.isnan(got[2])
+
+
 def test_fma_f32_rounds_once(rng):
     n = 4000
     a = rng.standard_normal(n).astype(np.float32)
@@ -115,3 +173,69 @@ def test_fma_f32_rounds_once(rng):
     want = np.array([_fma_exact(x, y, z) for x, y, z in zip(a, b, c)],
                     np.float32)
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# normal: G's and D's initial weights
+# ---------------------------------------------------------------------------
+#: (seed, shape, split index or None): 2^20 draws in the first case
+#: alone, then the shapes of G's and D's layers, from split keys
+NORMAL_CASES = [(0, (1 << 20,), None), (1, (1024, 1024), 1),
+                (7, (81, 2048), 2), (2**31 + 5, (333, 77), None),
+                (11, (2048, 73), 1)]
+
+
+def assert_normal_bits(got, want):
+    """got == want, float32 bit for bit."""
+    got, want = np.ravel(got), np.ravel(want)
+    assert got.dtype == want.dtype == np.float32
+    off = np.nonzero(got.view(np.uint32) != want.view(np.uint32))[0]
+    assert len(off) == 0, f"{len(off)} elements differ, first at {off[:4]}"
+
+
+@pytest.mark.parametrize("seed,shape,sub", NORMAL_CASES)
+def test_normal_matches_jax(seed, shape, sub):
+    """``jax.random.normal(key, shape, float32)`` bit for bit (erf_inv and
+    the log1p inside it evaluated as XLA on the CPU evaluates them)."""
+    key = jax.random.PRNGKey(seed)
+    if sub is not None:
+        key = jax.random.split(key, 3)[sub]
+    want = np.asarray(jax.random.normal(key, shape, jnp.float32)).ravel()
+    got = prng.normal(torch.from_numpy(np.asarray(key).astype(np.int64)),
+                      int(np.prod(shape))).numpy()
+    assert_normal_bits(got, want)
+
+
+def _same_bits(got, want):
+    """Equal bit patterns, any NaN equal to any NaN."""
+    both_nan = np.isnan(got) & np.isnan(want)
+    return np.all((got.view(np.uint32) == want.view(np.uint32)) | both_nan)
+
+
+def test_erf_inv_matches_xla(rng):
+    """``lax.erf_inv`` over (-1, 1), both of its branches (w = 5 falls at
+    |x| ~ 0.99662), log1p's branch edge (x^2 = sqrt(2) - 1), +-1 -> +-inf,
+    and NaN outside [-1, 1]."""
+    edge = np.float32(0.41421356) ** np.float32(0.5)
+    x = np.concatenate([
+        rng.uniform(-1, 1, 1 << 18), rng.uniform(0.99, 1.0, 1 << 14),
+        np.linspace(0.9966, 0.99665, 4097),
+        [0.0, -0.0, 1.0, -1.0, 1.5, np.nan, edge, -edge,
+         np.nextafter(np.float32(1), np.float32(0))]]).astype(np.float32)
+    want = np.asarray(jax.jit(jax.lax.erf_inv)(x))
+    got = prng.erf_inv(torch.from_numpy(x)).numpy()
+    assert _same_bits(got, want)
+
+
+def test_log1p_matches_xla(rng):
+    """``jnp.log1p`` in float32 over both branches (|x| < sqrt(2) - 1 and
+    beyond), large arguments, subnormals (taken as zeros of their sign),
+    -1 -> -inf, < -1 -> NaN, inf -> inf."""
+    x = np.concatenate([
+        rng.uniform(-1, 1, 1 << 18), 10.0 ** rng.uniform(-30, 30, 1 << 16),
+        -(10.0 ** rng.uniform(-30, 0, 1 << 16)),
+        [0.0, -0.0, -1.0, -1.5, np.inf, -np.inf, np.nan, 1e-45, -1e-45,
+         0.41421354, -0.41421354, 0.41421357, 3.4e38]]).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.log1p)(x))
+    got = prng.log1p_f32(torch.from_numpy(x)).numpy()
+    assert _same_bits(got, want)

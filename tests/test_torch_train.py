@@ -1,11 +1,14 @@
 """The port's Algorithm 1 training against the reference package.
 
 Both packages start from one state, carried across with
-``repro_torch.convert`` (the port's own initialisation draws other
-numbers), and get the same numpy data.  What is held, and how close:
+``repro_torch.convert`` or drawn by each from the same seed (the port's
+``init_state`` gives the reference's weights bit for bit), and get the
+same numpy data.  What is held, and how close:
 
 - ``prng.split``, the one-key training noise and the encoded batches: bit
   for bit;
+- ``init_state(seed)``: G's and D's weights and the rng carry, bit for
+  bit;
 - one ``make_train_step``: the gradients first (read from the first Adam
   moment, which after one step from zero moments is 0.1·g rounded once in
   both packages), then the metrics and the params, at the reference's own
@@ -242,6 +245,72 @@ def test_one_step_matches_reference(models):
                                   np.asarray(jout[4]).astype(np.int64))
 
 
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("models", [(JDnnWeaver, DnnWeaverModel),
+                                    (JIm2col, Im2colModel)],
+                         ids=["dnnweaver", "im2col"])
+def test_init_state_matches_reference_init(models, seed):
+    """``init_state(seed)`` draws G from split(PRNGKey(seed), 3)[1] and D
+    from [2] as the reference does: every weight leaf, the biases, zero
+    moments and the rng carry [0] bit for bit."""
+    from test_torch_prng import assert_normal_bits
+    jm, tm = models[0](), models[1]()
+    jcfg, tcfg = _cfgs(jm, tm)
+    want = _ref_to_numpy(_ref_state(jm, jcfg, seed))
+    got = C.train_state_to_numpy(T.init_state(tm, tcfg, seed, "cpu"))
+    for name in ("g_params", "d_params"):
+        for jl, tl in zip(want[name]["layers"], got[name]["layers"]):
+            assert_normal_bits(tl["w"], jl["w"])
+            np.testing.assert_array_equal(tl["b"], jl["b"])
+            assert tl["w"].shape == jl["w"].shape
+    del want["g_params"], want["d_params"], got["g_params"], got["d_params"]
+    flat_w, tdef_w = jax.tree.flatten(want)
+    flat_g, tdef_g = jax.tree.flatten(got)
+    assert tdef_w == tdef_g
+    for a, b in zip(flat_w, flat_g):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(b.reshape(-1).view(np.uint8),
+                                      a.reshape(-1).view(np.uint8))
+
+
+@pytest.mark.parametrize("models", [(JDnnWeaver, DnnWeaverModel),
+                                    (JIm2col, Im2colModel)],
+                         ids=["dnnweaver", "im2col"])
+def test_one_step_from_init_state_matches_reference(models):
+    """Each package from its own initial state for seed 0 (no weights
+    carried across): one Algorithm 1 step on the host oracle, held as
+    `test_one_step_matches_reference` holds it."""
+    rng = np.random.default_rng(12)
+    jm, tm = models[0](), models[1]()
+    jcfg, tcfg = _cfgs(jm, tm)
+    jds, tds = j_generate(jm, 64, seed=0), generate_dataset(tm, 64, seed=0)
+    jst, tst = _ref_state(jm, jcfg), T.init_state(tm, tcfg, 0, "cpu")
+    idx = rng.permutation(64)[:BATCH]
+    jbatch = {k: jnp.asarray(v) for k, v in
+              JT.encode_batch(jm, jds, idx).items()}
+    tbatch = {k: torch.from_numpy(v) for k, v in
+              T.encode_batch(tm, tds, idx).items()}
+    tbatch["net_idx"] = tbatch["net_idx"].long()
+    *jout, jmet = JT.make_train_step(jm, jcfg, use_jax_oracle=False)[2](
+        jst.g_params, jst.d_params, jst.g_opt, jst.d_opt, jbatch, jst.rng)
+    *tout, tmet = T.make_train_step(tm, tcfg, use_torch_oracle=False)[2](
+        tst.g_params, tst.d_params, tst.g_opt, tst.d_opt, tbatch, tst.rng)
+    for j_opt, t_opt, name in ((jout[2], tout[2], "G"),
+                               (jout[3], tout[3], "D")):
+        scale = max(float(np.abs(np.asarray(l)).max())
+                    for l in jax.tree.leaves(j_opt.mu))
+        _close_trees(j_opt.mu, t_opt.mu, atol=STEP_ATOL * scale,
+                     what=f"{name} gradient")
+    for k in jmet:
+        np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
+                                   rtol=STEP_RTOL, atol=STEP_ATOL, err_msg=k)
+    _close_trees(jout[0], tout[0], what="G params")
+    _close_trees(jout[1], tout[1], what="D params")
+    np.testing.assert_array_equal(tout[4].numpy(),
+                                  np.asarray(jout[4]).astype(np.int64))
+
+
 def test_train_gan_from_one_state_matches_reference_history(dnnweaver_data):
     """2 epochs x 2 batches, warm-started from one converted state in both
     packages (the epoch permutations come from the same numpy seed)."""
@@ -266,8 +335,8 @@ def test_train_gan_from_one_state_matches_reference_history(dnnweaver_data):
 
 
 def test_train_gan_cold_start_keeps_the_reference_rng(dnnweaver_data):
-    """From a seed the weights are the port's own, but the rng carry is
-    split(PRNGKey(seed), 3)[0] advanced once per step, as the reference's."""
+    """From a seed the rng carry is split(PRNGKey(seed), 3)[0] advanced
+    once per step, as the reference's."""
     jm, tm, jds, tds = dnnweaver_data
     jcfg, tcfg = _cfgs(jm, tm)
     ja = JT.train_gan(jm, jds, jcfg, iters=1, seed=4)
@@ -340,9 +409,9 @@ def test_d_update_leaves_g_bit_identical():
     """The D loss sees G's probs detached: its gradient w.r.t. G is absent,
     and a step's D half leaves G's params as G's own update left them."""
     model, cfg, ds = _const_setup(False)
-    gen = torch.Generator().manual_seed(0)
-    gp = G.init_generator(gen, cfg, model.space, "cpu")
-    dp = G.init_discriminator(gen, cfg, model.space, "cpu")
+    g_key, d_key = prng.split(prng.prng_key(torch.tensor(0)))
+    gp = G.init_generator(g_key, cfg, model.space, "cpu")
+    dp = G.init_discriminator(d_key, cfg, model.space, "cpu")
     batch = _const_batch(model, ds)
     noise = G.sample_train_noise(prng.prng_key(torch.tensor(0)), 16, cfg)
     leaves = [t.requires_grad_() for layer in gp["layers"]
@@ -380,9 +449,9 @@ def test_critic_gradient_flows_through_frozen_d():
     """G's critic gradient is nonzero (it flows THROUGH D into G), and the
     frozen D collects none."""
     model, cfg, ds = _const_setup(False)
-    gen = torch.Generator().manual_seed(0)
-    gp = G.init_generator(gen, cfg, model.space, "cpu")
-    dp = G.init_discriminator(gen, cfg, model.space, "cpu")
+    g_key, d_key = prng.split(prng.prng_key(torch.tensor(0)))
+    gp = G.init_generator(g_key, cfg, model.space, "cpu")
+    dp = G.init_discriminator(d_key, cfg, model.space, "cpu")
     batch = _const_batch(model, ds)
     noise = G.sample_train_noise(prng.prng_key(torch.tensor(0)), 16, cfg)
     leaves = [t.requires_grad_() for layer in gp["layers"]
