@@ -28,6 +28,29 @@ seeds):
   own initial weights for seed 0, its satisfied count beside the
   reference's.
 
+Then the baselines (phases a-e, each path's launches counted):
+
+- a. the two batched select routes on the serving path's probs (the
+  dense route, which ``explore_batch`` takes at this batch and cap, and
+  the streaming route), timed in turns: the same Selections, field for
+  field, also at a cap of 65536 on im2col;
+- b. the whole MLP's gradient (``mlp_apply_chained`` on the card: the
+  kernel's forward, the dense kernels' backward) at LargeMLP's 17 layers
+  against the plain chain's;
+- c. LargeMLP at full width (16 x 2048, batch 1024, im2col): one step
+  through the kernels against the plain route and float64; the whole MLP
+  at its 17 layers (M = 64 and 1024, as phase 2 holds G's); ``train``
+  (4096 rows, 2 epochs) and ``explore_batch`` of 64 tasks; one step
+  profiled;
+- d. DRL's rollout and SA on the card (class defaults, 64 dnnweaver
+  tasks): the CPU port's Selections from the same params and seeds; one
+  SA check interval and one DRL rollout timed and profiled beside their
+  threefry draws alone;
+- e. Table 5 on dnnweaver at the comparison's reduced scale
+  (``launch/comparison.py``; GANDSE's row is the quality run's), beside
+  the reference's CPU rows; GANDSE satisfies at least as many tasks as
+  budget-matched RandomSearch.
+
 Then the LM serving path of gemma3-1b at full width (26 layers, d 1152,
 4 heads / 1 kv head of 256, d_ff 6912, vocab 262144; float32 params from
 seed 0): the flash-attention kernel (tensor cores: 3xTF32 for float32,
@@ -62,11 +85,19 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
+from repro_torch.baselines import (LargeMLP, PolicyGradientDRL,  # noqa: E402
+                                   SimulatedAnnealing)
+from repro_torch.baselines import drl as DRL  # noqa: E402
+from repro_torch.baselines import sa as SA  # noqa: E402
+from repro_torch.baselines.sa import anneal as sanneal  # noqa: E402
 from repro_torch.core import dse_api as dse  # noqa: E402
+from repro_torch.core.explorer import (enumerate_candidates_batch,  # noqa: E402
+                                       task_keys)
 from repro_torch.core import fused_select as fs  # noqa: E402
 from repro_torch.core import gan as G  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import train as T  # noqa: E402
+from repro_torch.core.selector import select_batch  # noqa: E402
 from repro_torch.dataset import generator as gen_mod  # noqa: E402
 from repro_torch.design_models import DnnWeaverModel, Im2colModel  # noqa: E402
 from repro_torch import configs  # noqa: E402
@@ -75,10 +106,13 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_dense as fd  # noqa: E402
 from repro_torch.kernels import fused_mlp as fm  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.launch import comparison as CMP  # noqa: E402
 from repro_torch.launch import quality as Q  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import base as MB  # noqa: E402
-from repro_torch.optim import tree_leaves, tree_map  # noqa: E402
+from repro_torch.nn import layers as L  # noqa: E402
+from repro_torch.optim import (adam, apply_updates, tree_leaves,  # noqa: E402
+                               tree_map)
 from repro_torch.train import step as TS  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense, no sparsity)
@@ -617,7 +651,8 @@ def drive_train(model) -> dict:
         tasks.net_idx, tasks.lat_obj, tasks.pow_obj,
         seed=dse.row_seeds(0, N_TASKS))
     assert bool(torch.isfinite(probs).all()), "trained G's probs not finite"
-    return dict(train_s=train_s, ms_per_step=1e3 * train_s / 8,
+    return dict(train_s=train_s,
+                train_ms_per_step_with_setup=1e3 * train_s / 8,
                 init_s=init_s,
                 history=st.history,
                 explore_n_satisfied=sum(r.satisfied for r in res),
@@ -649,7 +684,7 @@ def quality_run() -> dict:
     weights for seed 0 (the card's draw held to the CPU's).  Training must
     lower the mean loss_g of an epoch."""
     model = DnnWeaverModel()
-    init = init_on_card_and_cpu(model, Q.gan_config(model))
+    init = init_on_card_and_cpu(model, CMP.gan_config(model, CMP.Scale()))
     out = Q.quality_run("cuda")
     out["init_card_vs_cpu"] = init
     by_epoch = out["loss_g_by_epoch"]
@@ -673,26 +708,35 @@ def check_kernel() -> dict:
         gen = torch.Generator(device="cuda").manual_seed(11)
         params = G.init_generator(prng.prng_key(torch.tensor(11)), cfg,
                                   model.space, "cuda")
-        ws = [p["w"] for p in params["layers"]]
-        # nonzero biases so the epilogue is exercised
-        bs = [torch.randn(p["b"].shape, generator=gen, device="cuda") * 0.1
-              for p in params["layers"]]
-        x_all = torch.randn(max(ms), ws[0].shape[0], generator=gen,
-                            device="cuda")
-        ys = {}
-        for m in ms:
-            rows[model.name, m], ys[m] = _check_one(
-                f"{model.name} M={m}", x_all[:m], ws, bs)
-        # a row's result does not depend on the rows that share the call
-        ys[3] = fm.fused_mlp(x_all[5:8].contiguous(), ws, bs)
-        torch.cuda.synchronize()
-        for m in ms:
-            assert torch.equal(ys[3], ys[m][5:8]), \
-                f"{model.name}: rows 5:8 differ between M=3 and M={m}"
-            assert torch.equal(ys[min(ms)], ys[m][:min(ms)]), \
-                f"{model.name}: rows differ between M={min(ms)} and M={m}"
-        print(f"kernel rows {model.name}: the same bits at M = "
-              f"{sorted(ys)}", flush=True)
+        for m, row in check_chain(model.name, params, ms, gen).items():
+            rows[model.name, m] = row
+    return rows
+
+
+def check_chain(name: str, params, ms, gen) -> dict:
+    """The whole-MLP kernel on `params`' weights (with nonzero biases, so
+    the epilogue is exercised) at each batch of `ms` against its plain
+    version and float64 (`_check_one`), the smaller batches the leading
+    rows of the larger; a row's bits the same in a call of 3 rows and in
+    every batch of `ms`."""
+    ws = [p["w"] for p in params["layers"]]
+    bs = [torch.randn(p["b"].shape, generator=gen, device="cuda") * 0.1
+          for p in params["layers"]]
+    x_all = torch.randn(max(ms), ws[0].shape[0], generator=gen,
+                        device="cuda")
+    rows, ys = {}, {}
+    for m in ms:
+        rows[m], ys[m] = _check_one(f"{name} M={m}", x_all[:m], ws, bs)
+    # a row's result does not depend on the rows that share the call
+    ys[3] = fm.fused_mlp(x_all[5:8].contiguous(), ws, bs)
+    torch.cuda.synchronize()
+    for m in ms:
+        assert torch.equal(ys[3], ys[m][5:8]), \
+            f"{name}: rows 5:8 differ between M=3 and M={m}"
+        assert torch.equal(ys[min(ms)], ys[m][:min(ms)]), \
+            f"{name}: rows differ between M={min(ms)} and M={m}"
+    print(f"kernel rows {name}: the same bits at M = {sorted(ys)}",
+          flush=True)
     return rows
 
 
@@ -791,10 +835,8 @@ def check_path(name: str, run: dict) -> dict:
     assert max(sums) < 1e-5, f"per-group probs do not sum to 1: {sums}"
 
     def select(p):
-        return fs.fused_select_batch(
-            model, tasks.net_idx, p, xcfg.prob_threshold,
-            xcfg.max_candidates, tasks.lat_obj, tasks.pow_obj,
-            tile=xcfg.select_tile)
+        return fs.select_from_probs(model, tasks.net_idx, p, xcfg,
+                                    tasks.lat_obj, tasks.pow_obj)
 
     on_card, on_cpu = select(probs), select(probs.cpu())
     for a, b, r in zip(on_card, on_cpu, warm):
@@ -825,9 +867,8 @@ def profile_path(name: str, run: dict) -> dict:
         tasks.net_idx, tasks.lat_obj, tasks.pow_obj, seed=seeds)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    fs.fused_select_batch(engine.model, tasks.net_idx, probs,
-                          xcfg.prob_threshold, xcfg.max_candidates,
-                          tasks.lat_obj, tasks.pow_obj, tile=xcfg.select_tile)
+    fs.select_from_probs(engine.model, tasks.net_idx, probs, xcfg,
+                         tasks.lat_obj, tasks.pow_obj)
     t2 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1047,6 +1088,455 @@ def drive_serve(m, params) -> dict:
     return out
 
 
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of `reps` warm calls of fn(), each ended by a
+    synchronize (one call before them warms up)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def drive_dense(name: str, run: dict) -> dict:
+    """Phase a: the two batched select routes on phase 3's engine, tasks
+    and G's probs (G runs again here, so the whole MLP launches): the
+    dense route (``enumerate_candidates_batch`` + ``select_batch``, which
+    ``explore_batch`` takes at this batch and cap) and the streaming route
+    (``fused_select_batch``), timed in turns (streaming, dense, dense,
+    streaming; the best of each).  Their Selections are the same, field
+    for field, and equal explore_batch's.  On im2col also at a cap of
+    65536, 64 tasks (the largest block, 2^22 rows, the dense route is
+    given)."""
+    engine, tasks = run["engine"], run["tasks"]
+    model, xcfg = engine.model, engine.explorer_cfg
+    probs = engine._explorer.generator_probs_device(
+        tasks.net_idx, tasks.lat_obj, tasks.pow_obj,
+        seed=dse.row_seeds(0, N_TASKS))
+    caps = [xcfg.max_candidates] + ([65536] if name == "im2col" else [])
+    out = dict(n_tasks=N_TASKS)
+    for cap in caps:
+        assert fs.dense_route_fits(model, N_TASKS, cap), cap
+
+        def dense():
+            cand, valid, cnt = enumerate_candidates_batch(
+                model.space, probs, xcfg.prob_threshold, cap)
+            return select_batch(model, tasks.net_idx, cand, valid, cnt,
+                                tasks.lat_obj, tasks.pow_obj)
+
+        def fused():
+            return fs.fused_select_batch(
+                model, tasks.net_idx, probs, xcfg.prob_threshold, cap,
+                tasks.lat_obj, tasks.pow_obj, tile=xcfg.select_tile)
+
+        res, times = {}, {"fused": [], "dense": []}
+        for route in ("fused", "dense", "dense", "fused"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[route] = (dense if route == "dense" else fused)()
+            times[route].append(1e3 * (time.perf_counter() - t0))
+        for i, (a, b) in enumerate(zip(res["dense"], res["fused"])):
+            assert _same(a, b), f"dense {name} cap {cap}: task {i} differs"
+        if cap == xcfg.max_candidates:
+            for i, (a, r) in enumerate(zip(res["dense"], run["warm"])):
+                assert _same(a, r.selection), \
+                    f"dense {name}: task {i} differs from explore_batch"
+        out[f"cap {cap}"] = dict(
+            same_as_fused=True,
+            mean_candidates=float(np.mean([r.n_candidates
+                                           for r in res["dense"]])),
+            dense_ms_per_task=min(times["dense"]) / N_TASKS,
+            fused_ms_per_task=min(times["fused"]) / N_TASKS)
+    print(f"dense route {name}: " + json.dumps(out), flush=True)
+    return out
+
+
+def _with_biases(params, gen):
+    """A copy of `params` with nonzero biases (so every term is live)."""
+    return {"layers": [{"w": p["w"], "b": torch.randn(
+        p["b"].shape, generator=gen, device="cuda") * 0.1}
+        for p in params["layers"]]}
+
+
+def check_mlp_grad(model) -> dict:
+    """Phase b: the whole MLP's gradient at LargeMLP's shapes (17 layers,
+    16 x 2048, M = 64): ``mlp_apply_chained`` on the card (the kernel's
+    forward, then the dense kernels' recompute and backward) against the
+    plain chain's autograd, TF32 off, for x, every w and every b, each
+    within TOL·max(1, max|g_ref|); its launches counted."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    lm = LargeMLP(model)
+    params = _with_biases(lm.init_params(1), gen)
+    x = torch.randn(N_TASKS, params["layers"][0]["w"].shape[0],
+                    generator=gen, device="cuda")
+    dy = torch.randn(N_TASKS, model.space.onehot_width, generator=gen,
+                     device="cuda")
+
+    def grads(use_fused):
+        leaves = [x.clone().requires_grad_()] + [
+            t.clone().requires_grad_() for p in params["layers"]
+            for t in (p["w"], p["b"])]
+        layers = [{"w": w, "b": b} for w, b in zip(leaves[1::2],
+                                                    leaves[2::2])]
+        y = L.mlp_apply_chained({"layers": layers}, leaves[0],
+                                use_fused=use_fused)
+        return torch.autograd.grad(y, leaves, dy)
+
+    want = grads(False)
+    zero_counts()
+    got = grads(None)
+    torch.cuda.synchronize()
+    launches = counts()
+    n = len(params["layers"])
+    for name, k in (("mlp_forward_f32", 1), ("dense_forward_f32", n),
+                    ("dense_dx_f32", n), ("dense_dw_db_f32", n)):
+        assert launches[name] == k, (name, launches[name], k)
+    errs = [_hold(f"whole-MLP gradient of input {i}", g, w)
+            for i, (g, w) in enumerate(zip(got, want))]
+    out = dict(layers=n, m=N_TASKS, max_abs_err=max(errs),
+               max_abs=max(float(w.abs().max()) for w in want),
+               launches=launches)
+    print("whole-MLP gradient: " + json.dumps(out), flush=True)
+    return out
+
+
+def _norm_err(a, b_) -> float:
+    return float(torch.linalg.vector_norm(a.double() - b_.double())) / \
+        max(float(torch.linalg.vector_norm(b_.double())), 1e-30)
+
+
+def mlp_step_bound_ms(dims) -> float:
+    """Sum of the dense kernels' bounds over one LargeMLP step: a forward
+    and a dW/db a layer, a dx a layer past the first."""
+    total = 0.0
+    for li, (k, n) in enumerate(zip(dims[:-1], dims[1:])):
+        relu = li < len(dims) - 2
+        total += dense_bound_ms("dense_forward_f32", BATCH, k, n, relu)[0]
+        total += dense_bound_ms("dense_dw_db_f32", BATCH, k, n, relu)[0]
+        if li > 0:
+            total += dense_bound_ms("dense_dx_f32", BATCH, k, n, relu)[0]
+    return total
+
+
+def check_mlp_step(model) -> dict:
+    """Phase c1: one LargeMLP step at full width (16 x 2048, batch 1024,
+    lr 2e-5) from one state, noise and batch: through the kernels, the
+    plain versions in float32 (use_fused=False), and the plain versions in
+    float64.  The losses of the two float32 routes agree within
+    TOL·max(1, |loss|); each gradient leaf, and each layer's new
+    parameters (w and b together), of the kernel route lies no further
+    from float64, in its norm, than TOL plus twice the plain float32
+    route (as ``check_step`` holds Algorithm 1's gradients).  Counts the
+    kernel route's launches and times warm steps of both float32
+    routes."""
+    lm = LargeMLP(model)
+    ds = gen_mod.generate_dataset(model, BATCH, seed=0)
+    data = T.encode_dataset(model, ds, "cuda")
+    batch = {k: data[k] for k in ("net_enc", "obj_enc", "cfg_onehot")}
+    params = lm.init_params(0)
+    rng = prng.prng_key(torch.tensor(0)).to("cuda")
+    noise = G.sample_noise_dim(prng.split(rng)[1], BATCH, lm.noise_dim)
+    f64 = lambda t: t.double()
+    routes = {"kernel": (params, batch, noise, None),
+              "plain": (params, batch, noise, False),
+              "float64": (tree_map(f64, params), tree_map(f64, batch),
+                          noise.double(), False)}
+    optim = adam(lm.lr)
+    outs = {}
+    for route, (p, b, nz, use_fused) in routes.items():
+        if route == "kernel":
+            zero_counts()
+        loss, grads = lm.loss_and_grads(p, b, nz, use_fused)
+        upd, _ = optim.update(grads, optim.init(p))
+        torch.cuda.synchronize()
+        if route == "kernel":
+            launches = counts()
+        outs[route] = (loss, tree_leaves(grads),
+                       tree_leaves(apply_updates(p, upd)))
+    n = lm.hidden_layers + 1
+    want = {"dense_forward_f32": n, "dense_dx_f32": n - 1,
+            "dense_dw_db_f32": n}
+    for name, k in want.items():
+        assert launches[name] == k, (name, launches[name], k)
+    lk, lp = float(outs["kernel"][0]), float(outs["plain"][0])
+    assert abs(lk - lp) <= TOL * max(1.0, abs(lp)), (lk, lp)
+
+    def by_layer(leaves):
+        # a layer's w and b as one vector: a zero-initialized bias moves by
+        # Adam's ±lr alone in the first step, so it is held in its layer
+        return [torch.cat([w.flatten(), b.flatten()])
+                for w, b in zip(leaves[0::2], leaves[1::2])]
+
+    res = {}
+    for i, what, split in ((1, "gradients", list), (2, "new_params",
+                                                    by_layer)):
+        k_, p_, t_ = (split(outs[r][i]) for r in ("kernel", "plain",
+                                                  "float64"))
+        e_k = [_norm_err(a, t) for a, t in zip(k_, t_)]
+        e_p = [_norm_err(a, t) for a, t in zip(p_, t_)]
+        for li, (ek, ep) in enumerate(zip(e_k, e_p)):
+            assert ek <= TOL + 2 * ep, \
+                f"LargeMLP {what} {li}: {ek} from float64, plain {ep}"
+        res[what] = dict(max_norm_err_kernel_vs_float64=max(e_k),
+                         max_norm_err_plain_vs_float64=max(e_p),
+                         max_abs_err_kernel_vs_plain=max(
+                             _err(a, b_) for a, b_ in zip(k_, p_)))
+    # Adam's first step is ±lr whatever a gradient's size: the elements
+    # whose step takes the other sign than float64's, in each route
+    g64 = outs["float64"][1]
+    for r in ("kernel", "plain"):
+        res["new_params"][f"{r}_sign_flips"] = sum(
+            int(((a > 0) != (t > 0)).sum()) for a, t in zip(outs[r][1], g64))
+    steps = {r: lm.make_step(u)[1] for r, u in (("kernel", None),
+                                                ("plain", False))}
+    opt = optim.init(params)
+    args = (params, opt, batch, rng)
+    dims = ([params["layers"][0]["w"].shape[0]]
+            + [p["w"].shape[1] for p in params["layers"]])
+    out = dict(layers=f"{lm.hidden_layers} x {lm.neurons}", batch=BATCH,
+               loss=lk, plain_loss=lp, float64_loss=float(outs["float64"][0]),
+               **res, launches=launches,
+               n_params=sum(t.numel() for t in tree_leaves(params)),
+               ms_per_step=host_ms(lambda: steps["kernel"](*args), reps=5),
+               plain_ms_per_step=host_ms(lambda: steps["plain"](*args),
+                                         reps=5),
+               bound_ms_per_step=mlp_step_bound_ms(dims),
+               profile=profile_step(steps["kernel"], args))
+    print("LargeMLP step: " + json.dumps(out), flush=True)
+    return out
+
+
+def drive_mlp(model) -> dict:
+    """Phase c2: ``LargeMLP.train`` at full width on the card (4096 rows,
+    2 epochs of 4 steps of 1024), then ``explore_batch`` of 64 tasks
+    (the whole-MLP kernel over 17 layers, then the streaming select),
+    cold then warm; the trained net's probs finite."""
+    lm = LargeMLP(model)
+    assert lm.device.type == "cuda", lm.device
+    ds = gen_mod.generate_dataset(model, 4096, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm.train(n_data=4096, iters=2, seed=0, ds=ds)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    tasks = gen_mod.generate_tasks(model, N_TASKS, seed=1)
+    t0 = time.perf_counter()
+    cold = lm.explore_batch(tasks, seed=0)
+    t1 = time.perf_counter()
+    warm = lm.explore_batch(tasks, seed=0)
+    t2 = time.perf_counter()
+    for a, b in zip(cold, warm):
+        assert _same(a.selection, b.selection), "LargeMLP cold/warm differ"
+    probs = lm.generator_probs_device(tasks.net_idx, tasks.lat_obj,
+                                      tasks.pow_obj, seed=0)
+    assert bool(torch.isfinite(probs).all()), "LargeMLP probs not finite"
+    # train_s includes the init's draws and the dataset's upload; the
+    # step alone is phase c1's
+    return dict(train_s=train_s,
+                train_ms_per_step_with_setup=1e3 * train_s / 8,
+                explore_cold_ms_per_task=1e3 * (t1 - t0) / N_TASKS,
+                explore_warm_ms_per_task=1e3 * (t2 - t1) / N_TASKS,
+                explore_n_satisfied=sum(r.satisfied for r in warm),
+                explore_mean_candidates=float(np.mean(
+                    [r.selection.n_candidates for r in warm])))
+
+
+def check_mlp_chain(model) -> dict:
+    """Phase c3: the whole-MLP kernel at LargeMLP's 17 layers (16 x 2048)
+    at M = 64 and 1024 (`check_chain`)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    return check_chain(f"LargeMLP {model.name}", LargeMLP(model)
+                       .init_params(2), (N_TASKS, 1024), gen)
+
+
+def drive_drl_sa() -> dict:
+    """Phase d: DRL's rollout and SA's anneal on the card (class defaults,
+    64 dnnweaver tasks) against the CPU port's from the same policy params
+    (trained on the CPU, then moved) and seeds: the same Selections.  The
+    rollout's launches counted (zeroed just before it)."""
+    model = DnnWeaverModel()
+    ds = gen_mod.generate_dataset(model, 4096, seed=0)
+    tasks = gen_mod.generate_tasks(model, N_TASKS, seed=1)
+    cpu = PolicyGradientDRL(model, device="cpu").train(
+        n_data=4096, iters=8, seed=0, ds=ds)
+    card = PolicyGradientDRL(model).attach(ds, cpu.params)
+    out = {}
+    for name, on_card, on_cpu in (
+            ("DRL", card, cpu),
+            ("SA", SimulatedAnnealing(model),
+             SimulatedAnnealing(model, device="cpu"))):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = on_card.explore_tasks(tasks, seed=0)
+        t1 = time.perf_counter()
+        launches = counts()
+        want = on_cpu.explore_tasks(tasks, seed=0)
+        off = [i for i, (a, b) in enumerate(zip(got, want))
+               if not _same(a.selection, b.selection)]
+        assert not off, f"{name}: card and CPU differ at tasks {off}"
+        out[name] = dict(same_as_cpu=True, launches=launches,
+                         ms_per_task=1e3 * (t1 - t0) / N_TASKS,
+                         n_satisfied=sum(r.satisfied for r in got),
+                         mean_candidates=float(np.mean(
+                             [r.selection.n_candidates for r in got])))
+        print(f"{name} on the card: " + json.dumps(out[name]), flush=True)
+    assert out["DRL"]["launches"]["dense_forward_f32"] > 0, \
+        "the DRL rollout never launched dense_forward_f32"
+    out["time split"] = profile_sa_drl(model, tasks, card)
+    return out
+
+
+def profile_sa_drl(model, tasks, drl) -> dict:
+    """Where SA's anneal and DRL's rollout spend their time on the card
+    (the 64 tasks of phase d): one check interval of the anneal (its start
+    and ``CHECK_EVERY`` steps) and one whole rollout, each timed warm on
+    the host clock and profiled (device busy time, idle share, launches),
+    beside the same work's threefry draws alone (SA: an interval's
+    ``_draws``; DRL: ``rollout_draws``), timed where the code makes them
+    (on the host, then one copy to the card) and, for the choice of that
+    place, as launches on the card."""
+    sa = SimulatedAnnealing(model)
+    net = torch.as_tensor(tasks.net_idx, dtype=torch.int64, device="cuda")
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+    lo, po = f32(tasks.lat_obj), f32(tasks.pow_obj)
+    keys = task_keys(dse.row_seeds(0, len(tasks)), len(tasks))
+    on_card = keys.to("cuda")
+    copy = lambda *ts: [t.to("cuda") for t in ts]
+    net_enc = f32(drl.ds.net_encoded(model, tasks.net_idx))
+    obj_enc = f32(drl.ds.obj_encoded(tasks.lat_obj, tasks.pow_obj))
+    n_dims, width = model.space.n_dims, model.space.onehot_width
+    sa_draws = lambda k: SA._draws(k, SA.CHECK_EVERY, n_dims)
+    drl_draws = lambda k: DRL.rollout_draws(k, n_dims, drl.rollout_len,
+                                            width, drl.explore_eps)
+    work = {
+        "SA check interval": (
+            lambda: sanneal(model, net, lo, po, keys, sa.t_init, sa.cooling,
+                            sa.steps_per_temp, SA.CHECK_EVERY),
+            lambda: copy(*sa_draws(keys)[1:]),
+            lambda: sa_draws(on_card)),
+        "DRL rollout": (
+            lambda: DRL.rollout(model, drl.params, net, net_enc, obj_enc, lo,
+                                po, keys, drl.rollout_len, drl.explore_eps),
+            lambda: copy(*drl_draws(keys)),
+            lambda: drl_draws(on_card)),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (whole, draws, card_draws) in work.items():
+            ms, draws_ms = host_ms(whole), host_ms(draws)
+            out[name] = dict(n_tasks=len(tasks), ms=ms, draws_ms=draws_ms,
+                             draws_share=draws_ms / ms,
+                             draws_on_card_ms=host_ms(card_draws),
+                             profile=profile_step(whole, ()),
+                             draws_on_card_profile=profile_step(card_draws,
+                                                                ()))
+            print(f"{name} time split: " + json.dumps(out[name]), flush=True)
+    return out
+
+
+class _OracleOn:
+    """A design model whose torch oracle runs on another device (the
+    results come back to the caller's): swaps one component of a lane."""
+
+    def __init__(self, model, device: str):
+        self.model, self.device = model, device
+        self.space, self.name = model.space, model.name
+
+    def evaluate_torch_indices(self, net_idx, cfg_idx):
+        lat, pw = self.model.evaluate_torch_indices(net_idx.to(self.device),
+                                                    cfg_idx.to(self.device))
+        return lat.to(net_idx.device), pw.to(net_idx.device)
+
+
+def trace_sa_lanes(model, tasks, seed: int) -> dict:
+    """SA's lanes on Table 5's tasks, the card's against the CPU port's.
+    A lane that differs is traced by swapping one component: the card's
+    anneal rerun on those lanes with the CPU's torch oracle must give the
+    CPU's lane exactly, so that the oracle's float32 rounding on the card
+    (hard tasks put objectives on a config's own metrics) is the cause,
+    and the anneal's own arithmetic (threefry, exp, the masked loop) is
+    not."""
+    sa = SimulatedAnnealing(model)
+    card = sa.explore_tasks(tasks, seed=seed)
+    cpu = SimulatedAnnealing(model, device="cpu").explore_tasks(tasks,
+                                                                seed=seed)
+    off = [t for t, (a, b) in enumerate(zip(card, cpu))
+           if not _same(a.selection, b.selection)]
+    out = dict(n_lanes=len(card), differ=off, lanes={})
+    if off:
+        idx = np.asarray(off)
+        seeds = dse.row_seeds(seed, len(tasks))[idx]
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32)[idx],
+                                        device="cuda")
+        best, _, n_eval = sanneal(
+            _OracleOn(model, "cpu"),
+            torch.as_tensor(tasks.net_idx[idx], dtype=torch.int64,
+                            device="cuda"),
+            f32(tasks.lat_obj), f32(tasks.pow_obj),
+            task_keys(seeds, len(seeds)), sa.t_init, sa.cooling,
+            sa.steps_per_temp, sa.max_steps)
+        for i, t in enumerate(off):
+            a, b = card[t].selection, cpu[t].selection
+            swapped = (best[i].tolist(), int(n_eval[i]))
+            out["lanes"][t] = dict(
+                card=(a.cfg_idx.tolist(), a.n_candidates, a.satisfied),
+                cpu=(b.cfg_idx.tolist(), b.n_candidates, b.satisfied),
+                card_with_cpu_oracle=swapped)
+            assert swapped == (b.cfg_idx.tolist(), b.n_candidates), \
+                f"SA lane {t}: the CPU oracle does not explain it: {out}"
+    print("SA lanes, card vs CPU (Table 5 tasks; differing lanes rerun on "
+          "the card with the CPU's oracle): " + json.dumps(out), flush=True)
+    return out
+
+
+#: the reference's Table 5 on dnnweaver, ``REPRO_RESULTS=<dir> python
+#: experiments/run_comparison.py --models dnnweaver --seed 0`` on an x86-64
+#: CPU with jax 0.9 (PERF.md): satisfied of 200, improvement ratio, DSE ms
+#: per task, mean candidates, training s.  Times are that CPU's
+REF_TABLE5 = {
+    "GANDSE": (56, 0.1122924357652776, 0.2431, 2.005, 6.97),
+    "LargeMLP": (56, 0.0925061038615396, 0.2219, 1.87, 1.52),
+    "DRL": (70, 0.23168537361673036, 0.0888, 17.0, 1.73),
+    "SA": (200, 0.12212839847648244, 0.7498, 60.54, 0.0),
+    "RandomSearch": (28, 0.2297712263764759, 0.0938, 2.0, 0.0),
+}
+TABLE5_KEYS = ("sat", "impr", "dse_ms_per_task", "candidates", "train_s")
+
+
+def table5(quality: dict) -> dict:
+    """Phase e: Table 5 on dnnweaver at ``run_comparison.py``'s reduced
+    scale (seed 0, 200 hard tasks) on the card, GANDSE's row the quality
+    phase's (not trained again); beside it the reference's CPU rows.  The
+    reference's own bar: GANDSE satisfies at least as many tasks as
+    budget-matched RandomSearch."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "results", "chip_smoke")
+    rep = CMP.run_comparison("dnnweaver", CMP.Scale(), seed=0,
+                             results_dir=out_dir, device="cuda",
+                             done={"GANDSE": quality["row"]})
+    rows = {}
+    for r in rep["rows"]:
+        rows[r["method"]] = dict(zip(TABLE5_KEYS, (
+            r["n_satisfied"], r["improvement_ratio"], 1e3 * r["dse_time_s"],
+            r["n_candidates"], r["train_time_s"])))
+        assert r["n_tasks"] == 200 and np.isfinite(r["dse_time_s"])
+    print("table5 dnnweaver: " + json.dumps(rows), flush=True)
+    print("REF_TABLE5 dnnweaver (the reference's CPU run): " + json.dumps(
+        {k: dict(zip(TABLE5_KEYS, v)) for k, v in REF_TABLE5.items()}),
+        flush=True)
+    assert CMP.gandse_beats_random_search(rep), \
+        "GANDSE satisfied fewer tasks than budget-matched RandomSearch"
+    model = DnnWeaverModel()
+    rows["SA"]["lanes_vs_cpu"] = trace_sa_lanes(
+        model, CMP.shared_data(model, CMP.Scale(), 0)[1], seed=2)
+    return rows
+
+
 def _same(a, b) -> bool:
     if (a.cfg_idx is None) != (b.cfg_idx is None):
         return False
@@ -1092,6 +1582,16 @@ def main() -> int:
     for name, run in runs.items():
         paths[name]["profile"] = profile_path(name, run)
 
+    # phase a: the dense route on the same engines, counts zeroed just
+    # before it
+    zero_counts()
+    dense_route = {name: drive_dense(name, run) for name, run in runs.items()}
+    dense_launches = counts()
+    print(f"launches on the dense route: {json.dumps(dense_launches)}",
+          flush=True)
+    assert dense_launches["mlp_forward_f32"] > 0, \
+        "the dense route never launched the whole-MLP kernel"
+
     # phase 4: the training path, counts zeroed just before it
     zero_counts()
     train = drive_train(Im2colModel())
@@ -1107,6 +1607,30 @@ def main() -> int:
 
     # phase 5: quality at the reference's reduced scale
     quality = quality_run()
+
+    # phase b: the whole MLP's gradient at LargeMLP's shapes
+    mlp_grad = check_mlp_grad(Im2colModel())
+
+    # phase c: LargeMLP at full width: one step against the plain route
+    # and float64, the 17-layer whole MLP, then train + explore with the
+    # counts zeroed just before
+    mlp_step = check_mlp_step(Im2colModel())
+    mlp_chain = check_mlp_chain(Im2colModel())
+    zero_counts()
+    mlp_run = drive_mlp(Im2colModel())
+    baseline_launches = counts()
+    print(f"launches on the baseline path: {json.dumps(baseline_launches)}",
+          flush=True)
+    print("LargeMLP im2col: " + json.dumps(mlp_run), flush=True)
+    for name in ("mlp_forward_f32", *DENSE_KERNELS):
+        assert baseline_launches[name] > 0, \
+            f"LargeMLP's train and explore never launched {name}"
+
+    # phase d: DRL's rollout and SA on the card against the CPU port
+    drl_sa = drive_drl_sa()
+
+    # phase e: Table 5 on dnnweaver, GANDSE's row from phase 5
+    t5 = table5(quality)
 
     # phase 6: the LM serving path at full width, counts zeroed just before
     # its prefill (inside drive_prefill)
@@ -1135,6 +1659,14 @@ def main() -> int:
         "library_ms": row["library_ms"],
         "im2col_m1024": kern["im2col", 1024],
         "dnnweaver_m64": kern["dnnweaver", N_TASKS],
+        "largemlp_17_layers_m64": mlp_chain[N_TASKS],
+        "largemlp_17_layers_m1024": mlp_chain[1024],
+        "launches_by_path": {
+            "serving": serve_launches["mlp_forward_f32"],
+            "dense_route": dense_launches["mlp_forward_f32"],
+            "training": train_launches["mlp_forward_f32"],
+            "baseline": baseline_launches["mlp_forward_f32"],
+            "whole_mlp_gradient": mlp_grad["launches"]["mlp_forward_f32"]},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -1145,6 +1677,12 @@ def main() -> int:
         **{k: v for k, v in dense[name]["hidden 2048->2048"].items()
            if k != "max_abs_err"},
         "launches_per_step": step["launches"][name],
+        "launches_per_largemlp_step": mlp_step["launches"][name],
+        "launches_by_path": {
+            "training": train_launches[name],
+            "baseline": baseline_launches[name],
+            "drl_rollout": drl_sa["DRL"]["launches"][name],
+            "whole_mlp_gradient": mlp_grad["launches"][name]},
         "shapes": {label: dense[name][label] for label in DENSE_SHAPES
                    if label != "hidden 2048->2048"},
     } for name, (_, replaces) in DENSE_KERNELS.items()] + [{
@@ -1167,7 +1705,10 @@ def main() -> int:
         with open(args.out, "w") as fh:
             json.dump({"card": card, "kernels": table["kernels"],
                        "paths": paths, "step": step, "train": train,
-                       "quality": quality, "prefill": prefill,
+                       "quality": quality, "dense_route": dense_route,
+                       "mlp_grad": mlp_grad, "mlp_step": mlp_step,
+                       "mlp_run": mlp_run, "drl_sa": drl_sa, "table5": t5,
+                       "prefill": prefill,
                        "serve": lm_serve, "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},
                       fh, indent=1)

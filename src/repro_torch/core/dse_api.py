@@ -7,14 +7,16 @@
   ``repro_torch.convert``)
 - Exploration:    ``GANDSE.explore`` (G inference -> candidates -> Algorithm 2)
   and its batched twin ``GANDSE.explore_batch`` (G over the whole task
-  batch on the card, then the streaming enumerate/score/select)
+  batch on the card, then ``fused_select.select_from_probs``: the dense
+  route or the streaming one)
 - Implementation: ``GANDSE.emit_config`` (structured design artifact)
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Union
+from typing import (Dict, List, Optional, Protocol, Sequence, Union,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -23,7 +25,7 @@ from repro_torch.core import gan as G
 from repro_torch.core import shard
 from repro_torch.core.explorer import (Explorer, ExplorerConfig,
                                        resolve_device, row_seeds)
-from repro_torch.core.fused_select import fused_select_batch
+from repro_torch.core.fused_select import select_from_probs
 from repro_torch.core.selector import Selection, select
 from repro_torch.core.train import TrainState, train_gan
 from repro_torch.dataset.generator import Dataset, DSETask, generate_dataset
@@ -69,9 +71,41 @@ class DSEResult:
         return self.selection.improvement_ratio(self.lat_obj, self.pow_obj)
 
 
+@runtime_checkable
+class DSEMethod(Protocol):
+    """What every DSE engine speaks — GANDSE and all baselines
+    (``repro_torch.baselines``).  The comparison harness
+    (``launch/comparison.py``) treats methods uniformly through it:
+
+    - ``train(n_data, iters, seed=, ds=, log_every=)``: fit on a (shared)
+      dataset; model-free methods (SA, random search) accept the call as a
+      no-op so one loop drives every method.
+    - ``explore(net_idx, lat_obj, pow_obj, seed=)``: one DSE task ->
+      ``DSEResult``.
+    - ``explore_tasks(tasks, seed=)``: a task batch -> ``List[DSEResult]``,
+      served batched on the method's device where the model has a torch
+      oracle, else through the sequential host loop.  ``seed`` is a scalar
+      (row t explores with seed + t) or a (T,) per-row seed array.
+    """
+
+    model: DesignModel
+    method_name: str
+
+    def train(self, n_data: int, iters: int, seed: int = 0,
+              ds: Optional[Dataset] = None, log_every: int = 0) -> object: ...
+
+    def explore(self, net_idx: np.ndarray, lat_obj: float, pow_obj: float,
+                seed: int = 0) -> "DSEResult": ...
+
+    def explore_tasks(self, tasks: DSETask, seed: SeedLike = 0
+                      ) -> List["DSEResult"]: ...
+
+
 class GANDSE:
     """End-to-end framework object for one design template (design model),
     on one device (the card unless the caller names another)."""
+
+    method_name = "GANDSE"
 
     def __init__(self, model: DesignModel, gan_cfg: Optional[G.GANConfig] = None,
                  explorer_cfg: Optional[ExplorerConfig] = None,
@@ -123,14 +157,17 @@ class GANDSE:
         assert self._explorer is not None, "call train() or attach() first"
         t0 = time.time()
         cands = self._explorer.candidates(net_idx, lat_obj, pow_obj, seed=seed)
-        sel = select(self.model, net_idx, cands, lat_obj, pow_obj)
+        sel = select(self.model, net_idx, cands, lat_obj, pow_obj,
+                     device=self.device)
         return DSEResult(sel, float(lat_obj), float(pow_obj), time.time() - t0)
 
     def explore_batch(self, tasks: DSETask,
                       seed: SeedLike = 0) -> List[DSEResult]:
         """Batched exploration: G inference over the flattened (task,
-        sample) rows on the device -> streaming enumerate/score/select
-        (``core/fused_select``) -> float64 host re-score of the winners.
+        sample) rows on the device -> enumerate/score/select on the device
+        (``fused_select.select_from_probs``, which picks the dense or the
+        streaming route from the batch and the cap) -> float64 host
+        re-score of the winners.
 
         Task i uses seed + i (or seed[i] for a (T,) array), so its candidate
         set equals ``explore(tasks.net_idx[i], ..., seed=seed + i)``'s; the
@@ -152,12 +189,9 @@ class GANDSE:
         tasks_p, seeds, n_real = shard.pad_tasks(tasks, seeds)
         probs = self._explorer.generator_probs_device(
             tasks_p.net_idx, tasks_p.lat_obj, tasks_p.pow_obj, seed=seeds)
-        sels = fused_select_batch(
-            self.model, tasks_p.net_idx, probs,
-            self.explorer_cfg.prob_threshold,
-            self.explorer_cfg.max_candidates,
-            tasks_p.lat_obj, tasks_p.pow_obj,
-            tile=self.explorer_cfg.select_tile)
+        sels = select_from_probs(self.model, tasks_p.net_idx, probs,
+                                 self.explorer_cfg, tasks_p.lat_obj,
+                                 tasks_p.pow_obj)
         per_task = (time.time() - t0) / n_real
         return [
             DSEResult(sel, float(tasks.lat_obj[i]), float(tasks.pow_obj[i]),

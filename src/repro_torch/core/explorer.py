@@ -13,21 +13,25 @@ Two routes produce identical candidate sets from the same probs:
 
 - ``enumerate_candidates``: host numpy + ``itertools.product`` for one task;
 - ``_enum_core``: the batched device twin (threshold mask -> trimmed
-  per-group keep masks -> mixed-radix tables) that ``core/fused_select``
-  streams in tiles.
+  per-group keep masks -> mixed-radix tables).  ``core/fused_select``
+  streams it in tiles (caps up to ``_PROD_LIM``);
+  ``enumerate_candidates_batch`` unravels it whole into a padded
+  ``(T, C_pad, n_dims)`` tensor (the dense route, caps up to
+  ``_DENSE_LIM``), which ``selector.select_batch`` consumes.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import itertools
-from typing import List, Union
+from typing import List, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import gan as G
 from repro_torch.core import prng
+from repro_torch.core.shard import pow2_bucket
 from repro_torch.core.encoding import ConfigSpace, device_tables
 from repro_torch.dataset.generator import Dataset
 from repro_torch.design_models.base import DesignModel
@@ -43,8 +47,11 @@ class ExplorerConfig:
     select_tile: int = 1024
 
 
-#: largest max_candidates the batched route accepts
+#: largest max_candidates the batched routes accept
 _PROD_LIM = 1 << 26
+#: largest cap the dense route materializes as a (T, C_pad, n_dims) tensor;
+#: beyond it only the streaming route (core/fused_select) applies
+_DENSE_LIM = 1 << 20
 
 
 def resolve_device(device) -> torch.device:
@@ -198,6 +205,55 @@ def _enum_core(space: ConfigSpace):
         return table, stride
 
     return masks_core, radix_core
+
+
+@functools.lru_cache(maxsize=None)
+def _batched_enum_fns(space: ConfigSpace):
+    """(masks, unravel) pair of the dense enumeration, over ``_enum_core``:
+    ``unravel`` applies the mixed-radix digit arithmetic to the whole
+    [0, c_pad) index range, giving the (T, c_pad, n_dims) padded candidate
+    tensor and its (T, c_pad) validity mask."""
+    masks_core, radix_core = _enum_core(space)
+
+    def unravel(keep, counts, total, c_pad: int):
+        table, stride = radix_core(keep, counts)
+        j = torch.arange(c_pad, dtype=torch.int64, device=keep.device)
+        digit = (j[None, :, None] // stride[:, None, :]) % counts[:, None, :]
+        cand = torch.gather(table, 2, digit.transpose(1, 2)).transpose(1, 2)
+        valid = j[None, :] < total[:, None]
+        return cand.to(torch.int32), valid
+
+    return masks_core, unravel
+
+
+def enumerate_candidates_batch(
+    space: ConfigSpace,
+    probs: torch.Tensor,
+    thresh: float,
+    max_candidates: int,
+) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+    """Batched twin of ``enumerate_candidates``, on the probs' device.
+
+    probs (T, onehot_width) float32 tensor ->
+      cand  (T, C_pad, n_dims) int32 candidate indices,
+      valid (T, C_pad) bool mask of real (non-padding) rows,
+      counts (T,) host int per-task candidate counts.
+
+    Row t's first counts[t] candidates equal ``enumerate_candidates`` on
+    probs[t] exactly.  C_pad is the next power of two >= max(counts) (at
+    least 2): a padding row is never valid, so a task's candidates and
+    Selection do not depend on the batch it rides in.  Picking C_pad
+    reads the counts on the host once per call.
+    """
+    assert space.max_group_size <= 1024 and 1 <= max_candidates <= _DENSE_LIM, \
+        "dense route needs max group size <= 1024 and cap <= 2**20 " \
+        "(use the fused tiled route for larger caps)"
+    masks, unravel = _batched_enum_fns(space)
+    keep, counts, total = masks(probs, thresh, max_candidates)
+    counts_host = total.to(torch.int32).cpu().numpy()
+    c_pad = pow2_bucket(int(counts_host.max(initial=1)))
+    cand, valid = unravel(keep, counts, total, c_pad)
+    return cand, valid, counts_host
 
 
 def flatten_task_draws(net_enc: torch.Tensor, obj_enc: torch.Tensor,

@@ -10,22 +10,21 @@ tile step
   carry-propagating compare/subtract (``radix_add``), so peak candidate
   memory is O(T * tile * n_dims) at any cap;
 - scores the tile with the torch float32 oracle;
-- folds the tile into each task's running Algorithm-2 winner.
-
-Exactness.  Algorithm 2's update chain is path-dependent, so no
-carry-independent per-tile reduction can match it.  The *accept test* is
-vectorized instead: under a fixed carry (L_opt, P_opt) the chain's next
-accepted row is the first row whose update predicate holds.  The replay
-loop below builds that accept mask for every task at once, moves every
-task that has a set bit to its first accepting row (reloading its carry),
-and repeats until no task accepts — the sequential chain, first-wins tie
-order included, in O(accepted rows) vectorized rounds.  Accepted rows are
-rare (each must improve on the last), so most tiles end after the first
-mask.
+- folds the tile into each task's running Algorithm-2 winner
+  (``selector.fold_chain``: the chain replayed, not reduced, since it is
+  path-dependent; most tiles end after the first accept mask).
 
 Selections equal the reference's (``tests/test_torch_explore.py``): the
 same float32 compares on the same oracle values, and winner metrics from
 the float64 host oracle through ``selections_from_winners``.
+
+``select_from_probs`` is the one place the batched explorers (GANDSE's and
+LargeMLP's ``explore_batch``) pick between this route and the dense one
+(``explorer.enumerate_candidates_batch`` + ``selector.select_batch``):
+the dense route scores the whole materialized block in one pass, which
+is faster wherever that block is small enough to hold (PERF.md); past
+that, or past the dense cap, this route streams tiles.  The Selections
+are the same either way.
 """
 from __future__ import annotations
 
@@ -34,13 +33,20 @@ from typing import List
 import numpy as np
 import torch
 
-from repro_torch.core.explorer import _PROD_LIM, _enum_core
-from repro_torch.core.selector import (NOISE_TOL, Selection,
+from repro_torch.core.explorer import (_DENSE_LIM, _PROD_LIM, ExplorerConfig,
+                                       _enum_core, enumerate_candidates_batch)
+from repro_torch.core.selector import (NOISE_TOL, Selection, fold_chain,
+                                       init_carry, select_batch,
                                        selections_from_winners)
+from repro_torch.core.shard import pow2_bucket
 from repro_torch.design_models.base import DesignModel
 
 #: default tile width — peak candidate memory is O(T * tile * n_dims)
 FUSED_TILE = 1024
+#: the most candidate rows (tasks x the cap's power-of-two bucket) that
+#: `select_from_probs` materializes for the dense route; larger batches
+#: stream tiles
+DENSE_ROWS = 1 << 22
 
 
 def radix_add(base: torch.Tensor, add: torch.Tensor,
@@ -59,23 +65,6 @@ def radix_add(base: torch.Tensor, add: torch.Tensor,
         carry = (s >= counts[..., d]).to(base.dtype)
         out[..., d] = s - carry * counts[..., d]
     return out
-
-
-def accept_mask(l_opt, p_opt, lo, po, lat, pw, fin):
-    """Algorithm 2's update predicate (selector.select, lines 7-22) for
-    every row of a (T, tile) block under the per-task carry (T,): the
-    case split is per-task scalars, only the metric compares are per-row."""
-    init = (l_opt == 0.0) & (p_opt == 0.0)
-    both = ((l_opt > lo) & (p_opt > po)) | ((l_opt < lo) & (p_opt < po))
-    sc2 = (l_opt > lo) & (p_opt < po)
-    sc3 = (p_opt > po) & (l_opt < lo)
-    lt_l = lat < l_opt[:, None]
-    lt_p = pw < p_opt[:, None]
-    return fin & (
-        init[:, None]
-        | ((~init & both)[:, None] & lt_l & lt_p)
-        | ((~init & ~both & sc2)[:, None] & lt_l & (pw < po[:, None]))
-        | ((~init & ~both & ~sc2 & sc3)[:, None] & lt_p & (lat < lo[:, None])))
 
 
 def fused_select_batch(
@@ -123,11 +112,8 @@ def fused_select_batch(
     # eager torch needs the trip count on the host: one read per call
     n_tiles = int(torch.max(total).item() + tile - 1) // tile  # lint: dispatch-sync-ok
 
-    l_opt = torch.zeros(t, dtype=torch.float32, device=dev)
-    p_opt = torch.zeros(t, dtype=torch.float32, device=dev)
-    chosen = torch.full((t,), -1, dtype=torch.int64, device=dev)
+    carry = init_carry(t, dev)
     base_dig = torch.zeros_like(step_dig)
-    task = torch.arange(t, device=dev)
     for k in range(n_tiles):
         j0 = k * tile
         digit = radix_add(base_dig[:, None, :], off_dig, counts[:, None, :])
@@ -136,20 +122,9 @@ def fused_select_batch(
         lat, pw = lat.to(torch.float32), pw.to(torch.float32)
         fin = (torch.isfinite(lat) & torch.isfinite(pw)
                & ((j0 + rows)[None, :] < total[:, None]))
-        pos = torch.zeros(t, dtype=torch.int64, device=dev)
-        while True:
-            acc = accept_mask(l_opt, p_opt, lo_d, po_d, lat, pw, fin) \
-                & (rows[None, :] >= pos[:, None])
-            has = acc.any(dim=-1)
-            # the replay loop's exit test is a host read of the device mask
-            if not bool(has.any()):  # lint: dispatch-sync-ok
-                break
-            i = torch.argmax(acc.to(torch.uint8), dim=-1)   # first set bit
-            l_opt = torch.where(has, lat[task, i], l_opt)
-            p_opt = torch.where(has, pw[task, i], p_opt)
-            chosen = torch.where(has, j0 + i, chosen)
-            pos = torch.where(has, i + 1, pos)
+        carry = fold_chain(carry, lo_d, po_d, lat, pw, fin, j0)
         base_dig = radix_add(base_dig, step_dig, counts)
+    chosen = carry[2]
 
     # winner configs from the same mixed radix; rows with chosen < 0 yield
     # arbitrary values here and are masked by the host tail
@@ -160,3 +135,32 @@ def fused_select_batch(
         model, net_idx, chosen.cpu().numpy(),
         win.to(torch.int32).cpu().numpy(), total.cpu().numpy(), lo, po,
         noise_tol)
+
+
+def dense_route_fits(model: DesignModel, n_tasks: int,
+                     max_candidates: int) -> bool:
+    """Whether `select_from_probs` takes the dense route for a batch of
+    n_tasks: the cap within the dense route's limits, and the largest
+    block it could materialize, n_tasks x pow2(cap) rows, within
+    DENSE_ROWS."""
+    return (max_candidates <= _DENSE_LIM
+            and model.space.max_group_size <= 1024
+            and n_tasks * pow2_bucket(max_candidates) <= DENSE_ROWS)
+
+
+def select_from_probs(model: DesignModel, net_idx: np.ndarray,
+                      probs: torch.Tensor, xcfg: ExplorerConfig, lat_obj,
+                      pow_obj) -> List[Selection]:
+    """Batched Algorithm 2 over the candidates of (T, onehot_width) probs
+    on their device, with `xcfg`'s threshold, cap and tile: the dense
+    route where `dense_route_fits`, else the streaming route.  Requires a
+    torch oracle; the Selections do not depend on the route."""
+    t = probs.shape[0]
+    if dense_route_fits(model, t, xcfg.max_candidates):
+        cand, valid, counts = enumerate_candidates_batch(
+            model.space, probs, xcfg.prob_threshold, xcfg.max_candidates)
+        return select_batch(model, net_idx, cand, valid, counts, lat_obj,
+                            pow_obj)
+    return fused_select_batch(model, net_idx, probs, xcfg.prob_threshold,
+                              xcfg.max_candidates, lat_obj, pow_obj,
+                              tile=xcfg.select_tile)

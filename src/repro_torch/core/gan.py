@@ -88,6 +88,12 @@ def generator_apply(params, space: ConfigSpace, net_enc: torch.Tensor,
         logits = L.mlp_apply_chained(params, x, use_fused=use_fused)
     else:
         logits = L.mlp_apply(params, x, use_fused=use_fused)
+    return group_softmax(space, logits)
+
+
+def group_softmax(space: ConfigSpace, logits: torch.Tensor) -> torch.Tensor:
+    """(..., onehot_width) logits -> the softmax of each config group, in
+    the flat one-hot layout (one padded softmax over every group)."""
     t = device_tables(space, logits.device)
     padded = torch.where(t.mask, logits[..., t.gidx], float("-inf"))
     probs = torch.softmax(padded, dim=-1)        # pad -inf -> exactly 0
@@ -102,22 +108,30 @@ def discriminator_apply(params, net_enc: torch.Tensor,
     return L.mlp_apply(params, x, use_fused=use_fused)
 
 
+def sample_noise_dim(key: torch.Tensor, batch: int,
+                     noise_dim: int) -> torch.Tensor:
+    """The canonical noise input ("small random numbers"), shared by G and
+    the LargeMLP baseline, which §7.1.4 feeds the same noise:
+    ``uniform(key, (batch, noise_dim), -0.1, 0.1)``, bit-identical to the
+    reference's ``sample_noise_dim``.  Element i of the flattened draw
+    hashes counter i, so row r of one key's batch is not the draw of any
+    other key.  key (..., 2) -> (..., batch, noise_dim)."""
+    flat = prng.uniform(key, batch * noise_dim, -0.1, 0.1)
+    return flat.reshape(*flat.shape[:-1], batch, noise_dim)
+
+
 def sample_noise(keys: torch.Tensor, cfg: GANConfig) -> torch.Tensor:
-    """The canonical noise input ("small random numbers"): one
-    ``uniform(key, (1, noise_dim), -0.1, 0.1)`` row per key, bit-identical
-    to the reference's draw.  keys (..., 2) -> (..., noise_dim)."""
-    return prng.uniform(keys, cfg.noise_dim, -0.1, 0.1)
+    """G's noise for inference: one ``sample_noise_dim(key, 1, noise_dim)``
+    row per key.  keys (..., 2) -> (..., noise_dim)."""
+    return sample_noise_dim(keys, 1, cfg.noise_dim)[..., 0, :]
 
 
 def sample_train_noise(key: torch.Tensor, batch: int,
                        cfg: GANConfig) -> torch.Tensor:
-    """Algorithm 1's noise: ``uniform(key, (batch, noise_dim), -0.1, 0.1)``
-    from ONE key — element i of the flattened (batch, noise_dim) draw
-    hashes counter i, so row r is not ``sample_noise`` of any key.
-    Bit-identical to the reference's ``sample_noise(rng, batch, cfg)``.
+    """Algorithm 1's noise: ``sample_noise_dim(key, batch, noise_dim)``
+    from ONE key, the reference's ``sample_noise(rng, batch, cfg)``.
     key (2,) -> (batch, noise_dim)."""
-    flat = prng.uniform(key, batch * cfg.noise_dim, -0.1, 0.1)
-    return flat.reshape(batch, cfg.noise_dim)
+    return sample_noise_dim(key, batch, cfg.noise_dim)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,8 @@ module reproduces those three calls bit for bit:
 - ``fold_in(key, s)``: ``threefry2x32(key, (0, s))``;
 - ``split(key, n)``: in partitionable mode key i of the split is
   ``fold_in(key, i)`` (Algorithm 1's ``rng, nrng = split(rng)``);
+- ``randint(key, n, lo, hi)``: two such draws reduced into the span
+  by jax's multiplier rule (SA's and DRL's integer draws);
 - ``uniform(key, n, lo, hi)``: the *partitionable* bit recipe — element
   i of the flattened shape hashes the 64-bit counter ``(hi=0, lo=i)`` and
   takes ``bits1 ^ bits2`` — then the float recipe: the top 23 bits become
@@ -31,6 +33,11 @@ uint32 supports few operations).
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
+
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -99,6 +106,30 @@ def uniform(key: torch.Tensor, n: int, minval: float, maxval: float
     return torch.clamp(fma_f32(floats, _f32(hi - lo)[0], lo), min=lo)
 
 
+def randint(key: torch.Tensor, n: int, minval, maxval) -> torch.Tensor:
+    """``randint(key, shape, minval, maxval)`` (int32) for a shape of n
+    elements: jax 0.9's ``_randint``.  Two 32-bit draws from ``k1, k2 =
+    split(key)`` are reduced into the span by jax's multiplier rule —
+    ``((hi % span) * (2^32 % span) + lo % span) % span`` with uint32
+    wrap-around, not a plain modulo — and a span <= 0 gives minval.
+    Bounds are ints within int32, or int64 tensors broadcast against the
+    draws.  (..., 2) keys -> (..., n) int64."""
+    k = split(key)
+    hi = random_bits(k[..., 0, :], n)
+    lo = random_bits(k[..., 1, :], n)
+    minval = torch.as_tensor(minval, dtype=torch.int64, device=key.device)
+    maxval = torch.as_tensor(maxval, dtype=torch.int64, device=key.device)
+    span = torch.where(maxval <= minval, 1, (maxval - minval) & MASK32)
+    # 2^32 % span as jax takes it: (2^16 % span)^2 wraps in uint32, so a
+    # span above 2^16 gets the multiplier 0
+    mult = ((((1 << 16) % span) ** 2) & MASK32) % span
+    a = hi % span
+    # (a * mult) mod 2^32 in int64: mult split into 16-bit halves
+    prod = (a * (mult & 0xFFFF) + (((a * (mult >> 16)) & 0xFFFF) << 16))
+    offset = ((prod + lo % span) & MASK32) % span
+    return minval + offset
+
+
 #: float32's smallest normal
 _TINY = 2.0 ** -126
 
@@ -149,6 +180,27 @@ def _fma_exact(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
 
 def _f32(*values: float) -> tuple:
     return tuple(torch.tensor(v, dtype=torch.float32).item() for v in values)
+
+
+@functools.lru_cache(maxsize=None)
+def _libm() -> ctypes.CDLL:
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    lib.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    lib.powf.restype = ctypes.c_float
+    return lib
+
+
+def pow_f32(base: float, exponents) -> np.ndarray:
+    """XLA-on-CPU's float32 ``pow(base, y)`` for each y (host numpy, the
+    temperature schedule of simulated annealing): C's ``powf``, which
+    XLA's float32 pow on the CPU matches bit for bit wherever the result
+    is a normal number (tests/test_torch_prng.py), with subnormal results
+    flushed to zero as XLA's CPU code flushes them.  The float64 power
+    rounded once is an ulp away at some exponents."""
+    powf = _libm().powf
+    out = np.array([powf(base, float(y)) for y in np.asarray(exponents)],
+                   np.float32)
+    return np.where(np.abs(out) < _TINY, np.float32(0.0), out)
 
 
 #: XLA's float32 ErfInv (Giles' polynomial in w = -log1p(-x*x)): the

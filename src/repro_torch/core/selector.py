@@ -12,18 +12,29 @@ The chain is copied as written, including its stall at equality: once
 ``L_opt == LO`` (or ``P_opt == PO``) no branch's strict inequality can
 hold, so no later candidate is taken.
 
-``select`` is the float64 host loop for one task.  The batched route
-(``core/fused_select``) steers the same chain in float32 on the device and
-ends in ``selections_from_winners``, which re-derives every reported
-metric from the float64 host oracle.
+Three routes run the chain:
+
+- ``select``'s host loop: float64 numpy, one task;
+- the device route (``select(use_torch=True)`` and the batched
+  ``select_batch``): the torch float32 oracle scores a whole (T, C) block
+  of candidates, then `fold_chain` replays the chain over it for every
+  task at once — the batched twin of the reference's vmapped
+  ``lax.scan``;
+- ``core/fused_select``: the same fold over streamed candidate tiles.
+
+The device routes steer the chain in float32 and end in
+``selections_from_winners``, which re-derives every reported metric from
+the float64 host oracle.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.core.explorer import resolve_device
 from repro_torch.design_models.base import DesignModel
 
 
@@ -56,6 +67,84 @@ def is_satisfied(lat: float, pw: float, lo: float, po: float,
                 and pw <= po * (1 + noise_tol))
 
 
+#: auto-route cutover of `select`: from this many candidates on, a model
+#: with a torch oracle takes the device route (the reference's
+#: JAX_MIN_CANDIDATES, the crossover measured there on the CPU)
+TORCH_MIN_CANDIDATES = 512
+
+def accept_mask(l_opt, p_opt, lo, po, lat, pw, fin):
+    """Algorithm 2's update predicate (lines 7-22) for every row of a
+    (T, n) block under the per-task carry (T,): the case split is
+    per-task scalars, only the metric compares are per-row."""
+    init = (l_opt == 0.0) & (p_opt == 0.0)
+    both = ((l_opt > lo) & (p_opt > po)) | ((l_opt < lo) & (p_opt < po))
+    sc2 = (l_opt > lo) & (p_opt < po)
+    sc3 = (p_opt > po) & (l_opt < lo)
+    lt_l = lat < l_opt[:, None]
+    lt_p = pw < p_opt[:, None]
+    return fin & (
+        init[:, None]
+        | ((~init & both)[:, None] & lt_l & lt_p)
+        | ((~init & ~both & sc2)[:, None] & lt_l & (pw < po[:, None]))
+        | ((~init & ~both & ~sc2 & sc3)[:, None] & lt_p & (lat < lo[:, None])))
+
+
+def init_carry(t: int, device) -> Tuple[torch.Tensor, ...]:
+    """The chain's starting carry for t tasks: L_opt = P_opt = 0 (lines
+    7-8's init test) and no row chosen (-1)."""
+    zeros = torch.zeros(t, dtype=torch.float32, device=device)
+    return zeros, zeros.clone(), torch.full((t,), -1, dtype=torch.int64,
+                                            device=device)
+
+
+def fold_chain(carry, lo, po, lat, pw, fin, j0: int = 0):
+    """Run Algorithm 2's update chain over a (T, n) block of scored rows
+    for every task at once; carry = (L_opt, P_opt, chosen), each (T,);
+    row i of the block has rank j0 + i.
+
+    The chain is path-dependent, so it is replayed, not reduced: under a
+    fixed carry the chain's next accepted row is the first row whose
+    update predicate holds.  Each round builds that mask for every task,
+    moves every task with a set bit to its first accepting row (reloading
+    its carry), and repeats until no task accepts — the sequential chain,
+    first-wins tie order included, in O(accepted rows) vectorized rounds.
+    Accepted rows are rare (each must improve on the last)."""
+    l_opt, p_opt, chosen = carry
+    t, n = lat.shape
+    rows = torch.arange(n, device=lat.device)
+    task = torch.arange(t, device=lat.device)
+    pos = torch.zeros(t, dtype=torch.int64, device=lat.device)
+    while True:
+        acc = accept_mask(l_opt, p_opt, lo, po, lat, pw, fin) \
+            & (rows[None, :] >= pos[:, None])
+        has = acc.any(dim=-1)
+        # the replay loop's exit test is a host read of the device mask
+        if not bool(has.any()):  # lint: dispatch-sync-ok
+            return l_opt, p_opt, chosen
+        i = torch.argmax(acc.to(torch.uint8), dim=-1)   # first set bit
+        l_opt = torch.where(has, lat[task, i], l_opt)
+        p_opt = torch.where(has, pw[task, i], p_opt)
+        chosen = torch.where(has, j0 + i, chosen)
+        pos = torch.where(has, i + 1, pos)
+
+
+def _algorithm2(model: DesignModel, net_idx: torch.Tensor,
+                cand_idx: torch.Tensor, valid: torch.Tensor,
+                lo: torch.Tensor, po: torch.Tensor):
+    """Score + update chain on the tensors' device (the reference's
+    ``_algorithm2_core``, batched): net_idx (T, n_net_dims), cand_idx
+    (T, C, n_dims), valid (T, C) marking real rows, float32 objectives
+    (T,) -> (L_opt, P_opt, chosen), each (T,).  The update chain sees the
+    same float32 values whatever the batch, so batching never changes a
+    task's winner."""
+    lat, pw = model.evaluate_torch_indices(net_idx[:, None, :],
+                                           cand_idx.to(torch.int64))
+    lat, pw = lat.to(torch.float32), pw.to(torch.float32)
+    fin = torch.isfinite(lat) & torch.isfinite(pw) & valid
+    return fold_chain(init_carry(lat.shape[0], lat.device), lo, po, lat, pw,
+                      fin)
+
+
 def select(
     model: DesignModel,
     net_idx: np.ndarray,
@@ -63,11 +152,31 @@ def select(
     lat_obj: float,
     pow_obj: float,
     noise_tol: float = NOISE_TOL,
+    use_torch: Optional[bool] = None,
+    device=None,
 ) -> Selection:
-    """Run Algorithm 2 over the candidate set for one DSE task (float64
-    host loop).  noise_tol only affects the reported `satisfied` flag."""
+    """Run Algorithm 2 over the candidate set for one DSE task.
+
+    noise_tol only affects the reported `satisfied` flag.  use_torch: None
+    = the device route when the model has a torch oracle and the set has
+    at least TORCH_MIN_CANDIDATES rows; True/False force a route.  The
+    device route is `select_batch` for one task on `device` (None: the
+    card, see ``explorer.resolve_device``); it scores in float32 (it can
+    pick another near-tied winner than the float64 host loop), but the
+    returned metrics always come from the float64 host oracle."""
     if cand_idx.size == 0:
         return Selection(None, np.inf, np.inf, False, 0)
+    if use_torch is None:
+        use_torch = (model.has_torch_oracle
+                     and cand_idx.shape[0] >= TORCH_MIN_CANDIDATES)
+    if use_torch:
+        dev = resolve_device(device)
+        n = cand_idx.shape[0]
+        return select_batch(
+            model, np.asarray(net_idx).reshape(1, -1),
+            torch.as_tensor(cand_idx, device=dev)[None],
+            torch.ones((1, n), dtype=torch.bool, device=dev), [n],
+            [lat_obj], [pow_obj], noise_tol)[0]
     net = np.repeat(np.atleast_2d(net_idx), cand_idx.shape[0], axis=0)
     lat, pw = model.evaluate_indices(net, cand_idx)      # vectorized (lines 4-5)
 
@@ -138,3 +247,41 @@ def selections_from_winners(
         satisfied = is_satisfied(l_opt, p_opt, lo[t], po[t], noise_tol)
         out.append(Selection(win_cfg[t].copy(), l_opt, p_opt, satisfied, n))
     return out
+
+
+def select_batch(
+    model: DesignModel,
+    net_idx: np.ndarray,
+    cand_idx: torch.Tensor,
+    valid: torch.Tensor,
+    n_candidates: np.ndarray,
+    lat_obj,
+    pow_obj,
+    noise_tol: float = NOISE_TOL,
+) -> List[Selection]:
+    """Batched Algorithm 2 over a padded candidate tensor, on its device.
+
+    net_idx (T, n_net_dims), cand_idx (T, C_pad, n_dims) and valid
+    (T, C_pad) tensors (as ``enumerate_candidates_batch`` returns them),
+    n_candidates (T,) real per-task counts, objectives (T,).  Requires a
+    torch oracle.  All T update chains run as one `fold_chain` over the
+    whole block; candidates are scored in float32, and the winners'
+    metrics come from one batched float64 host-oracle call.  Task t's
+    Selection equals ``select(model, net_idx[t], cand_idx[t][:n[t]], ...,
+    use_torch=True)``."""
+    if not model.has_torch_oracle:
+        raise ValueError(f"{model.name} has no torch oracle")
+    dev = cand_idx.device
+    net_idx = np.asarray(net_idx, np.int32)
+    lo = np.asarray(lat_obj, np.float64).reshape(-1)
+    po = np.asarray(pow_obj, np.float64).reshape(-1)
+    f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    _, _, chosen = _algorithm2(
+        model, torch.as_tensor(net_idx, dtype=torch.int64, device=dev),
+        cand_idx, valid, f32(lo), f32(po))
+    task = torch.arange(cand_idx.shape[0], device=dev)
+    win = cand_idx[task, chosen.clamp(min=0)]
+    return selections_from_winners(
+        model, net_idx, chosen.cpu().numpy(),
+        win.to(torch.int32).cpu().numpy(), np.asarray(n_candidates), lo, po,
+        noise_tol)

@@ -94,7 +94,7 @@ def make_oracle(model: DesignModel, use_torch_oracle: Optional[bool] = None):
     return on_host, False
 
 
-def _value_and_grad(loss_fn: Callable, params, *args):
+def value_and_grad(loss_fn: Callable, params, *args):
     """(loss, aux), grads of `loss_fn(params, *args)` w.r.t. params, as a
     tree like params; the caller's params are left as they are."""
     p = tree_map(lambda t: t.detach().requires_grad_(), params)
@@ -156,13 +156,13 @@ def _make_step_body(model: DesignModel, cfg: G.GANConfig,
         rng, nrng = prng.split(rng)
         noise = G.sample_train_noise(nrng, batch["net_enc"].shape[0], cfg)
         d_frozen = tree_map(torch.Tensor.detach, d_params)
-        (loss_g, aux), g_grads = _value_and_grad(losses_g, g_params, d_frozen,
+        (loss_g, aux), g_grads = value_and_grad(losses_g, g_params, d_frozen,
                                                  batch, noise)
         g_upd, g_opt = g_optim.update(g_grads, g_opt)
         g_params = apply_updates(g_params, g_upd)
 
         # the D loss sees the probs from before G's update (lines 12/15)
-        (loss_d, daux), d_grads = _value_and_grad(
+        (loss_d, daux), d_grads = value_and_grad(
             losses_d, d_params, batch, aux["probs"], aux["sat_actual"])
         d_upd, d_opt = d_optim.update(d_grads, d_opt)
         d_params = apply_updates(d_params, d_upd)

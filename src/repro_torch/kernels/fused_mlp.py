@@ -31,6 +31,11 @@ tensor gets the plain version (``kernels/ref.py``); a CUDA tensor gets the
 kernel or an exception (a card that is not sm_90, a failed build, a
 refused launch) — nothing falls back.  ``kernels/dispatch.py`` only adds the caller's
 ``use_fused=False`` opt-out.
+
+Both routes are differentiable, as the reference's ``custom_vjp`` is: the
+plain version through autograd, the kernel through ``FusedMLP``, whose
+backward re-runs the layer chain on the dense kernels of
+``kernels/fused_dense.py`` (their launches count in their own wrappers).
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import build as _build
+from repro_torch.kernels import fused_dense as _fd
 from repro_torch.kernels import ref as _ref
 
 SOURCE = _build.CSRC / "mlp_forward.cu"
@@ -80,16 +86,10 @@ def _check(x: torch.Tensor, ws: Sequence[torch.Tensor],
         *((f"b{i}", b) for i, b in enumerate(bs))])
 
 
-def fused_mlp(x: torch.Tensor, ws: Sequence[torch.Tensor],
-              bs: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Whole-MLP forward (hidden ReLU, linear head): x (M, D_in), per-layer
-    w (K_l, N_l) and b (N_l,) -> (M, N_last) float32.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (one grid per layer from one C call, counted once in
-    ``fused_mlp.launches``) or raise."""
-    if x.device.type == "cpu":
-        return _ref.fused_mlp(x, ws, bs)
+def _launch(x: torch.Tensor, ws: Sequence[torch.Tensor],
+            bs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One C call of the kernel (one grid per layer), counted once in
+    ``fused_mlp.launches``."""
     _check(x, ws, bs)
     m = x.shape[0]
     dims = [x.shape[1]] + [w.shape[1] for w in ws]
@@ -118,6 +118,67 @@ def fused_mlp(x: torch.Tensor, ws: Sequence[torch.Tensor],
         raise RuntimeError(f"mlp_forward_f32 launch failed with CUDA error {err}")
     fused_mlp.launches += 1
     return out
+
+
+def chain_vjp(x: torch.Tensor, ws: Sequence[torch.Tensor],
+              bs: Sequence[torch.Tensor], dy: torch.Tensor,
+              needs: Sequence[bool]) -> list:
+    """The whole MLP's gradients, as the reference's ``_fused_mlp_vjp``
+    takes them: the layer chain re-run through ``fused_dense`` (hidden
+    ReLU, linear head) and differentiated through its backward.  On CUDA
+    tensors that is the dense forward, dx and dW/db kernels, counted in
+    their own wrappers; on CPU tensors their plain versions.  `needs`
+    flags x, every w, then every b; a gradient not needed is None and its
+    kernel is not launched."""
+    n = len(ws)
+    leaves = [t.detach().requires_grad_(need)
+              for t, need in zip([x, *ws, *bs], needs)]
+    with torch.enable_grad():
+        h = leaves[0]
+        for i in range(n):
+            h = _fd.fused_dense(h, leaves[1 + i], leaves[1 + n + i],
+                                relu=i < n - 1)
+        want = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(h, want, dy) if want else ())
+    return [next(grads) if t.requires_grad else None for t in leaves]
+
+
+class FusedMLP(torch.autograd.Function):
+    """The whole-MLP kernel's forward with the reference's gradient: the
+    backward re-runs the layer chain through the dense kernels
+    (`chain_vjp`) rather than shipping a second whole-MLP kernel, as
+    ``_fused_mlp_vjp`` does.  Inputs: x, then the n weights, then the n
+    biases."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, *wb: torch.Tensor) -> torch.Tensor:
+        n = len(wb) // 2
+        ctx.save_for_backward(x, *wb)
+        return _launch(x, wb[:n], wb[n:])
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, *wb = ctx.saved_tensors
+        n = len(wb) // 2
+        return tuple(chain_vjp(x, wb[:n], wb[n:], dy.contiguous(),
+                               ctx.needs_input_grad))
+
+
+def fused_mlp(x: torch.Tensor, ws: Sequence[torch.Tensor],
+              bs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Whole-MLP forward (hidden ReLU, linear head): x (M, D_in), per-layer
+    w (K_l, N_l) and b (N_l,) -> (M, N_last) float32, differentiable on
+    both routes.
+
+    CPU tensors take the plain version (differentiated by autograd); CUDA
+    tensors launch the kernel (one grid per layer from one C call, counted
+    once in ``fused_mlp.launches``) or raise, and differentiate through
+    `FusedMLP`."""
+    if x.device.type == "cpu":
+        return _ref.fused_mlp(x, ws, bs)
+    if len(ws) != len(bs):
+        raise ValueError(f"need one bias per weight, got {len(ws)} and {len(bs)}")
+    return FusedMLP.apply(x, *ws, *bs)
 
 
 #: calls that launched the kernel (not the CPU plain-version route)

@@ -8,6 +8,11 @@ Split at the probs boundary, as the ROADMAP's parity rule says:
   tasks and ragged counts, on a synthetic model whose metrics are exact
   small integers (float32 and float64 chains agree), and on the three
   real design models;
+- the dense route (``enumerate_candidates_batch`` + ``select_batch``)
+  and ``select``'s device route, given identical probs or candidates:
+  identical candidates and Selections, equal to the fused route's;
+  ``select_from_probs`` picks between the two batched routes from the
+  batch and the cap;
 - *given identical params and seed*, G's probs are allclose (atol 1e-6:
   float32 sums in another order; the reference's CPU route is the vmapped
   per-task forward, the port's the flattened row batch) and the
@@ -24,6 +29,7 @@ from repro.core import explorer as JE
 from repro.core import gan as JG
 from repro.core.encoding import ConfigDim as JDim, ConfigSpace as JSpace
 from repro.core.fused_select import fused_select_batch as j_fused
+from repro.core import selector as JS
 from repro.core.selector import select as j_select
 from repro.dataset import generator as JGEN
 from repro.design_models.base import DesignModel as JDesignModel
@@ -37,7 +43,9 @@ from repro_torch.core import gan as G
 from repro_torch.core import prng
 from repro_torch.core import shard
 from repro_torch.core.encoding import ConfigDim, ConfigSpace
+from repro_torch.core import fused_select as FS
 from repro_torch.core.fused_select import fused_select_batch
+from repro_torch.core import selector as S
 from repro_torch.core.selector import select
 from repro_torch.dataset import generator as GEN
 from repro_torch.design_models import (DnnWeaverModel, Im2colModel,
@@ -364,3 +372,154 @@ def test_summarize_and_parse_network_match_reference():
     np.testing.assert_array_equal(
         API.parse_network(desc, Im2colModel()),
         JAPI.parse_network(desc, JIm2col()))
+
+
+# ---------------------------------------------------------------------------
+# the dense route and select's device route
+# ---------------------------------------------------------------------------
+DENSE_CASES = [
+    # model, thresh, cap, n_tasks
+    ("mix", 0.05, 4096, 12),
+    ("mix", 0.1, 60, 16),
+    ("mix", 0.0, 1, 4),
+    ("dnnweaver", 0.1, 4096, 16),
+    ("im2col", 0.2, 500, 16),
+    ("tpu_mesh", 0.1, 100, 8),
+]
+
+
+def _dense_models(name):
+    if name == "mix":
+        return JMix((3, 9, 2, 5), 13.0, 11.0, 5.0), TMix((3, 9, 2, 5), 13.0,
+                                                        11.0, 5.0)
+    return REAL[name][0](), REAL[name][1]()
+
+
+def _dense_inputs(name, jm, t, seed):
+    probs = _probs(jm.space, t, seed=seed)
+    if name == "mix":
+        rng = np.random.default_rng(t)
+        return (probs, np.zeros((t, 1), np.int32), rng.uniform(1.0, 14.0, t),
+                rng.uniform(1.0, 12.0, t))
+    tasks = JGEN.generate_tasks(jm, t, seed=seed)
+    return probs, tasks.net_idx, tasks.lat_obj, tasks.pow_obj
+
+
+@pytest.mark.parametrize("case", DENSE_CASES, ids=lambda c: f"{c[0]}-{c[2]}")
+def test_enumerate_candidates_batch_matches_reference(case):
+    name, thresh, cap, t = case
+    jm, tm = _dense_models(name)
+    probs = _dense_inputs(name, jm, t, seed=cap + t)[0]
+    jc, jv, jn = JE.enumerate_candidates_batch(jm.space, probs, thresh, cap)
+    tc, tv, tn = E.enumerate_candidates_batch(tm.space,
+                                              torch.from_numpy(probs),
+                                              thresh, cap)
+    assert tc.dtype == torch.int32 and tv.dtype == torch.bool
+    np.testing.assert_array_equal(tn, np.asarray(jn))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    # padding rows hold what the mixed radix gives past the product; only
+    # the real rows are a contract
+    for i in range(t):
+        np.testing.assert_array_equal(tc[i, :tn[i]].numpy(),
+                                      np.asarray(jc)[i, :jn[i]])
+        np.testing.assert_array_equal(
+            tc[i, :tn[i]].numpy(),
+            E.enumerate_candidates(tm.space, probs[i], thresh, cap))
+
+
+@pytest.mark.parametrize("case", DENSE_CASES, ids=lambda c: f"{c[0]}-{c[2]}")
+def test_select_batch_and_dense_route_match_reference(case):
+    name, thresh, cap, t = case
+    jm, tm = _dense_models(name)
+    probs, net, lo, po = _dense_inputs(name, jm, t, seed=cap + t + 1)
+    jc, jv, jn = JE.enumerate_candidates_batch(jm.space, probs, thresh, cap)
+    want = JS.select_batch(jm, net, jc, jv, jn, lo, po)
+    tc, tv, tn = E.enumerate_candidates_batch(tm.space,
+                                              torch.from_numpy(probs),
+                                              thresh, cap)
+    got = S.select_batch(tm, net, tc, tv, tn, lo, po)
+    _assert_all_same(got, want)
+    # the fused route gives the dense route's Selections
+    _assert_all_same(fused_select_batch(tm, net, torch.from_numpy(probs),
+                                        thresh, cap, lo, po, tile=64), got)
+    # ... and select's device route, one task at a time
+    for i in range(t):
+        cand = tc[i, :tn[i]].numpy()
+        one = select(tm, net[i], cand, lo[i], po[i], use_torch=True,
+                     device="cpu")
+        assert _same(one, got[i]), i
+        assert _same(one, j_select(jm, net[i], cand, lo[i], po[i],
+                                   use_jax=True))
+
+
+def test_select_routes_by_candidate_count_and_override():
+    """use_torch=None: the device route (`select_batch` for one task) from
+    TORCH_MIN_CANDIDATES rows on, as the reference's JAX_MIN_CANDIDATES
+    crossover; an explicit use_torch overrides the count either way."""
+    assert S.TORCH_MIN_CANDIDATES == JS.JAX_MIN_CANDIDATES == 512
+    tm = TMix((8, 8, 8, 2), 61.0, 53.0, 0.0)
+    cands = np.stack(np.meshgrid(*[np.arange(n) for n in (8, 8, 8, 2)],
+                                 indexing="ij"), -1).reshape(-1, 4)
+    calls = []
+    real = S.select_batch
+
+    def spy(*a, **k):
+        calls.append(a[2].shape[1])
+        return real(*a, **k)
+
+    net = np.zeros(1, np.int32)
+    S.select_batch = spy
+    try:
+        below = select(tm, net, cands[:511], 30.0, 20.0, device="cpu")
+        select(tm, net, cands[:512], 30.0, 20.0, device="cpu")
+        select(tm, net, cands[:600], 30.0, 20.0, use_torch=False,
+               device="cpu")
+        forced = select(tm, net, cands[:511], 30.0, 20.0, use_torch=True,
+                        device="cpu")
+    finally:
+        S.select_batch = real
+    assert calls == [512, 511]
+    # exact small-integer metrics: both routes take the same winner
+    assert _same(forced, below)
+
+
+@pytest.mark.parametrize("name", sorted(REAL))
+def test_dense_route_fits_the_cap_and_the_block(name):
+    """select_from_probs takes the dense route while the cap is within
+    _DENSE_LIM and T x pow2(cap) rows within DENSE_ROWS, else streams."""
+    tm = REAL[name][1]()
+    rows = FS.DENSE_ROWS
+    assert FS.dense_route_fits(tm, rows // 4096, 4096)
+    assert FS.dense_route_fits(tm, rows // 4096, 3000)      # pow2: 4096
+    assert not FS.dense_route_fits(tm, rows // 4096 + 1, 4096)
+    assert FS.dense_route_fits(tm, 1, E._DENSE_LIM)
+    assert not FS.dense_route_fits(tm, 1, E._DENSE_LIM + 1)
+
+
+@pytest.mark.parametrize("name", sorted(REAL))
+def test_explore_batch_dense_route_matches_fused_and_reference(name,
+                                                               monkeypatch):
+    """explore_batch takes the dense route at this batch and cap, and the
+    streaming route when the dense block is capped at 0 rows: the same
+    Selections, the reference's dense route's too."""
+    je, te = _engines(name)
+    tasks = JGEN.generate_tasks(je.model, 12, seed=4)
+    taken = []
+    for route in ("select_batch", "fused_select_batch"):
+        real = getattr(FS, route)
+        monkeypatch.setattr(FS, route, lambda *a, _f=real, _r=route, **k: (
+            taken.append(_r), _f(*a, **k))[1])
+    dense = te.explore_batch(tasks, seed=21)
+    with monkeypatch.context() as mp:
+        mp.setattr(FS, "DENSE_ROWS", 0)
+        fused = te.explore_batch(tasks, seed=21)
+    assert taken == ["select_batch", "fused_select_batch"]
+    je.explorer_cfg.batch_route = "dense"
+    want = je.explore_batch(tasks, seed=21)
+    _assert_all_same([r.selection for r in dense],
+                     [r.selection for r in fused])
+    _assert_all_same([r.selection for r in dense],
+                     [r.selection for r in want])
+    # the dense route's rows do not depend on the batch either
+    one = te.explore_batch(tasks.take([3]), seed=np.array([24]))
+    assert _same(one[0].selection, dense[3].selection)

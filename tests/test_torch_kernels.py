@@ -121,6 +121,42 @@ def test_mlp_init_shapes_and_scales():
     assert torch.equal(again["layers"][0]["w"], p["layers"][0]["w"])
 
 
+@pytest.mark.parametrize("m,widths", SHAPES[:4])
+def test_whole_mlp_gradient_matches_pallas_vjp(m, widths, rng):
+    """The whole MLP's backward (``fused_mlp.chain_vjp``: the layer chain
+    re-run through ``fused_dense``, the plain versions on CPU tensors)
+    against the reference's ``_fused_mlp_vjp`` in interpret mode, for x,
+    every w and every b; and the CPU route's autograd agrees."""
+    jax, JFM, _ = _reference()
+    import jax.numpy as jnp
+    ws, bs = _mlp(rng, widths)
+    x = rng.normal(size=(m, widths[0])).astype(np.float32)
+    dy = rng.normal(size=(m, widths[-1])).astype(np.float32)
+    _, vjp = jax.vjp(lambda x_, ws_, bs_: JFM.fused_mlp(
+        x_, ws_, bs_, interpret=True), jnp.asarray(x),
+        [jnp.asarray(w) for w in ws], [jnp.asarray(b) for b in bs])
+    jx, jws, jbs = vjp(jnp.asarray(dy))
+    want = [np.asarray(a) for a in (jx, *jws, *jbs)]
+    t = [torch.from_numpy(a) for a in (x, *ws, *bs)]
+    n = len(ws)
+    got = FM.chain_vjp(t[0], t[1:1 + n], t[1 + n:], torch.from_numpy(dy),
+                       [True] * (2 * n + 1))
+    leaves = [a.clone().requires_grad_() for a in t]
+    y = FM.fused_mlp(leaves[0], leaves[1:1 + n], leaves[1 + n:])
+    auto = torch.autograd.grad(y, leaves, torch.from_numpy(dy))
+    for i, (g, a, w_) in enumerate(zip(got, auto, want)):
+        np.testing.assert_allclose(g.numpy(), w_, rtol=TOL, atol=TOL,
+                                   err_msg=f"input {i}")
+        np.testing.assert_allclose(a.numpy(), w_, rtol=TOL, atol=TOL,
+                                   err_msg=f"autograd input {i}")
+    # a gradient not asked for is neither computed nor launched
+    part = FM.chain_vjp(t[0], t[1:1 + n], t[1 + n:], torch.from_numpy(dy),
+                        [False] + [True] * n + [False] * n)
+    assert part[0] is None and all(p is None for p in part[1 + n:])
+    for g, w_ in zip(part[1:1 + n], want[1:1 + n]):
+        np.testing.assert_allclose(g.numpy(), w_, rtol=TOL, atol=TOL)
+
+
 #: (M, K, N) of the dense layer: ragged, as Algorithm 1 sees them (inputs
 #: 16/37/81 wide, heads 2/29/73 wide)
 DENSE_SHAPES = [(37, 29, 73), (8, 16, 29), (5, 81, 2), (33, 64, 32), (1, 3, 1)]
@@ -461,6 +497,42 @@ def test_cuda_whole_mlp_is_float32_accurate(m, widths, h100, rng):
     e_plain = float((plain.double() - want).abs().max())
     assert e_kernel <= 4 * e_plain + 1e-6 * scale, \
         f"{e_kernel} from float64, plain {e_plain}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,widths", [(64, [16, 2048, 2048, 2048, 73]),
+                                      (13, [16, 33, 64, 29])])
+def test_cuda_whole_mlp_gradient_matches_plain(m, widths, h100, rng):
+    """``mlp_apply_chained`` on the card is differentiable: its gradients
+    of x, every w and every b within 1e-4·max(1, max|g_ref|) of the plain
+    chain's (TF32 off), with the backward on the dense kernels (one
+    forward, one dx and one dW/db a layer: x needs its gradient too),
+    counted in their wrappers."""
+    ws, bs = _mlp(rng, widths)
+    x = rng.normal(size=(m, widths[0])).astype(np.float32)
+    dy = torch.from_numpy(rng.normal(size=(m, widths[-1])).astype(np.float32))
+    n = len(ws)
+
+    def grads(fn):
+        leaves = [torch.from_numpy(a).to(h100).requires_grad_()
+                  for a in (x, *ws, *bs)]
+        params = {"layers": [{"w": w, "b": b} for w, b in
+                             zip(leaves[1:1 + n], leaves[1 + n:])]}
+        y = fn(params, leaves[0])
+        return torch.autograd.grad(y, leaves, dy.to(h100))
+
+    want = grads(lambda p, x_: L.mlp_apply_chained(p, x_, use_fused=False))
+    before = (FM.fused_mlp.launches, FD.dense_forward.launches,
+              FD.dense_dx.launches, FD.dense_dw_db.launches)
+    got = grads(L.mlp_apply_chained)
+    torch.cuda.synchronize()
+    after = (FM.fused_mlp.launches, FD.dense_forward.launches,
+             FD.dense_dx.launches, FD.dense_dw_db.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, n, n, n]
+    for i, (g, w_) in enumerate(zip(got, want)):
+        scale = max(1.0, float(w_.abs().max()))
+        err = float((g - w_).abs().max())
+        assert err <= 1e-4 * scale, f"input {i}: {err}"
 
 
 @pytest.mark.cuda

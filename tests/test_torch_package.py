@@ -43,7 +43,9 @@ def test_port_files_are_found():
     for mod in ("kernels/flash_attention", "kernels/ops", "nn/attention",
                 "nn/blocks", "models/base", "models/builders",
                 "configs/__init__", "configs/gemma3_1b", "train/step",
-                "launch/serve", "convert"):
+                "launch/serve", "convert", "baselines/mlp", "baselines/sa",
+                "baselines/drl", "baselines/random_search",
+                "launch/comparison", "launch/quality"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "chip_smoke.py" in names
 

@@ -239,3 +239,66 @@ def test_log1p_matches_xla(rng):
     want = np.asarray(jax.jit(jnp.log1p)(x))
     got = prng.log1p_f32(torch.from_numpy(x)).numpy()
     assert _same_bits(got, want)
+
+
+#: randint spans: SA's dimension draw and DRL's action draw (4-73), a span
+#: of one, empty and inverted ranges (minval comes back), negative bounds,
+#: and spans past 2**16, where jax's uint32 multiplier wraps to zero
+RANDINT_SPANS = [(0, 4), (0, 7), (0, 73), (0, 1), (3, 3), (5, 2),
+                 (-100, 100), (0, 65536), (0, 65537), (0, 10**6),
+                 (0, 2**31 - 1), (-2**31, 2**31 - 1)]
+
+
+@pytest.mark.parametrize("lo,hi", RANDINT_SPANS)
+def test_randint_matches_jax(lo, hi):
+    keys = JE.task_keys(np.asarray(SEEDS, np.int64), len(SEEDS))
+    tkeys = torch.from_numpy(np.asarray(keys).astype(np.int64))
+    want = np.asarray(jax.vmap(lambda k: jax.random.randint(
+        k, (37,), lo, hi))(keys))
+    got = prng.randint(tkeys, 37, lo, hi)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    # a scalar draw (shape ()) is the first element of the flat draw
+    scalar = np.asarray(jax.vmap(lambda k: jax.random.randint(
+        k, (), lo, hi))(keys))
+    np.testing.assert_array_equal(prng.randint(tkeys, 1, lo, hi)[:, 0].numpy(),
+                                  scalar.astype(np.int64))
+
+
+def test_randint_of_split_key_batches_matches_jax():
+    """SA's and DRL's draw pattern: split(key, 6) a step, randint and
+    scalar uniforms from the subkeys, over a (T, steps) key batch."""
+    key = jax.random.PRNGKey(17)
+    tkey = prng.prng_key(torch.tensor(17))
+    for _ in range(3):
+        jk = jax.random.split(key, 6)
+        tk = prng.split(tkey, 6)
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk).astype(np.int64))
+        assert int(prng.randint(tk[1], 1, 0, 7)[0]) == \
+            int(jax.random.randint(jk[1], (), 0, 7))
+        for i in range(2, 6):
+            got = prng.uniform(tk[i], 1, 0.0, 1.0)[0]
+            want = np.float32(jax.random.uniform(jk[i]))
+            assert got.numpy().view(np.uint32) == want.view(np.uint32)
+        key, tkey = jk[0], tk[0]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_scalar_uniform_matches_jax(seed):
+    """``uniform(key)`` of shape () has the bits of a one-element draw."""
+    keys = JE.task_keys(seed, 64)
+    want = np.asarray(jax.vmap(lambda k: jax.random.uniform(k))(keys))
+    got = prng.uniform(torch.from_numpy(np.asarray(keys).astype(np.int64)),
+                       1, 0.0, 1.0)[:, 0].numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("base", [0.95, 0.9, 0.99, 0.5, 0.8, 1.5])
+def test_pow_f32_matches_xla(base):
+    """XLA's float32 pow of a float32 base over integer and fractional
+    exponents, subnormal and overflowing results included."""
+    y = np.concatenate([np.arange(0, 400), np.linspace(-3.0, 40.0, 97)]) \
+        .astype(np.float32)
+    want = np.asarray(jax.jit(lambda e: jnp.power(jnp.float32(base), e))(
+        jnp.asarray(y)))
+    got = prng.pow_f32(float(np.float32(base)), y)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
