@@ -51,6 +51,29 @@ Then the baselines (phases a-e, each path's launches counted):
   the reference's CPU rows; GANDSE satisfies at least as many tasks as
   budget-matched RandomSearch.
 
+Then the DSE serving tier at G 11 x 2048 (phases f-h, each path's
+launches counted from zero):
+
+- f. ``launch/dse_serve`` (the sync pump) on im2col, G from the
+  reference's init for seed 0: 256 requests in micro-batches of 64, 64
+  duplicates queued behind their originals (coalesced) and 64 verbatim
+  repeats (cache hits); every request answered, none failed, retried or
+  degraded, one ``mlp_forward_f32`` launch a dispatched batch, every
+  Selection as one standalone ``explore_tasks`` of the 256 tasks gives
+  it; requests/s, ms a dispatch, one warm dispatch profiled;
+- g. the same workload through the concurrent front end
+  (``--concurrent``): the same checks, p50/p99 latency; then the same
+  stream through ``FaultyEngine`` (a burst of 3 batched-route faults,
+  ``degrade_after`` 3): the degraded route entered and left, nothing
+  lost, every Selection as a standalone ``explore_tasks`` on its route;
+- h. ``launch/online`` on dnnweaver (G and D 11 x 2048, batch 64, 4096
+  rows, 10 waves of 16, 3 generations, generation 2's checkpoint
+  corrupted): 3 generations and swaps, generation 1 served after the
+  corrupted save, the dense kernels launched by every training step;
+  each generation's train, save and restore seconds and bytes; then a
+  generation's training alone on one thread, and one warm step of batch
+  64 profiled.
+
 Then the LM serving path of gemma3-1b at full width (26 layers, d 1152,
 4 heads / 1 kv head of 256, d_ff 6912, vocab 262144; float32 params from
 seed 0): the flash-attention kernel (tensor cores: 3xTF32 for float32,
@@ -107,6 +130,8 @@ from repro_torch.kernels import fused_dense as fd  # noqa: E402
 from repro_torch.kernels import fused_mlp as fm  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import comparison as CMP  # noqa: E402
+from repro_torch.launch import dse_serve  # noqa: E402
+from repro_torch.launch import online  # noqa: E402
 from repro_torch.launch import quality as Q  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import base as MB  # noqa: E402
@@ -1537,6 +1562,241 @@ def table5(quality: dict) -> dict:
     return rows
 
 
+#: phases f and g: ``launch/dse_serve`` at G 11 x 2048 on im2col, from the
+#: reference's init for seed 0
+SERVE_ARGV = ["--model", "im2col", "--layers", "11", "--neurons", "2048",
+              "--requests", "256", "--max-batch", "64",
+              "--repeat-frac", "0.25"]
+#: phase h: ``launch/online`` at G and D 11 x 2048 on dnnweaver (batch 64,
+#: as the launcher sets it); objectives on sampled design points (slack 1)
+#: and 64 candidates a task, as the reference's online test sets them, so
+#: the waves keep giving hard tasks to harvest (at the launcher's 2048,
+#: generation 1 satisfied 79 of the next 80 on an H100: too few hard
+#: tasks for 3 generations)
+ONLINE_ARGV = ["--model", "dnnweaver", "--layers", "11", "--neurons", "2048",
+               "--data", "4096", "--waves", "10", "--wave-size", "16",
+               "--slack", "1.0", "--max-candidates", "64", "--min-hard", "4",
+               "--train-iters", "2", "--generations", "3",
+               "--corrupt-step", "2"]
+
+
+def _standalone(engine, tasks, seed: int = 0):
+    """Each task row's Selection from one standalone ``explore_tasks`` of
+    the whole task batch (row i with seed + i)."""
+    return [r.selection for r in engine.explore_tasks(tasks, seed=seed)]
+
+
+def _check_served(label: str, rep: dict, launches: dict) -> dict:
+    """What phases f and g hold of a fault-free ``dse_serve`` run: every
+    request answered, none failed, retried or degraded, the coalesced and
+    cached counts the stream's shape gives, one whole-MLP launch a
+    dispatched batch, and every Selection as a standalone explore_tasks
+    gives it."""
+    srv, engine, tasks = rep["server"], rep["engine"], rep["tasks"]
+    s = srv.summary()
+    args = rep["args"]
+    n, n_rep = args.requests, int(args.requests * args.repeat_frac)
+    responses = rep["responses"]
+    assert len(responses) == rep["n_total"] == n + 2 * n_rep, len(responses)
+    assert all(r.ok for r in responses), label
+    assert s["pending"] == 0, s["pending"]
+    for k in ("failed", "retried", "degraded_entered", "rejected"):
+        assert s[k] == 0, (label, k, s[k])
+    assert s["kernels"]["fused"] == {engine.model.name: True}, s["kernels"]
+    dispatched = [r for r in responses if r.source == "dispatch"]
+    assert len(dispatched) == n, len(dispatched)
+    if args.concurrent:         # duplicates coalesce or hit, by timing
+        assert s["coalesced"] + s["cache"]["hits"] == 2 * n_rep, s
+    else:
+        assert s["coalesced"] == n_rep and s["cache"]["hits"] == n_rep, s
+    assert launches["mlp_forward_f32"] == s["batches"], \
+        (launches, s["batches"])
+    want = _standalone(engine, tasks, args.seed)
+    for r in responses:
+        i = int(r.seed) - args.seed
+        assert _same(r.result.selection, want[i]), (label, r.source, i)
+    out = dict(requests=len(responses), seconds=rep["seconds"],
+               requests_per_s=len(responses) / rep["seconds"],
+               dispatched_rows_per_s=n / rep["seconds"],
+               batches=s["batches"], mean_batch=s["mean_batch_size"],
+               ms_per_dispatch=1e3 * s["dispatch_s"] / s["batches"],
+               coalesced=s["coalesced"], cache_hits=s["cache"]["hits"],
+               n_satisfied=sum(r.result.satisfied for r in dispatched),
+               launches=launches)
+    if rep["latency"] is not None:
+        out["latency"] = rep["latency"]
+    return out
+
+
+def drive_serve_sync() -> dict:
+    """Phase f: ``launch/dse_serve`` (the sync pump) at SERVE_ARGV, counts
+    zeroed just before it; then one warm dispatch of 64 fresh requests
+    profiled."""
+    zero_counts()
+    t0 = time.perf_counter()
+    rep = dse_serve.serve(SERVE_ARGV)
+    launches = counts()
+    out = _check_served("serve sync", rep, launches)
+    srv, tasks, name = rep["server"], rep["tasks"], rep["engine"].model.name
+    for i in range(N_TASKS):
+        srv.submit(name, tasks.net_idx[i], tasks.lat_obj[i],
+                   tasks.pow_obj[i], seed=10_000 + i)
+    batch = srv.form_batch()
+    assert batch is not None and batch.n_real == N_TASKS
+    out["dispatch_profile"] = profile_step(lambda: srv.publish_batch(
+        batch, *srv.execute_batch(batch)), ())
+    out["phase_s"] = time.perf_counter() - t0
+    print("serve sync: " + json.dumps(out), flush=True)
+    return dict(out, report=rep)
+
+
+def drive_serve_concurrent() -> dict:
+    """Phase g: the same workload through the front end (``--concurrent``),
+    counts zeroed just before it; then the fault run: the same stream
+    through ``FaultyEngine`` (a burst of 3 batched-route faults,
+    ``degrade_after`` 3), which must enter the degraded route, recover,
+    lose nothing, and answer every request as a standalone explore_tasks
+    on the route that computed it does."""
+    from repro_torch.serve import (DSEServer, FaultPlan, FaultyEngine,
+                                   ServeConfig, ServeFrontend)
+    zero_counts()
+    t0 = time.perf_counter()
+    rep = dse_serve.serve(SERVE_ARGV + ["--concurrent"])
+    launches = counts()
+    out = _check_served("serve concurrent", rep, launches)
+    out["phase_s"] = time.perf_counter() - t0
+
+    engine, tasks, args = rep["engine"], rep["tasks"], rep["args"]
+    n, n_rep = args.requests, int(args.requests * args.repeat_frac)
+    faulty = FaultyEngine(engine, FaultPlan(burst_start=0, burst_len=3))
+    srv = DSEServer(ServeConfig(
+        max_batch=args.max_batch, max_dispatch_attempts=10,
+        retry_backoff_base=0.005, retry_jitter=0.0, degrade_after=3,
+        degrade_probe_after=1))
+    srv.register(faulty)
+    zero_counts()
+    t1 = time.perf_counter()
+    with ServeFrontend(srv) as fe:
+        responses = dse_serve.serve_concurrent(fe, engine.model.name, tasks,
+                                               n, n_rep, args.seed)
+        latency = fe.metrics()["frontend"]["latency"]
+    fault_s = time.perf_counter() - t1
+    fault_launches = counts()
+    s = srv.summary()
+    assert len(responses) == n + 2 * n_rep and all(r.ok for r in responses)
+    assert s["pending"] == 0 and s["failed"] == 0, s
+    assert faulty.injected_errors == 3, faulty.fault_stats()
+    assert s["degraded_entered"] == 1 and s["degraded_recovered"] == 1, s
+    assert not s["degraded"], s["degraded"]
+    degraded = [r for r in responses if r.degraded]
+    assert degraded, "the fault run never took the degraded route"
+    # a row's one computed result (cache hits and coalesced followers
+    # share it) comes from the route of its dispatch
+    want = _standalone(engine, tasks, args.seed)
+    rows = sorted({int(r.seed) - args.seed for r in degraded})
+    t2 = time.perf_counter()
+    seq = engine.explore_tasks(tasks.take(np.asarray(rows)),
+                               seed=np.asarray(rows, np.int64) + args.seed,
+                               batched=False)
+    seq_ms = 1e3 * (time.perf_counter() - t2) / len(rows)
+    want_seq = {i: r.selection for i, r in zip(rows, seq)}
+    for r in responses:
+        i = int(r.seed) - args.seed
+        assert _same(r.result.selection, want_seq.get(i, want[i])), \
+            ("serve faults", r.source, r.degraded, i)
+    out["faults"] = dict(
+        seconds=fault_s, requests=len(responses),
+        degraded_responses=len(degraded),
+        sequential_ms_per_task=seq_ms,
+        ms_per_dispatch=1e3 * s["dispatch_s"] / s["batches"],
+        degraded_rows_unlike_batched=sum(
+            not _same(want_seq[i], want[i]) for i in rows),
+        degraded_batches=s["degraded_batches"], batches=s["batches"],
+        dispatch_attempts=s["dispatch_attempts"], retried=s["retried"],
+        latency=latency, fault_stats=faulty.fault_stats(),
+        launches=fault_launches)
+    print("serve concurrent: " + json.dumps(out), flush=True)
+    return out
+
+
+def drive_online(per_step: dict) -> dict:
+    """Phase h: ``launch/online`` at ONLINE_ARGV (its checkpoints in a
+    temporary directory), counts zeroed just before it: at least 3
+    generations and 3 swaps, generation 2's corrupted save skipped for
+    generation 1 (one fallback), the dense kernels launched by every
+    training step (the warm-up epoch's and the generations'), the whole
+    MLP by the served waves.  Two threads launch here, but each counter
+    has one: the front end's dispatcher the whole MLP, the trainer the
+    dense kernels."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="dse_online_") as d:
+        zero_counts()
+        t0 = time.perf_counter()
+        rep = online.run(ONLINE_ARGV + ["--checkpoint-dir", d])
+        launches = counts()
+        phase_s = time.perf_counter() - t0
+    final, timings, args = rep["final"], rep["timings"], rep["args"]
+    assert final["generations"] >= 3 and final["swaps"] >= 3, final
+    assert final["swap_fallbacks"] == 1, final
+    assert final["generation_errors"] == 0, final["last_error"]
+    by_gen = {t["generation"]: t for t in timings}
+    assert by_gen[2]["serving_step"] == 1, by_gen
+    assert by_gen[3]["serving_step"] == 3, by_gen
+    assert rep["summary"]["pending"] == 0
+    assert all(w["answered"] == args.wave_size for w in rep["waves"])
+    for k in ("failed", "retried", "degraded_entered"):
+        assert rep["summary"][k] == 0, (k, rep["summary"][k])
+    warmup_steps = (args.data + args.replay) // 64     # one epoch, batch 64
+    steps = warmup_steps + sum(t["steps"] for t in timings)
+    for name in DENSE_KERNELS:
+        assert launches[name] == per_step[name] * steps, \
+            (name, launches[name], per_step[name], steps)
+    assert launches["mlp_forward_f32"] > 0, launches
+    out = dict(phase_s=phase_s, wall_s=rep["seconds"],
+               satisfied_per_wave=[w["satisfied"] for w in rep["waves"]],
+               waves=rep["waves"], generations=final["generations"],
+               swaps=final["swaps"], fallbacks=final["swap_fallbacks"],
+               mined_rows=final["mined_rows"], timings=timings,
+               ms_per_step_in_run=[1e3 * t["train_s"] / t["steps"]
+                                   for t in timings],
+               training_steps=steps, launches=launches,
+               canaries=final["canaries"])
+    out["alone"] = online_training_alone(args)
+    print("online: " + json.dumps(out), flush=True)
+    return out
+
+
+def online_training_alone(args) -> dict:
+    """Phase h's training with nothing beside it, after the run: a
+    generation's ``train_gan`` (the launcher's config, data + replay rows,
+    its epochs, warm-started) on this thread with no front end, trainer
+    or launcher thread running, its ms a step to hold beside the run's;
+    then one warm step of batch 64 profiled (device busy ms, idle share,
+    launches)."""
+    model = online.MODELS[args.model]()
+    cfg = G.GANConfig(n_net=model.net_space.n_dims).scaled(
+        layers=args.layers, neurons=args.neurons, batch_size=64)
+    ds = gen_mod.generate_dataset(model, args.data + args.replay,
+                                  seed=args.seed)
+    st = T.train_gan(model, ds, cfg, iters=1, seed=args.seed,
+                     device="cuda")                     # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = T.train_gan(model, ds, cfg, iters=args.train_iters, seed=1,
+                     state=st, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = len(st.history)
+    batch = T.encode_dataset(
+        model, gen_mod.generate_dataset(model, 64, seed=args.seed), "cuda")
+    step = T.make_train_step(model, cfg)[2]
+    step_args = (st.g_params, st.d_params, st.g_opt, st.d_opt, batch, st.rng)
+    step(*step_args)                                    # warm at this shape
+    return dict(train_s=train_s, steps=steps,
+                ms_per_step=1e3 * train_s / steps,
+                step_profile=profile_step(step, step_args))
+
+
 def _same(a, b) -> bool:
     if (a.cfg_idx is None) != (b.cfg_idx is None):
         return False
@@ -1632,6 +1892,12 @@ def main() -> int:
     # phase e: Table 5 on dnnweaver, GANDSE's row from phase 5
     t5 = table5(quality)
 
+    # phases f-h: the DSE serving tier at G 11 x 2048, counts zeroed just
+    # before each
+    serve_sync = drive_serve_sync()
+    serve_conc = drive_serve_concurrent()
+    online_run = drive_online(step["launches"])
+
     # phase 6: the LM serving path at full width, counts zeroed just before
     # its prefill (inside drive_prefill)
     m, params = lm_model()
@@ -1666,7 +1932,13 @@ def main() -> int:
             "dense_route": dense_launches["mlp_forward_f32"],
             "training": train_launches["mlp_forward_f32"],
             "baseline": baseline_launches["mlp_forward_f32"],
-            "whole_mlp_gradient": mlp_grad["launches"]["mlp_forward_f32"]},
+            "whole_mlp_gradient": mlp_grad["launches"]["mlp_forward_f32"],
+            "dse_serve_sync": serve_sync["launches"]["mlp_forward_f32"],
+            "dse_serve_concurrent":
+                serve_conc["launches"]["mlp_forward_f32"],
+            "dse_serve_faults":
+                serve_conc["faults"]["launches"]["mlp_forward_f32"],
+            "online": online_run["launches"]["mlp_forward_f32"]},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -1682,7 +1954,8 @@ def main() -> int:
             "training": train_launches[name],
             "baseline": baseline_launches[name],
             "drl_rollout": drl_sa["DRL"]["launches"][name],
-            "whole_mlp_gradient": mlp_grad["launches"][name]},
+            "whole_mlp_gradient": mlp_grad["launches"][name],
+            "online": online_run["launches"][name]},
         "shapes": {label: dense[name][label] for label in DENSE_SHAPES
                    if label != "hidden 2048->2048"},
     } for name, (_, replaces) in DENSE_KERNELS.items()] + [{
@@ -1708,6 +1981,9 @@ def main() -> int:
                        "quality": quality, "dense_route": dense_route,
                        "mlp_grad": mlp_grad, "mlp_step": mlp_step,
                        "mlp_run": mlp_run, "drl_sa": drl_sa, "table5": t5,
+                       "serve_sync": {k: v for k, v in serve_sync.items()
+                                      if k != "report"},
+                       "serve_concurrent": serve_conc, "online": online_run,
                        "prefill": prefill,
                        "serve": lm_serve, "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},

@@ -135,6 +135,17 @@ class GANDSE:
         self.attach(self.ds, self.state.g_params)
         return self.state
 
+    def set_use_fused(self, use_fused: Optional[bool]) -> "GANDSE":
+        """Set ``GANConfig.use_fused`` (None/True: the kernels on the card;
+        False: the plain versions everywhere, an explicit opt-out) — the
+        serving tier's override hook.  An attached explorer is rebuilt on
+        the same params."""
+        self.gan_cfg = dataclasses.replace(self.gan_cfg, use_fused=use_fused)
+        if self._explorer is not None:
+            assert self.ds is not None    # an attached explorer implies it
+            self.attach(self.ds, self._explorer.g_params)
+        return self
+
     @property
     def g_params(self) -> Optional[Dict]:
         """Currently attached generator params (None before ``train()`` /

@@ -5,17 +5,28 @@ kernel or an exception) is each kernel wrapper's: ``kernels/fused_mlp.py``
 (the whole-MLP forward) and ``kernels/fused_dense.py`` (the dense layer of
 training and its backward).  This module adds only ``use_fused=False``: an
 explicit caller opt-out to the plain version (``kernels/ref.py``) on any
-device; None and True follow the wrapper's rule.
+device; None and True follow the wrapper's rule.  ``kernel_route_active``
+states that rule for a caller that reports the route (the serving tier's
+summary).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 
 from repro_torch.kernels import fused_dense as _fd
 from repro_torch.kernels import fused_mlp as _fm
 from repro_torch.kernels import ref as _ref
+
+
+def kernel_route_active(use_fused: Optional[bool],
+                        device: Union[str, torch.device, None]) -> bool:
+    """True when ``dense``/``mlp_chain`` with this flag, on tensors of
+    ``device``, launch the CUDA kernels: a CUDA device and no opt-out.  The
+    CPU (or no device) never runs them."""
+    return (device is not None and torch.device(device).type == "cuda"
+            and use_fused is not False)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,

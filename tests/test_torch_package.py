@@ -4,8 +4,9 @@
   ``jax`` or the reference package ``repro`` (checked on the AST, so a
   lazy import inside a function counts too).
 - Entry points run on the card unless the caller asks for the CPU:
-  ``GANDSE(..., device=None)``, ``Explorer(...)``, ``train_gan(...)`` and
-  the LM ``Engine(...)`` without a device raise where no CUDA device is
+  ``GANDSE(..., device=None)``, ``Explorer(...)``, ``train_gan(...)``, the
+  LM ``Engine(...)`` and the serving launchers ``launch/dse_serve`` and
+  ``launch/online`` without a device raise where no CUDA device is
   present.
 - Importing the kernel module builds nothing (the CPU tests import every
   module; the kernel is built at its first launch, on the card).
@@ -45,7 +46,11 @@ def test_port_files_are_found():
                 "configs/__init__", "configs/gemma3_1b", "train/step",
                 "launch/serve", "convert", "baselines/mlp", "baselines/sa",
                 "baselines/drl", "baselines/random_search",
-                "launch/comparison", "launch/quality"):
+                "launch/comparison", "launch/quality", "launch/dse_serve",
+                "launch/online", "checkpoint/manager", "serve/__init__",
+                "serve/request", "serve/cache", "serve/batcher",
+                "serve/server", "serve/faults", "serve/frontend",
+                "serve/online"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "chip_smoke.py" in names
 
@@ -115,6 +120,24 @@ def test_engine_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(m, params, 2, 64, device="cuda")
     assert Engine(m, params, 2, 64, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("launcher", ["dse_serve", "online"])
+def test_serving_launchers_default_to_the_card(launcher, monkeypatch):
+    """``launch/dse_serve`` and ``launch/online`` take ``--device``: the
+    card by default (raising without one), the CPU only when named."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.launch.{launcher}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = ["--requests", "4", "--max-batch", "2", "--data", "64"] \
+        if launcher == "dse_serve" else \
+        ["--waves", "1", "--wave-size", "2", "--data", "64", "--min-hard",
+         "99", "--replay", "4"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(small)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(small + ["--device", "cuda"])
+    assert mod.main(small + ["--device", "cpu"]) == 0
 
 
 def test_kernel_module_import_builds_nothing():
