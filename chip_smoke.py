@@ -11,7 +11,8 @@ dW/db kernels at Algorithm 1's (batch 1024; 2048 -> 2048, G's head 2048
 -> 73, D's first layer 81 -> 2048, D's head 2048 -> 2); every one of
 these runs on the 3xTF32 tensor-core tile, so each is also held to a
 float64 product.  ptxas's report of all three sources is checked for
-spills in every instantiation of their tensor-core kernels.  Then, with
+spills in every instantiation of their tensor-core kernels (the flash
+kernel's 20: 10 with the lse store, 10 without).  Then, with
 the paper's G and D (11 x 2048, batch 1024, random weights from fixed
 seeds):
 
@@ -87,6 +88,26 @@ continuous-batching ``Engine`` (4 slots, cache 128) serving 8 requests of
 12 prompt tokens and 16 new ones, its logits at the prompts' last tokens
 held to the prefill step's.
 
+Then LM training (phases i-k):
+
+- i. ``nn/attention.FlashAttentionFn`` (the flash kernel's forward with
+  each row's log-sum-exp, ``_flash_custom``'s backward in torch ops) at
+  stablelm-1.6b's layer (2 x 2048, 32 heads of 64) and gemma3-1b's global
+  and local layers (1 x 4096, 4 heads of 256 on one kv head, window
+  1024), float32: out the same bits with and without lse, lse to the
+  plain version's, out and the three gradients against float64 autograd
+  (at most 4x the plain route's error), the same bits twice; the forward
+  with and without lse, the backward, SDPA's forward and backward timed;
+- j. stablelm-1.6b at full width (24 layers, d 2048, d_ff 5632, vocab
+  100352, float32 from seed 0), batch 2 x 2048 from ``SyntheticStream``:
+  one block against float64; the kernel route's loss and gradients
+  against the plain route's from the same state; ``make_train_step``, one
+  warm step and 4 timed (24 flash launches with lse a step, asserted),
+  tokens/s beside the 6·N·tokens bound, the peak memory, a profiled step;
+- k. ``launch/train.main`` on the card at the reduced stablelm config, 12
+  steps, once whole and once failing at step 7: it restarts, resumes
+  from step 4's checkpoint, and its losses equal the whole run's.
+
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
 it are the kernel table (JSON) and the card's name and power limit.
@@ -95,12 +116,15 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -124,6 +148,7 @@ from repro_torch.core.selector import select_batch  # noqa: E402
 from repro_torch.dataset import generator as gen_mod  # noqa: E402
 from repro_torch.design_models import DnnWeaverModel, Im2colModel  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.data.synthetic import DataConfig, SyntheticStream  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_dense as fd  # noqa: E402
@@ -134,10 +159,13 @@ from repro_torch.launch import dse_serve  # noqa: E402
 from repro_torch.launch import online  # noqa: E402
 from repro_torch.launch import quality as Q  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.models import base as MB  # noqa: E402
+from repro_torch.nn import attention as A  # noqa: E402
+from repro_torch.nn import blocks as NB  # noqa: E402
 from repro_torch.nn import layers as L  # noqa: E402
 from repro_torch.optim import (adam, apply_updates, tree_leaves,  # noqa: E402
-                               tree_map)
+                               tree_map, tree_unflatten)
 from repro_torch.train import step as TS  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense, no sparsity)
@@ -186,6 +214,19 @@ SERVE = dict(slots=4, cache_len=128, requests=8, prompt_len=12, max_new=16)
 #: x86-64 CPU with jax 0.9 (PERF.md): satisfied of 200, mean candidates.
 #: EXPERIMENTS.md's 93 of 200 (2.4) is an earlier run, not reproduced
 REF_QUALITY = (56, 2.005)
+#: LM training: stablelm-1.6b at full width, float32, batch x seq
+LM_TRAIN_ARCH = "stablelm-1.6b"
+LM_TRAIN = (2, 2048)
+LM_TRAIN_STEPS = 4           # timed, after one warm step
+#: the flash Function's layer shapes, float32: (B, H, Hkv, S, D, window)
+FLASH_GRAD_SHAPES = {
+    "stablelm-1.6b 2x32x2048x64": (2, 32, 32, 2048, 64, None),
+    "gemma3 global 1x4x4096x256 kv1": (1, 4, 1, 4096, 256, None),
+    "gemma3 local 1x4x4096x256 kv1 w1024": (1, 4, 1, 4096, 256, 1024),
+}
+#: launch/train at the reduced stablelm config, restarted once at step 7
+LAUNCHER_ARGV = ["--arch", LM_TRAIN_ARCH, "--steps", "12", "--batch", "8",
+                 "--seq", "128", "--ckpt-every", "4", "--log-every", "1"]
 
 
 def smi() -> str:
@@ -239,13 +280,15 @@ def mlp_simt_bound_ms(m: int, ws, bs) -> float:
 def zero_counts() -> None:
     fm.fused_mlp.launches = 0
     fa.flash_attention.launches = 0
+    fa.flash_attention.lse_launches = 0
     for wrapper, _ in DENSE_KERNELS.values():
         wrapper.launches = 0
 
 
 def counts() -> dict:
     out = {"mlp_forward_f32": fm.fused_mlp.launches,
-           "flash_attention_f32": fa.flash_attention.launches}
+           "flash_attention_f32": fa.flash_attention.launches,
+           "flash_attention_f32 with lse": fa.flash_attention.lse_launches}
     out.update({name: w.launches for name, (w, _) in DENSE_KERNELS.items()})
     return out
 
@@ -266,7 +309,7 @@ def build_all() -> None:
 #: not spill, and how many there are
 SPILL_CHECKS = {"dense_train.cu": ("gemm_3xtf32_kernel", 12),
                 "mlp_forward.cu": ("gemm_3xtf32_kernel", 12),
-                "flash_attention.cu": ("flash_fwd_kernel", 10)}
+                "flash_attention.cu": ("flash_fwd_kernel", 20)}
 
 
 def check_spills() -> dict:
@@ -627,9 +670,17 @@ def step_bound_ms(cfg, model) -> float:
     return total
 
 
+#: device-time groups of a profile, by kernel name (the first that matches)
+PROFILE_GROUPS = (("flash_fwd_kernel", "flash_fwd_kernel"),
+                  ("gemm", "gemm (cuBLAS, and the 3xTF32 tile)"),
+                  ("double", "float64 elementwise"),
+                  ("copy", "copies"))
+
+
 def profile_step(step, args) -> dict:
     """One warm step under torch.profiler: the device's busy time and idle
-    share, its launches, and the kernels that take the most device time."""
+    share, its launches, the kernels that take the most device time, and
+    the device ms of PROFILE_GROUPS (the rest as "other")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -643,9 +694,15 @@ def profile_step(step, args) -> dict:
            if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    groups = {name: 0.0 for _, name in PROFILE_GROUPS}
+    groups["other"] = 0.0
+    for e in dev:
+        name = next((n for key, n in PROFILE_GROUPS if key in e.key), "other")
+        groups[name] += e.self_device_time_total / 1e3
     return dict(profiled_wall_ms=1e3 * wall, device_busy_ms=busy_us / 1e3,
                 device_idle_share=1.0 - busy_us / 1e3 / (1e3 * wall),
                 device_launches=sum(e.count for e in dev),
+                device_ms_by_group=groups,
                 top_kernels=[[e.key[:110], e.count,
                               e.self_device_time_total / 1e3] for e in top])
 
@@ -1806,6 +1863,316 @@ def _same(a, b) -> bool:
         (b.latency, b.power, b.satisfied, b.n_candidates)
 
 
+def flash_grad_work(shape) -> tuple:
+    """Bytes and kept (query, key) pairs of one flash attention's forward
+    (q, k, v read, o and lse written) and backward (q, k, v, o, dO and lse
+    read, dq, dk and dv written), float32, causal."""
+    b, h, hkv, s, d, window = shape
+    big, small, rows = b * h * s * d, b * hkv * s * d, b * h * s
+    fwd = 4 * (2 * big + 2 * small + rows)
+    bwd = 4 * (4 * big + 4 * small + rows)
+    return fwd, bwd, b * h * kept_pairs(s, s, True, window, 0)
+
+
+def flash_grad_bound_ms(shape) -> dict:
+    """Least time of the Function's forward plus backward, the way each
+    computes: the kernel's forward at three TF32 products of 4·D flops a
+    kept pair (495 TFLOP/s), the torch-ops backward's five products (S,
+    dP, dV, dQ, dK: 10·D flops a kept pair) at the float32 peak outside
+    the tensor cores (67 TFLOP/s, TF32 off); beside it the backward of a
+    hand-written 3xTF32 kernel (30·D flops a pair at 495 TFLOP/s)."""
+    fwd_b, bwd_b, pairs = flash_grad_work(shape)
+    d = shape[4]
+    fwd = bound(fwd_b, 3 * 4 * d * pairs, PEAK_TF32_FLOPS)
+    bwd = bound(bwd_b, 10 * d * pairs)
+    bwd_tc = bound(bwd_b, 3 * 10 * d * pairs, PEAK_TF32_FLOPS)
+    return dict(bound_ms=fwd[0] + bwd[0], bound_by=bwd[1],
+                fwd_bound_ms=fwd[0], bwd_bound_ms=bwd[0],
+                bwd_bound_3xtf32_ms=bwd_tc[0], kept_pairs=pairs)
+
+
+def _vjp(fn, inputs, dout) -> list:
+    """fn(*inputs) and its gradients for the cotangent dout: [out, *d]."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    out.backward(dout.to(out.dtype))
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+def check_flash_grad() -> dict:
+    """Phase i: ``nn/attention.FlashAttentionFn`` (the kernel's forward
+    with lse, the blocked torch-ops backward) at FLASH_GRAD_SHAPES,
+    float32, on (B, S, H, D) tensors as the model passes them.  The
+    kernel's out the same bits with and without lse; lse within
+    1e-5·max(1, |lse|) of the plain version's; out, dq, dk and dv from a
+    float64 autograd of the same inputs no further than 4x the plain
+    float32 route's (``use_fused=False``, torch's autograd) plus
+    1e-6·scale; the same bits twice.  CUDA-event medians: the forward with
+    and without lse, the backward alone, the Function's and the plain
+    route's forward + backward, and SDPA's forward and forward + backward
+    (float32, the same boolean mask; a yardstick the port never calls)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    f32 = torch.float32
+    rows = {}
+    for label, shape in FLASH_GRAD_SHAPES.items():
+        b, h, hkv, s, d, window = shape
+        kw = dict(causal=True, window=window)
+        q, k, v, do = (torch.randn(b, s, n, d, generator=gen, device="cuda")
+                       for n in (h, hkv, hkv, h))
+        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+        o_alone = fa.flash_attention(qt, kt, vt, **kw)
+        o_lse, lse = fa.flash_attention(qt, kt, vt, return_lse=True, **kw)
+        _, lse_plain = ref.flash_attention(qt, kt, vt, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o_alone, o_lse), f"{label}: lse changed out"
+        lse_err = float(((lse - lse_plain).abs()
+                         / lse_plain.abs().clamp(min=1.0)).max())
+        assert lse_err <= 1e-5, f"{label}: lse {lse_err}"
+        del lse_plain
+        kern = lambda *t: A.flash_attention(*t, **kw)
+        plain = lambda *t: A.flash_attention(*t, use_fused=False, **kw)
+        f64 = lambda a, b_, c: flash_float64(
+            a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2), True,
+            window, 0).transpose(1, 2)
+        got = _vjp(kern, (q, k, v), do)
+        again = _vjp(kern, (q, k, v), do)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        assert same, f"{label}: two calls differ"
+        del again
+        want = _vjp(plain, (q, k, v), do)
+        exact = _vjp(f64, tuple(t.double() for t in (q, k, v)), do.double())
+        row = dict(lse_max_rel_err=lse_err, same_bits=True,
+                   out_same_bits_with_lse=True,
+                   **float64_errors(f"flash grad {label}", got, want, exact))
+        row["max_abs_err_vs_plain"] = {
+            n: _err(x, y) for n, x, y in zip(("out", "dq", "dk", "dv"), got,
+                                             want)}
+        del got, want, exact
+        keep = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+        if window:
+            keep &= ~torch.ones_like(keep).tril(-window)
+        sdpa = lambda a, b_, c: F.scaled_dot_product_attention(
+            a, b_, c, attn_mask=keep, enable_gqa=True)
+        row.update(
+            fwd_ms=cuda_ms(lambda: fa.flash_attention(qt, kt, vt, **kw)),
+            fwd_lse_ms=cuda_ms(lambda: fa.flash_attention(
+                qt, kt, vt, return_lse=True, **kw)),
+            bwd_ms=cuda_ms(lambda: A.flash_backward(qt, kt, vt, o_lse, lse,
+                                                    dot, **kw)),
+            fwd_bwd_ms=cuda_ms(lambda: _vjp(kern, (q, k, v), do)),
+            plain_fwd_bwd_ms=cuda_ms(lambda: _vjp(plain, (q, k, v), do)),
+            library_fwd_ms=cuda_ms(lambda: sdpa(qt, kt, vt)),
+            library_fwd_bwd_ms=cuda_ms(lambda: _vjp(sdpa, (qt, kt, vt),
+                                                    dot)),
+            **flash_grad_bound_ms(shape))
+        rows[label] = row
+        print(f"flash grad {label}: " + json.dumps(row), flush=True)
+        del q, k, v, do, qt, kt, vt, dot, o_alone, o_lse, lse, keep
+    return rows
+
+
+def lm_train_batch(m, step: int) -> dict:
+    """Step `step` of the synthetic stream (seed 0) at LM_TRAIN, on the
+    card."""
+    b, s = LM_TRAIN
+    toks, labels = SyntheticStream(DataConfig(
+        vocab=m.vocab, seq_len=s, global_batch=b, seed=0)).batch(step)
+    return {"tokens": torch.from_numpy(toks).to("cuda", torch.long),
+            "labels": torch.from_numpy(labels).to("cuda", torch.long)}
+
+
+def lm_train_bound_ms(m, n_params: int) -> float:
+    """Least time of a train step at the float32 peak (67 TFLOP/s, TF32
+    off): 6·N·tokens, plus attention's 12·D flops (4 forward, 8 backward)
+    per kept (query, key) pair and head."""
+    b, s = LM_TRAIN
+    attn = sum(seg.repeats * 12 * sp.cfg.dh * sp.cfg.n_heads * b
+               * kept_pairs(s, s, True, sp.cfg.window, 0)
+               for seg in m.segments for sp in seg.pattern)
+    return 1e3 * (6 * n_params * b * s + attn) / PEAK_F32_FLOPS
+
+
+@contextlib.contextmanager
+def float64_block():
+    """The block's attention and RMSNorm in float64 (the port's compute
+    them in float32 whatever their inputs): the reference of
+    ``check_lm_block``."""
+    attn, norm = A.flash_attention, L.rmsnorm_apply
+
+    def attn64(q, k, v, *, causal=True, window=None, **_):
+        return flash_float64(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal, window,
+                             0).transpose(1, 2)
+
+    def norm64(params, x, eps=1e-6):
+        return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) \
+            * params["scale"]
+
+    A.flash_attention, L.rmsnorm_apply = attn64, norm64
+    try:
+        yield
+    finally:
+        A.flash_attention, L.rmsnorm_apply = attn, norm
+
+
+def check_lm_block(m, params, batch) -> dict:
+    """One full-width block (layer 0) forward and backward on the batch's
+    embeddings, through the kernel route, the plain route and float64:
+    the output and every gradient (input and params) from float64 no
+    further than 4x the plain float32 route's plus 1e-6·scale."""
+    cfg = m.segments[0].pattern[0].cfg
+    lp = tree_map(lambda a: a[0].detach().clone(), params["segments"][0][0])
+    x = L.embed_apply(params["embed"], batch["tokens"]).detach()
+    dy = torch.randn(x.shape, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(3))
+    pos = torch.arange(x.shape[1], device="cuda")[None].expand(x.shape[:2])
+    leaves = tree_leaves(lp)
+
+    def run(use_fused, dtype=torch.float32):
+        def fn(x_, *ps):
+            return NB.block_apply(tree_unflatten(lp, list(ps)), x_, cfg, pos,
+                                  use_fused=use_fused)
+        return _vjp(fn, [t.to(dtype) for t in (x, *leaves)], dy.to(dtype))
+
+    got, want = run(None), run(False)
+    with float64_block():
+        exact = run(False, torch.float64)
+    out = float64_errors("lm block", got, want, exact)
+    out["max_norm_err_kernel_vs_plain"] = max(
+        _norm_err(a, b_) for a, b_ in zip(got, want))
+    return out
+
+
+def check_lm_train() -> dict:
+    """Phase j: stablelm-1.6b at full width (24 layers, d 2048, 32 heads of
+    64, d_ff 5632, vocab 100352, tied), float32 params from seed 0,
+    batch 2 x 2048 from SyntheticStream: one block against float64; the
+    loss and every gradient of the kernel route (``remat=False``, the
+    launcher's) against the plain route's (``use_fused=False``, with
+    ``remat=True``: without it the plain attention keeps a 1 GB score
+    matrix a layer) from the same state; then ``make_train_step``: one
+    warm step and LM_TRAIN_STEPS timed ones (host clock ended by a
+    synchronize), their launches counted from zero, the peak memory, one
+    more step profiled."""
+    m = configs.get_arch(LM_TRAIN_ARCH)
+    params = MB.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            m, "cuda")
+    n_params = MB.param_count(params)
+    batch0 = lm_train_batch(m, 0)
+    out = dict(arch=m.name, n_params=n_params, batch=list(LM_TRAIN),
+               block=check_lm_block(m, params, batch0))
+    print(f"lm train block: {json.dumps(out['block'])}", flush=True)
+
+    loss_k, g_k = TS.loss_and_grads(m, params, batch0)
+    loss_p, g_p = TS.loss_and_grads(m, params, batch0, remat=True,
+                                    use_fused=False)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    assert np.isfinite(loss_k), loss_k
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), (loss_k, loss_p)
+    errs = [_norm_err(a, b_) for a, b_ in zip(tree_leaves(g_k),
+                                              tree_leaves(g_p))]
+    assert max(errs) <= 1e-3, f"gradient leaf {int(np.argmax(errs))}: " \
+        f"{max(errs)} of its norm from the plain route's"
+    out.update(loss=loss_k, plain_loss=loss_p,
+               max_grad_norm_err_vs_plain=max(errs),
+               n_grad_leaves=len(errs))
+    del g_k, g_p
+    torch.cuda.empty_cache()
+
+    def grads_ms(**kw) -> float:
+        """Host ms of one warm loss_and_grads (forward and backward)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        TS.loss_and_grads(m, params, batch0, **kw)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    out.update(grads_ms=grads_ms(), grads_remat_ms=grads_ms(remat=True),
+               plain_grads_remat_ms=grads_ms(remat=True, use_fused=False))
+
+    step, optim = TS.make_train_step(m, remat=False)
+    opt = optim.init(params)
+    params, opt, met = step(params, opt, batch0)             # warm
+    losses = [float(met["loss"])]
+    batches = [lm_train_batch(m, i) for i in range(1, LM_TRAIN_STEPS + 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for b_ in batches[:LM_TRAIN_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, b_)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(met["loss"]))
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert np.isfinite(losses).all(), losses
+    n_layers = m.n_layers
+    for key in ("flash_attention_f32", "flash_attention_f32 with lse"):
+        assert launches[key] == n_layers * LM_TRAIN_STEPS, (key, launches)
+    ms = statistics.median(times)
+    out.update(
+        losses=losses, step_ms=times, ms_per_step=ms,
+        tokens_per_s=LM_TRAIN[0] * LM_TRAIN[1] / (ms / 1e3),
+        bound_ms_per_step=lm_train_bound_ms(m, n_params),
+        launches=launches,
+        flash_launches_per_step=launches["flash_attention_f32"]
+        / LM_TRAIN_STEPS,
+        max_memory_allocated_gb=peak / 1e9,
+        profile=profile_step(lambda: step(params, opt, batches[-1]), ()))
+    out["device_launches_per_step"] = out["profile"]["device_launches"]
+    out["optimizer_ms"] = ms - out["grads_ms"]
+    print("lm train: " + json.dumps(out), flush=True)
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_lm_launcher() -> dict:
+    """Phase k: ``launch/train.main`` on the card at the reduced stablelm
+    config (LAUNCHER_ARGV) twice, each into a checkpoint directory of its
+    own: uninterrupted, and with ``--simulate-failure-at 7``, which fails
+    once, restarts, resumes from step 4's checkpoint and replays steps
+    5-12.  The two histories' losses equal, step for step."""
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="lm_train_") as tmp:
+        for name, extra in (("whole", []),
+                            ("restarted", ["--simulate-failure-at", "7"])):
+            hist = os.path.join(tmp, f"{name}.json")
+            log = io.StringIO()
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                rc = LT.main(LAUNCHER_ARGV + extra + [
+                    "--ckpt-dir", os.path.join(tmp, name),
+                    "--history-out", hist])
+            torch.cuda.synchronize()
+            with open(hist) as fh:
+                history = json.load(fh)
+            runs[name] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                              launches=counts(), log=log.getvalue(),
+                              losses={r["step"]: r["loss"] for r in history})
+    whole, again = runs["whole"], runs["restarted"]
+    assert whole["rc"] == again["rc"] == 0
+    assert "restart 1/3" in again["log"], again["log"]
+    assert "resumed from checkpoint step=4" in again["log"], again["log"]
+    assert "after 1 restart(s)" in again["log"], again["log"]
+    assert "after 0 restart(s)" in whole["log"], whole["log"]
+    assert sorted(whole["losses"]) == list(range(1, 13)), whole["losses"]
+    assert whole["losses"] == again["losses"], (whole["losses"],
+                                                again["losses"])
+    for r in runs.values():
+        assert r["launches"]["flash_attention_f32 with lse"] > 0, r
+    out = {name: {k: v for k, v in r.items() if k != "log"}
+           for name, r in runs.items()}
+    print("lm launcher: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements to this JSON")
@@ -1815,6 +2182,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = smi()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -1911,6 +2279,15 @@ def main() -> int:
         for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_4d_ms")}
     print("flash per prefill (4 global + 22 local layers): "
           + json.dumps(per_prefill), flush=True)
+    torch.cuda.empty_cache()
+
+    # phases i-k: LM training; the train steps' and the launcher's counts
+    # zeroed just before each (inside check_lm_train, drive_lm_launcher)
+    flash_grad = check_flash_grad()
+    lm_train = check_lm_train()
+    lm_launcher = drive_lm_launcher()
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here",
+          flush=True)
 
     row = kern["im2col", N_TASKS]
     table = {"kernels": [{
@@ -1970,6 +2347,25 @@ def main() -> int:
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                      "bound_4d_ms")},
         "per_prefill": per_prefill,
+        "launches_by_path": {
+            "prefill": prefill["launches"]["flash_attention_f32"],
+            "lm_train_steps": lm_train["launches"]["flash_attention_f32"],
+            "lm_launcher": {k: r["launches"]["flash_attention_f32"]
+                            for k, r in lm_launcher.items()}},
+        "lse_launches_by_path": {
+            "lm_train_steps":
+                lm_train["launches"]["flash_attention_f32 with lse"],
+            "lm_launcher": {k: r["launches"]["flash_attention_f32 with lse"]
+                            for k, r in lm_launcher.items()}},
+        "lse": {label: {k: r[k] for k in (
+            "fwd_ms", "fwd_lse_ms", "lse_max_rel_err", "out_same_bits_with_lse")}
+            for label, r in flash_grad.items()},
+        "function_fwd_bwd": {label: {k: r[k] for k in (
+            "fwd_bwd_ms", "bwd_ms", "plain_fwd_bwd_ms", "library_fwd_ms",
+            "library_fwd_bwd_ms", "bound_ms", "bound_by", "fwd_bound_ms",
+            "bwd_bound_ms", "bwd_bound_3xtf32_ms", "max_abs_err_f64",
+            "plain_max_abs_err_f64")}
+            for label, r in flash_grad.items()},
         "shapes": {f"{label} {t}": r for (label, t), r in flash.items()
                    if (label, t) != ("gemma3 global 2x4x4096x256",
                                      "float32")},
@@ -1985,7 +2381,9 @@ def main() -> int:
                                       if k != "report"},
                        "serve_concurrent": serve_conc, "online": online_run,
                        "prefill": prefill,
-                       "serve": lm_serve, "build": build.build_info,
+                       "serve": lm_serve, "flash_grad": flash_grad,
+                       "lm_train": lm_train, "lm_launcher": lm_launcher,
+                       "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},
                       fh, indent=1)
     print(json.dumps(table), flush=True)

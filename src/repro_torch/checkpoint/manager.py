@@ -58,8 +58,9 @@ class CheckpointCorruptionError(RuntimeError):
 
 def _flatten(tree) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
     """(leaves, rebuild): the leaves in jax's tree order (dict keys
-    sorted, lists and tuples in order, None empty) and a function that
-    rebuilds the tree's structure from a list of new leaves."""
+    sorted, lists, tuples and NamedTuples in order, None empty) and a
+    function that rebuilds the tree's structure from a list of new
+    leaves."""
     if isinstance(tree, dict):
         keys = sorted(tree)
         parts = [_flatten(tree[k]) for k in keys]
@@ -79,7 +80,10 @@ def _flatten(tree) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
             i += n
         if keys is not None:
             return dict(zip(keys, out))
-        return type(tree)(out)
+        # a NamedTuple (an optimizer's AdamState) takes its fields as
+        # arguments, in field order, as jax flattens it
+        return type(tree)(*out) if hasattr(tree, "_fields") else \
+            type(tree)(out)
 
     return [leaf for p in parts for leaf in p[0]], rebuild
 

@@ -5,7 +5,7 @@ dense decoders that need no further block (gemma3-1b, stablelm-1.6b,
 qwen3-14b, deepseek-coder-33b), each a module exposing FULL and REDUCED
 ModelCfg objects equal field for field to the reference's.  The others
 raise ``NotImplementedError`` until their blocks are ported (ROADMAP
-Queue 1 item 8).  Shapes live in ``repro_torch.configs.shapes``.
+Queue 1).  Shapes live in ``repro_torch.configs.shapes``.
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ def _module(name: str):
         raise ValueError(f"unknown arch {name!r}")
     if arch not in PORTED:
         raise NotImplementedError(f"{arch} needs blocks that are not ported "
-                                  f"yet (ROADMAP Queue 1 item 8)")
+                                  f"yet (ROADMAP Queue 1)")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -1,5 +1,6 @@
 """Carry params and whole train states between the two packages as numpy:
-G's and D's params and train states, and the LM substrate's params.
+G's and D's params and train states, and the LM substrate's params and
+optimizer state.
 
 The reference keeps params as ``{"layers": [{"w": (in, out), "b": (out,)},
 ...]}`` pytrees and its train state as ``TrainState(g_params, d_params,
@@ -47,6 +48,30 @@ def lm_params_to_numpy(params: Dict) -> Dict:
     return params_to_numpy(params)
 
 
+def opt_state_from_numpy(o, device) -> AdamState:
+    """An optimizer state as numpy — ``{"step", "mu", "nu"}``, or the
+    reference's ``AdamState`` of numpy leaves (``jax.tree.map(np.asarray,
+    state)``) — -> the port's `AdamState` on `device`."""
+    if not isinstance(o, dict):
+        o = {"step": o.step, "mu": o.mu, "nu": o.nu}
+    return AdamState(
+        step=torch.tensor(int(o["step"]), dtype=torch.int32, device=device),
+        mu=params_from_numpy(o["mu"], device),
+        nu=params_from_numpy(o["nu"], device))
+
+
+def opt_state_to_numpy(o: AdamState) -> Dict:
+    """The port's `AdamState` -> ``{"step": int32, "mu", "nu"}`` numpy."""
+    return {"step": np.int32(int(o.step)), "mu": params_to_numpy(o.mu),
+            "nu": params_to_numpy(o.nu)}
+
+
+#: the LM's optimizer state (``adamw``'s ``AdamState``, mu and nu in the
+#: params' layout) is carried the same way
+lm_opt_state_from_numpy = opt_state_from_numpy
+lm_opt_state_to_numpy = opt_state_to_numpy
+
+
 def g_params_from_numpy(tree: Dict, device) -> Dict:
     """numpy ``{"layers": [{"w", "b"}, ...]}`` -> the port's float32
     params on `device`."""
@@ -61,26 +86,18 @@ def g_params_to_numpy(params: Dict) -> Dict:
 def train_state_from_numpy(tree: Dict, device) -> TrainState:
     """The numpy form of a train state (see the module note) -> a
     `TrainState` on `device`, with an empty history."""
-    def opt(o):
-        return AdamState(
-            step=torch.tensor(int(o["step"]), dtype=torch.int32, device=device),
-            mu=params_from_numpy(o["mu"], device),
-            nu=params_from_numpy(o["nu"], device))
-
     rng = torch.tensor(np.asarray(tree["rng"], np.uint32).astype(np.int64),
                        device=device)
     return TrainState(params_from_numpy(tree["g_params"], device),
                       params_from_numpy(tree["d_params"], device),
-                      opt(tree["g_opt"]), opt(tree["d_opt"]), rng)
+                      opt_state_from_numpy(tree["g_opt"], device),
+                      opt_state_from_numpy(tree["d_opt"], device), rng)
 
 
 def train_state_to_numpy(state: TrainState) -> Dict:
     """A `TrainState` -> its numpy form (see the module note)."""
-    def opt(o: AdamState):
-        return {"step": np.int32(int(o.step)), "mu": params_to_numpy(o.mu),
-                "nu": params_to_numpy(o.nu)}
-
     return {"g_params": params_to_numpy(state.g_params),
             "d_params": params_to_numpy(state.d_params),
-            "g_opt": opt(state.g_opt), "d_opt": opt(state.d_opt),
+            "g_opt": opt_state_to_numpy(state.g_opt),
+            "d_opt": opt_state_to_numpy(state.d_opt),
             "rng": state.rng.cpu().numpy().astype(np.uint32)}

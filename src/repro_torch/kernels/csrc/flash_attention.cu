@@ -3,6 +3,12 @@
 //
 //   o[b, h, i] = softmax_j(q[b, h, i] · k[b, h / g, j] * scale + mask) · v[b, h / g]
 //
+// With a non-null `lse` (the LSE instantiations) it also writes each
+// row's log-sum-exp of its scaled, masked scores, m + log(max(l, 1e-30)):
+// the residual the reference's custom VJP keeps from `_flash_fwd_impl`
+// (src/repro/nn/attention.py:180) for its backward, which the port's
+// autograd Function (nn/attention.py) runs in torch ops.
+//
 // Replaces the Pallas kernel `_flash_kernel` (src/repro/kernels/
 // flash_attention.py:32, public `flash_attention`).  Its grid (batch, q
 // head, q block, kv block) runs the kv axis in order on one TPU core and
@@ -63,8 +69,8 @@
 // give the same bits.  Head dims 16, 32, 64, 128, 256 (a template
 // parameter).
 //
-// Registers (255 a thread; chip_smoke.py asserts no spills in any
-// instantiation).  At D = 256 the output rows alone are 16 x 256 / 32 =
+// Registers (255 a thread; chip_smoke.py asserts no spills in any of the
+// 20 instantiations, 10 with the lse store and 10 without).  At D = 256 the output rows alone are 16 x 256 / 32 =
 // 128 floats a thread:
 //   - float32 at D = 256 splits D across 2 warps per row block (DS = 2, 8
 //     warps): each keeps 128 output columns and sums Q·Kᵀ over its half of
@@ -402,12 +408,13 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float x0, float x1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(Geo<T, D>::NT, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int g, int sq,
-                 int sk, Strides qs, Strides ks, Strides vs, Strides os,
-                 int causal, int window, int q_offset, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int g, int sq, int sk, Strides qs,
+                 Strides ks, Strides vs, Strides os, int causal, int window,
+                 int q_offset, float scale) {
   using G = Geo<T, D>;
   constexpr int BQ = G::BQ, BK = G::BK, NS = BK / 8, DH = G::DH;
   constexpr bool F32 = G::F32;
@@ -533,7 +540,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   gemm3::cp_async_wait<0>();
 
-  // epilogue: l over the quad, o = acc / max(l, 1e-30)
+  // epilogue: l over the quad, o = acc / max(l, 1e-30); with LSE also
+  // lse = m + log(max(l, 1e-30)), written once a row (the quad's first
+  // lane of the warp holding columns from 0)
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     float lt = l[hf];
@@ -542,6 +551,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lt = fmaxf(lt, 1e-30f);
     const int row = q0 + row_w + gid + hf * 8;
     if (row >= sq) continue;
+    if constexpr (LSE) {
+      if (tig == 0 && d0 == 0)
+        lse[(static_cast<long long>(bb) * gridDim.y + hh) * sq + row] =
+            m[hf] + logf(lt);
+    }
     T* orow = ob + row * os.s + d0 + 2 * tig;
 #pragma unroll
     for (int jd = 0; jd < DH / 8; ++jd)
@@ -549,11 +563,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int h,
-           int hkv, int sq, int sk, const long long* st, int causal,
-           int window, int q_offset, float scale, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D>;
+template <typename T, int D, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int h, int hkv, int sq, int sk, const long long* st,
+           int causal, int window, int q_offset, float scale,
+           cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<T, D, LSE>;
   constexpr int bytes = Geo<T, D>::BYTES;
   static std::atomic<unsigned> smem_set{0};
   int err = gemm3::allow_smem(reinterpret_cast<const void*>(kern), bytes,
@@ -563,51 +578,69 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int h,
   const dim3 grid((sq + BQ - 1) / BQ, h, b);
   kern<<<grid, Geo<T, D>::NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), h / hkv, sq, sk,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, h / hkv, sq, sk,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, causal,
       window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int h, int hkv, int sq, int sk, int d, const long long* st,
-             int causal, int window, int q_offset, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <typename T, bool LSE>
+int dispatch_d(const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int h, int hkv, int sq, int sk, int d,
+               const long long* st, int causal, int window, int q_offset,
+               float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, b, h, hkv, sq, sk, st, causal, window, q_offset, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, b, h, hkv, sq, sk, st, causal, window, q_offset, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, b, h, hkv, sq, sk, st, causal, window, q_offset, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, b, h, hkv, sq, sk, st, causal, window, q_offset, scale, s);
-    case 256: return launch<T, 256>(q, k, v, o, b, h, hkv, sq, sk, st, causal, window, q_offset, scale, s);
+    case 16: return launch<T, 16, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, st, causal, window, q_offset, scale, s);
+    case 32: return launch<T, 32, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, st, causal, window, q_offset, scale, s);
+    case 64: return launch<T, 64, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, st, causal, window, q_offset, scale, s);
+    case 128: return launch<T, 128, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, st, causal, window, q_offset, scale, s);
+    case 256: return launch<T, 256, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, st, causal, window, q_offset, scale, s);
     default: return -1;
   }
+}
+
+// the lse store is a template parameter: the instantiations without it
+// compile the epilogue they had before it existed
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
+             int b, int h, int hkv, int sq, int sk, int d, const long long* st,
+             int causal, int window, int q_offset, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  return l ? dispatch_d<T, true>(q, k, v, o, l, b, h, hkv, sq, sk, d, st,
+                                 causal, window, q_offset, scale, s)
+           : dispatch_d<T, false>(q, k, v, o, l, b, h, hkv, sq, sk, d, st,
+                                  causal, window, q_offset, scale, s);
 }
 
 }  // namespace
 
 // q (B, H, Sq, D), k and v (B, Hkv, Sk, D), o (B, H, Sq, D), each given by
 // its base pointer and element strides of b, h and s in `strides` (q, k,
-// v, o in turn; the last dim contiguous, every row 16-byte aligned).
-// window <= 0 means none.  Returns the CUDA error of the launch, or -1 for
-// a head dim the kernel is not built for.  Sq > 0.
+// v, o in turn; the last dim contiguous, every row 16-byte aligned).  lse
+// is null, or a contiguous float32 (B, H, Sq) that receives each row's
+// log-sum-exp of its scaled, masked scores (m + log(max(l, 1e-30)), in the
+// units of the reference's _flash_fwd_impl).  window <= 0 means none.
+// Returns the CUDA error of the launch, or -1 for a head dim the kernel is
+// not built for.  Sq > 0.
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int b, int h,
-                                   int hkv, int sq, int sk, int d,
+                                   const void* v, void* o, void* lse, int b,
+                                   int h, int hkv, int sq, int sk, int d,
                                    const long long* strides, int causal,
                                    int window, int q_offset, float scale,
                                    void* stream) {
-  return dispatch<float>(q, k, v, o, b, h, hkv, sq, sk, d, strides, causal,
-                         window, q_offset, scale, stream);
+  return dispatch<float>(q, k, v, o, lse, b, h, hkv, sq, sk, d, strides,
+                         causal, window, q_offset, scale, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int b, int h,
-                                    int hkv, int sq, int sk, int d,
+                                    const void* v, void* o, void* lse, int b,
+                                    int h, int hkv, int sq, int sk, int d,
                                     const long long* strides, int causal,
                                     int window, int q_offset, float scale,
                                     void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, b, h, hkv, sq, sk, d, strides,
-                                 causal, window, q_offset, scale, stream);
+  return dispatch<__nv_bfloat16>(q, k, v, o, lse, b, h, hkv, sq, sk, d,
+                                 strides, causal, window, q_offset, scale,
+                                 stream);
 }

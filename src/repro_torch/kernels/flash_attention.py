@@ -8,7 +8,11 @@ float32, the key tiles outside the band skipped, ``q_offset`` for a
 continued prefill, kv head = q head // group read in place.  float32 or
 bf16 in, float32-accurate arithmetic on the tensor cores (3xTF32 for
 float32; exact bf16 products and a bf16 hi + lo split of P for bf16), the
-output in q's dtype.  Head dims 16, 32, 64, 128 and 256.
+output in q's dtype.  Head dims 16, 32, 64, 128 and 256.  With
+``return_lse=True`` it also returns each row's log-sum-exp of its scaled,
+masked scores, (B, H, Sq) float32, from the instantiations that store it
+(the residual of the autograd Function in ``nn/attention``); the output's
+bits are the same either way.
 
 The wrapper takes (B, H, S, D) tensors whose last dim is contiguous and
 passes the other three strides to the kernel, so a (B, S, H, D) tensor
@@ -47,7 +51,7 @@ _ENTRY = {torch.float32: "flash_attention_f32",
 def _bind(lib: ctypes.CDLL) -> None:
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p] + [ctypes.c_int] * 3
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -87,37 +91,47 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, return_lse: bool = False):
     """GQA attention forward: q (B, H, Sq, D), k and v (B, Hkv, Sk, D) ->
-    (B, H, Sq, D) in q's dtype and layout.
+    (B, H, Sq, D) in q's dtype and layout, and with ``return_lse`` also
+    the (B, H, Sq) float32 log-sum-exp of each row.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``flash_attention.launches``) or raise."""
+    (counted in ``flash_attention.launches``, and those that also store
+    lse in ``flash_attention.lse_launches``) or raise."""
     if q.device.type == "cpu":
         return _ref.flash_attention(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset)
+                                    q_offset=q_offset, return_lse=return_lse)
     _check(q, k, v)
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     b, h, sq, d = q.shape
     out = torch.empty_like(q)           # q's layout where q is dense
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = load_library()
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = getattr(lib, _ENTRY[q.dtype])(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, b, h,
             k.shape[1], sq, k.shape[2], d, strides, int(causal),
             window or 0, q_offset, 1.0 / d ** 0.5, stream)
     if err != 0:
         raise RuntimeError(f"{_ENTRY[q.dtype]} launch failed with CUDA "
                            f"error {err}")
     flash_attention.launches += 1
+    if return_lse:
+        flash_attention.lse_launches += 1
+        return out, lse
     return out
 
 
 #: calls that launched the kernel (not the CPU plain-version route)
 flash_attention.launches = 0  # type: ignore[attr-defined]
+#: of those, the launches that also stored lse
+flash_attention.lse_launches = 0  # type: ignore[attr-defined]

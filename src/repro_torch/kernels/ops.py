@@ -19,11 +19,10 @@ from repro_torch.kernels import ref as _ref
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0,
-                    use_fused: Optional[bool] = None) -> torch.Tensor:
-    """(B, H, Sq, D) x (B, Hkv, Sk, D)^2 -> (B, H, Sq, D)."""
-    if use_fused is False:
-        return _ref.flash_attention(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset)
+                    q_offset: int = 0, use_fused: Optional[bool] = None,
+                    return_lse: bool = False):
+    """(B, H, Sq, D) x (B, Hkv, Sk, D)^2 -> (B, H, Sq, D), and with
+    ``return_lse`` also the rows' (B, H, Sq) float32 log-sum-exp."""
+    fn = _ref.flash_attention if use_fused is False else _fa.flash_attention
+    return fn(q, k, v, causal=causal, window=window, q_offset=q_offset,
+              return_lse=return_lse)

@@ -60,11 +60,15 @@ NEG_INF = -1e30
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, return_lse: bool = False):
     """Unblocked GQA attention, softmax in float32 — the plain version of
     the flash-attention kernel.  q (B, H, Sq, D), k and v (B, Hkv, Sk, D);
     q head h reads kv head h // (H // Hkv); query row i sits at absolute
-    position ``q_offset + i``.  Returns (B, H, Sq, D) in q's dtype."""
+    position ``q_offset + i``.  Returns (B, H, Sq, D) in q's dtype, and
+    with ``return_lse`` also each row's log-sum-exp of its scaled, masked
+    scores, (B, H, Sq) float32 (a masked score is ``NEG_INF``, as in the
+    reference's ``_flash_fwd_impl``).  Differentiable by torch's own
+    autograd."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = h // hkv
@@ -81,4 +85,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores = torch.where(mask, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    out = out.reshape(b, h, sq, d).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(scores, dim=-1).reshape(b, h, sq)
+    return out

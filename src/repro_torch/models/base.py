@@ -8,9 +8,14 @@ axis as in the reference.
     plus a tail segment of 2 local layers
 
 The reference scans over repeats (``lax.scan``); here a Python loop runs
-the layers in the same order.  Only the ``"dense"`` kind is ported; the
-others (mlstm, slstm, whisper's enc/dec) raise ``NotImplementedError``
-(ROADMAP Queue 1 item 8).
+the layers in the same order, taking a segment's layers from its stacks
+with one ``unbind(0)`` per leaf, so under autograd each stack's gradient
+is assembled once (indexing ``a[r]`` per layer would allocate a zero
+stack per layer in the backward).  ``forward(..., remat=True)`` runs each
+repeat of the pattern under ``torch.utils.checkpoint`` (non-reentrant),
+as the reference's ``jax.checkpoint`` does its scan body.  Only the
+``"dense"`` kind is ported; the others (mlstm, slstm, whisper's enc/dec)
+raise ``NotImplementedError`` (ROADMAP Queue 1).
 
 Decode states mirror the param stacks: per segment and spec,
 ``{"kv": (k, v), "len": int}`` with k, v (repeats, B, span, Hkv, dh) and
@@ -22,10 +27,11 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import blocks as B
 from repro_torch.nn import layers as L
-from repro_torch.optim import tree_leaves, tree_map
+from repro_torch.optim import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +74,7 @@ class ModelCfg:
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item 8)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -146,13 +151,29 @@ def init_params(gen: torch.Generator, m: ModelCfg, device) -> Dict[str, Any]:
     return p
 
 
+def _unstacked(tree) -> list:
+    """The layers of a (repeats, ...) stacked tree, each leaf split by one
+    ``unbind(0)``."""
+    parts = [a.unbind(0) for a in tree_leaves(tree)]
+    return [tree_unflatten(tree, [p[r] for p in parts])
+            for r in range(len(parts[0]))]
+
+
 def _run_segments(segments_params, segs: Tuple[Segment, ...], x, positions,
-                  use_fused: Optional[bool] = None):
+                  use_fused: Optional[bool] = None, remat: bool = False):
     for seg_p, seg in zip(segments_params, segs):
+        def body(xc, layer_params, _seg=seg):
+            for spec, sp in zip(_seg.pattern, layer_params):
+                xc = spec_apply(sp, xc, spec, positions, use_fused=use_fused)
+            return xc
+
+        per_spec = [_unstacked(sp) for sp in seg_p]
         for r in range(seg.repeats):
-            for spec, sp in zip(seg.pattern, seg_p):
-                x = spec_apply(_layer(sp, r), x, spec, positions,
-                               use_fused=use_fused)
+            layer_params = [layers[r] for layers in per_spec]
+            if remat:
+                x = checkpoint(body, x, layer_params, use_reentrant=False)
+            else:
+                x = body(x, layer_params)
     return x
 
 
@@ -165,9 +186,12 @@ def _head(params, m: ModelCfg, x):
 
 def forward(params, m: ModelCfg, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
-            use_fused: Optional[bool] = None) -> torch.Tensor:
+            use_fused: Optional[bool] = None,
+            remat: bool = False) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V).  positions defaults to arange.
-    ``use_fused=False`` takes the plain attention instead of the kernel."""
+    ``use_fused=False`` takes the plain attention instead of the kernel;
+    ``remat=True`` recomputes each repeat of a segment's pattern in the
+    backward instead of keeping its activations."""
     if m.enc_segments is not None:
         raise _not_ported("the whisper encoder-decoder")
     x = L.embed_apply(params["embed"], tokens)
@@ -175,7 +199,7 @@ def forward(params, m: ModelCfg, tokens: torch.Tensor,
         positions = torch.arange(tokens.shape[1], device=tokens.device)[
             None].expand(tokens.shape)
     x = _run_segments(params["segments"], m.segments, x, positions,
-                      use_fused=use_fused)
+                      use_fused=use_fused, remat=remat)
     return _head(params, m, x)
 
 

@@ -1,6 +1,6 @@
 """Helpers that assemble ModelCfg objects: the dense decoders (uniform
 and gemma3's local:global interleave).  The hymba, xLSTM and whisper
-builders come with their blocks (ROADMAP Queue 1 item 8)."""
+builders come with their blocks (ROADMAP Queue 1)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple

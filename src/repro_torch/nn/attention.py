@@ -6,7 +6,10 @@ one-token decode.
     ``kernels/ops.flash_attention``: on the card every full-sequence
     attention runs the CUDA kernel, whatever its length (the reference's
     ``sq < q_block`` fallback and its XLA scan have no counterpart), and on
-    the CPU the plain version.
+    the CPU the plain version.  Under autograd it runs ``FlashAttentionFn``,
+    the counterpart of the reference's custom VJP ``_flash_custom``: the
+    kernel's forward with each row's log-sum-exp kept, and a backward that
+    recomputes the score tiles one q block at a time.
   * ``attention_reference`` — unblocked, for tests.
   * ``decode_attention`` — a one-token query against a (possibly
     ring-buffered) KV cache, with the per-lane stale-KV mask.
@@ -51,19 +54,122 @@ def attention_reference(q, k, v, *, causal: bool = True,
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def flash_backward(q, k, v, out, lse, dout, *, causal: bool = True,
+                   window: Optional[int] = None, q_offset: int = 0,
+                   q_block: int = 512):
+    """The reference's ``_flash_custom_bwd`` in torch ops, on (B, H, S, D)
+    tensors and the forward's (B, H, Sq) float32 ``lse``; returns (dq, dk,
+    dv) in q's, k's and v's dtypes.
+
+    delta = rowsum(dout·out); then per block of ``q_block`` query rows
+    (the last one may be partial) over the keys its rows can see (the
+    band [lo, hi): causal rows stop at their own position, a window starts
+    ``window - 1`` before the block's first row): p = exp(s - lse) under
+    the mask, dv += pᵀ·do, ds = p·(do·vᵀ - delta), dq = ds·k·scale, dk +=
+    dsᵀ·q·scale.  The G query heads of a kv head are one row axis of the
+    products, so dk and dv sum over them.  The reference's band rounds up
+    to whole kv blocks and, with no window, takes every key; the keys past
+    the band are masked there, so they add exact zeros.  These are plain
+    large products, which the reference leaves to XLA outside any Pallas
+    kernel; here they go to torch.matmul."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / d ** 0.5
+    f32 = torch.float32
+    k32, v32 = k.to(f32), v.to(f32)
+    do = dout.to(f32)
+    delta = (do * out.to(f32)).sum(-1)                       # (B, H, Sq)
+    qg = q.to(f32).reshape(b, hkv, g, sq, d)
+    dog = do.reshape(b, hkv, g, sq, d)
+    lse_g, delta_g = (t.reshape(b, hkv, g, sq, 1) for t in (lse, delta))
+    dq = torch.zeros((b, hkv, g, sq, d), dtype=f32, device=q.device)
+    dk = torch.zeros((b, hkv, sk, d), dtype=f32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for r0 in range(0, sq, q_block):
+        r1 = min(r0 + q_block, sq)
+        lo = max(0, q_offset + r0 - window + 1) if window else 0
+        hi = min(sk, q_offset + r1) if causal else sk
+        if hi <= lo:                       # no key in band: dq stays 0
+            continue
+        n = g * (r1 - r0)
+        qb = qg[:, :, :, r0:r1].reshape(b, hkv, n, d)
+        dob = dog[:, :, :, r0:r1].reshape(b, hkv, n, d)
+        kb, vb = k32[:, :, lo:hi], v32[:, :, lo:hi]
+        qpos = torch.arange(r0, r1, device=q.device) + q_offset
+        kpos = torch.arange(lo, hi, device=q.device)
+        keep = torch.ones((r1 - r0, hi - lo), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            keep &= qpos[:, None] >= kpos[None, :]
+        if window is not None:
+            keep &= (qpos[:, None] - kpos[None, :]) < window
+        # s -> p and dp -> ds in place: two (B, Hkv, G·Qb, Kb) tensors live
+        p = torch.matmul(qb, kb.transpose(-1, -2)).mul_(scale).view(
+            b, hkv, g, r1 - r0, hi - lo)
+        p = p.sub_(lse_g[:, :, :, r0:r1]).exp_().masked_fill_(~keep, 0.0)
+        p = p.view(b, hkv, n, hi - lo)
+        dv[:, :, lo:hi] += torch.matmul(p.transpose(-1, -2), dob)
+        ds = torch.matmul(dob, vb.transpose(-1, -2)).view(
+            b, hkv, g, r1 - r0, hi - lo)
+        ds = ds.sub_(delta_g[:, :, :, r0:r1]).view(b, hkv, n, hi - lo).mul_(p)
+        dq[:, :, :, r0:r1] = (torch.matmul(ds, kb) * scale).view(
+            b, hkv, g, r1 - r0, d)
+        dk[:, :, lo:hi] += torch.matmul(ds.transpose(-1, -2), qb) * scale
+        del p, ds
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention on (B, H, S, D) tensors: the
+    counterpart of the reference's ``_flash_custom`` (custom VJP).
+
+    forward: ``kernels/ops.flash_attention(..., return_lse=True)`` — the
+    kernel on the card, the plain version on the CPU — saving q, k, v, out
+    and lse; backward: ``flash_backward``, which recomputes each score
+    tile from lse, so no (Sq, Sk) probability matrix is kept between the
+    passes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, q_block):
+        out, lse = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, q_offset=q_offset,
+                        q_block=q_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0,
-                    use_fused: Optional[bool] = None) -> torch.Tensor:
+                    use_fused: Optional[bool] = None,
+                    q_block: int = 512) -> torch.Tensor:
     """Full-sequence attention on (B, S, H, D), returned as (B, S, H, D).
 
     The kernel takes (B, H, S, D) with any strides but a contiguous last
     dim, so the (B, S, H, D) tensors are passed as ``transpose(1, 2)``
     views with no copy, and the kernel writes its output in q's layout:
-    the transpose back is a view of a (B, S, H, D) tensor again.
-    ``use_fused=False`` takes the plain version on any device."""
-    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal, window=window,
-                            q_offset=q_offset, use_fused=use_fused)
+    the transpose back is a view of a (B, S, H, D) tensor again.  When
+    grad is enabled and an input requires it, the call goes through
+    ``FlashAttentionFn`` (its backward in blocks of ``q_block`` query
+    rows); otherwise the forward alone runs.  ``use_fused=False`` takes
+    the unblocked plain version on any device, under torch's own
+    autograd."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if (use_fused is not False and torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        o = FlashAttentionFn.apply(qt, kt, vt, causal, window, q_offset,
+                                   q_block)
+    else:
+        o = ops.flash_attention(qt, kt, vt, causal=causal, window=window,
+                                q_offset=q_offset, use_fused=use_fused)
     return o.transpose(1, 2)
 
 

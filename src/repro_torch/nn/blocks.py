@@ -7,7 +7,7 @@ on the card through the flash-attention kernel; ``use_fused=False`` opts
 that one call out to the plain version and touches nothing else.  The
 MoE FFN (``n_experts > 0``), hymba's parallel SSM branch
 (``ssm_state > 0``), M-RoPE and the whisper blocks are not ported yet
-(ROADMAP Queue 1 item 8) and raise ``NotImplementedError``.
+(ROADMAP Queue 1) and raise ``NotImplementedError``.
 
 Decode updates the KV cache in place (the reference returns a new cache):
 the caches of a segment are one (repeats, B, span, Hkv, dh) tensor, and a
@@ -23,7 +23,7 @@ import torch
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 8)"
+_NOT_PORTED = "is not ported yet (ROADMAP Queue 1)"
 
 
 @dataclasses.dataclass(frozen=True)

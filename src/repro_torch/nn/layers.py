@@ -89,7 +89,11 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, device):
 
 
 def embed_apply(params, ids: torch.Tensor) -> torch.Tensor:
-    return params["table"][ids]
+    """The table's rows at `ids`.  Through ``F.embedding``, whose backward
+    sums each row's gradients in one fixed order on the CPU and on the
+    card; indexing (``table[ids]``) sums them with atomic adds on the CPU,
+    so two backward passes could differ in the last bits."""
+    return torch.nn.functional.embedding(ids, params["table"])
 
 
 def embed_logits(params, x: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,10 @@ Functional API of the reference package's ``optim/adamw.py``:
 ``opt.init(params) -> state``; ``opt.update(grads, state, params) ->
 (updates, state)``; ``apply_updates(params, updates) -> params``.  A tree
 is a nest of dicts, lists and tuples with tensors at the leaves (the
-params layout ``{"layers": [{"w", "b"}, ...]}``).  Nothing is updated in
-place: every call returns new tensors, as the reference does.
+params layout ``{"layers": [{"w", "b"}, ...]}``).  ``update`` returns new
+tensors, as the reference does; ``update_in_place`` (the LM train step's,
+where params, m and v are GBs) writes them in place, where the reference
+donates its buffers to XLA.
 
 The update is the reference's, ``-lr·(m/bc1)/(sqrt(v/bc2)+eps)``
 (``torch.optim.Adam`` places eps and rounds the bias correction
@@ -51,6 +53,13 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_unflatten(like, leaves: list):
+    """A tree of `like`'s structure holding `leaves` in ``tree_leaves``
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for k in tree for leaf in tree_leaves(tree[k])]
@@ -69,6 +78,9 @@ class AdamState(NamedTuple):
 class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[..., Any]
+    #: update_in_place(grads, state, params) -> state (params, mu and nu
+    #: written in place; the same bits as update + apply_updates)
+    update_in_place: Callable[..., Any]
 
 
 def _bias_correction(b: float, step: torch.Tensor) -> torch.Tensor:
@@ -102,31 +114,58 @@ def adamw(lr: Union[Callable[[torch.Tensor], Any], float], b1: float = 0.9,
                          mu=tree_map(torch.zeros_like, params),
                          nu=tree_map(torch.zeros_like, params))
 
+    def leaf_update(g, m, v, p, bc1, bc2, lr_t):
+        """One leaf's new moments and its update."""
+        m = _fma(b1, m, (1 - b1) * g)
+        v = _fma(b2, v, (1 - b2) * g * g)
+        u = -lr_t * (m / bc1) / (_sqrt(v / bc2) + eps)
+        if weight_decay and p is not None:
+            # u - (lr·wd)·p, contracted like the moments
+            u = _fma(-(lr_t * weight_decay), p, u)
+        return m, v, u
+
+    def scalars(state: AdamState):
+        step = state.step + 1
+        return (step, _bias_correction(b1, step), _bias_correction(b2, step),
+                lr_fn(step))
+
     def update(grads, state: AdamState, params=None):
         if clip_norm is not None:
             grads = clip_by_global_norm(grads, clip_norm)
-        step = state.step + 1
-        mu = tree_map(lambda m, g: _fma(b1, m, (1 - b1) * g), state.mu, grads)
-        nu = tree_map(lambda v, g: _fma(b2, v, (1 - b2) * g * g), state.nu,
-                      grads)
-        bc1 = _bias_correction(b1, step)
-        bc2 = _bias_correction(b2, step)
-        lr_t = lr_fn(step)
+        step, *consts = scalars(state)
+        ps = (tree_leaves(params) if params is not None
+              else [None] * len(tree_leaves(grads)))
+        out = [leaf_update(g, m, v, p, *consts) for g, m, v, p in zip(
+            tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu),
+            ps)]
+        return (tree_unflatten(grads, [o[2] for o in out]),
+                AdamState(step=step,
+                          mu=tree_unflatten(state.mu, [o[0] for o in out]),
+                          nu=tree_unflatten(state.nu, [o[1] for o in out])))
 
-        def upd(m, v, p=None):
-            u = -lr_t * (m / bc1) / (_sqrt(v / bc2) + eps)
-            if weight_decay and p is not None:
-                # u - (lr·wd)·p, contracted like the moments
-                u = _fma(-(lr_t * weight_decay), p, u)
-            return u
+    @torch.no_grad()
+    def update_in_place(grads, state: AdamState, params) -> AdamState:
+        """``update`` and ``apply_updates`` in one pass that writes params,
+        mu and nu in place, one leaf at a time: the same bits, with no
+        second copy of any tree and the float64 temporaries of one leaf
+        alive at a time (an LM's (repeats, ...) stacks are GBs each).
+        Returns the new state, which holds the same mu and nu tensors."""
+        scale = (clip_scale(grads, clip_norm) if clip_norm is not None
+                 else None)
+        step, *consts = scalars(state)
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
+                              tree_leaves(state.nu), tree_leaves(params)):
+            if scale is not None:
+                g = g * scale
+            m_new, v_new, u = leaf_update(g, m, v, p, *consts)
+            m.copy_(m_new)
+            v.copy_(v_new)
+            p.add_(u.to(p.dtype))
+            del g, m_new, v_new, u
+        return AdamState(step=step, mu=state.mu, nu=state.nu)
 
-        if params is None:
-            updates = tree_map(upd, mu, nu)
-        else:
-            updates = tree_map(upd, mu, nu, params)
-        return updates, AdamState(step=step, mu=mu, nu=nu)
-
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update,
+                     update_in_place=update_in_place)
 
 
 def adam(lr, **kw) -> Optimizer:
@@ -142,6 +181,11 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
+def clip_scale(grads, max_norm: float) -> torch.Tensor:
+    """The factor ``clip_by_global_norm`` multiplies every leaf by."""
+    return torch.clamp(max_norm / (global_norm(grads) + 1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
-    scale = torch.clamp(max_norm / (global_norm(grads) + 1e-9), max=1.0)
+    scale = clip_scale(grads, max_norm)
     return tree_map(lambda g: g * scale, grads)

@@ -1107,3 +1107,52 @@ def test_cuda_flash_rejects_what_the_kernel_does_not_take(h100):
     with pytest.raises(ValueError):                  # rows 8-byte aligned
         kb = torch.zeros(1, 2, 8, 68, device=h100, dtype=torch.bfloat16)
         FA.flash_attention(q.bfloat16(), kb[..., :64], kb[..., :64])
+
+
+#: (B, H, Hkv, S, D, window): the Function's blocks of 512 query rows,
+#: partial last blocks, every GQA group shape, a window inside a block
+CUDA_FLASH_GRAD_CASES = [
+    (2, 8, 8, 300, 64, None),
+    (1, 4, 1, 700, 256, 100),
+    (1, 4, 2, 513, 128, None),
+    (1, 4, 4, 64, 16, 9),
+    (1, 2, 1, 1100, 32, 600),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_FLASH_GRAD_CASES)
+def test_cuda_flash_function_matches_plain(case, h100, rng):
+    """``FlashAttentionFn`` on the card (the kernel's forward with lse,
+    the blocked torch-ops backward) against the plain attention under
+    torch's autograd, float32: out, dq, dk and dv within 1e-4 of max(1,
+    max|plain|); the kernel's out the same bits with and without lse;
+    lse within 1e-5 of max(1, |lse|) of the plain version's."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.nn import attention as A
+    b, h, hkv, s, d, window = case
+    arrays = (rng.normal(size=(b, s, h, d)), rng.normal(size=(b, s, hkv, d)),
+              rng.normal(size=(b, s, hkv, d)), rng.normal(size=(b, s, h, d)))
+    q, k, v, do = (torch.tensor(a, dtype=torch.float32, device=h100)
+                   for a in arrays)
+    grads = {}
+    for route, fused in (("kernel", None), ("plain", False)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = FA.flash_attention.lse_launches
+        out = A.flash_attention(*leaves, window=window, use_fused=fused)
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert FA.flash_attention.lse_launches == before + (route == "kernel")
+        grads[route] = [out.detach()] + [t.grad for t in leaves]
+    for name, got, want in zip(("out", "dq", "dk", "dv"), grads["kernel"],
+                               grads["plain"]):
+        assert bool(torch.isfinite(got).all()), name
+        _flash_close(got, want, 1e-4, f"{case} {name}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o_lse, lse = FA.flash_attention(qt, kt, vt, window=window,
+                                    return_lse=True)
+    assert torch.equal(o_lse, FA.flash_attention(qt, kt, vt, window=window))
+    _, want_lse = ref.flash_attention(qt, kt, vt, window=window,
+                                      return_lse=True)
+    err = (lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)
+    assert float(err.max()) <= 1e-5, f"{case} lse {float(err.max())}"

@@ -78,7 +78,7 @@ def test_moe_and_ssm_blocks_raise():
     gen = torch.Generator().manual_seed(0)
     for cfg in (TB.BlockCfg(16, 2, 2, 32, n_experts=4),
                 TB.BlockCfg(16, 2, 2, 32, ssm_state=8)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
             TB.block_init(gen, cfg, "cpu")
 
 

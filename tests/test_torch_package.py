@@ -5,9 +5,9 @@
   lazy import inside a function counts too).
 - Entry points run on the card unless the caller asks for the CPU:
   ``GANDSE(..., device=None)``, ``Explorer(...)``, ``train_gan(...)``, the
-  LM ``Engine(...)`` and the serving launchers ``launch/dse_serve`` and
-  ``launch/online`` without a device raise where no CUDA device is
-  present.
+  LM ``Engine(...)``, the serving launchers ``launch/dse_serve`` and
+  ``launch/online`` and the training launcher ``launch/train`` without a
+  device raise where no CUDA device is present.
 - Importing the kernel module builds nothing (the CPU tests import every
   module; the kernel is built at its first launch, on the card).
 """
@@ -50,7 +50,8 @@ def test_port_files_are_found():
                 "launch/online", "checkpoint/manager", "serve/__init__",
                 "serve/request", "serve/cache", "serve/batcher",
                 "serve/server", "serve/faults", "serve/frontend",
-                "serve/online"):
+                "serve/online", "data/synthetic", "optim/schedule",
+                "optim/compress", "launch/train"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "chip_smoke.py" in names
 
@@ -138,6 +139,20 @@ def test_serving_launchers_default_to_the_card(launcher, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(small + ["--device", "cuda"])
     assert mod.main(small + ["--device", "cpu"]) == 0
+
+
+def test_train_launcher_defaults_to_the_card(monkeypatch, tmp_path):
+    """``launch/train --device``: the card by default (raising without
+    one), the CPU only when named."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = ["--steps", "1", "--batch", "2", "--seq", "8",
+             "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(small)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(small + ["--device", "cuda"])
+    assert train.main(small + ["--device", "cpu"]) == 0
 
 
 def test_kernel_module_import_builds_nothing():
