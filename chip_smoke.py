@@ -79,7 +79,8 @@ Then the LM serving path of gemma3-1b at full width (26 layers, d 1152,
 4 heads / 1 kv head of 256, d_ff 6912, vocab 262144; float32 params from
 seed 0): the flash-attention kernel (tensor cores: 3xTF32 for float32,
 bf16 with a split P) against its plain version at the prefill's shapes
-(and ``bench_kernels.py``'s, a continued prefill, a non-causal one;
+(and ``bench_kernels.py``'s, a continued prefill, a non-causal one,
+mixtral-8x7b's prefill layer;
 float32 against float64 attention too, bf16 to one ulp of the plain
 version's output); ``make_prefill_step`` on 2 prompts of
 4096 tokens through the kernel (26 launches, asserted) and through the
@@ -92,9 +93,10 @@ Then LM training (phases i-k):
 
 - i. ``nn/attention.FlashAttentionFn`` (the flash kernel's forward with
   each row's log-sum-exp, ``_flash_custom``'s backward in torch ops) at
-  stablelm-1.6b's layer (2 x 2048, 32 heads of 64) and gemma3-1b's global
+  stablelm-1.6b's layer (2 x 2048, 32 heads of 64), gemma3-1b's global
   and local layers (1 x 4096, 4 heads of 256 on one kv head, window
-  1024), float32: out the same bits with and without lse, lse to the
+  1024) and mixtral-8x7b's (1 x 2048, 32 heads of 128 on 8, window 4096),
+  float32: out the same bits with and without lse, lse to the
   plain version's, out and the three gradients against float64 autograd
   (at most 4x the plain route's error), the same bits twice; the forward
   with and without lse, the backward, SDPA's forward and backward timed;
@@ -108,6 +110,34 @@ Then LM training (phases i-k):
   steps, once whole and once failing at step 7: it restarts, resumes
   from step 4's checkpoint, and its losses equal the whole run's.
 
+Then the MoE decoders (phase l; float32 from seed 0, phase j's state
+freed first):
+
+- l1. the MoE layer (``nn/moe.moe_apply``) of mixtral-8x7b (8 experts of
+  4096 -> 14336, top 2) and phi3.5-moe (16 of 4096 -> 6400) at the
+  prefill's 8192 tokens: within TOL·scale of the dense-gather oracle
+  (``ref.moe_dispatch_ffn``) with the dropped assignments' weights
+  zeroed, at a capacity that drops nothing, at the default 1.25
+  (capacities 2560 and 1280) and at 1.0, which drops; the routing and
+  dispatch integers the CPU port's on the same router logits; the same
+  bits twice; the layer, the oracle and the parts timed;
+- l2. mixtral-8x7b at full width (d 4096, 32 heads / 8 kv of 128, window
+  4096, vocab 32000, untied), its depth cut to 4 layers:
+  ``make_prefill_step`` on 2 x 4096 tokens through the kernel (4 flash
+  launches at head dim 128, window 4096, asserted) and through the plain
+  attention, their last-token logits compared and the routing flips
+  between the two routes counted layer by layer; timed, profiled;
+- l3. the ``Engine`` on that model (SERVE's requests): every request
+  served, each decode step of the first wave's prompt held to a decode
+  step from the plain pieces (each MoE layer the oracle over the step's
+  kept assignments; the reference's capacity at decode makes decode
+  differ from prefill); ms a step beside the weights-read bound;
+- l4. mixtral at 2 layers, batch 1 x 2048 of ``SyntheticStream``: the
+  kernel route's loss and gradients the same bits twice and against the
+  plain route's (loss within 1e-5, each leaf within 1e-3 of its norm);
+  ``make_train_step``: one warm step and 3 timed (2 flash launches with
+  lse a step, asserted), the peak memory, a profiled step.
+
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
 it are the kernel table (JSON) and the card's name and power limit.
@@ -118,6 +148,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -126,6 +157,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -153,6 +185,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import fused_dense as fd  # noqa: E402
 from repro_torch.kernels import fused_mlp as fm  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.launch import comparison as CMP  # noqa: E402
 from repro_torch.launch import dse_serve  # noqa: E402
@@ -164,6 +197,7 @@ from repro_torch.models import base as MB  # noqa: E402
 from repro_torch.nn import attention as A  # noqa: E402
 from repro_torch.nn import blocks as NB  # noqa: E402
 from repro_torch.nn import layers as L  # noqa: E402
+from repro_torch.nn import moe as MOE  # noqa: E402
 from repro_torch.optim import (adam, apply_updates, tree_leaves,  # noqa: E402
                                tree_map, tree_unflatten)
 from repro_torch.train import step as TS  # noqa: E402
@@ -204,6 +238,8 @@ FLASH_SHAPES = {
     "q_offset 3072 2x4x1024x256 kv4096": (2, 4, 1, 1024, 4096, 256, True,
                                           None, 3072),
     "non-causal 2x4x1024x256": (2, 4, 1, 1024, 1024, 256, False, None, 0),
+    "mixtral 2x32x4096x128 kv8 w4096": (2, 32, 8, 4096, 4096, 128, True,
+                                        4096, 0),
 }
 BF16_TOL = 3e-2             # the reference's own bf16 kernel test
 LM_ARCH = "gemma3-1b"
@@ -223,10 +259,21 @@ FLASH_GRAD_SHAPES = {
     "stablelm-1.6b 2x32x2048x64": (2, 32, 32, 2048, 64, None),
     "gemma3 global 1x4x4096x256 kv1": (1, 4, 1, 4096, 256, None),
     "gemma3 local 1x4x4096x256 kv1 w1024": (1, 4, 1, 4096, 256, 1024),
+    "mixtral 1x32x2048x128 kv8 w4096": (1, 32, 8, 2048, 128, 4096),
 }
 #: launch/train at the reduced stablelm config, restarted once at step 7
 LAUNCHER_ARGV = ["--arch", LM_TRAIN_ARCH, "--steps", "12", "--batch", "8",
                  "--seq", "128", "--ckpt-every", "4", "--log-every", "1"]
+#: phase l: the MoE decoders at full width, float32 from seed 0.  The MoE
+#: layer of both archs at the prefill's tokens; mixtral with its depth
+#: cut (its 32 layers are 187 GB in float32): 4 layers to serve, 2 to
+#: train at MOE_TRAIN (batch x seq)
+MOE_ARCH = "mixtral-8x7b"
+MOE_LAYER_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
+MOE_SERVE_LAYERS = 4
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN = (1, 2048)
+MOE_TRAIN_STEPS = 3          # timed, after one warm step
 
 
 def smi() -> str:
@@ -1068,27 +1115,90 @@ def _logits_agree(label: str, got, want) -> dict:
         want.abs().max()))
 
 
-def prefill_bound_ms(m, b: int, s: int) -> dict:
-    """Least time of a prefill's parts at the float32 peak: the layers'
-    projections (wq, wkv, w_gate, w_up, w_down), wo, the tied logits, and
-    the flash kernel's kept pairs (each a product's 2·M·K·N flops)."""
-    out = {"projections": 0.0, "wo": 0.0, "flash": 0.0}
+def prefill_flops(m, b: int, s: int) -> dict:
+    """Flops of a prefill's parts as computed (each product 2·M·K·N): the
+    layers' projections (wq, wkv, the router, and a dense FFN's w_gate,
+    w_up, w_down), an MoE layer's experts over their whole capacity
+    buffers (2·3·E·cap·D·F a layer, at the default capacity), wo, the
+    logits, and the flash kernel's kept pairs."""
+    out = {"projections": 0.0, "experts": 0.0, "wo": 0.0, "flash": 0.0}
+    t = b * s
     for seg in m.segments:
         for spec in seg.pattern:
-            c, n = spec.cfg, seg.repeats * b * s
-            out["projections"] += seg.repeats * 2 * b * s * c.d_model * (
-                (c.n_heads + 2 * c.n_kv) * c.dh + 3 * c.d_ff)
-            out["wo"] += 2 * n * c.n_heads * c.dh * c.d_model
+            c = spec.cfg
+            ffn = 0 if c.n_experts else 3 * c.d_ff
+            out["projections"] += seg.repeats * 2 * t * c.d_model * (
+                (c.n_heads + 2 * c.n_kv) * c.dh + ffn + c.n_experts)
+            if c.n_experts:
+                cap = MOE.capacity(t, c.n_experts, c.top_k, 1.25)
+                out["experts"] += seg.repeats * 2 * 3 * c.n_experts * cap \
+                    * c.d_model * c.d_ff
+            out["wo"] += seg.repeats * 2 * t * c.n_heads * c.dh * c.d_model
             out["flash"] += seg.repeats * 4 * c.dh * b * c.n_heads * \
                 kept_pairs(s, s, True, c.window, 0)
-    out["logits"] = 2 * b * s * m.d_model * m.vocab
-    return {k: 1e3 * v / PEAK_F32_FLOPS for k, v in out.items()}
+    out["logits"] = 2 * t * m.d_model * m.vocab
+    return out
 
 
-def drive_prefill(m, params) -> dict:
-    """Phase 6b: make_prefill_step on PREFILL random prompts through the
-    kernel (its launches counted: one per layer) and through the plain
-    attention (use_fused=False), then warm times of both, interleaved."""
+def prefill_bound_ms(m, b: int, s: int) -> dict:
+    """Least time of a prefill's parts at the float32 peak (TF32 off)."""
+    return {k: 1e3 * v / PEAK_F32_FLOPS
+            for k, v in prefill_flops(m, b, s).items()}
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """``nn/moe.route_topk`` wrapped to keep each MoE layer's (T, K)
+    expert indices in call order (the list stays empty for a dense
+    model)."""
+    route, seen = MOE.route_topk, []
+
+    def rec(logits, top_k):
+        idx, w = route(logits, top_k)
+        seen.append(idx.reshape(-1, top_k))
+        return idx, w
+
+    MOE.route_topk = rec
+    try:
+        yield seen
+    finally:
+        MOE.route_topk = route
+
+
+def routing_flips(a: list, b_: list) -> list:
+    """Per MoE layer, the (token, k) assignments whose expert differs
+    between two runs."""
+    assert len(a) == len(b_), (len(a), len(b_))
+    return [int((x != y).sum()) for x, y in zip(a, b_)]
+
+
+@contextlib.contextmanager
+def recorded_flash():
+    """Each call of the flash kernel's wrapper through ``kernels/ops``
+    kept as (head dim, window): ops' handle on the wrapper's module is
+    swapped for one whose wrapper records, then calls the real one (whose
+    launch counters count as ever)."""
+    seen = []
+
+    def rec(q, k, v, **kw):
+        seen.append((q.shape[-1], kw.get("window")))
+        return fa.flash_attention(q, k, v, **kw)
+
+    ops._fa = types.SimpleNamespace(flash_attention=rec)
+    try:
+        yield seen
+    finally:
+        ops._fa = fa
+
+
+def drive_prefill(m, params, label: str = "prefill") -> dict:
+    """Phase 6b (and l2): make_prefill_step on PREFILL random prompts
+    through the kernel (its launches counted: one per layer, at each
+    layer's head dim and window) and through the plain attention
+    (use_fused=False), their last-token logits compared (for an MoE model
+    with the routing flips between the two routes counted, layer by
+    layer, and named in a failure), then warm times of both,
+    interleaved."""
     b, s = PREFILL
     toks = torch.randint(0, m.vocab, (b, s), device="cuda",
                          generator=torch.Generator(device="cuda")
@@ -1096,14 +1206,26 @@ def drive_prefill(m, params) -> dict:
     routes = {"kernel": TS.make_prefill_step(m),
               "plain": TS.make_prefill_step(m, use_fused=False)}
     zero_counts()
-    got = routes["kernel"](params, {"tokens": toks})
-    torch.cuda.synchronize()
+    with recorded_routes() as route_k, recorded_flash() as calls:
+        got = routes["kernel"](params, {"tokens": toks})
+        torch.cuda.synchronize()
     launches = counts()
-    want = routes["plain"](params, {"tokens": toks})
-    torch.cuda.synchronize()
+    with recorded_routes() as route_p:
+        want = routes["plain"](params, {"tokens": toks})
+        torch.cuda.synchronize()
     assert launches["flash_attention_f32"] == m.n_layers, launches
+    layers = [sp.cfg for seg in m.segments for _ in range(seg.repeats)
+              for sp in seg.pattern]
+    assert calls == [(c.dh, c.window) for c in layers], calls
     out = dict(launches=launches, bound_ms=prefill_bound_ms(m, b, s),
-               **_logits_agree("prefill logits", got, want))
+               flash_calls=[list(c) for c in dict.fromkeys(calls)])
+    what = f"{label} logits"
+    if route_k:
+        out["routing_flips_by_layer"] = routing_flips(route_k, route_p)
+        what += (f" ({sum(out['routing_flips_by_layer'])} routing flips "
+                 f"between the routes)")
+    out.update(_logits_agree(what, got, want))
+    del got, want, route_k, route_p
     times = {r: [] for r in routes}
     for r in ("kernel", "plain", "plain", "kernel"):
         torch.cuda.synchronize()
@@ -1114,30 +1236,32 @@ def drive_prefill(m, params) -> dict:
     for r, ts in times.items():
         out[f"{r}_ms_per_prefill"] = min(ts)
         out[f"{r}_prompt_tok_per_s"] = b * s / (min(ts) / 1e3)
+    out["bound_ms_per_prefill"] = sum(out["bound_ms"].values())
     out["profile"] = profile_step(lambda: routes["kernel"](
         params, {"tokens": toks}), ())
-    print("prefill: " + json.dumps(out), flush=True)
+    print(f"{label}: " + json.dumps(out), flush=True)
     return out
 
 
-def drive_serve(m, params) -> dict:
-    """Phase 6c: the Engine (device=None: the card) serving SERVE's
-    requests, then its logits at the prompts' last tokens (plain decode
-    attention) held to make_prefill_step's on those prompts (kernel)."""
+def run_engine(m, params, capture_until: int) -> dict:
+    """The Engine (device=None: the card) serving SERVE's requests, each
+    decode step's tokens, start and logits kept while the engine's clock
+    is below `capture_until` (the first wave's prompt)."""
     eng = serve.Engine(m, params, SERVE["slots"], SERVE["cache_len"])
     assert eng.device.type == "cuda", eng.device
-    plen = SERVE["prompt_len"]
-    decode, at_prompt_end = eng._decode, {}
+    decode, steps = eng._decode, []
 
     def capture(params_, toks, clock, states, start=None):
         logits, states = decode(params_, toks, clock, states, start=start)
-        if clock == plen - 1:          # the first wave's last prompt token
-            at_prompt_end["logits"] = logits[:, 0].clone()
+        if clock < capture_until:
+            steps.append(dict(toks=toks.clone(), clock=clock,
+                              start=start.clone(),
+                              logits=logits[:, 0].clone()))
         return logits, states
 
     eng._decode = capture
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, m.vocab, size=plen).tolist()
+    prompts = [rng.integers(0, m.vocab, size=SERVE["prompt_len"]).tolist()
                for _ in range(SERVE["requests"])]
     for r, p in enumerate(prompts):
         eng.submit(serve.Request(rid=r, prompt=p, max_new=SERVE["max_new"]))
@@ -1150,21 +1274,31 @@ def drive_serve(m, params) -> dict:
     assert len(done) == SERVE["requests"], len(done)
     assert all(len(r.out) == SERVE["max_new"] for r in done)
     new_tokens = sum(len(r.out) for r in done)
-    first = torch.tensor(prompts[:SERVE["slots"]], device="cuda")
-    want = TS.make_prefill_step(m)(params, {"tokens": first})
-    weight_bytes = 4 * MB.param_count(params)
-    out = dict(engine_iters=iters, new_tokens=new_tokens, wall_s=wall,
-               new_tok_per_s=new_tokens / wall,
-               ms_per_decode_step=1e3 * wall / iters,
-               weights_read_ms=1e3 * weight_bytes / PEAK_HBM_BYTES,
-               **_logits_agree("engine vs prefill logits",
-                               at_prompt_end["logits"], want))
     # one more decode step of the idle engine (its caches have room left)
     toks = torch.zeros((SERVE["slots"], 1), dtype=torch.long, device="cuda")
     start = torch.from_numpy(eng.start).to("cuda")
-    out["decode_step_profile"] = profile_step(lambda: decode(
+    profile = profile_step(lambda: decode(
         params, toks, eng.clock, eng.states, start=start), ())
-    assert [r.out[0] for r in done[:SERVE["slots"]]] == \
+    return dict(done=done, prompts=prompts, steps=steps, stats=dict(
+        engine_iters=iters, new_tokens=new_tokens, wall_s=wall,
+        new_tok_per_s=new_tokens / wall, ms_per_decode_step=1e3 * wall / iters,
+        decode_step_profile=profile))
+
+
+def drive_serve(m, params) -> dict:
+    """Phase 6c: the Engine serving SERVE's requests, then its logits at
+    the prompts' last tokens (plain decode attention) held to
+    make_prefill_step's on those prompts (kernel)."""
+    plen = SERVE["prompt_len"]
+    run = run_engine(m, params, plen)
+    first = torch.tensor(run["prompts"][:SERVE["slots"]], device="cuda")
+    want = TS.make_prefill_step(m)(params, {"tokens": first})
+    weight_bytes = 4 * MB.param_count(params)
+    out = dict(weights_read_ms=1e3 * weight_bytes / PEAK_HBM_BYTES,
+               **run["stats"],
+               **_logits_agree("engine vs prefill logits",
+                               run["steps"][plen - 1]["logits"], want))
+    assert [r.out[0] for r in run["done"][:SERVE["slots"]]] == \
         want.argmax(-1).tolist()
     print("serve: " + json.dumps(out), flush=True)
     return out
@@ -1973,10 +2107,10 @@ def check_flash_grad() -> dict:
     return rows
 
 
-def lm_train_batch(m, step: int) -> dict:
-    """Step `step` of the synthetic stream (seed 0) at LM_TRAIN, on the
-    card."""
-    b, s = LM_TRAIN
+def lm_train_batch(m, step: int, shape=LM_TRAIN) -> dict:
+    """Step `step` of the synthetic stream (seed 0) at `shape` (batch x
+    seq), on the card."""
+    b, s = shape
     toks, labels = SyntheticStream(DataConfig(
         vocab=m.vocab, seq_len=s, global_batch=b, seed=0)).batch(step)
     return {"tokens": torch.from_numpy(toks).to("cuda", torch.long),
@@ -2173,6 +2307,267 @@ def drive_lm_launcher() -> dict:
     return out
 
 
+def moe_layer_work(t: int, cfg, cap: int) -> tuple:
+    """Bytes one MoE layer must move (the tokens, the router and the
+    three expert weights read once, the output written once), its flops
+    as computed (the router, the three products over the whole capacity
+    buffers) and those of the kept assignments alone (2·3·T·K·D·F)."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    n_bytes = 4 * (2 * t * d + d * e + 3 * e * d * f)
+    return n_bytes, 2 * t * d * e + 2 * 3 * e * cap * d * f, \
+        2 * t * d * e + 2 * 3 * t * cfg.top_k * d * f
+
+
+def check_moe_layer(arch: str) -> dict:
+    """Phase l1: the MoE layer (``nn/moe.moe_apply``) of `arch` at full
+    width (float32 from seed 0) on the prefill's 2 x 4096 tokens of unit
+    RMS, under no_grad.  At three capacity factors (one that drops
+    nothing, the default 1.25, and 1.0, which must drop some): the
+    card's routing and dispatch integers equal the CPU port's on the same
+    router logits, and the layer is within TOL·max(1, max|y|) of the
+    dense-gather oracle (``ref.moe_dispatch_ffn``) with the dropped
+    assignments' weights zeroed.  Two calls the same bits.  CUDA-event
+    medians of the layer, the oracle and the parts at the default:
+    routing, dispatch, each of the three batched products, the SwiGLU
+    products together, combine."""
+    cfg = configs.get_arch(arch).segments[0].pattern[0].cfg
+    e, k = cfg.n_experts, cfg.top_k
+    t = PREFILL[0] * PREFILL[1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = MOE.moe_init(gen, e, cfg.d_model, cfg.d_ff, "cuda")
+    x = torch.randn((t, cfg.d_model), generator=gen, device="cuda")
+    w3 = (p["w_gate"], p["w_up"], p["w_down"])
+    row = dict(arch=arch, tokens=t, experts=e, top_k=k, d_model=cfg.d_model,
+               d_ff=cfg.d_ff)
+    with torch.no_grad():
+        logits = x @ p["router"]
+        idx, wts = MOE.route_topk(logits, k)
+        idx_c = MOE.route_topk(logits.cpu(), k)[0]
+        assert torch.equal(idx.cpu(), idx_c), f"{arch}: routing differs " \
+            "from the CPU port's"
+        load = int(torch.bincount(idx.reshape(-1), minlength=e).max())
+        row["max_expert_load"] = load
+        for label, cf in (("no drops", (load + 0.5) * e / (k * t)),
+                          ("default", 1.25), ("drops", 1.0)):
+            cap = MOE.capacity(t, e, k, cf)
+            disp = MOE._dispatch_group(idx, e, cap)
+            for name, a, b_ in zip(("buf_tok", "occupied", "slot", "keep"),
+                                   disp, MOE._dispatch_group(idx_c, e, cap)):
+                assert torch.equal(a.cpu(), b_), \
+                    f"{arch} {label}: {name} differs from the CPU port's"
+            keep = disp[3].reshape(t, k)
+            dropped = int((~keep).sum())
+            if label == "no drops":
+                assert dropped == 0, (arch, label, dropped)
+            if label == "drops":
+                assert dropped > 0, (arch, label, dropped)
+            want = ref.moe_dispatch_ffn(x, *w3, idx, wts * keep)
+            err = _hold(f"moe layer {arch} {label}",
+                        MOE.moe_apply(p, x, top_k=k, capacity_factor=cf),
+                        want)
+            row[label] = dict(capacity_factor=cf, capacity=cap,
+                              dropped=dropped, max_abs_err=err,
+                              tol=TOL * max(1.0, float(want.abs().max())))
+            del want
+        cap = row["default"]["capacity"]
+        y = MOE.moe_apply(p, x, top_k=k)
+        same = torch.equal(y, MOE.moe_apply(p, x, top_k=k))
+        assert same, f"moe layer {arch}: two calls differ"
+        del y
+        wk = wts * MOE._dispatch_group(idx, e, cap)[3].reshape(t, k)
+        xe, slot, keep_f = MOE.dispatch(x, idx, e, cap)
+        g = torch.bmm(xe, p["w_gate"])
+        h = torch.nn.functional.silu(g) * torch.bmm(xe, p["w_up"])
+        del g
+        ye = torch.bmm(h, p["w_down"])
+        kw = dict(reps=5, warmup=1)
+        parts = dict(
+            route_ms=cuda_ms(lambda: MOE.route_topk(x @ p["router"], k), **kw),
+            dispatch_ms=cuda_ms(lambda: MOE.dispatch(x, idx, e, cap), **kw),
+            bmm_gate_ms=cuda_ms(lambda: torch.bmm(xe, p["w_gate"]), **kw),
+            bmm_up_ms=cuda_ms(lambda: torch.bmm(xe, p["w_up"]), **kw),
+            bmm_down_ms=cuda_ms(lambda: torch.bmm(h, p["w_down"]), **kw),
+            expert_ffn_ms=cuda_ms(lambda: MOE.expert_ffn(p, xe), **kw),
+            combine_ms=cuda_ms(lambda: MOE.combine(ye, slot, keep_f, wts),
+                               **kw))
+        del h, ye, xe
+        ms = cuda_ms(lambda: MOE.moe_apply(p, x, top_k=k), **kw)
+        plain_ms = cuda_ms(lambda: ref.moe_dispatch_ffn(x, *w3, idx, wk),
+                           **kw)
+    n_bytes, flops, kept_flops = moe_layer_work(t, cfg, cap)
+    bnd, by = bound(n_bytes, flops)
+    row.update(cpu_integers_equal=True, same_bits=same,
+               max_abs_err=max(row[lb]["max_abs_err"]
+                               for lb in ("no drops", "default", "drops")),
+               ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bnd,
+               bound_by=by, bound_kept_ms=bound(n_bytes, kept_flops)[0],
+               dispatch_share=(parts["route_ms"] + parts["dispatch_ms"]
+                               + parts["combine_ms"]) / ms, **parts)
+    print(f"moe layer {arch}: " + json.dumps(row), flush=True)
+    del p, x, logits, idx, wts, wk
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_model(n_layers: int):
+    """MOE_ARCH at full width with its one segment cut to `n_layers`
+    (``dataclasses.replace``), float32 params from seed 0 on the card,
+    and the cut as a `reduced` record."""
+    full = configs.get_arch(MOE_ARCH)
+    seg = full.segments[0]
+    m = dataclasses.replace(full, segments=(
+        dataclasses.replace(seg, repeats=n_layers),))
+    params = MB.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            m, "cuda")
+    reduced = dict(n_layers=n_layers, of=full.n_layers,
+                   why="the full depth is 187 GB of float32 params")
+    print(f"moe model {m.name}: {MB.param_count(params)} params, {n_layers} "
+          f"of {full.n_layers} layers", flush=True)
+    return m, params, reduced
+
+
+@contextlib.contextmanager
+def moe_oracle():
+    """``nn/moe.moe_apply`` replaced by the dense-gather oracle over the
+    assignments the layer's own routing and capacity keep: each MoE layer
+    of the plain decode step l3 holds the Engine's to."""
+    apply = MOE.moe_apply
+
+    def plain(params, x, *, top_k=2, capacity_factor=1.25, aux_loss=False):
+        assert not aux_loss
+        t, e = x.shape[0], params["router"].shape[-1]
+        idx, wts = MOE.route_topk(x @ params["router"], top_k)
+        keep = MOE._dispatch_group(
+            idx, e, MOE.capacity(t, e, top_k, capacity_factor))[3]
+        return ref.moe_dispatch_ffn(x, params["w_gate"], params["w_up"],
+                                    params["w_down"], idx,
+                                    wts * keep.reshape(t, top_k))
+
+    MOE.moe_apply = plain
+    try:
+        yield
+    finally:
+        MOE.moe_apply = apply
+
+
+def drive_moe_serve(m, params) -> dict:
+    """Phase l3: the Engine serving SERVE's requests on the MoE model
+    (launches counted from zero).  An MoE decode step routes its lanes at
+    the capacity of that many tokens (one slot an expert at 4 lanes and 8
+    experts), as the reference's does, so the Engine is not held to the
+    prefill step: each decode step of the first wave's prompt is held to
+    a decode step from the plain pieces on the same tokens, params and
+    start (each MoE layer the dense-gather oracle over that step's kept
+    assignments), within TOL.  A step reads every expert: the bound is
+    the params' bytes but the embedding table's, over HBM."""
+    plen = SERVE["prompt_len"]
+    zero_counts()
+    run = run_engine(m, params, plen)
+    launches = counts()
+    states = MB.init_decode_state(params, m, SERVE["slots"],
+                                  SERVE["cache_len"])
+    plain = TS.make_decode_step(m)
+    errs = []
+    with moe_oracle():
+        for st in run["steps"]:
+            logits, states = plain(params, st["toks"], st["clock"], states,
+                                   start=st["start"])
+            errs.append(_logits_agree(
+                f"moe decode step {st['clock']} vs the plain pieces",
+                st["logits"], logits[:, 0]))
+    assert len(errs) == plen, len(errs)
+    weight_bytes = 4 * (MB.param_count(params)
+                        - params["embed"]["table"].numel())
+    out = dict(run["stats"], launches=launches,
+               decode_launches_per_step=run["stats"]["decode_step_profile"][
+                   "device_launches"],
+               weights_read_gb=weight_bytes / 1e9,
+               weights_read_ms=1e3 * weight_bytes / PEAK_HBM_BYTES,
+               decode_vs_plain=dict(
+                   steps=len(errs),
+                   max_abs_err=max(e_["max_abs_err"] for e_ in errs),
+                   tol=min(e_["tol"] for e_ in errs)))
+    print("moe serve: " + json.dumps(out), flush=True)
+    return out
+
+
+def check_moe_train() -> dict:
+    """Phase l4: MOE_ARCH at MOE_TRAIN_LAYERS layers, batch MOE_TRAIN of
+    ``SyntheticStream``: the kernel route's loss and gradients
+    (``remat=False``) twice, the same bits (the MoE layer's backward has
+    no atomic adds), and against the plain route's (``use_fused=False``)
+    from the same state with the routing flips between the routes
+    counted; then ``make_train_step``: one warm step and MOE_TRAIN_STEPS
+    timed (host clock ended by a synchronize), their launches counted
+    from zero (one flash launch with lse a layer and step), the peak
+    memory, one more step profiled."""
+    m, params, reduced = moe_model(MOE_TRAIN_LAYERS)
+    n_params = MB.param_count(params)
+    batch0 = lm_train_batch(m, 0, MOE_TRAIN)
+    with recorded_routes() as route_k:
+        loss_k, g_k = TS.loss_and_grads(m, params, batch0)
+    loss_2, g_2 = TS.loss_and_grads(m, params, batch0)
+    same = bool(torch.equal(loss_k, loss_2)) and all(
+        torch.equal(a, b_) for a, b_ in zip(tree_leaves(g_k),
+                                            tree_leaves(g_2)))
+    del g_2
+    with recorded_routes() as route_p:
+        loss_p, g_p = TS.loss_and_grads(m, params, batch0, use_fused=False)
+    flips = routing_flips(route_k, route_p)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    assert np.isfinite(loss_k), loss_k
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), (loss_k, loss_p,
+                                                        flips)
+    errs = [_norm_err(a, b_) for a, b_ in zip(tree_leaves(g_k),
+                                              tree_leaves(g_p))]
+    assert max(errs) <= 1e-3, f"gradient leaf {int(np.argmax(errs))}: " \
+        f"{max(errs)} of its norm from the plain route's ({sum(flips)} " \
+        f"routing flips)"
+    assert same, "two backward passes of the kernel route differ"
+    out = dict(arch=m.name, reduced=reduced, n_params=n_params,
+               batch=list(MOE_TRAIN), loss=loss_k, plain_loss=loss_p,
+               max_grad_norm_err_vs_plain=max(errs), n_grad_leaves=len(errs),
+               routing_flips_by_layer=flips, grads_same_bits_twice=same)
+    del g_k, g_p, route_k, route_p
+    torch.cuda.empty_cache()
+
+    step, optim = TS.make_train_step(m, remat=False)
+    opt = optim.init(params)
+    params, opt, met = step(params, opt, batch0)             # warm
+    losses = [float(met["loss"])]
+    batches = [lm_train_batch(m, i, MOE_TRAIN)
+               for i in range(1, MOE_TRAIN_STEPS + 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for b_ in batches[:MOE_TRAIN_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, b_)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(met["loss"]))
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert np.isfinite(losses).all(), losses
+    for key in ("flash_attention_f32", "flash_attention_f32 with lse"):
+        assert launches[key] == m.n_layers * MOE_TRAIN_STEPS, (key, launches)
+    ms = statistics.median(times)
+    b, s = MOE_TRAIN
+    out.update(
+        losses=losses, step_ms=times, ms_per_step=ms,
+        tokens_per_s=b * s / (ms / 1e3),
+        bound_ms_per_step=3e3 * sum(prefill_flops(m, b, s).values())
+        / PEAK_F32_FLOPS,
+        launches=launches, max_memory_allocated_gb=peak / 1e9,
+        profile=profile_step(lambda: step(params, opt, batches[-1]), ()))
+    print("moe train: " + json.dumps(out), flush=True)
+    del params, opt, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements to this JSON")
@@ -2286,6 +2681,25 @@ def main() -> int:
     flash_grad = check_flash_grad()
     lm_train = check_lm_train()
     lm_launcher = drive_lm_launcher()
+
+    # phase l: the MoE decoders, once phase j's state is freed; the
+    # launches of each path counted from zero just before it (inside
+    # drive_prefill, drive_moe_serve and check_moe_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase l starts with {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB allocated", flush=True)
+    zero_counts()
+    moe_layers = {arch: check_moe_layer(arch) for arch in MOE_LAYER_ARCHS}
+    moe_layer_launches = counts()
+    m, params, reduced = moe_model(MOE_SERVE_LAYERS)
+    moe_prefill = dict(drive_prefill(m, params, "moe prefill"),
+                       reduced=reduced)
+    moe_serve = dict(drive_moe_serve(m, params), reduced=reduced)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_train = check_moe_train()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here",
           flush=True)
 
@@ -2351,10 +2765,17 @@ def main() -> int:
             "prefill": prefill["launches"]["flash_attention_f32"],
             "lm_train_steps": lm_train["launches"]["flash_attention_f32"],
             "lm_launcher": {k: r["launches"]["flash_attention_f32"]
-                            for k, r in lm_launcher.items()}},
+                            for k, r in lm_launcher.items()},
+            "moe_layer": moe_layer_launches["flash_attention_f32"],
+            "moe_prefill": moe_prefill["launches"]["flash_attention_f32"],
+            "moe_engine": moe_serve["launches"]["flash_attention_f32"],
+            "moe_train_steps":
+                moe_train["launches"]["flash_attention_f32"]},
         "lse_launches_by_path": {
             "lm_train_steps":
                 lm_train["launches"]["flash_attention_f32 with lse"],
+            "moe_train_steps":
+                moe_train["launches"]["flash_attention_f32 with lse"],
             "lm_launcher": {k: r["launches"]["flash_attention_f32 with lse"]
                             for k, r in lm_launcher.items()}},
         "lse": {label: {k: r[k] for k in (
@@ -2383,6 +2804,8 @@ def main() -> int:
                        "prefill": prefill,
                        "serve": lm_serve, "flash_grad": flash_grad,
                        "lm_train": lm_train, "lm_launcher": lm_launcher,
+                       "moe_layers": moe_layers, "moe_prefill": moe_prefill,
+                       "moe_serve": moe_serve, "moe_train": moe_train,
                        "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},
                       fh, indent=1)

@@ -1,11 +1,12 @@
 """Architecture registry: ``get_arch(name)`` / ``get_reduced(name)``.
 
 Every assigned architecture of the reference is listed; the port has the
-dense decoders that need no further block (gemma3-1b, stablelm-1.6b,
-qwen3-14b, deepseek-coder-33b), each a module exposing FULL and REDUCED
-ModelCfg objects equal field for field to the reference's.  The others
-raise ``NotImplementedError`` until their blocks are ported (ROADMAP
-Queue 1).  Shapes live in ``repro_torch.configs.shapes``.
+dense decoders (gemma3-1b, stablelm-1.6b, qwen3-14b, deepseek-coder-33b)
+and the MoE decoders (mixtral-8x7b, phi3.5-moe), each a module exposing
+FULL and REDUCED ModelCfg objects equal field for field to the
+reference's.  The others raise ``NotImplementedError`` until their
+blocks are ported (ROADMAP Queue 1).  Shapes live in
+``repro_torch.configs.shapes``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ _ARCHS = (
 )
 
 #: the archs whose every block is ported
-PORTED = ("stablelm_1_6b", "qwen3_14b", "gemma3_1b", "deepseek_coder_33b")
+PORTED = ("mixtral_8x7b", "phi35_moe", "stablelm_1_6b", "qwen3_14b",
+          "gemma3_1b", "deepseek_coder_33b")
 
 _ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",

@@ -1,4 +1,6 @@
-"""Plain PyTorch versions of the port's kernels.
+"""Plain PyTorch versions of the port's kernels, and the MoE layer's
+dense-gather oracle (``moe_dispatch_ffn``, the reference's, which has no
+kernel).
 
 Each function is the mathematical definition of its kernel with no tiling
 or hardware concerns.  The wrappers in ``kernels/`` take them for CPU
@@ -11,6 +13,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 
 def fused_mlp(x: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -89,3 +92,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if return_lse:
         return out, torch.logsumexp(scores, dim=-1).reshape(b, h, sq)
     return out
+
+
+def moe_dispatch_ffn(x: torch.Tensor, w_gate: torch.Tensor,
+                     w_up: torch.Tensor, w_down: torch.Tensor,
+                     expert_idx: torch.Tensor,
+                     expert_w: torch.Tensor) -> torch.Tensor:
+    """Dense-gather MoE oracle, the reference's ``moe_dispatch_ffn``:
+    every token runs through its K experts in float32, with no capacity
+    and no buffers.  x (T, D); w_gate, w_up (E, D, F); w_down (E, F, D);
+    expert_idx (T, K) int, expert_w (T, K) routing weights (zero a
+    dropped assignment's to mirror a capacity).  Each (token, k) output is
+    its expert's SwiGLU of the token, computed one expert at a time over
+    the tokens that chose it; the K outputs are weighted and summed."""
+    t, dm = x.shape
+    xf = x.to(torch.float32)
+    out = xf.new_zeros((t, expert_idx.shape[1], dm))
+    for e in range(w_gate.shape[0]):
+        tok, k = (expert_idx == e).nonzero(as_tuple=True)
+        if tok.numel():
+            xe = xf.index_select(0, tok)
+            h = F.silu(xe @ w_gate[e].to(torch.float32)) \
+                * (xe @ w_up[e].to(torch.float32))
+            out[tok, k] = h @ w_down[e].to(torch.float32)
+    return (out * expert_w.to(torch.float32)[..., None]).sum(1).to(x.dtype)

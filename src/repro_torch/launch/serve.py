@@ -3,12 +3,17 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
       --requests 16 --max-new 32
 
+Every ported arch serves: the dense decoders and the MoE ones (mixtral-8x7b,
+phi3.5-moe), whose decode step routes its lanes together at the
+reference's capacity for that many tokens (``nn/moe``), so an MoE model's
+decode is not its prefill, in the reference as here.
+
 A minimal production-shaped server, as in the reference: requests (prompt
 token lists) are admitted into a fixed set of batch slots; every engine
 iteration runs one batched decode step; finished sequences free their
 slot for the next queued request (continuous batching).  A prompt is fed
-through the decode step one token at a time (identical math to a
-dedicated prefill pass).  ``--reduced`` is a ``store_true`` flag that
+through the decode step one token at a time (for a dense decoder the
+same math as a dedicated prefill pass; see above for MoE).  ``--reduced`` is a ``store_true`` flag that
 defaults to True, as in the reference, so the CLI always serves the
 REDUCED config; the full width is reached through ``Engine`` itself.
 """
@@ -42,7 +47,7 @@ class Request:
 def _recurrent_template(states, m):
     """A copy of the recurrent (ssm / xLSTM) portion of a freshly
     initialized decode state, per segment/spec; None where a spec carries
-    no recurrent state (every spec of the ported dense models).  KV caches
+    no recurrent state (every spec of the ported decoders, dense and MoE).  KV caches
     are excluded: the per-lane `start` mask handles them."""
     def copy(tree):
         return None if tree is None else tree_map(torch.clone, tree)

@@ -3,7 +3,8 @@
 LayerSpecs), with params stacked per spec along a leading (repeats, ...)
 axis as in the reference.
 
-  * uniform archs (qwen3, stablelm, deepseek): one segment, pattern length 1
+  * uniform archs (qwen3, stablelm, deepseek; mixtral and phi3.5-moe, whose
+    "dense" spec carries ``n_experts``): one segment, pattern length 1
   * gemma3 (5 local : 1 global): pattern [local x5, global], repeats 4,
     plus a tail segment of 2 local layers
 
@@ -14,8 +15,9 @@ is assembled once (indexing ``a[r]`` per layer would allocate a zero
 stack per layer in the backward).  ``forward(..., remat=True)`` runs each
 repeat of the pattern under ``torch.utils.checkpoint`` (non-reentrant),
 as the reference's ``jax.checkpoint`` does its scan body.  Only the
-``"dense"`` kind is ported; the others (mlstm, slstm, whisper's enc/dec)
-raise ``NotImplementedError`` (ROADMAP Queue 1).
+``"dense"`` kind is ported, with its SwiGLU or MoE FFN; the others
+(mlstm, slstm, whisper's enc/dec) and hymba's SSM branch raise
+``NotImplementedError`` (ROADMAP Queue 1).
 
 Decode states mirror the param stacks: per segment and spec,
 ``{"kv": (k, v), "len": int}`` with k, v (repeats, B, span, Hkv, dh) and

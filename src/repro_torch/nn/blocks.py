@@ -1,11 +1,14 @@
-"""The dense decoder block of the LM substrate: GQA / sliding-window /
-qk-norm attention and a SwiGLU FFN, as (init, apply, decode) functions on
-dict params in the reference's layout.
+"""The decoder block of the LM substrate: GQA / sliding-window / qk-norm
+attention and a SwiGLU FFN, or with ``n_experts > 0`` the MoE FFN
+(``nn/moe``), as (init, apply, decode) functions on dict params in the
+reference's layout.
 
 Full-sequence attention runs through ``nn/attention.flash_attention``, so
 on the card through the flash-attention kernel; ``use_fused=False`` opts
 that one call out to the plain version and touches nothing else.  The
-MoE FFN (``n_experts > 0``), hymba's parallel SSM branch
+MoE FFN takes the (B, S, D) tokens as one (B·S, D) batch, as the
+reference does, so a decode step routes its lanes together (with the
+reference's capacity for that many tokens).  Hymba's parallel SSM branch
 (``ssm_state > 0``), M-RoPE and the whisper blocks are not ported yet
 (ROADMAP Queue 1) and raise ``NotImplementedError``.
 
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe as M
 
 _NOT_PORTED = "is not ported yet (ROADMAP Queue 1)"
 
@@ -49,9 +53,6 @@ class BlockCfg:
 
 
 def _check_dense(cfg: BlockCfg) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(f"the MoE FFN (n_experts={cfg.n_experts}) "
-                                  + _NOT_PORTED)
     if cfg.ssm_state:
         raise NotImplementedError(f"the hymba SSM branch (ssm_state="
                                   f"{cfg.ssm_state}) " + _NOT_PORTED)
@@ -125,9 +126,11 @@ def attn_decode(params, x1, cfg: BlockCfg, pos, kv_cache, cache_len: int, *,
 
 
 # ---------------------------------------------------------------------------
-# FFN sub-layer (SwiGLU)
+# FFN sub-layer (SwiGLU) or MoE
 # ---------------------------------------------------------------------------
 def ffn_init(gen: torch.Generator, cfg: BlockCfg, device):
+    if cfg.n_experts:
+        return M.moe_init(gen, cfg.n_experts, cfg.d_model, cfg.d_ff, device)
     s_in = (2.0 / cfg.d_model) ** 0.5
     return {
         "w_gate": _normal(gen, (cfg.d_model, cfg.d_ff), s_in, device),
@@ -138,12 +141,16 @@ def ffn_init(gen: torch.Generator, cfg: BlockCfg, device):
 
 
 def ffn_apply(params, x, cfg: BlockCfg):
+    if cfg.n_experts:
+        b, s, d = x.shape
+        y = M.moe_apply(params, x.reshape(b * s, d), top_k=cfg.top_k)
+        return y.reshape(b, s, d)
     g = torch.nn.functional.silu(x @ params["w_gate"])
     return (g * (x @ params["w_up"])) @ params["w_down"]
 
 
 # ---------------------------------------------------------------------------
-# the dense decoder block
+# the decoder block
 # ---------------------------------------------------------------------------
 def block_init(gen: torch.Generator, cfg: BlockCfg, device):
     _check_dense(cfg)

@@ -102,6 +102,11 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+#: elements of a leaf ``update_in_place`` updates at a time (2^26: 2.7 GB
+#: of temporaries at most)
+IN_PLACE_CHUNK = 1 << 26
+
+
 def adamw(lr: Union[Callable[[torch.Tensor], Any], float], b1: float = 0.9,
           b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
           clip_norm: Optional[float] = None) -> Optimizer:
@@ -146,22 +151,29 @@ def adamw(lr: Union[Callable[[torch.Tensor], Any], float], b1: float = 0.9,
     @torch.no_grad()
     def update_in_place(grads, state: AdamState, params) -> AdamState:
         """``update`` and ``apply_updates`` in one pass that writes params,
-        mu and nu in place, one leaf at a time: the same bits, with no
-        second copy of any tree and the float64 temporaries of one leaf
-        alive at a time (an LM's (repeats, ...) stacks are GBs each).
-        Returns the new state, which holds the same mu and nu tensors."""
+        mu and nu in place, one slice of IN_PLACE_CHUNK elements of a leaf
+        at a time: the same bits (every step is elementwise), with no
+        second copy of any tree and the float64 temporaries of one slice
+        alive at a time (an LM's (repeats, ...) stacks are GBs each, and a
+        leaf's temporaries are ~10 times its float32 size: 38 GB for
+        mixtral's stacked w_gate at two layers).  Params, mu and nu must
+        be contiguous.  Returns the new state, which holds the same mu and
+        nu tensors."""
         scale = (clip_scale(grads, clip_norm) if clip_norm is not None
                  else None)
         step, *consts = scalars(state)
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
                               tree_leaves(state.nu), tree_leaves(params)):
-            if scale is not None:
-                g = g * scale
-            m_new, v_new, u = leaf_update(g, m, v, p, *consts)
-            m.copy_(m_new)
-            v.copy_(v_new)
-            p.add_(u.to(p.dtype))
-            del g, m_new, v_new, u
+            g, m, v, p = g.reshape(-1), m.view(-1), v.view(-1), p.view(-1)
+            for i in range(0, p.numel(), IN_PLACE_CHUNK):
+                sl = slice(i, i + IN_PLACE_CHUNK)
+                gs = g[sl] if scale is None else g[sl] * scale
+                m_new, v_new, u = leaf_update(gs, m[sl], v[sl], p[sl],
+                                              *consts)
+                m[sl].copy_(m_new)
+                v[sl].copy_(v_new)
+                p[sl].add_(u.to(p.dtype))
+                del gs, m_new, v_new, u
         return AdamState(step=step, mu=state.mu, nu=state.nu)
 
     return Optimizer(init=init, update=update,

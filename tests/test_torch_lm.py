@@ -34,7 +34,8 @@ from repro_torch.nn import blocks as TB
 from repro_torch.nn import layers as TL
 from repro_torch.train import step as TTS
 
-PORTED = ["gemma3-1b", "stablelm-1.6b", "qwen3-14b", "deepseek-coder-33b"]
+PORTED = ["gemma3-1b", "stablelm-1.6b", "qwen3-14b", "deepseek-coder-33b",
+          "mixtral-8x7b", "phi3.5-moe-42b-a6.6b"]
 MODEL_TOL = dict(rtol=1e-4, atol=2e-5)
 
 
@@ -65,8 +66,7 @@ def test_configs_equal_the_reference_field_for_field(arch, which):
     assert port.n_layers == ref.n_layers
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
-                                  "qwen2-vl-7b", "whisper-small",
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-small",
                                   "xlstm-1.3b", "hymba-1.5b"])
 def test_unported_archs_raise(arch):
     assert TC.list_archs() == JC.list_archs()
@@ -74,12 +74,10 @@ def test_unported_archs_raise(arch):
         TC.get_reduced(arch)
 
 
-def test_moe_and_ssm_blocks_raise():
+def test_ssm_block_raises():
     gen = torch.Generator().manual_seed(0)
-    for cfg in (TB.BlockCfg(16, 2, 2, 32, n_experts=4),
-                TB.BlockCfg(16, 2, 2, 32, ssm_state=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            TB.block_init(gen, cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        TB.block_init(gen, TB.BlockCfg(16, 2, 2, 32, ssm_state=8), "cpu")
 
 
 def test_param_count_and_full_width_shapes():

@@ -295,6 +295,16 @@ def test_remat_gives_the_same_step(arch):
         assert torch.equal(x, y)
 
 
+def test_update_in_place_in_slices_equals_update_and_apply(rng,
+                                                          monkeypatch):
+    """Slices of a leaf smaller than the leaf (4 elements: leaves of 15 and
+    7 split unevenly) give the whole leaf's bits."""
+    import importlib
+    monkeypatch.setattr(importlib.import_module("repro_torch.optim.adamw"),
+                        "IN_PLACE_CHUNK", 4)
+    test_update_in_place_equals_update_and_apply(rng)
+
+
 def test_update_in_place_equals_update_and_apply(rng):
     """The step's in-place Adam gives update + apply_updates' bits."""
     from repro_torch.optim import adamw, apply_updates
