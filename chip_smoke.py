@@ -10,9 +10,10 @@ the same at 3, 64 and 1024 rows), and the dense layer's forward, dx and
 dW/db kernels at Algorithm 1's (batch 1024; 2048 -> 2048, G's head 2048
 -> 73, D's first layer 81 -> 2048, D's head 2048 -> 2); every one of
 these runs on the 3xTF32 tensor-core tile, so each is also held to a
-float64 product.  ptxas's report of all three sources is checked for
+float64 product.  ptxas's report of the four sources is checked for
 spills in every instantiation of their tensor-core kernels (the flash
-kernel's 20: 10 with the lse store, 10 without).  Then, with
+kernel's 20: 10 with the lse store, 10 without) and of the selective
+scan (4).  Then, with
 the paper's G and D (11 x 2048, batch 1024, random weights from fixed
 seeds):
 
@@ -138,6 +139,29 @@ freed first):
   ``make_train_step``: one warm step and 3 timed (2 flash launches with
   lse a step, asserted), the peak memory, a profiled step.
 
+Then hymba-1.5b (phase m; float32 from seed 0, phase l's state freed
+first):
+
+- m0. ``init_params(prng_key(0))`` at full width (32 layers, d 1600, 25
+  heads / 5 kv of 64, d_ff 5504, vocab 32001, ssm_state 16; 1.59 B
+  params) on the card, timed, and its bits held to the CPU's draw: the
+  embedding table and layer 0 of every stack, sampled counters of each
+  drawn weight (across the chunk boundary where there is one) and the
+  other leaves whole.  Every LM phase's init is timed (``init ...``
+  lines, the reference's weights for seed 0);
+- m1. the selective-scan kernel (``ssm_scan_f32``) at the prefill's
+  (2, 4096, 3200, 16) on a layer's own inputs against its plain loop:
+  within TOL·scale, the same bits twice, within 4x the plain loop's
+  float64 error plus 1e-6·scale; timed beside its bound and the loop;
+  flash at hymba's global and local layers joins the flash checks;
+- m2. ``make_prefill_step`` at 2 x 4096 through the kernels (32 flash
+  and 32 scan launches, asserted) and through the plain pieces, logits
+  compared, timed, profiled;
+- m3. the ``Engine`` at SERVE: every request served, each decode step of
+  the first wave's prompt held to the full-sequence forward at that
+  position through the kernels and through the plain pieces; ms a step,
+  a decode step profiled.
+
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
 it are the kernel table (JSON) and the card's name and power limit.
@@ -187,6 +211,7 @@ from repro_torch.kernels import fused_dense as fd  # noqa: E402
 from repro_torch.kernels import fused_mlp as fm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.launch import comparison as CMP  # noqa: E402
 from repro_torch.launch import dse_serve  # noqa: E402
 from repro_torch.launch import online  # noqa: E402
@@ -198,6 +223,7 @@ from repro_torch.nn import attention as A  # noqa: E402
 from repro_torch.nn import blocks as NB  # noqa: E402
 from repro_torch.nn import layers as L  # noqa: E402
 from repro_torch.nn import moe as MOE  # noqa: E402
+from repro_torch.nn import ssm as SSM  # noqa: E402
 from repro_torch.optim import (adam, apply_updates, tree_leaves,  # noqa: E402
                                tree_map, tree_unflatten)
 from repro_torch.train import step as TS  # noqa: E402
@@ -207,6 +233,9 @@ PEAK_F32_FLOPS = 67e12      # float32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12    # HBM3
 PEAK_BF16_FLOPS = 989e12    # bf16 in the tensor cores
 PEAK_TF32_FLOPS = 495e12    # TF32 in the tensor cores
+#: exponentials a second on the SFUs: 16 an SM a clock (4 a quadrant),
+#: 132 SMs at the 1.98 GHz boost clock; for information beside the bound
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 N_TASKS = 64
 TOL = 1e-4                  # max|y_k - y_ref| <= TOL * max(1, max|y_ref|)
 BATCH = 1024                # Algorithm 1's batch (Table 4)
@@ -240,6 +269,10 @@ FLASH_SHAPES = {
     "non-causal 2x4x1024x256": (2, 4, 1, 1024, 1024, 256, False, None, 0),
     "mixtral 2x32x4096x128 kv8 w4096": (2, 32, 8, 4096, 4096, 128, True,
                                         4096, 0),
+    "hymba global 2x25x4096x64 kv5": (2, 25, 5, 4096, 4096, 64, True, None,
+                                      0),
+    "hymba local 2x25x4096x64 kv5 w1024": (2, 25, 5, 4096, 4096, 64, True,
+                                           1024, 0),
 }
 BF16_TOL = 3e-2             # the reference's own bf16 kernel test
 LM_ARCH = "gemma3-1b"
@@ -274,6 +307,12 @@ MOE_SERVE_LAYERS = 4
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN = (1, 2048)
 MOE_TRAIN_STEPS = 3          # timed, after one warm step
+#: phase m: hymba-1.5b at full width (32 layers, d 1600, 25 heads / 5 kv
+#: of 64, the SSM branch in every layer), float32 from seed 0: prefill at
+#: PREFILL, the Engine at SERVE
+HYMBA_ARCH = "hymba-1.5b"
+#: seconds of each LM's ``init_params`` on the card, by label
+INIT_S: dict = {}
 
 
 def smi() -> str:
@@ -328,6 +367,7 @@ def zero_counts() -> None:
     fm.fused_mlp.launches = 0
     fa.flash_attention.launches = 0
     fa.flash_attention.lse_launches = 0
+    ss.ssm_scan.launches = 0
     for wrapper, _ in DENSE_KERNELS.values():
         wrapper.launches = 0
 
@@ -335,14 +375,16 @@ def zero_counts() -> None:
 def counts() -> dict:
     out = {"mlp_forward_f32": fm.fused_mlp.launches,
            "flash_attention_f32": fa.flash_attention.launches,
-           "flash_attention_f32 with lse": fa.flash_attention.lse_launches}
+           "flash_attention_f32 with lse": fa.flash_attention.lse_launches,
+           "ssm_scan_f32": ss.ssm_scan.launches}
     out.update({name: w.launches for name, (w, _) in DENSE_KERNELS.items()})
     return out
 
 
 def build_all() -> None:
     """Phase 1: one nvcc per source, started together."""
-    loads = (fm.load_library, fd.load_library, fa.load_library)
+    loads = (fm.load_library, fd.load_library, fa.load_library,
+             ss.load_library)
     with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
         for f in [pool.submit(load) for load in loads]:
             f.result()
@@ -356,13 +398,14 @@ def build_all() -> None:
 #: not spill, and how many there are
 SPILL_CHECKS = {"dense_train.cu": ("gemm_3xtf32_kernel", 12),
                 "mlp_forward.cu": ("gemm_3xtf32_kernel", 12),
-                "flash_attention.cu": ("flash_fwd_kernel", 20)}
+                "flash_attention.cu": ("flash_fwd_kernel", 20),
+                "ssm_scan.cu": ("ssm_scan_kernel", 4)}
 
 
 def check_spills() -> dict:
     """ptxas's report (-Xptxas -v) for each instantiation of the
-    tensor-core kernel in each source that holds it: registers and no
-    spill stores or loads."""
+    tensor-core kernel in each source that holds it, and of the selective
+    scan (one per state size): registers and no spill stores or loads."""
     out = {}
     for source, (kernel, count) in SPILL_CHECKS.items():
         log = str(build.build_info[source]["log"])
@@ -719,6 +762,7 @@ def step_bound_ms(cfg, model) -> float:
 
 #: device-time groups of a profile, by kernel name (the first that matches)
 PROFILE_GROUPS = (("flash_fwd_kernel", "flash_fwd_kernel"),
+                  ("ssm_scan_kernel", "ssm_scan_kernel"),
                   ("gemm", "gemm (cuBLAS, and the 3xTF32 tile)"),
                   ("double", "float64 elementwise"),
                   ("copy", "copies"))
@@ -1090,11 +1134,24 @@ def check_flash() -> dict:
     return rows
 
 
+def init_lm(m, label: str):
+    """``init_params(prng_key(0), m)`` on the card, the reference's initial
+    weights for seed 0 (threefry as eager torch); its seconds kept in
+    INIT_S under `label`."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cuda")
+    torch.cuda.synchronize()
+    INIT_S[label] = dict(seconds=time.perf_counter() - t0,
+                         params=MB.param_count(params))
+    print(f"init {label}: " + json.dumps(INIT_S[label]), flush=True)
+    return params
+
+
 def lm_model():
     """gemma3-1b at full width, float32 params from seed 0 on the card."""
     m = configs.get_arch(LM_ARCH)
-    params = MB.init_params(torch.Generator(device="cuda").manual_seed(0),
-                            m, "cuda")
+    params = init_lm(m, m.name)
     n_global = sum(seg.repeats for seg in m.segments for sp in seg.pattern
                    if sp.cfg.window is None)
     print(f"lm {m.name}: {MB.param_count(params)} params, {m.n_layers} "
@@ -1120,8 +1177,10 @@ def prefill_flops(m, b: int, s: int) -> dict:
     layers' projections (wq, wkv, the router, and a dense FFN's w_gate,
     w_up, w_down), an MoE layer's experts over their whole capacity
     buffers (2·3·E·cap·D·F a layer, at the default capacity), wo, the
-    logits, and the flash kernel's kept pairs."""
-    out = {"projections": 0.0, "experts": 0.0, "wo": 0.0, "flash": 0.0}
+    logits, the flash kernel's kept pairs, and an SSM branch's products
+    (in_proj D -> 2·Di, x_proj Di -> 1 + 2N, out_proj Di -> D)."""
+    out = {"projections": 0.0, "experts": 0.0, "wo": 0.0, "flash": 0.0,
+           "ssm_projections": 0.0}
     t = b * s
     for seg in m.segments:
         for spec in seg.pattern:
@@ -1136,14 +1195,25 @@ def prefill_flops(m, b: int, s: int) -> dict:
             out["wo"] += seg.repeats * 2 * t * c.n_heads * c.dh * c.d_model
             out["flash"] += seg.repeats * 4 * c.dh * b * c.n_heads * \
                 kept_pairs(s, s, True, c.window, 0)
+            if c.ssm_state:
+                di = 2 * c.d_model
+                out["ssm_projections"] += seg.repeats * 2 * t * (
+                    c.d_model * 2 * di + di * (1 + 2 * c.ssm_state)
+                    + di * c.d_model)
     out["logits"] = 2 * t * m.d_model * m.vocab
     return out
 
 
 def prefill_bound_ms(m, b: int, s: int) -> dict:
-    """Least time of a prefill's parts at the float32 peak (TF32 off)."""
-    return {k: 1e3 * v / PEAK_F32_FLOPS
-            for k, v in prefill_flops(m, b, s).items()}
+    """Least time of a prefill's parts at the float32 peak (TF32 off), and
+    for an SSM model its scans' (`ssm_bound_ms`, one a layer)."""
+    out = {k: 1e3 * v / PEAK_F32_FLOPS
+           for k, v in prefill_flops(m, b, s).items()}
+    scans = [sp.cfg for seg in m.segments for _ in range(seg.repeats)
+             for sp in seg.pattern if sp.cfg.ssm_state]
+    out["ssm_scan"] = sum(ssm_bound_ms(b, s, 2 * c.d_model, c.ssm_state)[0]
+                          for c in scans)
+    return out
 
 
 @contextlib.contextmanager
@@ -1192,10 +1262,11 @@ def recorded_flash():
 
 
 def drive_prefill(m, params, label: str = "prefill") -> dict:
-    """Phase 6b (and l2): make_prefill_step on PREFILL random prompts
-    through the kernel (its launches counted: one per layer, at each
-    layer's head dim and window) and through the plain attention
-    (use_fused=False), their last-token logits compared (for an MoE model
+    """Phase 6b (and l2, m2): make_prefill_step on PREFILL random prompts
+    through the kernels (flash's launches counted: one per layer, at each
+    layer's head dim and window; the selective scan's one per SSM layer)
+    and through the plain attention and scan loop (use_fused=False),
+    their last-token logits compared (for an MoE model
     with the routing flips between the two routes counted, layer by
     layer, and named in a failure), then warm times of both,
     interleaved."""
@@ -1217,6 +1288,8 @@ def drive_prefill(m, params, label: str = "prefill") -> dict:
     layers = [sp.cfg for seg in m.segments for _ in range(seg.repeats)
               for sp in seg.pattern]
     assert calls == [(c.dh, c.window) for c in layers], calls
+    assert launches["ssm_scan_f32"] == sum(1 for c in layers
+                                           if c.ssm_state), launches
     out = dict(launches=launches, bound_ms=prefill_bound_ms(m, b, s),
                flash_calls=[list(c) for c in dict.fromkeys(calls)])
     what = f"{label} logits"
@@ -2191,8 +2264,7 @@ def check_lm_train() -> dict:
     synchronize), their launches counted from zero, the peak memory, one
     more step profiled."""
     m = configs.get_arch(LM_TRAIN_ARCH)
-    params = MB.init_params(torch.Generator(device="cuda").manual_seed(0),
-                            m, "cuda")
+    params = init_lm(m, m.name)
     n_params = MB.param_count(params)
     batch0 = lm_train_batch(m, 0)
     out = dict(arch=m.name, n_params=n_params, batch=list(LM_TRAIN),
@@ -2334,7 +2406,8 @@ def check_moe_layer(arch: str) -> dict:
     e, k = cfg.n_experts, cfg.top_k
     t = PREFILL[0] * PREFILL[1]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    p = MOE.moe_init(gen, e, cfg.d_model, cfg.d_ff, "cuda")
+    p = MOE.moe_init(prng.prng_key(torch.tensor(0)), e, cfg.d_model,
+                     cfg.d_ff, "cuda")
     x = torch.randn((t, cfg.d_model), generator=gen, device="cuda")
     w3 = (p["w_gate"], p["w_up"], p["w_down"])
     row = dict(arch=arch, tokens=t, experts=e, top_k=k, d_model=cfg.d_model,
@@ -2417,8 +2490,7 @@ def moe_model(n_layers: int):
     seg = full.segments[0]
     m = dataclasses.replace(full, segments=(
         dataclasses.replace(seg, repeats=n_layers),))
-    params = MB.init_params(torch.Generator(device="cuda").manual_seed(0),
-                            m, "cuda")
+    params = init_lm(m, f"{m.name} {n_layers} layers")
     reduced = dict(n_layers=n_layers, of=full.n_layers,
                    why="the full depth is 187 GB of float32 params")
     print(f"moe model {m.name}: {MB.param_count(params)} params, {n_layers} "
@@ -2568,6 +2640,199 @@ def check_moe_train() -> dict:
     return out
 
 
+def ssm_work(b: int, s: int, di: int, n: int) -> tuple:
+    """Bytes the selective scan must move (dt, x, bmat, cmat, a, h0 read
+    once; ys and the final state written once) and its float32
+    operations: at each (b, t, d, n) the product dt·a, the exponential,
+    two products dt·b·x, a fused multiply-add (2) and h·c with its add to
+    the sum over n: 8, the exponential counted as one."""
+    n_bytes = 4 * (3 * b * s * di + 2 * b * s * n + di * n + 2 * b * di * n)
+    return n_bytes, 8 * b * s * di * n
+
+
+def ssm_bound_ms(b: int, s: int, di: int, n: int) -> tuple:
+    """Least time of one selective scan on this card: its bytes over HBM
+    against its operations at the float32 SIMT peak."""
+    return bound(*ssm_work(b, s, di, n))
+
+
+def hymba_model():
+    """Phase m0: HYMBA_ARCH at full width, ``init_params(prng_key(0))`` on
+    the card (timed), its bits held to the CPU's draw
+    (`check_init_bits`)."""
+    m = configs.get_arch(HYMBA_ARCH)
+    params = init_lm(m, m.name)
+    bits = check_init_bits(m, params)
+    n_global = sum(seg.repeats for seg in m.segments for sp in seg.pattern
+                   if sp.cfg.window is None)
+    print(f"hymba {m.name}: {MB.param_count(params)} params, {m.n_layers} "
+          f"layers ({n_global} global), init bits: {json.dumps(bits)}",
+          flush=True)
+    return m, params, dict(INIT_S[m.name], bits=bits)
+
+
+#: markers of the weights `check_init_bits`'s CPU pass does not draw:
+#: -(MARK + i) for the i-th, exact in float32 and no value an init sets
+MARK = 1e6
+
+
+def check_init_bits(m, params, seed: int = 0, sample: int = 1 << 14
+                    ) -> dict:
+    """The card's initial weights against the CPU's draw (which the tests
+    hold to the reference's), for the embedding table and layer 0 of
+    every stack.  The CPU runs ``init_params`` on the model cut to one
+    layer a segment (layer 0's keys are the full model's) with each
+    weight's draw replaced by a marker that records its key and scale;
+    then for each weight the CPU draws `sample` counters at its start,
+    its middle, its end and (past ``prng.CHUNK``) across the first chunk
+    boundary, and those elements of the card's weight must have the same
+    bits.  The leaves that are not drawn (norm scales, zeros, -4.6,
+    A_log) are compared whole."""
+    cut = dataclasses.replace(m, segments=tuple(
+        dataclasses.replace(sg, repeats=1) for sg in m.segments))
+    drawn, draw = [], prng.normal_scaled
+
+    def marker(key, shape, scale, device):
+        drawn.append((key.cpu(), scale))
+        return torch.full(shape, -(MARK + len(drawn) - 1))
+
+    prng.normal_scaled = marker
+    try:
+        cpu = MB.init_params(prng.prng_key(torch.tensor(seed)), cut, "cpu")
+    finally:
+        prng.normal_scaled = draw
+    pairs = [(c, d) for c, d in zip(tree_leaves(cpu["embed"]),
+                                    tree_leaves(params["embed"]))]
+    pairs += [(c[0], d[0]) for cs, ds in zip(cpu["segments"],
+                                             params["segments"])
+              for c, d in zip(tree_leaves(cs), tree_leaves(ds))]
+    pairs += [(c, d) for k in cpu if k not in ("embed", "segments")
+              for c, d in zip(tree_leaves(cpu[k]), tree_leaves(params[k]))]
+    sampled = whole = counters = 0
+    for c, d in pairs:
+        assert c.shape == d.shape, (c.shape, d.shape)
+        first = float(c.reshape(-1)[0]) if c.numel() else 0.0
+        if first > -MARK:
+            assert torch.equal(c.view(torch.int32), d.cpu().view(
+                torch.int32)), f"an undrawn leaf {tuple(c.shape)} differs"
+            whole += 1
+            continue
+        key, scale = drawn[int(-first - MARK)]
+        n = c.numel()
+        flat = d.reshape(-1)
+        starts = {0, max(n // 2 - sample // 2, 0), max(n - sample, 0)}
+        if n > prng.CHUNK:
+            starts.add(max(prng.CHUNK - sample // 2, 0))
+        for st in sorted(starts):
+            cnt = min(sample, n - st)
+            want = prng.normal(key, cnt, st) * scale
+            got = flat[st:st + cnt].cpu()
+            assert torch.equal(want.view(torch.int32),
+                               got.view(torch.int32)), \
+                f"leaf {tuple(c.shape)}: counters {st}..{st + cnt} differ"
+            counters += cnt
+        sampled += 1
+    assert sampled == len(drawn), (sampled, len(drawn))
+    return dict(drawn_leaves=sampled, whole_leaves=whole,
+                counters_compared=counters)
+
+
+def ssm_scan_inputs(m, params, seed: int = 17) -> tuple:
+    """The selective scan's inputs at the prefill's shape from layer 0 of
+    the first local segment: a random (B, S, D) hidden state, RMS-normed,
+    through that layer's in_proj, conv, SiLU and (dt, B, C) projections,
+    as ``nn/ssm.ssm_scan`` forms them; h0 zeros."""
+    b, s = PREFILL
+    p = MB._layer(params["segments"][1][0]["ssm"], 0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = L.rmsnorm_apply({"scale": torch.ones(m.d_model, device="cuda")},
+                        torch.randn(b, s, m.d_model, generator=gen,
+                                    device="cuda"))
+    with torch.no_grad():
+        di = p["conv_w"].shape[1]
+        x = (h @ p["in_proj"])[..., :di]
+        x = torch.nn.functional.silu(SSM._conv_causal(x, p["conv_w"],
+                                                      p["conv_b"]))
+        dt, bmat, cmat, a = SSM._selective_inputs(p, x)
+    h0 = torch.zeros(b, di, a.shape[1], device="cuda")
+    return dt, bmat.contiguous(), cmat.contiguous(), x, a, h0
+
+
+def check_ssm_scan(m, params) -> dict:
+    """Phase m1: the selective-scan kernel against its plain loop
+    (``ref.ssm_scan``) on the inputs a hymba layer gives it at the
+    prefill's shape: ys and the final state within TOL·scale, the same
+    bits twice, no further from the float64 scan than 4x the plain
+    float32 loop plus 1e-6·scale; CUDA-event times of the kernel and the
+    plain loop beside the bound.  No single PyTorch call computes a
+    selective scan (library: none)."""
+    args = ssm_scan_inputs(m, params)
+    b, s, di = args[0].shape
+    n = args[4].shape[1]
+    got, again = ss.ssm_scan(*args), ss.ssm_scan(*args)
+    want = ref.ssm_scan(*args)
+    exact = ref.ssm_scan(*(t.double() for t in args))
+    torch.cuda.synchronize()
+    row = dict(shape=[b, s, di, n],
+               max_abs_err=max(_hold("ssm_scan ys", got[0], want[0]),
+                               _hold("ssm_scan h", got[1], want[1])),
+               tol=TOL * max(1.0, float(want[0].abs().max())),
+               same_bits=all(torch.equal(x, y) for x, y in zip(got, again)))
+    assert row["same_bits"], "ssm_scan: two calls differ"
+    row.update(float64_errors("ssm_scan", got, want, exact))
+    del exact
+    bnd, by = ssm_bound_ms(b, s, di, n)
+    n_bytes, ops_ = ssm_work(b, s, di, n)
+    row.update(ms=cuda_ms(lambda: ss.ssm_scan(*args)),
+               plain_ms=cuda_ms(lambda: ref.ssm_scan(*args), reps=3,
+                                warmup=1),
+               bound_ms=bnd, bound_by=by, library_ms=None,
+               bytes=n_bytes, operations=ops_,
+               exp_bound_ms=1e3 * b * s * di * n / SFU_EXP_PER_S)
+    print("ssm_scan_f32: " + json.dumps(row), flush=True)
+    return row
+
+
+def drive_hymba_serve(m, params) -> dict:
+    """Phase m3: the Engine serving SERVE's requests on hymba (launches
+    counted from zero: decode attention and the SSM's one-token step are
+    eager torch, so neither kernel runs).  Each decode step of the first
+    wave's prompt is held to the full-sequence forward of those prompts
+    at that position, through the kernels (flash and the scan) and
+    through the plain pieces (use_fused=False): decode's state and conv
+    tail carry what the scan carries.  The engine's first new tokens are
+    the prefill's argmax.  A step reads every weight (the tied head the
+    whole table): the bound is the params' bytes over HBM."""
+    plen = SERVE["prompt_len"]
+    zero_counts()
+    run = run_engine(m, params, plen)
+    launches = counts()
+    first = torch.tensor(run["prompts"][:SERVE["slots"]], device="cuda")
+    errs = {}
+    for route, fused in (("kernels", None), ("plain", False)):
+        with torch.no_grad():
+            full = MB.forward(params, m, first, use_fused=fused)
+        errs[route] = [_logits_agree(
+            f"hymba decode step {st['clock']} vs the {route} forward",
+            st["logits"], full[:, st["clock"]]) for st in run["steps"]]
+        del full
+    assert len(errs["kernels"]) == plen, len(errs["kernels"])
+    assert [r.out[0] for r in run["done"][:SERVE["slots"]]] == \
+        run["steps"][plen - 1]["logits"].argmax(-1).tolist()
+    weight_bytes = 4 * MB.param_count(params)
+    out = dict(run["stats"], launches=launches,
+               decode_launches_per_step=run["stats"]["decode_step_profile"][
+                   "device_launches"],
+               weights_read_gb=weight_bytes / 1e9,
+               weights_read_ms=1e3 * weight_bytes / PEAK_HBM_BYTES,
+               **{f"decode_vs_{route}_forward": dict(
+                   steps=len(e), max_abs_err=max(x["max_abs_err"] for x in e),
+                   tol=min(x["tol"] for x in e))
+                  for route, e in errs.items()})
+    print("hymba serve: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements to this JSON")
@@ -2700,6 +2965,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe_train = check_moe_train()
+
+    # phase m: hymba-1.5b at full width, once phase l's state is freed;
+    # the prefill's and the Engine's launches counted from zero just
+    # before each (inside drive_prefill and drive_hymba_serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m, params, hymba_init = hymba_model()
+    ssm = check_ssm_scan(m, params)
+    hymba_prefill = drive_prefill(m, params, "hymba prefill")
+    hymba_serve = drive_hymba_serve(m, params)
+    del params
+    print("init seconds on the card: " + json.dumps(INIT_S), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here",
           flush=True)
 
@@ -2770,7 +3047,9 @@ def main() -> int:
             "moe_prefill": moe_prefill["launches"]["flash_attention_f32"],
             "moe_engine": moe_serve["launches"]["flash_attention_f32"],
             "moe_train_steps":
-                moe_train["launches"]["flash_attention_f32"]},
+                moe_train["launches"]["flash_attention_f32"],
+            "hymba_prefill": hymba_prefill["launches"]["flash_attention_f32"],
+            "hymba_engine": hymba_serve["launches"]["flash_attention_f32"]},
         "lse_launches_by_path": {
             "lm_train_steps":
                 lm_train["launches"]["flash_attention_f32 with lse"],
@@ -2790,6 +3069,20 @@ def main() -> int:
         "shapes": {f"{label} {t}": r for (label, t), r in flash.items()
                    if (label, t) != ("gemma3 global 2x4x4096x256",
                                      "float32")},
+    }, {
+        "name": "ssm_scan_f32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/nn/ssm.py:ssm_scan (its inner lax.scan, "
+                    "ssm.py:83-105; no Pallas kernel)",
+        "launches": hymba_prefill["launches"]["ssm_scan_f32"],
+        **{k: ssm[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "exp_bound_ms",
+                               "shape", "max_abs_err_f64",
+                               "plain_max_abs_err_f64")},
+        "launches_by_path": {
+            "hymba_prefill": hymba_prefill["launches"]["ssm_scan_f32"],
+            "hymba_engine": hymba_serve["launches"]["ssm_scan_f32"]},
     }]}
     if args.out:
         with open(args.out, "w") as fh:
@@ -2806,6 +3099,9 @@ def main() -> int:
                        "lm_train": lm_train, "lm_launcher": lm_launcher,
                        "moe_layers": moe_layers, "moe_prefill": moe_prefill,
                        "moe_serve": moe_serve, "moe_train": moe_train,
+                       "hymba_init": hymba_init, "ssm_scan": ssm,
+                       "hymba_prefill": hymba_prefill,
+                       "hymba_serve": hymba_serve, "init_s": INIT_S,
                        "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},
                       fh, indent=1)

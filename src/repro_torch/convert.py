@@ -11,8 +11,8 @@ is ``{"g_params", "d_params", "g_opt": {"step", "mu", "nu"}, "d_opt":
 {...}, "rng"}``: float32 leaves, an int32 step, and the uint32 (2,) key.
 
 Use it to start both packages from one given state.  G's and D's own
-initialisation already reproduces the reference's from a seed; the LM
-substrate's draws from a ``torch.Generator`` and does not.
+initialisation, and the LM substrate's (``models/base.init_params`` on
+``prng_key(seed)``), already reproduce the reference's from a seed.
 """
 from __future__ import annotations
 

@@ -21,7 +21,10 @@ module reproduces those three calls bit for bit:
 - ``normal(key, n)``: ``sqrt(2) * erf_inv(uniform(key, n, nextafter(-1,
   0), 1))``, the initial weights of G and D, with ``erf_inv`` and the
   ``log1p`` inside it evaluated step for step as XLA on the CPU emits them
-  (see `erf_inv`).
+  (see `erf_inv`);
+- ``normal_scaled(key, shape, scale)``: ``normal(key, shape) * scale``,
+  how the reference draws each LM weight (``models/base.init_params``);
+  a large leaf is drawn in pieces of counters (``start``), the same bits.
 
 Partitionable mode (``jax_threefry_partitionable``) is on by default in
 current JAX and is what this module follows; the legacy mode drew the
@@ -84,20 +87,23 @@ def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
     return fold_in(key[..., None, :], i)
 
 
-def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
-    """32-bit random words for a flattened shape of n elements (< 2**32):
-    (..., 2) keys -> (..., n) int64 in [0, 2**32)."""
-    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+def random_bits(key: torch.Tensor, n: int, start: int = 0) -> torch.Tensor:
+    """32-bit random words of the flattened elements ``start .. start + n``
+    of a shape under 2**32 elements: (..., 2) keys -> (..., n) int64 in
+    [0, 2**32).  Element i hashes the counter (0, i), so a draw made in
+    pieces of counters is the one draw."""
+    lo = torch.arange(start, start + n, dtype=torch.int64, device=key.device)
     b1, b2 = threefry2x32(key[..., 0, None], key[..., 1, None],
                           torch.zeros_like(lo), lo)
     return b1 ^ b2
 
 
-def uniform(key: torch.Tensor, n: int, minval: float, maxval: float
-            ) -> torch.Tensor:
+def uniform(key: torch.Tensor, n: int, minval: float, maxval: float,
+            start: int = 0) -> torch.Tensor:
     """``uniform(key, shape, float32, minval, maxval)`` for a shape of n
-    elements (row-major flat): (..., 2) keys -> (..., n) float32."""
-    bits = random_bits(key, n)
+    elements (row-major flat), or its elements ``start .. start + n``:
+    (..., 2) keys -> (..., n) float32."""
+    bits = random_bits(key, n, start)
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = mant.view(torch.float32) - 1.0
     lo, hi = _f32(minval, maxval)
@@ -318,14 +324,40 @@ _NORMAL_LO = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
 _SQRT2 = _f32(2.0 ** 0.5)[0]
 
 
-def normal(key: torch.Tensor, n: int) -> torch.Tensor:
+def normal(key: torch.Tensor, n: int, start: int = 0) -> torch.Tensor:
     """``normal(key, shape, float32)`` for a shape of n elements
-    (row-major flat): ``sqrt(2) * erf_inv(u)`` with ``u = uniform(key, n,
-    nextafter(-1, 0), 1)``.  (..., 2) keys -> (..., n) float32.
+    (row-major flat), or its elements ``start .. start + n``: ``sqrt(2) *
+    erf_inv(u)`` with ``u = uniform(key, n, nextafter(-1, 0), 1)``.
+    (..., 2) keys -> (..., n) float32.
 
     Bit for bit jax's on the CPU over 2^20 draws and more
     (tests/test_torch_prng.py)."""
-    return _SQRT2 * erf_inv(uniform(key, n, _NORMAL_LO, 1.0))
+    return _SQRT2 * erf_inv(uniform(key, n, _NORMAL_LO, 1.0, start))
+
+
+#: counters `normal_scaled` draws at once: a draw's int64 and float64
+#: temporaries are many times its length, so a leaf of hundreds of
+#: millions of elements is drawn in pieces
+CHUNK = 1 << 24
+
+
+def normal_scaled(key: torch.Tensor, shape, scale: float, device
+                  ) -> torch.Tensor:
+    """``normal(key, shape, float32) * scale`` as the reference draws a
+    weight (the scale a Python float, so one float32 product): a (2,) key
+    -> a float32 tensor of `shape` on `device`.  A leaf of more than
+    `CHUNK` elements is drawn `CHUNK` counters at a time into the
+    preallocated leaf, which gives the same bits as one draw and bounds
+    the temporaries."""
+    n = int(np.prod(shape, dtype=np.int64))
+    key = key.to(device)
+    if n <= CHUNK:
+        return (normal(key, n) * scale).reshape(shape)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for s in range(0, n, CHUNK):
+        m = min(CHUNK, n - s)
+        out[s:s + m] = normal(key, m, s) * scale
+    return out.reshape(shape)
 
 
 def normals(keys, sizes) -> list:

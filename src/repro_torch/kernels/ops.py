@@ -3,9 +3,10 @@
 The counterpart of the reference's ``kernels/ops.py``.  There the Pallas
 kernel runs on the TPU (or in interpret mode) and the jnp oracle
 elsewhere; here the device rule is the kernel wrapper's
-(``kernels/flash_attention.py``: a CPU tensor gets the plain version, a
-CUDA tensor the kernel or an exception), and ``use_fused=False`` is the
-caller's explicit opt-out to the plain version on any device.
+(``kernels/flash_attention.py``, ``kernels/ssm_scan.py``: a CPU tensor
+gets the plain version, a CUDA tensor the kernel or an exception), and
+``use_fused=False`` is the caller's explicit opt-out to the plain
+version on any device.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssm_scan as _ss
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -26,3 +28,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = _ref.flash_attention if use_fused is False else _fa.flash_attention
     return fn(q, k, v, causal=causal, window=window, q_offset=q_offset,
               return_lse=return_lse)
+
+
+def ssm_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+             x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor, *,
+             chunk: int = 64, use_fused: Optional[bool] = None):
+    """The selective scan's recurrence: dt, x (B, S, Di), bmat, cmat
+    (B, S, N), a (Di, N), h0 (B, Di, N) -> (ys (B, S, Di), h (B, Di, N)).
+    `chunk` is the plain loop's (``kernels/ref.ssm_scan``)."""
+    if use_fused is False:
+        return _ref.ssm_scan(dt, bmat, cmat, x, a, h0, chunk=chunk)
+    return _ss.ssm_scan(dt, bmat, cmat, x, a, h0, chunk=chunk)

@@ -87,8 +87,8 @@ def time_prefill(libs: dict, order: list) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     m = configs.get_arch("gemma3-1b")
-    params = MB.init_params(torch.Generator(device="cuda").manual_seed(0), m,
-                            "cuda")
+    from repro_torch.core import prng
+    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cuda")
     toks = torch.randint(0, m.vocab, (2, 4096), device="cuda",
                          generator=torch.Generator(device="cuda")
                          .manual_seed(0))

@@ -59,8 +59,8 @@ def grad_memory(reps: int) -> dict:
     from repro_torch.optim import tree_leaves, tree_map
     from repro_torch.train import step as TS
     m = configs.get_arch("stablelm-1.6b")
-    params = MB.init_params(torch.Generator(device="cuda").manual_seed(0),
-                            m, "cuda")
+    from repro_torch.core import prng
+    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cuda")
     toks, labels = SyntheticStream(DataConfig(
         vocab=m.vocab, seq_len=2048, global_batch=2, seed=0)).batch(0)
     batch = {"tokens": torch.from_numpy(toks).to("cuda", torch.long),

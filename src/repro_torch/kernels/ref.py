@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels, and the MoE layer's
 dense-gather oracle (``moe_dispatch_ffn``, the reference's, which has no
-kernel).
+kernel).  ``ssm_scan`` is the plain version of the selective-scan kernel,
+whose reference is a ``lax.scan`` rather than a Pallas kernel.
 
 Each function is the mathematical definition of its kernel with no tiling
 or hardware concerns.  The wrappers in ``kernels/`` take them for CPU
@@ -14,6 +15,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def fused_mlp(x: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -116,3 +118,49 @@ def moe_dispatch_ffn(x: torch.Tensor, w_gate: torch.Tensor,
                 * (xe @ w_up[e].to(torch.float32))
             out[tok, k] = h @ w_down[e].to(torch.float32)
     return (out * expert_w.to(torch.float32)[..., None]).sum(1).to(x.dtype)
+
+
+def _scan_chunk(h: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+                cmat: torch.Tensor, x: torch.Tensor, a: torch.Tensor):
+    """L steps of the selective scan from state h (B, Di, N): the chunk's
+    ``exp(dt·a)`` and ``dt·b·x`` (B, L, Di, N) at once (elementwise, so
+    the bits of a step at a time), then one ``addcmul`` a step, then every
+    step's ``Σ_n h·c``.  Returns (ys (B, L, Di), the last h)."""
+    da = torch.exp(dt[..., None] * a)
+    dbx = dt[..., None] * bmat[:, :, None, :] * x[..., None]
+    hs = []
+    for t in range(dt.shape[1]):
+        h = torch.addcmul(dbx[:, t], da[:, t], h)
+        hs.append(h)
+    ys = (torch.stack(hs, 1) * cmat[:, :, None, :]).sum(-1)
+    return ys, h
+
+
+def ssm_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+             x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor,
+             chunk: int = 64):
+    """The selective scan's recurrence, a time loop in torch ops — the
+    plain version of the selective-scan kernel and the reference's inner
+    ``lax.scan`` step for step: ``h_t = exp(dt_t·a)·h_{t-1} + dt_t·b_t·x_t``
+    and ``y_t = Σ_n h_t·c_t``.  dt, x (B, S, Di); bmat, cmat (B, S, N);
+    a (Di, N); h0 (B, Di, N).  Returns (ys (B, S, Di), h_S (B, Di, N)) in
+    the inputs' dtype (float64 inputs give the float64 scan).
+
+    The loop runs in chunks of `chunk` steps.  Under autograd, where
+    ``S > chunk`` and `chunk` divides S (the reference's condition), each
+    chunk runs under ``torch.utils.checkpoint`` (non-reentrant), as the
+    reference's ``jax.checkpoint``-ed chunks do: the backward keeps the
+    state only at chunk boundaries.  That saves memory and changes no
+    math.  Differentiable by torch's own autograd."""
+    s = dt.shape[1]
+    remat = (torch.is_grad_enabled() and chunk > 1 and s > chunk
+             and s % chunk == 0)
+    ys, h = [], h0
+    for t0 in range(0, s, max(chunk, 1)):
+        part = [v[:, t0:t0 + chunk] for v in (dt, bmat, cmat, x)]
+        if remat:
+            y, h = checkpoint(_scan_chunk, h, *part, a, use_reentrant=False)
+        else:
+            y, h = _scan_chunk(h, *part, a)
+        ys.append(y)
+    return torch.cat(ys, 1), h

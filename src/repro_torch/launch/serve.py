@@ -3,10 +3,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
       --requests 16 --max-new 32
 
-Every ported arch serves: the dense decoders and the MoE ones (mixtral-8x7b,
+Every ported arch serves: the dense decoders, the MoE ones (mixtral-8x7b,
 phi3.5-moe), whose decode step routes its lanes together at the
 reference's capacity for that many tokens (``nn/moe``), so an MoE model's
-decode is not its prefill, in the reference as here.
+decode is not its prefill, in the reference as here, and hymba-1.5b,
+whose lanes carry an SSM state that a reused lane resets.  The params
+come from ``models/base.init_params`` on ``prng_key(--seed)``: the
+reference's initial weights for the same seed.
 
 A minimal production-shaped server, as in the reference: requests (prompt
 token lists) are admitted into a fixed set of batch slots; every engine
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.core import prng
 from repro_torch.core.explorer import resolve_device
 from repro_torch.models import base as MB
 from repro_torch.optim import tree_map
@@ -46,9 +50,10 @@ class Request:
 
 def _recurrent_template(states, m):
     """A copy of the recurrent (ssm / xLSTM) portion of a freshly
-    initialized decode state, per segment/spec; None where a spec carries
-    no recurrent state (every spec of the ported decoders, dense and MoE).  KV caches
-    are excluded: the per-lane `start` mask handles them."""
+    initialized decode state, per segment/spec: hymba's (h, tail) stacks,
+    and None where a spec carries no recurrent state (the dense and MoE
+    decoders).  KV caches are excluded: the per-lane `start` mask handles
+    them."""
     def copy(tree):
         return None if tree is None else tree_map(torch.clone, tree)
 
@@ -61,9 +66,10 @@ def _reset_recurrent_lane(states, fresh, m, lane: int) -> None:
     """Re-initialize lane `lane` of the per-lane recurrent decode state in
     place when its batch slot is reused for a new request, from the fresh
     copy (`_recurrent_template`).  State leaves are stacked (repeats,
-    batch, ...), so a lane is axis 1.  A no-op for the dense models, whose
-    KV caches need no copy: the per-lane `start` mask passed to the decode
-    step hides a reused lane's stale entries (see `decode_attention`)."""
+    batch, ...), so a lane is axis 1.  A no-op for the dense and MoE
+    models, whose KV caches need no copy: the per-lane `start` mask passed
+    to the decode step hides a reused lane's stale entries (see
+    `decode_attention`)."""
     def scatter(st, fr):
         tree_map(lambda a, f: a[:, lane].copy_(f[:, lane]), st, fr)
 
@@ -205,8 +211,7 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     m = configs.get_reduced(args.arch)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = MB.init_params(gen, m, device)
+    params = MB.init_params(prng.prng_key(torch.tensor(args.seed)), m, device)
     eng = Engine(m, params, args.slots, args.cache_len, device=device)
 
     np_rng = np.random.default_rng(args.seed)

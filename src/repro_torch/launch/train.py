@@ -19,8 +19,8 @@
 ``--device`` defaults to the card and raises where there is none; the CPU
 runs only when named.  There is no mesh (one card): the reference's
 ``make_host_mesh`` belongs to the multi-device half (ROADMAP Queue 1).
-The params come from ``models/base.init_params`` on a ``torch.Generator``
-seeded with ``--seed``, not the reference's ``jax.random`` draws.
+The params come from ``models/base.init_params`` on ``prng_key(--seed)``,
+the reference's initial weights for the same seed, bit for bit.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core import prng
 from repro_torch.core.explorer import resolve_device
 from repro_torch.data.synthetic import DataConfig, SyntheticStream
 from repro_torch.models import base as MB
@@ -115,8 +116,8 @@ def main(argv=None) -> int:
     train_step_fn, optim = TS.make_train_step(m, lr=args.lr, remat=False)
 
     def initial_state():
-        gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = MB.init_params(gen, m, device)
+        params = MB.init_params(prng.prng_key(torch.tensor(args.seed)), m,
+                                device)
         return params, optim.init(params)
 
     params, opt_state = initial_state()

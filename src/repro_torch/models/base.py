@@ -7,6 +7,8 @@ axis as in the reference.
     "dense" spec carries ``n_experts``): one segment, pattern length 1
   * gemma3 (5 local : 1 global): pattern [local x5, global], repeats 4,
     plus a tail segment of 2 local layers
+  * hymba (``ssm_state``: every block has the parallel SSM branch): five
+    segments of pattern length 1, global layers first, middle and last
 
 The reference scans over repeats (``lax.scan``); here a Python loop runs
 the layers in the same order, taking a segment's layers from its stacks
@@ -15,13 +17,19 @@ is assembled once (indexing ``a[r]`` per layer would allocate a zero
 stack per layer in the backward).  ``forward(..., remat=True)`` runs each
 repeat of the pattern under ``torch.utils.checkpoint`` (non-reentrant),
 as the reference's ``jax.checkpoint`` does its scan body.  Only the
-``"dense"`` kind is ported, with its SwiGLU or MoE FFN; the others
-(mlstm, slstm, whisper's enc/dec) and hymba's SSM branch raise
+``"dense"`` kind is ported, with its SwiGLU or MoE FFN and its optional
+SSM branch; the others (mlstm, slstm, whisper's enc/dec) raise
 ``NotImplementedError`` (ROADMAP Queue 1).
 
+``init_params(key, m, device)`` draws the reference's initial weights
+bit for bit from a threefry key (``core/prng``): the same splits and
+fold-ins, the same draws.
+
 Decode states mirror the param stacks: per segment and spec,
-``{"kv": (k, v), "len": int}`` with k, v (repeats, B, span, Hkv, dh) and
-the shared count of cached tokens; decode writes the caches in place.
+``{"kv": (k, v), "len": int[, "ssm": (h, tail)]}`` with k, v (repeats, B,
+span, Hkv, dh), h (repeats, B, Di, N), tail (repeats, B, K-1, Di) and the
+shared count of cached tokens; decode writes the caches and the SSM
+states in place.
 """
 from __future__ import annotations
 
@@ -31,8 +39,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import prng
 from repro_torch.nn import blocks as B
 from repro_torch.nn import layers as L
+from repro_torch.nn import ssm as S
 from repro_torch.optim import tree_leaves, tree_map, tree_unflatten
 
 
@@ -82,9 +92,9 @@ def _not_ported(what: str) -> NotImplementedError:
 # ---------------------------------------------------------------------------
 # per-spec init/apply/decode dispatch
 # ---------------------------------------------------------------------------
-def spec_init(gen: torch.Generator, spec: LayerSpec, device):
+def spec_init(key: torch.Tensor, spec: LayerSpec, device):
     if spec.kind == "dense":
-        return B.block_init(gen, spec.cfg, device)
+        return B.block_init(key, spec.cfg, device)
     raise _not_ported(f"layer kind {spec.kind!r}")
 
 
@@ -99,14 +109,19 @@ def spec_apply(params, x, spec: LayerSpec, positions,
 def spec_state_init(spec: LayerSpec, batch: int, cache_len: int,
                     device) -> Dict[str, Any]:
     """Decode state of one layer: its KV cache (a ring of the window's
-    width for sliding-window layers) and the count of cached tokens."""
+    width for sliding-window layers), the count of cached tokens, and for
+    hymba's blocks an ``ssm`` entry, None here: `init_decode_state` sizes
+    it from the params."""
     cfg = spec.cfg
     if spec.kind == "dense":
         span = cache_len if cfg.window is None else min(cfg.window, cache_len)
         kv = tuple(torch.zeros((batch, span, cfg.n_kv, cfg.dh),
                                dtype=torch.float32, device=device)
                    for _ in range(2))
-        return {"kv": kv, "len": 0}
+        st = {"kv": kv, "len": 0}
+        if cfg.ssm_state:
+            st["ssm"] = None
+        return st
     raise _not_ported(f"layer kind {spec.kind!r}")
 
 
@@ -126,30 +141,36 @@ def _layer(tree, r: int):
     return tree_map(lambda a: a[r], tree)
 
 
-def _segment_init(gen: torch.Generator, seg: Segment, device):
-    """Per-spec stacked params: list over pattern of (repeats, ...) stacks."""
-    return [tree_map(lambda *xs: torch.stack(xs),
-                     *[spec_init(gen, spec, device)
-                       for _ in range(seg.repeats)])
-            for spec in seg.pattern]
+def _segment_init(key: torch.Tensor, seg: Segment, device):
+    """Per-spec stacked params: list over pattern of (repeats, ...) stacks;
+    spec si's repeat r is drawn from ``fold_in(key, si * 10007 + r)``."""
+    out = []
+    for si, spec in enumerate(seg.pattern):
+        reps = [spec_init(prng.fold_in(key, si * 10007 + r), spec, device)
+                for r in range(seg.repeats)]
+        out.append(tree_map(lambda *xs: torch.stack(xs), *reps))
+    return out
 
 
-def init_params(gen: torch.Generator, m: ModelCfg, device) -> Dict[str, Any]:
-    """Random float32 params on `device`, drawn from `gen` (which must live
-    there).  They do not reproduce the reference's ``jax.random`` draws:
-    to compute from the reference's weights, convert them
-    (``convert.lm_params_from_numpy``)."""
+def init_params(key: torch.Tensor, m: ModelCfg, device) -> Dict[str, Any]:
+    """The reference's ``init_params(key, m)`` bit for bit, as float32
+    params on `device`: `key` a (2,) int64 threefry key
+    (``prng.prng_key(torch.tensor(seed))``) split four ways (embed, body,
+    head, encoder); segment i draws from ``fold_in(body, i)``, an untied
+    ``lm_head`` from the head key.  The draws run as eager torch on
+    `device` (``core/prng``)."""
     if m.enc_segments is not None:
         raise _not_ported("the whisper encoder-decoder")
+    r_embed, r_body, r_head, _ = prng.split(key.to(device), 4)
     p: Dict[str, Any] = {
-        "embed": L.embed_init(gen, m.vocab, m.d_model, device),
-        "segments": [_segment_init(gen, seg, device) for seg in m.segments],
+        "embed": L.embed_init(r_embed, m.vocab, m.d_model, device),
+        "segments": [_segment_init(prng.fold_in(r_body, i), seg, device)
+                     for i, seg in enumerate(m.segments)],
         "ln_f": L.rmsnorm_init(m.d_model, device),
     }
     if not m.tied_embeddings:
-        p["lm_head"] = torch.randn(m.d_model, m.vocab, generator=gen,
-                                   dtype=torch.float32, device=device) \
-            * (1.0 / m.d_model) ** 0.5
+        p["lm_head"] = prng.normal_scaled(r_head, (m.d_model, m.vocab),
+                                          (1.0 / m.d_model) ** 0.5, device)
     return p
 
 
@@ -207,17 +228,31 @@ def forward(params, m: ModelCfg, tokens: torch.Tensor,
 
 def init_decode_state(params, m: ModelCfg, batch: int, cache_len: int):
     """Per-segment decode states mirroring the param stacks, on the
-    params' device."""
+    params' device: each state tensor stacked (repeats, ...)."""
     device = params["ln_f"]["scale"].device
+    stack = lambda t, n: torch.stack([t] * n)  # noqa: E731
     states = []
     for seg in m.segments:
         seg_states = []
         for spec in seg.pattern:
             st = spec_state_init(spec, batch, cache_len, device)
-            seg_states.append(dict(st, kv=tuple(
-                torch.stack([t] * seg.repeats) for t in st["kv"])))
+            st["kv"] = tuple(stack(t, seg.repeats) for t in st["kv"])
+            if "ssm" in st:
+                st["ssm"] = tuple(stack(t, seg.repeats) for t in
+                                  S.ssm_decode_init(_ssm_params_proto(
+                                      params, m), batch, device))
+            seg_states.append(st)
         states.append(seg_states)
     return states
+
+
+def _ssm_params_proto(params, m: ModelCfg):
+    """One layer's ssm params, to size the decode state."""
+    for seg_p, seg in zip(params["segments"], m.segments):
+        for sp, s in zip(seg_p, seg.pattern):
+            if s.kind == "dense" and s.cfg.ssm_state:
+                return _layer(sp["ssm"], 0)
+    raise ValueError("no ssm layer")
 
 
 def decode_step(params, m: ModelCfg, token: torch.Tensor, pos: int, states,
@@ -227,16 +262,24 @@ def decode_step(params, m: ModelCfg, token: torch.Tensor, pos: int, states,
     stale-cache mask a continuous-batching engine passes when a batch lane
     has been reused for a new request (every attention layer shares one
     timeline, so one vector serves all layers).  Returns (logits (B, 1, V),
-    new states); the caches are updated in place."""
+    new states); the caches and the SSM states are updated in place (a
+    layer's new (h, tail) is copied into its view of the stacks: the
+    decode of the block returns it, as the reference's does)."""
     x = L.embed_apply(params["embed"], token)
     pos_b = torch.full((token.shape[0], 1), pos, device=token.device)
     new_states = []
     for seg_p, seg, seg_st in zip(params["segments"], m.segments, states):
         for r in range(seg.repeats):
             for spec, sp, st in zip(seg.pattern, seg_p, seg_st):
-                x, _ = spec_decode(_layer(sp, r), x, spec, pos_b,
-                                   dict(st, kv=_layer(st["kv"], r)),
-                                   start=start)
+                layer_st = dict(st, kv=_layer(st["kv"], r))
+                ssm = st.get("ssm")
+                if ssm is not None:
+                    layer_st["ssm"] = _layer(ssm, r)
+                x, out = spec_decode(_layer(sp, r), x, spec, pos_b, layer_st,
+                                     start=start)
+                if ssm is not None:
+                    for view, new in zip(layer_st["ssm"], out["ssm"]):
+                        view.copy_(new)
         new_states.append([dict(st, len=st["len"] + 1) for st in seg_st])
     return _head(params, m, x), new_states
 

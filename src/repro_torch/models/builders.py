@@ -1,6 +1,7 @@
-"""Helpers that assemble ModelCfg objects: the dense decoders (uniform
-and gemma3's local:global interleave).  The hymba, xLSTM and whisper
-builders come with their blocks (ROADMAP Queue 1)."""
+"""Helpers that assemble ModelCfg objects: the dense and MoE decoders
+(uniform), gemma3's local:global interleave and hymba's global-sandwich
+layout.  The xLSTM and whisper builders come with their blocks (ROADMAP
+Queue 1)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -57,3 +58,31 @@ def local_global_arch(
     return ModelCfg(name=name, family=family, d_model=d_model, vocab=vocab,
                     segments=tuple(segs), tied_embeddings=tied,
                     sub_quadratic=True, notes=notes)
+
+
+def sandwich_arch(
+    name: str, family: str, n_layers: int, d_model: int, n_heads: int,
+    n_kv: int, d_ff: int, vocab: int, *, head_dim: int = 0,
+    local_window: int = 1024, ssm_state: int = 16, n_globals: int = 3,
+    tied: bool = True, notes: str = "",
+) -> ModelCfg:
+    """Hymba-style: global full-attn at first/middle/last layers, sliding-
+    window everywhere else; every layer has the parallel SSM branch.  The
+    reference's five segments, in its order."""
+    loc = _dense_spec(d_model, n_heads, n_kv, d_ff, head_dim=head_dim,
+                      window=local_window, ssm_state=ssm_state)
+    glob = _dense_spec(d_model, n_heads, n_kv, d_ff, head_dim=head_dim,
+                       window=None, ssm_state=ssm_state)
+    mid = n_layers - n_globals
+    first = mid // 2
+    segs = (
+        Segment(1, (glob,)),
+        Segment(first, (loc,)),
+        Segment(1, (glob,)),
+        Segment(mid - first, (loc,)),
+        Segment(1, (glob,)),
+    )
+    assert sum(s.n_layers for s in segs) == n_layers
+    return ModelCfg(name=name, family=family, d_model=d_model, vocab=vocab,
+                    segments=segs, tied_embeddings=tied, sub_quadratic=True,
+                    notes=notes)

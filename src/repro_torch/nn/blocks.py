@@ -1,20 +1,26 @@
 """The decoder block of the LM substrate: GQA / sliding-window / qk-norm
 attention and a SwiGLU FFN, or with ``n_experts > 0`` the MoE FFN
-(``nn/moe``), as (init, apply, decode) functions on dict params in the
-reference's layout.
+(``nn/moe``), and with ``ssm_state > 0`` hymba's parallel SSM branch
+(``nn/ssm``, mixed as ``mix_a·attn + mix_s·ssm``), as (init, apply,
+decode) functions on dict params in the reference's layout.  Init draws
+the reference's bits from a threefry key (``core/prng``), split as the
+reference splits it.
 
-Full-sequence attention runs through ``nn/attention.flash_attention``, so
-on the card through the flash-attention kernel; ``use_fused=False`` opts
-that one call out to the plain version and touches nothing else.  The
-MoE FFN takes the (B, S, D) tokens as one (B·S, D) batch, as the
-reference does, so a decode step routes its lanes together (with the
-reference's capacity for that many tokens).  Hymba's parallel SSM branch
-(``ssm_state > 0``), M-RoPE and the whisper blocks are not ported yet
-(ROADMAP Queue 1) and raise ``NotImplementedError``.
+Full-sequence attention runs through ``nn/attention.flash_attention`` and
+the SSM's recurrence through ``kernels/ops.ssm_scan``, so on the card
+through the flash-attention and selective-scan kernels; ``use_fused=False``
+opts those two calls out to their plain versions and touches nothing
+else.  The MoE FFN takes the (B, S, D) tokens as one (B·S, D) batch, as
+the reference does, so a decode step routes its lanes together (with the
+reference's capacity for that many tokens).  M-RoPE and the whisper
+blocks are not ported yet (ROADMAP Queue 1) and raise
+``NotImplementedError``.
 
 Decode updates the KV cache in place (the reference returns a new cache):
 the caches of a segment are one (repeats, B, span, Hkv, dh) tensor, and a
 layer writes its slot through a view of it, so a step copies no cache.
+The SSM's decode returns its new (h, tail), which ``models/base``
+writes back into the layer's view of the stacked state.
 """
 from __future__ import annotations
 
@@ -23,9 +29,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as M
+from repro_torch.nn import ssm as S
 
 _NOT_PORTED = "is not ported yet (ROADMAP Queue 1)"
 
@@ -53,29 +61,25 @@ class BlockCfg:
 
 
 def _check_dense(cfg: BlockCfg) -> None:
-    if cfg.ssm_state:
-        raise NotImplementedError(f"the hymba SSM branch (ssm_state="
-                                  f"{cfg.ssm_state}) " + _NOT_PORTED)
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE " + _NOT_PORTED)
-
-
-def _normal(gen: torch.Generator, shape, scale: float, device):
-    return torch.randn(shape, generator=gen, dtype=torch.float32,
-                       device=device) * scale
 
 
 # ---------------------------------------------------------------------------
 # attention sub-layer
 # ---------------------------------------------------------------------------
-def attn_init(gen: torch.Generator, cfg: BlockCfg, device):
+def attn_init(key: torch.Tensor, cfg: BlockCfg, device):
+    """wq, wkv and wo from the first three keys of ``split(key, 4)``."""
     dh = cfg.dh
+    r = prng.split(key.to(device), 4)
     s = (1.0 / cfg.d_model) ** 0.5
     p = {
-        "wq": _normal(gen, (cfg.d_model, cfg.n_heads * dh), s, device),
-        "wkv": _normal(gen, (cfg.d_model, 2 * cfg.n_kv * dh), s, device),
-        "wo": _normal(gen, (cfg.n_heads * dh, cfg.d_model),
-                      (1.0 / (cfg.n_heads * dh)) ** 0.5, device),
+        "wq": prng.normal_scaled(r[0], (cfg.d_model, cfg.n_heads * dh), s,
+                                 device),
+        "wkv": prng.normal_scaled(r[1], (cfg.d_model, 2 * cfg.n_kv * dh), s,
+                                  device),
+        "wo": prng.normal_scaled(r[2], (cfg.n_heads * dh, cfg.d_model),
+                                 (1.0 / (cfg.n_heads * dh)) ** 0.5, device),
     }
     if cfg.qk_norm:
         p["q_norm"] = L.rmsnorm_init(dh, device)
@@ -128,15 +132,20 @@ def attn_decode(params, x1, cfg: BlockCfg, pos, kv_cache, cache_len: int, *,
 # ---------------------------------------------------------------------------
 # FFN sub-layer (SwiGLU) or MoE
 # ---------------------------------------------------------------------------
-def ffn_init(gen: torch.Generator, cfg: BlockCfg, device):
+def ffn_init(key: torch.Tensor, cfg: BlockCfg, device):
+    """The MoE FFN from `key`, or w_gate, w_up and w_down from
+    ``split(key, 3)``."""
     if cfg.n_experts:
-        return M.moe_init(gen, cfg.n_experts, cfg.d_model, cfg.d_ff, device)
+        return M.moe_init(key, cfg.n_experts, cfg.d_model, cfg.d_ff, device)
+    r = prng.split(key.to(device), 3)
     s_in = (2.0 / cfg.d_model) ** 0.5
     return {
-        "w_gate": _normal(gen, (cfg.d_model, cfg.d_ff), s_in, device),
-        "w_up": _normal(gen, (cfg.d_model, cfg.d_ff), s_in, device),
-        "w_down": _normal(gen, (cfg.d_ff, cfg.d_model),
-                          (1.0 / cfg.d_ff) ** 0.5, device),
+        "w_gate": prng.normal_scaled(r[0], (cfg.d_model, cfg.d_ff), s_in,
+                                     device),
+        "w_up": prng.normal_scaled(r[1], (cfg.d_model, cfg.d_ff), s_in,
+                                   device),
+        "w_down": prng.normal_scaled(r[2], (cfg.d_ff, cfg.d_model),
+                                     (1.0 / cfg.d_ff) ** 0.5, device),
     }
 
 
@@ -152,33 +161,52 @@ def ffn_apply(params, x, cfg: BlockCfg):
 # ---------------------------------------------------------------------------
 # the decoder block
 # ---------------------------------------------------------------------------
-def block_init(gen: torch.Generator, cfg: BlockCfg, device):
+def block_init(key: torch.Tensor, cfg: BlockCfg, device):
+    """The reference's ``block_init``: attention, FFN and (hymba) SSM from
+    ``split(key, 3)``; hymba's mixing weights ``mix_a``, ``mix_s`` are
+    0-d ones."""
     _check_dense(cfg)
-    return {
+    r = prng.split(key.to(device), 3)
+    p = {
         "ln1": L.rmsnorm_init(cfg.d_model, device),
-        "attn": attn_init(gen, cfg, device),
+        "attn": attn_init(r[0], cfg, device),
         "ln2": L.rmsnorm_init(cfg.d_model, device),
-        "ffn": ffn_init(gen, cfg, device),
+        "ffn": ffn_init(r[1], cfg, device),
     }
+    if cfg.ssm_state:                   # hymba: parallel SSM branch
+        p["ssm"] = S.ssm_init(r[2], cfg.d_model, cfg.ssm_state, device=device)
+        p["mix_a"] = torch.ones((), dtype=torch.float32, device=device)
+        p["mix_s"] = torch.ones((), dtype=torch.float32, device=device)
+    return p
 
 
 def block_apply(params, x, cfg: BlockCfg, positions,
                 use_fused: Optional[bool] = None):
     _check_dense(cfg)
     h = L.rmsnorm_apply(params["ln1"], x)
-    x = x + attn_apply(params["attn"], h, cfg, positions, use_fused=use_fused)
+    mix = attn_apply(params["attn"], h, cfg, positions, use_fused=use_fused)
+    if cfg.ssm_state:
+        sm = S.ssm_apply(params["ssm"], h, use_fused=use_fused)
+        mix = params["mix_a"] * mix + params["mix_s"] * sm
+    x = x + mix
     h = L.rmsnorm_apply(params["ln2"], x)
     return x + ffn_apply(params["ffn"], h, cfg)
 
 
 def block_decode(params, x1, cfg: BlockCfg, pos, state, *, ring: bool = False,
                  start=None):
-    """state: {'kv': (k, v), 'len': int}; returns (y1, new state)."""
+    """state: {'kv': (k, v), 'len': int[, 'ssm': (h, tail)]}; returns (y1,
+    new state), whose 'ssm' is the new (h, tail) (the caller writes it
+    back; the KV cache is written in place)."""
     _check_dense(cfg)
     h = L.rmsnorm_apply(params["ln1"], x1)
     mix, kv = attn_decode(params["attn"], h, cfg, pos, state["kv"],
                           state["len"], ring=ring, start=start)
+    new_state = dict(state, kv=kv, len=state["len"] + 1)
+    if cfg.ssm_state:
+        sm, new_state["ssm"] = S.ssm_decode_step(params["ssm"], h,
+                                                 state["ssm"])
+        mix = params["mix_a"] * mix + params["mix_s"] * sm
     x1 = x1 + mix
     h = L.rmsnorm_apply(params["ln2"], x1)
-    return (x1 + ffn_apply(params["ffn"], h, cfg),
-            dict(state, kv=kv, len=state["len"] + 1))
+    return x1 + ffn_apply(params["ffn"], h, cfg), new_state

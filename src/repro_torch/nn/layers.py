@@ -83,9 +83,10 @@ def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * params["scale"]).to(x.dtype)
 
 
-def embed_init(gen: torch.Generator, vocab: int, dim: int, device):
-    return {"table": torch.randn(vocab, dim, generator=gen,
-                                 dtype=torch.float32, device=device) * 0.02}
+def embed_init(key: torch.Tensor, vocab: int, dim: int, device):
+    """The reference's ``embed_init``: ``normal(key, (vocab, dim)) *
+    0.02`` (`key` a (2,) threefry key, ``core/prng``)."""
+    return {"table": prng.normal_scaled(key, (vocab, dim), 0.02, device)}
 
 
 def embed_apply(params, ids: torch.Tensor) -> torch.Tensor:

@@ -40,23 +40,26 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import prng
 
-def moe_init(gen: torch.Generator, n_experts: int, d_model: int, d_ff: int,
+
+def moe_init(key: torch.Tensor, n_experts: int, d_model: int, d_ff: int,
              device):
-    """The reference's layout and scales: router (D, E), w_gate and w_up
-    (E, D, F), w_down (E, F, D), float32, drawn from `gen` in that
-    order."""
-    def normal(shape, scale):
-        return torch.randn(shape, generator=gen, dtype=torch.float32,
-                           device=device) * scale
-
+    """The reference's ``moe_init``, bit for bit: router (D, E), w_gate and
+    w_up (E, D, F), w_down (E, F, D), float32, drawn from the four keys of
+    ``split(key, 4)`` in that order (``core/prng``)."""
+    r = prng.split(key.to(device), 4)
     s_in = (2.0 / d_model) ** 0.5
     s_out = (1.0 / d_ff) ** 0.5
     return {
-        "router": normal((d_model, n_experts), 0.02),
-        "w_gate": normal((n_experts, d_model, d_ff), s_in),
-        "w_up": normal((n_experts, d_model, d_ff), s_in),
-        "w_down": normal((n_experts, d_ff, d_model), s_out),
+        "router": prng.normal_scaled(r[0], (d_model, n_experts), 0.02,
+                                     device),
+        "w_gate": prng.normal_scaled(r[1], (n_experts, d_model, d_ff), s_in,
+                                     device),
+        "w_up": prng.normal_scaled(r[2], (n_experts, d_model, d_ff), s_in,
+                                   device),
+        "w_down": prng.normal_scaled(r[3], (n_experts, d_ff, d_model), s_out,
+                                     device),
     }
 
 

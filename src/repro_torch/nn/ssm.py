@@ -1,0 +1,151 @@
+"""Selective state-space (Mamba-style) mixer of the hymba hybrid: the twin
+of the reference's ``nn/ssm.py``.
+
+x (B, S, D) -> y (B, S, D) with a per-channel selective state of size N.
+The full-sequence mixer (`ssm_scan`) hands its recurrence to
+``kernels/ops.ssm_scan``: on the card the hand-written selective-scan
+kernel (``kernels/ssm_scan.py``), on the CPU its plain version, a time
+loop in torch ops (``kernels/ref.ssm_scan``).  Decoding keeps an explicit
+(B, Di, N) state and a (B, K-1, Di) conv tail, so one token costs
+O(Di·N) in a few eager torch ops and no loop.
+
+Params keep the reference's layout and initial bits (``ssm_init`` draws
+through ``core/prng`` from the same keys).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import prng
+from repro_torch.kernels import ops
+
+
+def ssm_init(key: torch.Tensor, d_model: int, d_state: int = 16,
+             d_conv: int = 4, expand: int = 2, *, device):
+    """The reference's ``ssm_init``, bit for bit: six keys of
+    ``split(key, 6)`` (the sixth unused, as there), the same scales;
+    ``A_log = log(tile(arange(1, N + 1)))`` through XLA-on-CPU's float32
+    ``log`` (``prng._log_f32``), which torch's ``log`` misses by an ulp."""
+    d_inner = expand * d_model
+    r = prng.split(key.to(device), 6)
+    s = (2.0 / d_model) ** 0.5
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+
+    n = torch.arange(1, d_state + 1, dtype=torch.float32, device=device)
+    return {
+        "in_proj": prng.normal_scaled(r[0], (d_model, 2 * d_inner), s,
+                                      device),
+        "conv_w": prng.normal_scaled(r[1], (d_conv, d_inner), 0.2, device),
+        "conv_b": const((d_inner,), 0.0),
+        # x -> (dt, B, C) projections
+        "x_proj": prng.normal_scaled(r[2], (d_inner, 1 + 2 * d_state),
+                                     (1.0 / d_inner) ** 0.5, device),
+        "dt_bias": const((d_inner,), -4.6),             # softplus^-1(0.01)
+        "dt_w": prng.normal_scaled(r[3], (1, d_inner), 0.1, device),
+        "A_log": prng._log_f32(n.repeat(d_inner, 1)),
+        "D_skip": const((d_inner,), 1.0),
+        "out_proj": prng.normal_scaled(r[4], (d_inner, d_model),
+                                       (1.0 / d_inner) ** 0.5, device),
+    }
+
+
+def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tail: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv along the sequence: x (B, S, Di), w (K, Di),
+    b (Di,); tail (B, K-1, Di), the previous inputs of a continued
+    decode.  The K shifted products are summed in the reference's order,
+    then the bias."""
+    k, s = w.shape[0], x.shape[1]
+    pad = (x.new_zeros((x.shape[0], k - 1, x.shape[2])) if tail is None
+           else tail.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)                       # (B, S+K-1, Di)
+    out = xp[:, 0:s] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s] * w[i]
+    return out + b
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``: max(x, 0) +
+    log1p(exp(-|x|)), with no threshold (``F.softplus`` returns x itself
+    above 20)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _selective_inputs(params, x: torch.Tensor):
+    """dt (B, S, Di), bmat and cmat (B, S, N) of the conv's output x, and
+    a = -exp(A_log) (Di, N)."""
+    d_state = (params["x_proj"].shape[1] - 1) // 2
+    proj = x @ params["x_proj"]                           # (B, S, 1+2N)
+    dt = softplus(proj[..., :1] @ params["dt_w"] + params["dt_bias"])
+    bmat = proj[..., 1:1 + d_state]
+    cmat = proj[..., 1 + d_state:]
+    a = -torch.exp(params["A_log"].to(torch.float32))
+    return dt, bmat, cmat, a
+
+
+def ssm_scan(params, xz: torch.Tensor, h0: Optional[torch.Tensor] = None,
+             chunk: int = 64, use_fused: Optional[bool] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan: xz (B, S, 2·Di) from in_proj -> (y (B, S, Di),
+    h_final (B, Di, N)).  The conv, SiLU, the (dt, B, C) projections,
+    then the recurrence ``h = exp(dt·a)·h + dt·b·x``, ``y_t = Σ_n h·c``
+    (``kernels/ops.ssm_scan``: the kernel on the card; ``use_fused=False``
+    the plain loop, which runs its chunks of `chunk` steps under
+    ``torch.utils.checkpoint`` with autograd on, as the reference's
+    ``jax.checkpoint``-ed chunks), then ``+ x·D_skip`` and ``· silu(z)``."""
+    d_inner = params["conv_w"].shape[1]
+    d_state = (params["x_proj"].shape[1] - 1) // 2
+    x, z = xz.split(d_inner, dim=-1)                      # (B, S, Di) each
+    x = F.silu(_conv_causal(x, params["conv_w"], params["conv_b"]))
+    dt, bmat, cmat, a = _selective_inputs(params, x)
+    if h0 is None:
+        h0 = x.new_zeros((x.shape[0], d_inner, d_state), dtype=torch.float32)
+    ys, h = ops.ssm_scan(dt, bmat.contiguous(), cmat.contiguous(), x, a, h0,
+                         chunk=chunk, use_fused=use_fused)
+    y = ys + x * params["D_skip"]
+    y = y * F.silu(z)
+    return y.to(xz.dtype), h
+
+
+def ssm_apply(params, x: torch.Tensor,
+              use_fused: Optional[bool] = None) -> torch.Tensor:
+    """Full-sequence mixer: (B, S, D) -> (B, S, D)."""
+    y, _ = ssm_scan(params, x @ params["in_proj"], use_fused=use_fused)
+    return y @ params["out_proj"]
+
+
+def ssm_decode_init(params, batch: int, device) -> Tuple[torch.Tensor,
+                                                         torch.Tensor]:
+    """An empty decode state: (h (B, Di, N), conv tail (B, K-1, Di))."""
+    d_inner = params["conv_w"].shape[1]
+    d_state = (params["x_proj"].shape[1] - 1) // 2
+    k = params["conv_w"].shape[0]
+    return (torch.zeros((batch, d_inner, d_state), dtype=torch.float32,
+                        device=device),
+            torch.zeros((batch, k - 1, d_inner), dtype=torch.float32,
+                        device=device))
+
+
+def ssm_decode_step(params, x1: torch.Tensor, state):
+    """One-token decode: x1 (B, 1, D), state (h, tail) -> (y1 (B, 1, D),
+    the new (h, tail)).  The recurrence's one step in plain torch ops."""
+    h, tail = state
+    d_inner = params["conv_w"].shape[1]
+    x, z = (x1 @ params["in_proj"]).split(d_inner, dim=-1)   # (B, 1, Di)
+    xc = F.silu(_conv_causal(x, params["conv_w"], params["conv_b"],
+                             tail=tail))
+    new_tail = torch.cat([tail[:, 1:], x.to(tail.dtype)], dim=1)
+    dt, bmat, cmat, a = _selective_inputs(params, xc)
+    da = torch.exp(dt[:, 0, :, None] * a)                    # (B, Di, N)
+    dbx = dt[:, 0, :, None] * bmat[:, 0, None] * xc[:, 0, :, None]
+    h = da * h + dbx
+    y = torch.einsum("bdn,bn->bd", h, cmat[:, 0])[:, None]
+    y = y + xc * params["D_skip"]
+    y = y * F.silu(z)
+    return (y @ params["out_proj"]).to(x1.dtype), (h, new_tail)

@@ -1,6 +1,8 @@
 """The port's kernels against the reference package: the whole-MLP
 forward, the dense layer of training with its two backward kernels, and
-the flash-attention forward.
+the flash-attention forward; on the card also the selective scan of
+hymba's SSM branch (whose CPU route, the plain loop, is held to the
+reference in ``tests/test_torch_ssm.py``).
 
 On the CPU each wrapper takes its plain version; these tests hold that
 plain version (and the dispatch and autograd around it) to the
@@ -1017,6 +1019,8 @@ CUDA_FLASH_CASES = [
     (1, 8, 8, 129, 129, 64, True, 31, 0),
     (1, 4, 2, 300, 300, 128, True, None, 0),
     (1, 4, 1, 200, 1000, 256, False, None, 0),
+    (2, 25, 5, 4096, 4096, 64, True, None, 0),   # hymba-1.5b global
+    (2, 25, 5, 4096, 4096, 64, True, 1024, 0),   # hymba-1.5b local
 ]
 
 
@@ -1156,3 +1160,70 @@ def test_cuda_flash_function_matches_plain(case, h100, rng):
                                       return_lse=True)
     err = (lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)
     assert float(err.max()) <= 1e-5, f"{case} lse {float(err.max())}"
+
+
+#: (B, S, Di, N): the selective scan's shapes; ragged tiles of the time
+#: axis and of the channels, every state size it is built for, and
+#: hymba-1.5b's prefill layer
+CUDA_SSM_CASES = [(1, 1, 3, 4), (2, 33, 17, 8), (1, 100, 40, 16),
+                  (3, 64, 8, 32), (2, 4096, 3200, 16)]
+
+
+def _ssm_inputs(rng, b, s, di, n, device):
+    """dt, bmat, cmat, x, a, h0 at a decoder's magnitudes (dt a softplus
+    near the init's 0.01, a = -(1 .. N))."""
+    dt = np.log1p(np.exp(rng.normal(-4.6, 0.5, size=(b, s, di))))
+    a = -np.tile(np.arange(1, n + 1), (di, 1))
+    return tuple(torch.tensor(v, dtype=torch.float32, device=device)
+                 for v in (dt, rng.normal(size=(b, s, n)),
+                           rng.normal(size=(b, s, n)),
+                           rng.normal(size=(b, s, di)), a,
+                           rng.normal(size=(b, di, n)) * 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_SSM_CASES)
+def test_cuda_ssm_scan_matches_plain(case, h100, rng):
+    """ys and the final state within 1e-4·max(1, max|plain|) of the plain
+    loop, two calls the same bits, one launch a call."""
+    from repro_torch.kernels import ssm_scan as SS
+    args = _ssm_inputs(rng, *case, h100)
+    before = SS.ssm_scan.launches
+    got, again = SS.ssm_scan(*args), SS.ssm_scan(*args)
+    want = ref.ssm_scan(*args)
+    torch.cuda.synchronize()
+    assert SS.ssm_scan.launches == before + 2
+    for name, g, a, w in zip(("ys", "h"), got, again, want):
+        assert bool(torch.isfinite(g).all()), name
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-4 * scale, (case, name)
+        assert torch.equal(g, a), f"{case} {name}: two calls differ"
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_scan_has_no_backward_and_rejects_bad_input(h100, rng):
+    """A CUDA input that needs a gradient raises NotImplementedError
+    naming the ROADMAP item (never the plain loop quietly); so do an
+    unsupported state size, dtype, layout and device."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan as SS
+    args = _ssm_inputs(rng, 1, 8, 4, 4, h100)
+    live = [args[0].clone().requires_grad_(True), *args[1:]]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SS.ssm_scan(*live)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.ssm_scan(*live)
+    y, _ = ops.ssm_scan(*live, use_fused=False)     # the plain loop, asked
+    assert y.requires_grad
+    with torch.no_grad():
+        SS.ssm_scan(*live)
+    bad = _ssm_inputs(rng, 1, 8, 4, 5, h100)
+    with pytest.raises(ValueError, match="state size"):
+        SS.ssm_scan(*bad)
+    with pytest.raises(TypeError):
+        SS.ssm_scan(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):
+        SS.ssm_scan(args[0].transpose(1, 2).contiguous().transpose(1, 2),
+                    *args[1:])
+    with pytest.raises(ValueError):
+        SS.ssm_scan(args[0], args[1].cpu(), *args[2:])

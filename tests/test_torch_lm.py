@@ -23,19 +23,23 @@ from repro import configs as JC
 from repro.launch import serve as JS
 from repro.models import base as JMB
 from repro.nn import attention as JA
+from repro.nn import blocks as JB
 from repro.nn import layers as JL
+from repro.nn import ssm as JSSM
 from repro.train import step as JTS
 from repro_torch import configs as TC
 from repro_torch import convert
+from repro_torch.core import prng
 from repro_torch.launch import serve as TS
 from repro_torch.models import base as TMB
 from repro_torch.nn import attention as TA
 from repro_torch.nn import blocks as TB
 from repro_torch.nn import layers as TL
+from repro_torch.nn import ssm as TSSM
 from repro_torch.train import step as TTS
 
 PORTED = ["gemma3-1b", "stablelm-1.6b", "qwen3-14b", "deepseek-coder-33b",
-          "mixtral-8x7b", "phi3.5-moe-42b-a6.6b"]
+          "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b"]
 MODEL_TOL = dict(rtol=1e-4, atol=2e-5)
 
 
@@ -47,7 +51,7 @@ def _t(a):
 def models():
     """arch -> (reference cfg, its params, the port's cfg, converted params)."""
     out = {}
-    for arch in ("gemma3-1b", "stablelm-1.6b", "qwen3-14b"):
+    for arch in ("gemma3-1b", "stablelm-1.6b", "qwen3-14b", "hymba-1.5b"):
         m = JC.get_reduced(arch)
         jp = JMB.init_params(jax.random.PRNGKey(0), m)
         tp = convert.lm_params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
@@ -67,17 +71,11 @@ def test_configs_equal_the_reference_field_for_field(arch, which):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-small",
-                                  "xlstm-1.3b", "hymba-1.5b"])
+                                  "xlstm-1.3b"])
 def test_unported_archs_raise(arch):
     assert TC.list_archs() == JC.list_archs()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TC.get_reduced(arch)
-
-
-def test_ssm_block_raises():
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        TB.block_init(gen, TB.BlockCfg(16, 2, 2, 32, ssm_state=8), "cpu")
 
 
 def test_param_count_and_full_width_shapes():
@@ -88,7 +86,7 @@ def test_param_count_and_full_width_shapes():
     assert windows.count(None) == 4 and windows.count(1024) == 22
     jm = JC.get_reduced("gemma3-1b")
     jp = JMB.init_params(jax.random.PRNGKey(1), jm)
-    tp = TMB.init_params(torch.Generator().manual_seed(1),
+    tp = TMB.init_params(prng.prng_key(torch.tensor(1)),
                          TC.get_reduced("gemma3-1b"), "cpu")
     assert TMB.param_count(tp) == JMB.param_count(jp)
     assert jax.tree.map(lambda a: a.shape, jp) == jax.tree.map(
@@ -192,10 +190,13 @@ def test_ring_narrower_than_its_window_is_a_linear_cache(rng):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch,s", [("gemma3-1b", 64), ("gemma3-1b", 1024),
                                     ("stablelm-1.6b", 64),
-                                    ("qwen3-14b", 64)])
+                                    ("qwen3-14b", 64), ("hymba-1.5b", 64),
+                                    ("hymba-1.5b", 128)])
 def test_forward_matches_reference(arch, s, models, rng):
     """gemma3 at S = 64 (reference: unblocked) and S = 1024 (its banded
-    and full blocked paths); stablelm (MHA) and qwen3 (qk-norm, untied)."""
+    and full blocked paths); stablelm (MHA) and qwen3 (qk-norm, untied);
+    hymba (the SSM branch in every layer) at S = 64 and 128, where the
+    reference's scan takes its 64-step chunks."""
     m, jp, tm, tp = models[arch]
     toks = rng.integers(0, m.vocab, size=(2, s)).astype(np.int32)
     want = np.asarray(JMB.forward(jp, m, jnp.asarray(toks)))
@@ -219,10 +220,12 @@ def test_prefill_step_matches_reference(s, models, rng):
     np.testing.assert_allclose(got.numpy(), want, **MODEL_TOL)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen3-14b", "hymba-1.5b"])
 def test_decode_steps_match_reference(arch, models, rng):
-    """40 decode steps (gemma3's 32-slot rings wrap) with a per-lane
-    start, against the reference's jitted decode step."""
+    """40 decode steps (gemma3's and hymba's 32-slot rings wrap) with a
+    per-lane start, against the reference's jitted decode step (hymba's
+    SSM states carried in place by the port, returned by the
+    reference)."""
     m, jp, tm, tp = models[arch]
     b, cache_len = 2, 48
     jstates = JMB.init_decode_state(jp, m, b, cache_len)
@@ -271,7 +274,8 @@ def _port(m, params, prompts, slots, **kw):
     return _serve(TS, m, params, prompts, slots, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "stablelm-1.6b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "stablelm-1.6b",
+                                  "hymba-1.5b"])
 def test_engine_generates_the_reference_tokens(arch, models):
     """Five requests through two slots (three reuse a lane): the same
     tokens as the reference's ``Engine`` for every request."""
@@ -342,3 +346,102 @@ def test_lm_params_round_trip(models):
     for a, b in zip(jax.tree.leaves(jp), jax.tree.leaves(back)):
         np.testing.assert_array_equal(np.asarray(a), b)
     assert "lm_head" in back
+
+
+# ---------------------------------------------------------------------------
+# hymba: the SSM branch in the block, its decode state, the Engine's reset
+# ---------------------------------------------------------------------------
+def test_hymba_block_matches_reference(rng):
+    """One hybrid block (window 8, ssm_state 8): block_apply at S 70 and
+    six block_decode steps, state and all, against the reference's."""
+    cfg = dict(d_model=32, n_heads=4, n_kv=2, d_ff=64, window=8,
+               ssm_state=8)
+    jcfg, tcfg = JB.BlockCfg(**cfg), TB.BlockCfg(**cfg)
+    jp = JB.block_init(jax.random.PRNGKey(4), jcfg)
+    tp = convert.params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    assert tp["mix_a"].shape == () and tp["mix_s"].shape == ()
+    x = rng.normal(size=(2, 70, 32)).astype(np.float32)
+    pos = np.tile(np.arange(70), (2, 1))
+    want = JB.block_apply(jp, jnp.asarray(x), jcfg, jnp.asarray(pos))
+    got = TB.block_apply(tp, _t(x), tcfg, _t(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
+    jst = {"kv": tuple(jnp.zeros((2, 8, 2, 8)) for _ in range(2)),
+           "len": jnp.int32(0), "ssm": JSSM.ssm_decode_init(jp["ssm"], 2)}
+    tst = {"kv": tuple(torch.zeros(2, 8, 2, 8) for _ in range(2)), "len": 0,
+           "ssm": TSSM.ssm_decode_init(tp["ssm"], 2, "cpu")}
+    for t in range(6):
+        p = np.full((2, 1), t, np.int32)
+        jy, jst = JB.block_decode(jp, jnp.asarray(x[:, t:t + 1]), jcfg,
+                                  jnp.asarray(p), jst, ring=True)
+        ty, tst = TB.block_decode(tp, _t(x[:, t:t + 1]), tcfg, _t(p), tst,
+                                  ring=True)
+        np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **MODEL_TOL)
+        for a, b in zip(tst["ssm"], jst["ssm"]):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), **MODEL_TOL)
+    assert tst["len"] == 6
+
+
+def test_hymba_decode_matches_prefill(models, rng):
+    """Decoding a prompt token by token (the SSM's one-step update and
+    decode attention) ends on the prefill step's last-position logits
+    (the scan and full attention): hymba's decode is its prefill."""
+    m, _, tm, tp = models["hymba-1.5b"]
+    toks = rng.integers(0, m.vocab, size=(2, 30)).astype(np.int64)
+    states = TMB.init_decode_state(tp, tm, 2, 64)
+    h = states[1][0]["ssm"][0]
+    assert h.shape == (tm.segments[1].repeats, 2, 128, 8)
+    for pos in range(30):
+        logits, states = TMB.decode_step(tp, tm, _t(toks[:, pos:pos + 1]),
+                                         pos, states)
+    assert states[1][0]["ssm"][0] is h and bool(h.abs().sum() > 0)
+    want = TTS.make_prefill_step(tm)(tp, {"tokens": _t(toks)})
+    np.testing.assert_allclose(logits[:, 0].numpy(), want.numpy(),
+                               **MODEL_TOL)
+
+
+def test_reused_hymba_lane_matches_fresh_engine(models):
+    """A request decoded in a reused lane, on top of the previous
+    occupant's SSM state (reset on admission) and KV (masked), emits a
+    fresh engine's tokens; without the reset it would not."""
+    _, _, tm, tp = models["hymba-1.5b"]
+    rng = np.random.default_rng(0)
+    p1 = rng.integers(0, tm.vocab, size=12).tolist()
+    p2 = rng.integers(0, tm.vocab, size=9).tolist()
+    reused = _port(tm, tp, [p1, p2], 1)
+    assert reused[1] == _port(tm, tp, [p2], 1)[0]
+    assert reused[0] == _port(tm, tp, [p1], 1)[0]
+
+
+def test_hymba_engine_resets_only_the_admitted_lane(models):
+    _, _, tm, tp = models["hymba-1.5b"]
+    eng = TS.Engine(tm, tp, 2, 64, device="cpu")
+    for r in range(2):
+        eng.submit(TS.Request(rid=r, prompt=[1, 2, 3], max_new=2))
+    eng.step()
+    h = eng.states[0][0]["ssm"][0]
+    assert bool(h[:, 0].abs().sum() > 0) and bool(h[:, 1].abs().sum() > 0)
+    lane1 = h[:, 1].clone()
+    TS._reset_recurrent_lane(eng.states, eng._fresh_recurrent, tm, 0)
+    assert bool((h[:, 0] == 0).all()) and torch.equal(h[:, 1], lane1)
+    assert all(st["ssm"][1] is not None for seg in eng.states for st in seg)
+
+
+def test_serve_main_serves_hymba_on_the_cpu(capsys):
+    assert TS.main(["--arch", "hymba-1.5b", "--device", "cpu", "--requests",
+                    "3", "--slots", "2", "--max-new", "4"]) == 0
+    assert "arch=hymba-reduced requests=3/3" in capsys.readouterr().out
+
+
+def test_hymba_params_round_trip(models):
+    """Hymba's tree, the 0-d mix leaves stacked to (repeats,), carried
+    to numpy and back, leaf for leaf."""
+    _, jp, _, tp = models["hymba-1.5b"]
+    back = convert.lm_params_to_numpy(tp)
+    assert back["segments"][1][0]["mix_a"].shape == (
+        TC.get_reduced("hymba-1.5b").segments[1].repeats,)
+    for a, b in zip(jax.tree.leaves(jp), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+    again = convert.lm_params_to_numpy(convert.lm_params_from_numpy(back,
+                                                                   "cpu"))
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(again)):
+        np.testing.assert_array_equal(a, b)

@@ -33,6 +33,7 @@ from repro.optim import schedule as JSCH
 from repro.train import step as JTS
 from repro_torch import configs as TC
 from repro_torch import convert
+from repro_torch.core import prng
 from repro_torch.data import synthetic as TD
 from repro_torch.kernels import ops as TOPS
 from repro_torch.launch import train as TLT
@@ -44,7 +45,8 @@ from repro_torch.optim import schedule as TSCH
 from repro_torch.optim import tree_leaves
 from repro_torch.train import step as TTS
 
-PORTED = ["gemma3-1b", "stablelm-1.6b", "qwen3-14b", "deepseek-coder-33b"]
+PORTED = ["gemma3-1b", "stablelm-1.6b", "qwen3-14b", "deepseek-coder-33b",
+          "hymba-1.5b"]
 
 
 def _t(a):
@@ -344,7 +346,7 @@ def test_embedding_gradient_is_the_same_twice(rng):
 def test_train_step_reduces_loss(arch):
     """The twin of tests/test_archs.py's: 8 steps on one batch, lr 3e-3."""
     m = TC.get_reduced(arch)
-    params = TMB.init_params(torch.Generator().manual_seed(0), m, "cpu")
+    params = TMB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
     step, optim = TTS.make_train_step(m, lr=3e-3, remat=False)
     opt = optim.init(params)
     g = torch.Generator().manual_seed(0)

@@ -29,6 +29,7 @@ from repro.nn import moe as JM
 from repro.train import step as JTS
 from repro_torch import configs as TC
 from repro_torch import convert
+from repro_torch.core import prng
 from repro_torch.kernels import ref as TR
 from repro_torch.launch import serve as TS
 from repro_torch.models import base as TMB
@@ -41,6 +42,10 @@ MODEL_TOL = dict(rtol=1e-4, atol=2e-5)
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+def _key(seed: int) -> torch.Tensor:
+    return prng.prng_key(torch.tensor(seed))
 
 
 def _close(got, want, name, tol=1e-5):
@@ -108,14 +113,14 @@ class _Routes:
 # configs
 # ---------------------------------------------------------------------------
 def test_moe_init_has_the_reference_layout_and_scales():
+    """The same key gives the reference's leaves, bit for bit."""
     jp = JM.moe_init(jax.random.PRNGKey(0), 8, 64, 96)
-    tp = TM.moe_init(torch.Generator().manual_seed(0), 8, 64, 96, "cpu")
+    tp = TM.moe_init(_key(0), 8, 64, 96, "cpu")
     assert {k: tuple(v.shape) for k, v in tp.items()} == \
         {k: v.shape for k, v in jp.items()}
     for k in jp:
         assert tp[k].dtype == torch.float32
-        np.testing.assert_allclose(float(tp[k].std()),
-                                   float(np.asarray(jp[k]).std()), rtol=0.05)
+        np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +219,7 @@ def test_moe_with_drops_is_the_oracle_on_its_kept_assignments(layer):
 # the reference's three MoE tests (tests/test_substrate.py), on the port
 def test_moe_matches_dense_oracle_when_capacity_sufficient(rng):
     x = _t(rng.normal(size=(32, 16)).astype(np.float32))
-    p = TM.moe_init(torch.Generator().manual_seed(0), 4, 16, 32, "cpu")
+    p = TM.moe_init(_key(0), 4, 16, 32, "cpu")
     idx, w = TM.route_topk(x @ p["router"], 2)
     got = TM.moe_apply(p, x, top_k=2, capacity_factor=8.0)
     want = TR.moe_dispatch_ffn(x, p["w_gate"], p["w_up"], p["w_down"], idx, w)
@@ -224,14 +229,14 @@ def test_moe_matches_dense_oracle_when_capacity_sufficient(rng):
 
 def test_moe_capacity_drops_are_partial_not_nan(rng):
     x = _t(rng.normal(size=(64, 16)).astype(np.float32))
-    p = TM.moe_init(torch.Generator().manual_seed(1), 4, 16, 32, "cpu")
+    p = TM.moe_init(_key(1), 4, 16, 32, "cpu")
     y = TM.moe_apply(p, x, top_k=2, capacity_factor=0.25)
     assert not bool(torch.isnan(y).any())
 
 
 def test_moe_aux_loss_bounds(rng):
     x = _t(rng.normal(size=(128, 16)).astype(np.float32))
-    p = TM.moe_init(torch.Generator().manual_seed(2), 8, 16, 32, "cpu")
+    p = TM.moe_init(_key(2), 8, 16, 32, "cpu")
     _, aux = TM.moe_apply(p, x, top_k=2, aux_loss=True)
     assert float(aux) >= 1.0 - 1e-3
 
@@ -261,7 +266,7 @@ def test_moe_gradient_matches_reference(cf, layer):
 def test_moe_gradient_is_the_same_twice(rng):
     """No gradient of the layer is summed by atomic adds: two backward
     passes give the same bits (8192 tokens, drops included)."""
-    p = TM.moe_init(torch.Generator().manual_seed(4), 8, 64, 96, "cpu")
+    p = TM.moe_init(_key(4), 8, 64, 96, "cpu")
     x = _t(rng.normal(size=(8192, 64)).astype(np.float32))
     gy = _t(rng.normal(size=(8192, 64)).astype(np.float32))
     live = {k: v.requires_grad_(True) for k, v in p.items()}

@@ -41,7 +41,8 @@ def test_port_files_are_found():
     assert "src/repro_torch/core/train.py" in names
     assert "src/repro_torch/optim/adamw.py" in names
     assert "src/repro_torch/core/dse_api.py" in names
-    for mod in ("kernels/flash_attention", "kernels/ops", "nn/attention",
+    for mod in ("kernels/flash_attention", "kernels/ssm_scan", "nn/ssm",
+                "configs/hymba_1_5b", "kernels/ops", "nn/attention",
                 "nn/blocks", "models/base", "models/builders",
                 "configs/__init__", "configs/gemma3_1b", "train/step",
                 "launch/serve", "convert", "baselines/mlp", "baselines/sa",
@@ -111,10 +112,11 @@ def test_train_gan_defaults_to_the_card(monkeypatch):
 
 def test_engine_defaults_to_the_card(monkeypatch):
     from repro_torch import configs
+    from repro_torch.core import prng
     from repro_torch.launch.serve import Engine
     from repro_torch.models import base as MB
     m = configs.get_reduced("gemma3-1b")
-    params = MB.init_params(torch.Generator().manual_seed(0), m, "cpu")
+    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(m, params, 2, 64)
