@@ -13,7 +13,7 @@ these runs on the 3xTF32 tensor-core tile, so each is also held to a
 float64 product.  ptxas's report of the four sources is checked for
 spills in every instantiation of their tensor-core kernels (the flash
 kernel's 20: 10 with the lse store, 10 without) and of the selective
-scan (4).  Then, with
+scan's forward (4) and backward (4).  Then, with
 the paper's G and D (11 x 2048, batch 1024, random weights from fixed
 seeds):
 
@@ -96,11 +96,13 @@ Then LM training (phases i-k):
   each row's log-sum-exp, ``_flash_custom``'s backward in torch ops) at
   stablelm-1.6b's layer (2 x 2048, 32 heads of 64), gemma3-1b's global
   and local layers (1 x 4096, 4 heads of 256 on one kv head, window
-  1024) and mixtral-8x7b's (1 x 2048, 32 heads of 128 on 8, window 4096),
-  float32: out the same bits with and without lse, lse to the
-  plain version's, out and the three gradients against float64 autograd
-  (at most 4x the plain route's error), the same bits twice; the forward
-  with and without lse, the backward, SDPA's forward and backward timed;
+  1024), mixtral-8x7b's (1 x 2048, 32 heads of 128 on 8, window 4096)
+  and hymba-1.5b's global and local layers (2 x 2048, 25 heads of 64 on
+  5, window 1024 on the local), float32: out the same bits with and
+  without lse, lse to the plain version's, out and the three gradients
+  against float64 autograd (at most 4x the plain route's error), the
+  same bits twice; the forward with and without lse, the backward,
+  SDPA's forward and backward timed;
 - j. stablelm-1.6b at full width (24 layers, d 2048, d_ff 5632, vocab
   100352, float32 from seed 0), batch 2 x 2048 from ``SyntheticStream``:
   one block against float64; the kernel route's loss and gradients
@@ -161,6 +163,28 @@ first):
   the first wave's prompt held to the full-sequence forward at that
   position through the kernels and through the plain pieces; ms a step,
   a decode step profiled.
+
+Then hymba-1.5b training (phase n, on phase m's params):
+
+- n1. the scan's backward kernel (``ssm_scan_bwd_f32``) at the train
+  step's layer shape (2, 2048, 3200, 16) and the prefill's (2, 4096,
+  ...), on a layer's own inputs and a random dys, from the forward
+  kernel's chunk states: within TOL·scale of its plain version
+  (``ref.ssm_scan_bwd``) and of torch's autograd of the plain loop, the
+  same bits twice, within 4x the plain autograd's float64 error plus
+  1e-6·scale; timed beside its bound, the forward with and without its
+  chunk states beside it;
+- n2. one gradient of the whole model on ``SyntheticStream``'s batch 0
+  at 2 x 2048: the kernel route (32 flash launches with lse, 32 scan
+  forwards, 32 scan backwards, asserted) the same bits twice and against
+  the plain route (``use_fused=False``, remat): the loss within 1e-5,
+  each leaf within 1e-3 of its norm;
+- n3. ``make_train_step`` (no remat): one warm step and LM_TRAIN_STEPS
+  timed, the launches of n2 a step (asserted), tokens/s beside the bound
+  (``lm_train_bound_ms`` with the scans'), the peak memory, a profiled
+  step;
+- n4. ``launch/train.main`` at the reduced hymba config, 12 steps, once
+  whole and once failing at step 7: its losses equal the whole run's.
 
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
@@ -293,6 +317,8 @@ FLASH_GRAD_SHAPES = {
     "gemma3 global 1x4x4096x256 kv1": (1, 4, 1, 4096, 256, None),
     "gemma3 local 1x4x4096x256 kv1 w1024": (1, 4, 1, 4096, 256, 1024),
     "mixtral 1x32x2048x128 kv8 w4096": (1, 32, 8, 2048, 128, 4096),
+    "hymba global 2x25x2048x64 kv5": (2, 25, 5, 2048, 64, None),
+    "hymba local 2x25x2048x64 kv5 w1024": (2, 25, 5, 2048, 64, 1024),
 }
 #: launch/train at the reduced stablelm config, restarted once at step 7
 LAUNCHER_ARGV = ["--arch", LM_TRAIN_ARCH, "--steps", "12", "--batch", "8",
@@ -311,6 +337,13 @@ MOE_TRAIN_STEPS = 3          # timed, after one warm step
 #: of 64, the SSM branch in every layer), float32 from seed 0: prefill at
 #: PREFILL, the Engine at SERVE
 HYMBA_ARCH = "hymba-1.5b"
+#: phase n: hymba-1.5b training at full width on phase m's params, at
+#: stablelm's cell (LM_TRAIN, LM_TRAIN_STEPS timed steps, no remat: the
+#: peak fits); the scan's backward alone at the train step's and the
+#: prefill's layer shapes; the launcher at the reduced config, restarted
+#: once at step 7
+SSM_BWD_SHAPES = {"train step": LM_TRAIN, "prefill": PREFILL}
+HYMBA_LAUNCHER_ARGV = ["--arch", HYMBA_ARCH] + LAUNCHER_ARGV[2:]
 #: seconds of each LM's ``init_params`` on the card, by label
 INIT_S: dict = {}
 
@@ -368,6 +401,7 @@ def zero_counts() -> None:
     fa.flash_attention.launches = 0
     fa.flash_attention.lse_launches = 0
     ss.ssm_scan.launches = 0
+    ss.ssm_scan_bwd.launches = 0
     for wrapper, _ in DENSE_KERNELS.values():
         wrapper.launches = 0
 
@@ -376,7 +410,8 @@ def counts() -> dict:
     out = {"mlp_forward_f32": fm.fused_mlp.launches,
            "flash_attention_f32": fa.flash_attention.launches,
            "flash_attention_f32 with lse": fa.flash_attention.lse_launches,
-           "ssm_scan_f32": ss.ssm_scan.launches}
+           "ssm_scan_f32": ss.ssm_scan.launches,
+           "ssm_scan_bwd_f32": ss.ssm_scan_bwd.launches}
     out.update({name: w.launches for name, (w, _) in DENSE_KERNELS.items()})
     return out
 
@@ -394,20 +429,22 @@ def build_all() -> None:
         print(str(info["log"]).strip(), flush=True)
 
 
-#: the tensor-core kernel of each source, whose instantiations ptxas must
-#: not spill, and how many there are
-SPILL_CHECKS = {"dense_train.cu": ("gemm_3xtf32_kernel", 12),
-                "mlp_forward.cu": ("gemm_3xtf32_kernel", 12),
-                "flash_attention.cu": ("flash_fwd_kernel", 20),
-                "ssm_scan.cu": ("ssm_scan_kernel", 4)}
+#: the tensor-core kernel of each source, and the selective scan's two,
+#: whose instantiations ptxas must not spill, and how many there are
+SPILL_CHECKS = (("dense_train.cu", "gemm_3xtf32_kernel", 12),
+                ("mlp_forward.cu", "gemm_3xtf32_kernel", 12),
+                ("flash_attention.cu", "flash_fwd_kernel", 20),
+                ("ssm_scan.cu", "ssm_scan_kernel", 4),
+                ("ssm_scan.cu", "ssm_scan_bwd_kernel", 4))
 
 
 def check_spills() -> dict:
     """ptxas's report (-Xptxas -v) for each instantiation of the
     tensor-core kernel in each source that holds it, and of the selective
-    scan (one per state size): registers and no spill stores or loads."""
+    scan's forward and backward (one per state size each): registers and
+    no spill stores or loads."""
     out = {}
-    for source, (kernel, count) in SPILL_CHECKS.items():
+    for source, kernel, count in SPILL_CHECKS:
         log = str(build.build_info[source]["log"])
         if not log:
             print(f"{source} was loaded from an earlier build: no ptxas "
@@ -432,7 +469,7 @@ def check_spills() -> dict:
         print(f"{kernel} in {source}: {len(found)} instantiations, "
               f"registers {sorted(v.get('registers') for v in found.values())}"
               ", no spills", flush=True)
-        out[source] = found
+        out[f"{source} {kernel}"] = found
     return out
 
 
@@ -763,6 +800,8 @@ def step_bound_ms(cfg, model) -> float:
 #: device-time groups of a profile, by kernel name (the first that matches)
 PROFILE_GROUPS = (("flash_fwd_kernel", "flash_fwd_kernel"),
                   ("ssm_scan_kernel", "ssm_scan_kernel"),
+                  ("ssm_scan_bwd_kernel", "ssm_scan_bwd_kernel"),
+                  ("sum_parts_kernel", "ssm_scan_bwd_kernel"),
                   ("gemm", "gemm (cuBLAS, and the 3xTF32 tile)"),
                   ("double", "float64 elementwise"),
                   ("copy", "copies"))
@@ -2193,12 +2232,17 @@ def lm_train_batch(m, step: int, shape=LM_TRAIN) -> dict:
 def lm_train_bound_ms(m, n_params: int) -> float:
     """Least time of a train step at the float32 peak (67 TFLOP/s, TF32
     off): 6·N·tokens, plus attention's 12·D flops (4 forward, 8 backward)
-    per kept (query, key) pair and head."""
+    per kept (query, key) pair and head; plus, for each SSM layer, the
+    selective scan's forward and backward bounds (bytes)."""
     b, s = LM_TRAIN
     attn = sum(seg.repeats * 12 * sp.cfg.dh * sp.cfg.n_heads * b
                * kept_pairs(s, s, True, sp.cfg.window, 0)
                for seg in m.segments for sp in seg.pattern)
-    return 1e3 * (6 * n_params * b * s + attn) / PEAK_F32_FLOPS
+    scans = sum(seg.repeats * (
+        ssm_bound_ms(b, s, 2 * m.d_model, sp.cfg.ssm_state)[0]
+        + ssm_bwd_bound_ms(b, s, 2 * m.d_model, sp.cfg.ssm_state)[0])
+        for seg in m.segments for sp in seg.pattern if sp.cfg.ssm_state)
+    return 1e3 * (6 * n_params * b * s + attn) / PEAK_F32_FLOPS + scans
 
 
 @contextlib.contextmanager
@@ -2338,12 +2382,14 @@ def check_lm_train() -> dict:
     return out
 
 
-def drive_lm_launcher() -> dict:
-    """Phase k: ``launch/train.main`` on the card at the reduced stablelm
-    config (LAUNCHER_ARGV) twice, each into a checkpoint directory of its
-    own: uninterrupted, and with ``--simulate-failure-at 7``, which fails
-    once, restarts, resumes from step 4's checkpoint and replays steps
-    5-12.  The two histories' losses equal, step for step."""
+def drive_lm_launcher(argv=LAUNCHER_ARGV, label: str = "lm launcher",
+                      kernels=("flash_attention_f32 with lse",)) -> dict:
+    """Phase k (and n4): ``launch/train.main`` on the card at a reduced
+    config (`argv`: stablelm's, LAUNCHER_ARGV) twice, each into a
+    checkpoint directory of its own: uninterrupted, and with
+    ``--simulate-failure-at 7``, which fails once, restarts, resumes from
+    step 4's checkpoint and replays steps 5-12.  The two histories' losses
+    equal, step for step; each run launched each of `kernels`."""
     runs = {}
     with tempfile.TemporaryDirectory(prefix="lm_train_") as tmp:
         for name, extra in (("whole", []),
@@ -2353,7 +2399,7 @@ def drive_lm_launcher() -> dict:
             zero_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(log):
-                rc = LT.main(LAUNCHER_ARGV + extra + [
+                rc = LT.main(argv + extra + [
                     "--ckpt-dir", os.path.join(tmp, name),
                     "--history-out", hist])
             torch.cuda.synchronize()
@@ -2372,10 +2418,11 @@ def drive_lm_launcher() -> dict:
     assert whole["losses"] == again["losses"], (whole["losses"],
                                                 again["losses"])
     for r in runs.values():
-        assert r["launches"]["flash_attention_f32 with lse"] > 0, r
+        for key in kernels:
+            assert r["launches"][key] > 0, (key, r)
     out = {name: {k: v for k, v in r.items() if k != "log"}
            for name, r in runs.items()}
-    print("lm launcher: " + json.dumps(out), flush=True)
+    print(f"{label}: " + json.dumps(out), flush=True)
     return out
 
 
@@ -2656,6 +2703,31 @@ def ssm_bound_ms(b: int, s: int, di: int, n: int) -> tuple:
     return bound(*ssm_work(b, s, di, n))
 
 
+def ssm_bwd_work(b: int, s: int, di: int, n: int) -> tuple:
+    """Bytes the scan's backward must move (dt, x, dys, bmat, cmat, a and
+    the (B, ⌈S/64⌉, Di, N) chunk states read once; d_dt, d_x, d_bmat,
+    d_cmat, d_a and d_h0 written once), the bytes of the kernel's partial
+    sums over its blocks of 256 / N channels (written, then read), and its
+    float32 operations at each (b, t, d, n): the state again (6, as the
+    forward's), and the adjoint's 20 (g's fused multiply-add, exp(dt·a),
+    its product with h, g·dt, d_a's fused multiply-add, d_dt's term (4)
+    and sum, d_x's product and sum, d_b's and d_c's products and sums, the
+    carry): 26, an exponential counted as one."""
+    nc = ss.n_chunks(s)
+    n_bytes = 4 * (5 * b * s * di + 4 * b * s * n + 2 * di * n
+                   + b * nc * di * n + b * di * n)
+    blocks = -(-di // (256 // n))
+    partials = 4 * 2 * (2 * b * blocks * s * n + b * di * n)
+    return n_bytes, partials, 26 * b * s * di * n
+
+
+def ssm_bwd_bound_ms(b: int, s: int, di: int, n: int) -> tuple:
+    """Least time of the scan's backward: its bytes over HBM against its
+    operations at the float32 SIMT peak."""
+    n_bytes, _, ops_ = ssm_bwd_work(b, s, di, n)
+    return bound(n_bytes, ops_)
+
+
 def hymba_model():
     """Phase m0: HYMBA_ARCH at full width, ``init_params(prng_key(0))`` on
     the card (timed), its bits held to the CPU's draw
@@ -2737,12 +2809,12 @@ def check_init_bits(m, params, seed: int = 0, sample: int = 1 << 14
                 counters_compared=counters)
 
 
-def ssm_scan_inputs(m, params, seed: int = 17) -> tuple:
-    """The selective scan's inputs at the prefill's shape from layer 0 of
-    the first local segment: a random (B, S, D) hidden state, RMS-normed,
-    through that layer's in_proj, conv, SiLU and (dt, B, C) projections,
-    as ``nn/ssm.ssm_scan`` forms them; h0 zeros."""
-    b, s = PREFILL
+def ssm_scan_inputs(m, params, seed: int = 17, shape=PREFILL) -> tuple:
+    """The selective scan's inputs at `shape` (batch x seq; the prefill's)
+    from layer 0 of the first local segment: a random (B, S, D) hidden
+    state, RMS-normed, through that layer's in_proj, conv, SiLU and (dt,
+    B, C) projections, as ``nn/ssm.ssm_scan`` forms them; h0 zeros."""
+    b, s = shape
     p = MB._layer(params["segments"][1][0]["ssm"], 0)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     h = L.rmsnorm_apply({"scale": torch.ones(m.d_model, device="cuda")},
@@ -2830,6 +2902,186 @@ def drive_hymba_serve(m, params) -> dict:
                    tol=min(x["tol"] for x in e))
                   for route, e in errs.items()})
     print("hymba serve: " + json.dumps(out), flush=True)
+    return out
+
+
+def check_ssm_bwd(m, params) -> dict:
+    """Phase n1: the scan's backward kernel (``ssm_scan_bwd_f32``) at
+    SSM_BWD_SHAPES on a hymba layer's own inputs and a random dys (the
+    final state's cotangent None, as in the model), from the forward
+    kernel's chunk states: within TOL·scale of its plain version
+    (``ref.ssm_scan_bwd`` on the plain loop's chunk states) and of torch's
+    autograd of the plain loop, the same bits twice, no further from a
+    float64 autograd of the plain loop than 4x the plain float32
+    autograd's error plus 1e-6·scale.  CUDA-event medians of the
+    backward, of the forward with and without its chunk states, and of
+    the plain backward, beside the bound.  No single PyTorch call
+    computes a selective scan's backward (library: none)."""
+    rows = {}
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for label, shape in SSM_BWD_SHAPES.items():
+        args = ssm_scan_inputs(m, params, shape=shape)
+        b, s, di = args[0].shape
+        n = args[4].shape[1]
+        dys = torch.randn(b, s, di, generator=gen, device="cuda")
+        _, _, h_chunks = ss.ssm_scan_fwd(*args)
+        got = ss.ssm_scan_bwd(*args[:5], h_chunks, dys)
+        again = ss.ssm_scan_bwd(*args[:5], h_chunks, dys)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        assert same, f"ssm_scan_bwd {label}: two calls differ"
+        del again
+        _, _, plain_chunks = ref.ssm_scan(*args, boundaries=True)
+        plain = ref.ssm_scan_bwd(*args[:5], plain_chunks, dys)
+        err = max(_hold(f"ssm_scan_bwd {label} {k} vs its plain version",
+                        x, y) for k, x, y in zip(
+                            ("d_dt", "d_bmat", "d_cmat", "d_x", "d_a",
+                             "d_h0"), got, plain))
+        del plain, plain_chunks
+
+        def autograd(dtype):
+            return _vjp(lambda *t: ref.ssm_scan(*t)[0],
+                        [t.to(dtype) for t in args], dys.to(dtype))[1:]
+
+        want = autograd(torch.float32)
+        err_autograd = max(_hold(f"ssm_scan_bwd {label} vs autograd", x, y)
+                           for x, y in zip(got, want))
+        exact = autograd(torch.float64)
+        row = dict(shape=[b, s, di, n], max_abs_err=err,
+                   max_abs_err_vs_autograd=err_autograd,
+                   tol=TOL * max(1.0, max(float(w.abs().max())
+                                          for w in want)),
+                   same_bits=same,
+                   **float64_errors(f"ssm_scan_bwd {label}", got, want,
+                                    exact))
+        del got, want, exact
+        n_bytes, partials, ops_ = ssm_bwd_work(b, s, di, n)
+        bnd, by = ssm_bwd_bound_ms(b, s, di, n)
+        row.update(
+            ms=cuda_ms(lambda: ss.ssm_scan_bwd(*args[:5], h_chunks, dys)),
+            fwd_chunks_ms=cuda_ms(lambda: ss.ssm_scan_fwd(*args)),
+            fwd_ms=cuda_ms(lambda: ss.ssm_scan_fwd(*args, boundaries=False)),
+            plain_ms=cuda_ms(lambda: ref.ssm_scan_bwd(*args[:5], h_chunks,
+                                                      dys), reps=3, warmup=1),
+            bound_ms=bnd, bound_by=by, library_ms=None, bytes=n_bytes,
+            operations=ops_, partials_bytes=partials,
+            bound_with_partials_ms=1e3 * (n_bytes + partials)
+            / PEAK_HBM_BYTES,
+            fwd_bound_ms=ssm_bound_ms(b, s, di, n)[0],
+            exp_bound_ms=1e3 * 2 * b * s * di * n / SFU_EXP_PER_S)
+        rows[label] = row
+        print(f"ssm_scan_bwd_f32 {label}: " + json.dumps(row), flush=True)
+        del args, dys, h_chunks
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_hymba_grad(m, params) -> dict:
+    """Phase n2: one gradient of hymba at full width on SyntheticStream's
+    batch 0 at LM_TRAIN: the kernel route (no remat: flash with lse, the
+    scan's forward and backward kernels; its launches counted from zero)
+    twice, the same bits, and against the plain route
+    (``use_fused=False``, ``remat=True``: the plain attention and the
+    plain loop under autograd) from the same state: the loss within 1e-5
+    relative, each leaf within 1e-3 of its norm; the peak memory of the
+    kernel route's gradient."""
+    batch0 = lm_train_batch(m, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    loss_k, g_k = TS.loss_and_grads(m, params, batch0)
+    torch.cuda.synchronize()
+    grads_ms = 1e3 * (time.perf_counter() - t0)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_ssm = sum(seg.repeats for seg in m.segments for sp in seg.pattern
+                if sp.cfg.ssm_state)
+    assert launches["flash_attention_f32 with lse"] == m.n_layers, launches
+    assert launches["ssm_scan_f32"] == launches["ssm_scan_bwd_f32"] == \
+        n_ssm, launches
+    loss_2, g_2 = TS.loss_and_grads(m, params, batch0)
+    same = bool(torch.equal(loss_k, loss_2)) and all(
+        torch.equal(a, b_) for a, b_ in zip(tree_leaves(g_k),
+                                            tree_leaves(g_2)))
+    assert same, "two backward passes of the kernel route differ"
+    del g_2
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_p, g_p = TS.loss_and_grads(m, params, batch0, remat=True,
+                                    use_fused=False)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    assert np.isfinite(loss_k), loss_k
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), (loss_k, loss_p)
+    errs = [_norm_err(a, b_) for a, b_ in zip(tree_leaves(g_k),
+                                              tree_leaves(g_p))]
+    assert max(errs) <= 1e-3, f"gradient leaf {int(np.argmax(errs))}: " \
+        f"{max(errs)} of its norm from the plain route's"
+    out = dict(loss=loss_k, plain_loss=loss_p,
+               max_grad_norm_err_vs_plain=max(errs), n_grad_leaves=len(errs),
+               grads_same_bits_twice=same, launches=launches,
+               remat=False, grads_ms=grads_ms,
+               plain_grads_remat_ms=plain_ms,
+               grads_max_memory_allocated_gb=peak / 1e9)
+    print("hymba grad: " + json.dumps(out), flush=True)
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_hymba_train(m, params) -> dict:
+    """Phase n3: ``make_train_step(remat=False)`` on hymba at full
+    width, batch LM_TRAIN of SyntheticStream: one warm step and
+    LM_TRAIN_STEPS timed ones (host clock ended by a synchronize), their
+    launches counted from zero (a flash launch with lse an attention
+    layer, a scan forward and a scan backward an SSM layer, a step), the
+    peak memory, one more step profiled; the bound is
+    ``lm_train_bound_ms`` (the scans' bounds in).  Updates `params` in
+    place."""
+    n_params = MB.param_count(params)
+    step, optim = TS.make_train_step(m, remat=False)
+    opt = optim.init(params)
+    params, opt, met = step(params, opt, lm_train_batch(m, 0))   # warm
+    losses = [float(met["loss"])]
+    batches = [lm_train_batch(m, i) for i in range(1, LM_TRAIN_STEPS + 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for b_ in batches[:LM_TRAIN_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, b_)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(met["loss"]))
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert np.isfinite(losses).all(), losses
+    n_ssm = sum(seg.repeats for seg in m.segments for sp in seg.pattern
+                if sp.cfg.ssm_state)
+    for key, want in (("flash_attention_f32", m.n_layers),
+                      ("flash_attention_f32 with lse", m.n_layers),
+                      ("ssm_scan_f32", n_ssm), ("ssm_scan_bwd_f32", n_ssm)):
+        assert launches[key] == want * LM_TRAIN_STEPS, (key, launches)
+    ms = statistics.median(times)
+    out = dict(
+        arch=m.name, n_params=n_params, batch=list(LM_TRAIN),
+        remat=False, losses=losses, step_ms=times,
+        ms_per_step=ms, tokens_per_s=LM_TRAIN[0] * LM_TRAIN[1] / (ms / 1e3),
+        bound_ms_per_step=lm_train_bound_ms(m, n_params),
+        launches=launches,
+        launches_per_step={k: v / LM_TRAIN_STEPS for k, v in launches.items()
+                           if v},
+        max_memory_allocated_gb=peak / 1e9,
+        profile=profile_step(lambda: step(params, opt, batches[-1]), ()))
+    out["device_launches_per_step"] = out["profile"]["device_launches"]
+    print("hymba train: " + json.dumps(out), flush=True)
+    del opt, batches
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2975,7 +3227,20 @@ def main() -> int:
     ssm = check_ssm_scan(m, params)
     hymba_prefill = drive_prefill(m, params, "hymba prefill")
     hymba_serve = drive_hymba_serve(m, params)
+
+    # phase n: hymba-1.5b training on phase m's params (the train step
+    # updates them in place, so it runs last); the gradient's, the train
+    # steps' and the launcher's counts zeroed just before each (inside
+    # check_hymba_grad, check_hymba_train and drive_lm_launcher)
+    ssm_bwd = check_ssm_bwd(m, params)
+    hymba_grad = check_hymba_grad(m, params)
+    hymba_train = check_hymba_train(m, params)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    hymba_launcher = drive_lm_launcher(
+        HYMBA_LAUNCHER_ARGV, "hymba launcher",
+        ("flash_attention_f32 with lse", "ssm_scan_f32", "ssm_scan_bwd_f32"))
     print("init seconds on the card: " + json.dumps(INIT_S), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here",
           flush=True)
@@ -3049,12 +3314,16 @@ def main() -> int:
             "moe_train_steps":
                 moe_train["launches"]["flash_attention_f32"],
             "hymba_prefill": hymba_prefill["launches"]["flash_attention_f32"],
-            "hymba_engine": hymba_serve["launches"]["flash_attention_f32"]},
+            "hymba_engine": hymba_serve["launches"]["flash_attention_f32"],
+            "hymba_train_steps":
+                hymba_train["launches"]["flash_attention_f32"]},
         "lse_launches_by_path": {
             "lm_train_steps":
                 lm_train["launches"]["flash_attention_f32 with lse"],
             "moe_train_steps":
                 moe_train["launches"]["flash_attention_f32 with lse"],
+            "hymba_train_steps":
+                hymba_train["launches"]["flash_attention_f32 with lse"],
             "lm_launcher": {k: r["launches"]["flash_attention_f32 with lse"]
                             for k, r in lm_launcher.items()}},
         "lse": {label: {k: r[k] for k in (
@@ -3082,7 +3351,34 @@ def main() -> int:
                                "plain_max_abs_err_f64")},
         "launches_by_path": {
             "hymba_prefill": hymba_prefill["launches"]["ssm_scan_f32"],
-            "hymba_engine": hymba_serve["launches"]["ssm_scan_f32"]},
+            "hymba_engine": hymba_serve["launches"]["ssm_scan_f32"],
+            "hymba_gradient": hymba_grad["launches"]["ssm_scan_f32"],
+            "hymba_train_steps": hymba_train["launches"]["ssm_scan_f32"],
+            "hymba_launcher": {k: r["launches"]["ssm_scan_f32"]
+                               for k, r in hymba_launcher.items()}},
+        "with_chunk_states_ms": {label: r["fwd_chunks_ms"]
+                                 for label, r in ssm_bwd.items()},
+    }, {
+        "name": "ssm_scan_bwd_f32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/nn/ssm.py:ssm_scan (XLA's autodiff of its "
+                    "jax.checkpoint-ed inner lax.scan, ssm.py:94-102; no "
+                    "Pallas kernel)",
+        "launches": hymba_train["launches"]["ssm_scan_bwd_f32"],
+        "max_abs_err": max(r["max_abs_err"] for r in ssm_bwd.values()),
+        **{k: ssm_bwd["train step"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_with_partials_ms", "exp_bound_ms", "shape",
+            "max_abs_err_f64", "plain_max_abs_err_f64")},
+        "shapes": {label: r for label, r in ssm_bwd.items()
+                   if label != "train step"},
+        "launches_by_path": {
+            "hymba_gradient": hymba_grad["launches"]["ssm_scan_bwd_f32"],
+            "hymba_train_steps":
+                hymba_train["launches"]["ssm_scan_bwd_f32"],
+            "hymba_launcher": {k: r["launches"]["ssm_scan_bwd_f32"]
+                               for k, r in hymba_launcher.items()}},
     }]}
     if args.out:
         with open(args.out, "w") as fh:
@@ -3101,7 +3397,9 @@ def main() -> int:
                        "moe_serve": moe_serve, "moe_train": moe_train,
                        "hymba_init": hymba_init, "ssm_scan": ssm,
                        "hymba_prefill": hymba_prefill,
-                       "hymba_serve": hymba_serve, "init_s": INIT_S,
+                       "hymba_serve": hymba_serve, "ssm_scan_bwd": ssm_bwd,
+                       "hymba_grad": hymba_grad, "hymba_train": hymba_train,
+                       "hymba_launcher": hymba_launcher, "init_s": INIT_S,
                        "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},
                       fh, indent=1)

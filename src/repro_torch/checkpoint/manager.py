@@ -79,7 +79,10 @@ def _flatten(tree) -> Tuple[List[Any], Callable[[List[Any]], Any]]:
             out.append(sub(leaves[i:i + n]))
             i += n
         if keys is not None:
-            return dict(zip(keys, out))
+            # in the dict's own key order: the order of tree_leaves, so a
+            # global norm sums the restored leaves as it summed the saved
+            built = dict(zip(keys, out))
+            return {k: built[k] for k in tree}
         # a NamedTuple (an optimizer's AdamState) takes its fields as
         # arguments, in field order, as jax flattens it
         return type(tree)(*out) if hasattr(tree, "_fields") else \

@@ -35,7 +35,11 @@ def ssm_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
              chunk: int = 64, use_fused: Optional[bool] = None):
     """The selective scan's recurrence: dt, x (B, S, Di), bmat, cmat
     (B, S, N), a (Di, N), h0 (B, Di, N) -> (ys (B, S, Di), h (B, Di, N)).
-    `chunk` is the plain loop's (``kernels/ref.ssm_scan``)."""
+    By default ``kernels/ssm_scan.ssm_scan``: inputs that need a gradient
+    go through ``SSMScanFn`` (on the card the forward and backward
+    kernels).  ``use_fused=False`` takes the plain loop under torch's
+    autograd (``kernels/ref.ssm_scan``, its chunks of `chunk` steps
+    checkpointed)."""
     if use_fused is False:
         return _ref.ssm_scan(dt, bmat, cmat, x, a, h0, chunk=chunk)
     return _ss.ssm_scan(dt, bmat, cmat, x, a, h0, chunk=chunk)

@@ -138,13 +138,16 @@ def _scan_chunk(h: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
 
 def ssm_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
              x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor,
-             chunk: int = 64):
+             chunk: int = 64, *, boundaries: bool = False):
     """The selective scan's recurrence, a time loop in torch ops — the
     plain version of the selective-scan kernel and the reference's inner
     ``lax.scan`` step for step: ``h_t = exp(dt_t·a)·h_{t-1} + dt_t·b_t·x_t``
     and ``y_t = Σ_n h_t·c_t``.  dt, x (B, S, Di); bmat, cmat (B, S, N);
     a (Di, N); h0 (B, Di, N).  Returns (ys (B, S, Di), h_S (B, Di, N)) in
-    the inputs' dtype (float64 inputs give the float64 scan).
+    the inputs' dtype (float64 inputs give the float64 scan); with
+    ``boundaries=True`` also the state entering each chunk, (B, ⌈S/chunk⌉,
+    Di, N): index k is the state after k·chunk steps (h0 first), what the
+    backward (``ssm_scan_bwd``) recomputes each chunk from.
 
     The loop runs in chunks of `chunk` steps.  Under autograd, where
     ``S > chunk`` and `chunk` divides S (the reference's condition), each
@@ -155,12 +158,64 @@ def ssm_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     s = dt.shape[1]
     remat = (torch.is_grad_enabled() and chunk > 1 and s > chunk
              and s % chunk == 0)
-    ys, h = [], h0
+    ys, h, starts = [], h0, []
     for t0 in range(0, s, max(chunk, 1)):
+        starts.append(h)
         part = [v[:, t0:t0 + chunk] for v in (dt, bmat, cmat, x)]
         if remat:
             y, h = checkpoint(_scan_chunk, h, *part, a, use_reentrant=False)
         else:
             y, h = _scan_chunk(h, *part, a)
         ys.append(y)
+    if boundaries:
+        return torch.cat(ys, 1), h, torch.stack(starts, 1)
     return torch.cat(ys, 1), h
+
+
+def ssm_scan_bwd(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                 x: torch.Tensor, a: torch.Tensor, h_chunks: torch.Tensor,
+                 dys: torch.Tensor, dh_last: Optional[torch.Tensor] = None,
+                 chunk: int = 64):
+    """The selective scan's backward by its adjoint recurrence — the plain
+    version of the backward kernel.  From the states entering each chunk
+    (`h_chunks`, ``ssm_scan(..., boundaries=True)``'s) and the cotangents
+    of ys (B, S, Di) and of the final state (`dh_last`, zeros when None),
+    chunk by chunk from the last: the chunk's states again (the forward's
+    ops, so its bits), then t backward with the state's adjoint
+
+        g_t = dys_t·c_t + exp(dt_{t+1}·a)·g_{t+1}    (g_S = dh_last)
+
+    and ``d_c_t = Σ_d dys_t·h_t``, ``d_b_t = Σ_d g_t·dt_t·x_t``,
+    ``d_x_t = dt_t·Σ_n g_t·b_t``, ``d_dt_t = Σ_n g_t·(a·exp(dt_t·a)·h_{t-1}
+    + b_t·x_t)``, ``d_a = Σ_{b,t} g_t·dt_t·exp(dt_t·a)·h_{t-1}``,
+    ``d_h0 = exp(dt_0·a)·g_0``.  Returns (d_dt, d_bmat, d_cmat, d_x, d_a,
+    d_h0).  Torch ops in a time loop: a yardstick, not a route."""
+    carry = (torch.zeros_like(h_chunks[:, 0]) if dh_last is None
+             else dh_last.clone())
+    d_a = torch.zeros_like(a)
+    parts = []
+    for k in reversed(range(h_chunks.shape[1])):
+        t0 = k * chunk
+        dt_c, b_c, c_c, x_c, dy_c = (v[:, t0:t0 + chunk] for v in (
+            dt, bmat, cmat, x, dys))
+        da = torch.exp(dt_c[..., None] * a)               # (B, L, Di, N)
+        dbx = dt_c[..., None] * b_c[:, :, None, :] * x_c[..., None]
+        hs = [h_chunks[:, k]]
+        for t in range(dt_c.shape[1]):
+            hs.append(torch.addcmul(dbx[:, t], da[:, t], hs[-1]))
+        hs = torch.stack(hs, 1)              # h_{t-1} at t, h_t at t + 1
+        gs = [None] * dt_c.shape[1]
+        for t in reversed(range(dt_c.shape[1])):
+            gs[t] = dy_c[:, t, :, None] * c_c[:, t, None, :] + carry
+            carry = da[:, t] * gs[t]
+        g = torch.stack(gs, 1)
+        dah = da * hs[:, :-1]
+        gdt = g * dt_c[..., None]
+        d_a += (gdt * dah).sum((0, 1))
+        parts.append((
+            (g * (a * dah + b_c[:, :, None, :] * x_c[..., None])).sum(-1),
+            (gdt * x_c[..., None]).sum(2),
+            (dy_c[..., None] * hs[:, 1:]).sum(2),
+            (g * b_c[:, :, None, :]).sum(-1) * dt_c))
+    d_dt, d_b, d_c, d_x = (torch.cat(p[::-1], 1) for p in zip(*parts))
+    return d_dt, d_b, d_c, d_x, d_a, carry

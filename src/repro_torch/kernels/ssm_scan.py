@@ -1,30 +1,37 @@
 """The selective scan of hymba's SSM branch on the card: the hand-written
-CUDA kernel in ``csrc/ssm_scan.cu`` and its wrapper.
+CUDA kernels in ``csrc/ssm_scan.cu`` (forward and backward), their
+wrappers and ``SSMScanFn``, the autograd Function over them.
 
 Replaces no Pallas kernel: the reference's recurrence is the inner
 ``lax.scan`` of ``nn/ssm.ssm_scan`` (reference package), which XLA
-compiles; eager torch would take launches a time step, so on the card it
-is one kernel a layer.  Forward only, float32: the state (B, Di, N) stays
-in registers over one pass of the sequence, a thread a (b, d, n), and y's
-sum over n is a fixed butterfly across a channel's N lanes (the same
-inputs give the same bits on every run).  N is 4, 8, 16 or 32.
+compiles and differentiates; eager torch would take launches a time
+step, so on the card it is one kernel a layer each way.  Float32: the
+state (B, Di, N) stays in registers over one pass of the sequence, a
+thread a (b, d, n), and the sums over n are a fixed butterfly across a
+channel's N lanes.  The backward walks the sequence from the end, the
+state's adjoint in a register, recomputing each chunk's states from the
+state the forward stored at the chunk's start (every CHUNK steps, as the
+reference's ``jax.checkpoint``-ed chunks keep them); its sums over the
+channels cross blocks and are added in a fixed order by a second kernel,
+no atomics.  The same inputs give the same bits on every run.  N is 4,
+8, 16 or 32.
 
-Bound on an H100 SXM: the bytes of dt, x and ys (B, S, Di) and of bmat,
-cmat (B, S, N) over 3.35 TB/s; the B·S·Di·N exponentials and seven more
-float32 operations each come second.
+Bound on an H100 SXM: the bytes of dt, x and ys (B, S, Di) over 3.35 TB/s
+forward; of dt, x, dys, d_dt and d_x backward; the B·S·Di·N exponentials
+and the few float32 operations around each come second.
 
-The device rule lives here: a CPU tensor gets the plain version
-(``kernels/ref.ssm_scan``); a CUDA tensor gets the kernel or an exception
-(a card that is not sm_90, a failed build, an unsupported shape, dtype or
-layout, a refused launch).  Nothing falls back.  There is no backward
-kernel yet, so a CUDA input that needs a gradient raises
-``NotImplementedError`` rather than taking the plain loop quietly
-(ROADMAP Queue 1, "hymba training on the card").
-``kernels/ops.ssm_scan`` adds only the caller's ``use_fused=False``.
+The device rule lives here: a CPU tensor gets the plain versions
+(``kernels/ref.ssm_scan``, ``ref.ssm_scan_bwd``); a CUDA tensor gets the
+kernels or an exception (a card that is not sm_90, a failed build, an
+unsupported shape, dtype or layout, a refused launch).  Nothing falls
+back.  Inputs that need a gradient go through ``SSMScanFn`` on either
+device.  ``kernels/ops.ssm_scan`` adds only the caller's
+``use_fused=False``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -33,12 +40,20 @@ from repro_torch.kernels import ref as _ref
 
 SOURCE = _build.CSRC / "ssm_scan.cu"
 STATE_SIZES = (4, 8, 16, 32)
+#: steps between the states the forward keeps for the backward (the
+#: kernel's CHUNK, and the reference's chunk)
+CHUNK = 64
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.ssm_scan_f32.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    lib.ssm_scan_f32.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
                                  + [ctypes.c_void_p])
     lib.ssm_scan_f32.restype = ctypes.c_int
+    lib.ssm_scan_bwd_workspace.argtypes = [ctypes.c_int] * 4
+    lib.ssm_scan_bwd_workspace.restype = ctypes.c_longlong
+    lib.ssm_scan_bwd_f32.argtypes = ([ctypes.c_void_p] * 15
+                                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.ssm_scan_bwd_f32.restype = ctypes.c_int
 
 
 def load_library() -> ctypes.CDLL:
@@ -46,20 +61,126 @@ def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, _bind)
 
 
-def _check(dt, bmat, cmat, x, a, h0) -> None:
+def n_chunks(s: int) -> int:
+    return -(-s // CHUNK)
+
+
+def _check(dt, bmat, cmat, x, a, **more) -> None:
+    """The scan's operands (and `more`, by name) against dt's and a's
+    shapes; then the card and each tensor's dtype, layout and device."""
     b, s, di = dt.shape
     n = a.shape[-1]
-    want = {"dt": (b, s, di), "bmat": (b, s, n), "cmat": (b, s, n),
-            "x": (b, s, di), "a": (di, n), "h0": (b, di, n)}
-    for name, t in zip(want, (dt, bmat, cmat, x, a, h0)):
-        if tuple(t.shape) != want[name]:
+    shapes = {"dt": (b, s, di), "bmat": (b, s, n), "cmat": (b, s, n),
+              "x": (b, s, di), "a": (di, n), "h0": (b, di, n),
+              "h_chunks": (b, n_chunks(s), di, n), "dys": (b, s, di),
+              "dh_last": (b, di, n)}
+    named = dict(dt=dt, bmat=bmat, cmat=cmat, x=x, a=a, **more)
+    for name, t in named.items():
+        if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{want[name]}")
+                             f"{shapes[name]}")
     if n not in STATE_SIZES:
         raise ValueError(f"state size {n} is not one the kernel is built for "
                          f"{STATE_SIZES}")
     _build.check_card(dt.device, "the selective-scan kernel")
-    _build.check_operands(dt.device, zip(want, (dt, bmat, cmat, x, a, h0)))
+    _build.check_operands(dt.device, named.items())
+
+
+def _launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def ssm_scan_fwd(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                 x: torch.Tensor, a: torch.Tensor, h0: torch.Tensor,
+                 boundaries: bool = True):
+    """The forward: (ys (B, S, Di), h (B, Di, N)) and, with `boundaries`,
+    the state entering every chunk of CHUNK steps, h_chunks (B,
+    ⌈S/CHUNK⌉, Di, N), h0 first.  CPU tensors take the plain loop; CUDA
+    tensors launch ``ssm_scan_f32`` (counted in ``ssm_scan.launches``)
+    or raise.  Not differentiable itself: ``SSMScanFn`` is."""
+    if dt.device.type == "cpu":
+        return _ref.ssm_scan(dt, bmat, cmat, x, a, h0, chunk=CHUNK,
+                             boundaries=boundaries)
+    _check(dt, bmat, cmat, x, a, h0=h0)
+    b, s, di = dt.shape
+    n = a.shape[-1]
+    ys = torch.empty_like(dt)
+    h = torch.empty_like(h0)
+    h_chunks = (torch.empty((b, n_chunks(s), di, n), dtype=dt.dtype,
+                            device=dt.device) if boundaries else None)
+    lib = load_library()
+    stream = torch.cuda.current_stream(dt.device).cuda_stream
+    with torch.cuda.device(dt.device):
+        err = lib.ssm_scan_f32(
+            dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), x.data_ptr(),
+            a.data_ptr(), h0.data_ptr(), ys.data_ptr(), h.data_ptr(),
+            None if h_chunks is None else h_chunks.data_ptr(), b, s, di, n,
+            stream)
+    _launch("ssm_scan_f32", err)
+    ssm_scan.launches += 1
+    return (ys, h, h_chunks) if boundaries else (ys, h)
+
+
+def ssm_scan_bwd(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                 x: torch.Tensor, a: torch.Tensor, h_chunks: torch.Tensor,
+                 dys: torch.Tensor, dh_last: Optional[torch.Tensor] = None):
+    """The backward from the forward's inputs, its h_chunks and the
+    cotangents of ys and of the final state (None: zeros) -> (d_dt,
+    d_bmat, d_cmat, d_x, d_a, d_h0).  CPU tensors take the plain adjoint
+    loop (``ref.ssm_scan_bwd``); CUDA tensors launch ``ssm_scan_bwd_f32``
+    (counted in ``ssm_scan_bwd.launches``) or raise."""
+    if dt.device.type == "cpu":
+        return _ref.ssm_scan_bwd(dt, bmat, cmat, x, a, h_chunks, dys,
+                                 dh_last, chunk=CHUNK)
+    more = dict(h_chunks=h_chunks, dys=dys)
+    if dh_last is not None:
+        more["dh_last"] = dh_last
+    _check(dt, bmat, cmat, x, a, **more)
+    b, s, di = dt.shape
+    n = a.shape[-1]
+    lib = load_library()
+    work = torch.empty(lib.ssm_scan_bwd_workspace(b, s, di, n),
+                       dtype=dt.dtype, device=dt.device)
+    d_dt, d_x = torch.empty_like(dt), torch.empty_like(x)
+    d_b, d_c = torch.empty_like(bmat), torch.empty_like(cmat)
+    d_a = torch.empty_like(a)
+    d_h0 = torch.empty((b, di, n), dtype=dt.dtype, device=dt.device)
+    stream = torch.cuda.current_stream(dt.device).cuda_stream
+    with torch.cuda.device(dt.device):
+        err = lib.ssm_scan_bwd_f32(
+            dt.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), x.data_ptr(),
+            a.data_ptr(), h_chunks.data_ptr(), dys.data_ptr(),
+            None if dh_last is None else dh_last.data_ptr(), d_dt.data_ptr(),
+            d_b.data_ptr(), d_c.data_ptr(), d_x.data_ptr(), d_a.data_ptr(),
+            d_h0.data_ptr(), work.data_ptr(), b, s, di, n, stream)
+    _launch("ssm_scan_bwd_f32", err)
+    ssm_scan_bwd.launches += 1
+    return d_dt, d_b, d_c, d_x, d_a, d_h0
+
+
+class SSMScanFn(torch.autograd.Function):
+    """The selective scan under autograd: the forward keeps the inputs and
+    the states at chunk starts (h_chunks, (B, ⌈S/64⌉, Di, N)); the
+    backward is ``ssm_scan_bwd``.  Under ``torch.utils.checkpoint`` the
+    forward runs again in the backward and makes h_chunks again."""
+
+    @staticmethod
+    def forward(ctx, dt, bmat, cmat, x, a, h0):
+        ys, h, h_chunks = ssm_scan_fwd(dt, bmat, cmat, x, a, h0)
+        ctx.save_for_backward(dt, bmat, cmat, x, a, h_chunks)
+        ctx.set_materialize_grads(False)
+        return ys, h
+
+    @staticmethod
+    def backward(ctx, dys, dh_last):
+        dt, bmat, cmat, x, a, h_chunks = ctx.saved_tensors
+        dys = torch.zeros_like(dt) if dys is None else dys.contiguous()
+        if dh_last is not None:
+            dh_last = dh_last.contiguous()
+        grads = ssm_scan_bwd(dt, bmat, cmat, x, a, h_chunks, dys, dh_last)
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def ssm_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
@@ -68,34 +189,20 @@ def ssm_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     """The selective scan's recurrence: dt, x (B, S, Di), bmat, cmat
     (B, S, N), a (Di, N), h0 (B, Di, N) -> (ys (B, S, Di), h (B, Di, N)).
 
-    CPU tensors take the plain version (its loop in chunks of `chunk`
-    steps); CUDA tensors launch the kernel (counted in
-    ``ssm_scan.launches``) or raise."""
-    if dt.device.type == "cpu":
-        return _ref.ssm_scan(dt, bmat, cmat, x, a, h0, chunk=chunk)
+    Inputs that need a gradient go through ``SSMScanFn`` (CPU: the plain
+    loop and the plain adjoint loop; CUDA: the two kernels).  Otherwise
+    CPU tensors take the plain loop (in chunks of `chunk` steps) and CUDA
+    tensors launch the forward kernel (counted in ``ssm_scan.launches``)
+    or raise."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (dt, bmat, cmat, x, a, h0)):
-        raise NotImplementedError(
-            "the selective-scan kernel has no backward yet (ROADMAP Queue 1, "
-            "hymba training on the card); pass use_fused=False for the "
-            "plain loop under autograd")
-    _check(dt, bmat, cmat, x, a, h0)
-    b, s, di = dt.shape
-    n = a.shape[-1]
-    ys = torch.empty_like(dt)
-    h = torch.empty_like(h0)
-    lib = load_library()
-    stream = torch.cuda.current_stream(dt.device).cuda_stream
-    with torch.cuda.device(dt.device):
-        err = lib.ssm_scan_f32(dt.data_ptr(), bmat.data_ptr(),
-                               cmat.data_ptr(), x.data_ptr(), a.data_ptr(),
-                               h0.data_ptr(), ys.data_ptr(), h.data_ptr(),
-                               b, s, di, n, stream)
-    if err != 0:
-        raise RuntimeError(f"ssm_scan_f32 launch failed with CUDA error {err}")
-    ssm_scan.launches += 1
-    return ys, h
+        return SSMScanFn.apply(dt, bmat, cmat, x, a, h0)
+    if dt.device.type == "cpu":
+        return _ref.ssm_scan(dt, bmat, cmat, x, a, h0, chunk=chunk)
+    return ssm_scan_fwd(dt, bmat, cmat, x, a, h0, boundaries=False)
 
 
-#: calls that launched the kernel (not the CPU plain-version route)
+#: calls that launched the forward kernel (not the CPU plain-version route)
 ssm_scan.launches = 0  # type: ignore[attr-defined]
+#: calls that launched the backward kernel (ditto)
+ssm_scan_bwd.launches = 0  # type: ignore[attr-defined]

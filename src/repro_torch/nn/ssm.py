@@ -4,10 +4,12 @@ of the reference's ``nn/ssm.py``.
 x (B, S, D) -> y (B, S, D) with a per-channel selective state of size N.
 The full-sequence mixer (`ssm_scan`) hands its recurrence to
 ``kernels/ops.ssm_scan``: on the card the hand-written selective-scan
-kernel (``kernels/ssm_scan.py``), on the CPU its plain version, a time
-loop in torch ops (``kernels/ref.ssm_scan``).  Decoding keeps an explicit
-(B, Di, N) state and a (B, K-1, Di) conv tail, so one token costs
-O(Di·N) in a few eager torch ops and no loop.
+kernels (``kernels/ssm_scan.py``; under autograd ``SSMScanFn``, the
+forward kernel and the backward kernel), on the CPU their plain
+versions, time loops in torch ops (``kernels/ref.ssm_scan``,
+``ref.ssm_scan_bwd``).  Decoding keeps an explicit (B, Di, N) state and
+a (B, K-1, Di) conv tail, so one token costs O(Di·N) in a few eager
+torch ops and no loop.
 
 Params keep the reference's layout and initial bits (``ssm_init`` draws
 through ``core/prng`` from the same keys).
@@ -95,10 +97,11 @@ def ssm_scan(params, xz: torch.Tensor, h0: Optional[torch.Tensor] = None,
     """The selective scan: xz (B, S, 2·Di) from in_proj -> (y (B, S, Di),
     h_final (B, Di, N)).  The conv, SiLU, the (dt, B, C) projections,
     then the recurrence ``h = exp(dt·a)·h + dt·b·x``, ``y_t = Σ_n h·c``
-    (``kernels/ops.ssm_scan``: the kernel on the card; ``use_fused=False``
-    the plain loop, which runs its chunks of `chunk` steps under
-    ``torch.utils.checkpoint`` with autograd on, as the reference's
-    ``jax.checkpoint``-ed chunks), then ``+ x·D_skip`` and ``· silu(z)``."""
+    (``kernels/ops.ssm_scan``: the kernels on the card, differentiated by
+    ``SSMScanFn``, which keeps the state every 64 steps as the reference's
+    ``jax.checkpoint``-ed chunks do; ``use_fused=False`` the plain loop,
+    which runs its chunks of `chunk` steps under ``torch.utils.checkpoint``
+    with autograd on), then ``+ x·D_skip`` and ``· silu(z)``."""
     d_inner = params["conv_w"].shape[1]
     d_state = (params["x_proj"].shape[1] - 1) // 2
     x, z = xz.split(d_inner, dim=-1)                      # (B, S, Di) each

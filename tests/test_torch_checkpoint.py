@@ -34,6 +34,7 @@ from repro_torch.core.dse_api import GANDSE
 from repro_torch.core.explorer import ExplorerConfig
 from repro_torch.dataset.generator import generate_dataset, generate_tasks
 from repro_torch.design_models import DnnWeaverModel
+from repro_torch.optim import tree_leaves
 from repro_torch.serve.faults import corrupt_checkpoint
 
 MODEL = DnnWeaverModel()
@@ -141,6 +142,22 @@ def test_restore_onto_like_dtype_and_device(tmp_path):
     assert torch.equal(got["n"], t["n"])
     with pytest.raises(AssertionError):
         ck.restore(1, {"w": torch.zeros(3, 2), "n": torch.zeros(3)})
+
+
+def test_restore_keeps_the_like_trees_dict_order(tmp_path):
+    """The file holds the leaves in jax's order (keys sorted), but the
+    restored dicts keep `like`'s key order at every level: the port's
+    ``tree_leaves`` follows it, so a global norm (the train step's clip)
+    sums a restored state's leaves in the order it summed the saved one's,
+    and a restarted run replays the whole run's bits."""
+    tree = {"z": {"b": torch.ones(2), "a": torch.zeros(3)},
+            "y": [{"w": torch.arange(4.0), "c": torch.full((1,), 7.0)}]}
+    CheckpointManager(str(tmp_path)).save(1, tree)
+    got = CheckpointManager(str(tmp_path)).restore(1, tree)
+    assert list(got) == ["z", "y"] and list(got["z"]) == ["b", "a"]
+    assert list(got["y"][0]) == ["w", "c"]
+    for x, y in zip(tree_leaves(got), tree_leaves(tree)):
+        assert torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------

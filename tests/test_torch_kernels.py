@@ -1201,20 +1201,28 @@ def test_cuda_ssm_scan_matches_plain(case, h100, rng):
 
 
 @pytest.mark.cuda
-def test_cuda_ssm_scan_has_no_backward_and_rejects_bad_input(h100, rng):
-    """A CUDA input that needs a gradient raises NotImplementedError
-    naming the ROADMAP item (never the plain loop quietly); so do an
-    unsupported state size, dtype, layout and device."""
+def test_cuda_ssm_scan_rejects_bad_input_and_differentiates(h100, rng):
+    """A CUDA input that needs a gradient reaches ``SSMScanFn`` (the
+    forward kernel, then the backward kernel: one launch each), through
+    the wrapper and through ``ops``; ``use_fused=False`` is the plain loop
+    under autograd.  An unsupported state size, dtype, layout or device
+    raises, in the forward and in the backward."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssm_scan as SS
     args = _ssm_inputs(rng, 1, 8, 4, 4, h100)
+    for fn in (SS.ssm_scan, ops.ssm_scan):
+        live = [args[0].clone().requires_grad_(True), *args[1:]]
+        before = (SS.ssm_scan.launches, SS.ssm_scan_bwd.launches)
+        y, _ = fn(*live)
+        assert type(y.grad_fn).__name__ == "SSMScanFnBackward"
+        y.sum().backward()
+        torch.cuda.synchronize()
+        assert (SS.ssm_scan.launches, SS.ssm_scan_bwd.launches) == \
+            (before[0] + 1, before[1] + 1)
+        assert live[0].grad is not None and live[3].grad is None
     live = [args[0].clone().requires_grad_(True), *args[1:]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SS.ssm_scan(*live)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.ssm_scan(*live)
     y, _ = ops.ssm_scan(*live, use_fused=False)     # the plain loop, asked
-    assert y.requires_grad
+    assert y.requires_grad and "SSMScanFn" not in type(y.grad_fn).__name__
     with torch.no_grad():
         SS.ssm_scan(*live)
     bad = _ssm_inputs(rng, 1, 8, 4, 5, h100)
@@ -1227,3 +1235,105 @@ def test_cuda_ssm_scan_has_no_backward_and_rejects_bad_input(h100, rng):
                     *args[1:])
     with pytest.raises(ValueError):
         SS.ssm_scan(args[0], args[1].cpu(), *args[2:])
+    _, _, h_chunks = SS.ssm_scan_fwd(*args)
+    dys = torch.ones_like(args[0])
+    with pytest.raises(ValueError, match="h_chunks"):
+        SS.ssm_scan_bwd(*args[:5], h_chunks[:, :0], dys)
+    with pytest.raises(ValueError, match="dys"):
+        SS.ssm_scan_bwd(*args[:5], h_chunks, dys[:, 1:])
+    with pytest.raises(TypeError):
+        SS.ssm_scan_bwd(*args[:5], h_chunks, dys.double())
+    with pytest.raises(ValueError):
+        SS.ssm_scan_bwd(*args[:5], h_chunks, dys.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_SSM_CASES)
+def test_cuda_ssm_scan_backward_matches_plain(case, h100, rng):
+    """``SSMScanFn`` on the card (the forward kernel with its chunk
+    states, then the backward kernel) against torch's autograd of the
+    plain loop, every input needing a gradient and both outputs given a
+    cotangent: ys and h, and the six gradients, within
+    1e-4·max(1, max|plain|); two calls the same bits; one backward launch
+    a call.  The forward's chunk states within the same tolerance of the
+    plain loop's, and its ys and h the same bits as without them."""
+    from repro_torch.kernels import ssm_scan as SS
+    b, s, di, n = case
+    args = _ssm_inputs(rng, *case, h100)
+    dys = torch.tensor(rng.normal(size=(b, s, di)), dtype=torch.float32,
+                       device=h100)
+    dh = torch.tensor(rng.normal(size=(b, di, n)), dtype=torch.float32,
+                      device=h100)
+
+    def vjp(fn):
+        live = [t.clone().requires_grad_(True) for t in args]
+        y, h = fn(*live)
+        grads = torch.autograd.grad((y * dys).sum() + (h * dh).sum(), live)
+        return [y.detach(), h.detach(), *grads]
+
+    before = SS.ssm_scan_bwd.launches
+    got, again = vjp(SS.ssm_scan), vjp(SS.ssm_scan)
+    torch.cuda.synchronize()
+    assert SS.ssm_scan_bwd.launches == before + 2
+    want = vjp(ref.ssm_scan)
+    names = ("ys", "h", "d_dt", "d_bmat", "d_cmat", "d_x", "d_a", "d_h0")
+    for name, g, a, w in zip(names, got, again, want):
+        assert bool(torch.isfinite(g).all()), (case, name)
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-4 * scale, (case, name)
+        assert torch.equal(g, a), f"{case} {name}: two calls differ"
+    ys, h, h_chunks = SS.ssm_scan_fwd(*args)
+    alone = SS.ssm_scan_fwd(*args, boundaries=False)
+    assert torch.equal(ys, alone[0]) and torch.equal(h, alone[1])
+    _, _, want_chunks = ref.ssm_scan(*args, boundaries=True)
+    scale = max(1.0, float(want_chunks.abs().max()))
+    assert float((h_chunks - want_chunks).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_hymba_train_steps(h100):
+    """Reduced hymba on the card from the seed's params, the kernel route
+    (flash with lse, ``SSMScanFn``'s two kernels) against the plain route
+    (``use_fused=False``): one gradient, each leaf within 1e-3 of its norm
+    (the gate of ``chip_smoke.py``'s full-width gradients); then 3
+    ``make_train_step`` steps each, the losses within 1e-5 relative, with
+    one flash launch with lse an attention layer and one scan forward and
+    one scan backward an SSM layer, a step.  (Adam's update is near ±lr
+    for an element whose gradient is near zero, so the params after a step
+    are not compared element by element.)"""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssm_scan as SS
+    from repro_torch.models import base as MB
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import step as TS
+    m = configs.get_reduced("hymba-1.5b")
+    g = torch.Generator().manual_seed(0)
+    batches = [{k: torch.randint(0, m.vocab, (2, 64), generator=g).to(h100)
+                for k in ("tokens", "labels")} for _ in range(3)]
+    counters = lambda: (FA.flash_attention.lse_launches,  # noqa: E731
+                        SS.ssm_scan.launches, SS.ssm_scan_bwd.launches)
+    runs = {}
+    for route, fused in (("kernel", None), ("plain", False)):
+        params = MB.init_params(prng.prng_key(torch.tensor(0)), m, h100)
+        _, grads = TS.loss_and_grads(m, params, batches[0],
+                                     use_fused=fused)
+        step, optim = TS.make_train_step(m, lr=1e-3, remat=False,
+                                         use_fused=fused)
+        opt = optim.init(params)
+        before = counters()
+        losses = []
+        for b_ in batches:
+            params, opt, met = step(params, opt, b_)
+            losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        runs[route] = (losses, tree_leaves(grads), tuple(
+            x - y for x, y in zip(counters(), before)))
+    n_ssm = sum(seg.repeats for seg in m.segments for sp in seg.pattern
+                if sp.cfg.ssm_state)
+    assert runs["kernel"][2] == (3 * m.n_layers, 3 * n_ssm, 3 * n_ssm)
+    assert runs["plain"][2] == (0, 0, 0)
+    for a, b_ in zip(runs["kernel"][1], runs["plain"][1]):
+        assert float((a - b_).norm()) <= 1e-3 * max(float(b_.norm()), 1e-30)
+    np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0],
+                               rtol=1e-5)
