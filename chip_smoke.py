@@ -12,8 +12,9 @@ dW/db kernels at Algorithm 1's (batch 1024; 2048 -> 2048, G's head 2048
 these runs on the 3xTF32 tensor-core tile, so each is also held to a
 float64 product.  ptxas's report of the four sources is checked for
 spills in every instantiation of their tensor-core kernels (the flash
-kernel's 20: 10 with the lse store, 10 without) and of the selective
-scan's forward (4) and backward (4).  Then, with
+kernel's 20: 10 with the lse store, 10 without), of the selective scan's
+forward (4) and backward (4), and of the sLSTM kernel (48: a batch row
+count 1-8 by a head width 16-512).  Then, with
 the paper's G and D (11 x 2048, batch 1024, random weights from fixed
 seeds):
 
@@ -186,6 +187,40 @@ Then hymba-1.5b training (phase n, on phase m's params):
 - n4. ``launch/train.main`` at the reduced hymba config, 12 steps, once
   whole and once failing at step 7: its losses equal the whole run's.
 
+Then xlstm-1.3b (phase o; float32 from seed 0, phase n's state freed
+first):
+
+- o0. ``init_params(prng_key(0))`` at full width (48 layers as 6 repeats
+  of [mLSTM x 7, sLSTM], d 2048, 4 heads of 512, vocab 50304, tied; 1.14
+  B params) on the card, timed, its bits sampled against the CPU's draw
+  (the sLSTM's wx is 2^24 counters, ``prng.CHUNK``: drawn in one piece);
+- o1. the sLSTM kernel (``slstm_scan_f32``) at the prefill's (2, 4096,
+  2048, H 4) and the Engine's (4, 1, ...) layer shapes on a layer's own
+  weights, against its plain loop: hs and the final (c, n, m, h) within
+  TOL·scale, the same bits twice, within 4x the plain loop's float64
+  error plus 1e-6·scale; timed beside its bound and the loop (library:
+  none);
+- o2. one mLSTM layer (chunkwise) and one sLSTM layer (kernel and plain
+  loop) at 2 x 4096 against the same layers in float64;
+- o3. ``make_prefill_step`` at 2 x 4096 through the kernel (6 sLSTM
+  launches, no flash launch, asserted) and through the plain loop,
+  timed, profiled (groups ``gemm``, the sLSTM kernel, other).  At seed
+  0's random weights the residual stream grows ~4x a repeat and the
+  float32 model's full-depth logits move by O(1) under a one-ulp nudge
+  of the embedding, so the two routes' logits (and each one's distance
+  from the float64 forward) are reported, not held.  Held: each of the
+  6 sLSTM launches again on its recorded input against the plain loop
+  (the last also against float64), and the model cut to one repeat (8
+  layers) through both routes, logits within TOL·scale;
+- o4. the ``Engine`` at SERVE at full depth: every request served, 6
+  sLSTM launches a decode step (asserted), those of the step at the
+  prompts' last token held to the plain loop on their recorded inputs
+  and states; ms and launches a step; its logits against the stepwise forward and prefill reported;
+  a second Engine on the model cut to one repeat, each decode step of
+  the first wave's prompt held to the forward at that position and the
+  last to ``make_prefill_step`` (both stepwise at 12 tokens), its first
+  new tokens the prefill's argmax.
+
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
 it are the kernel table (JSON) and the card's name and power limit.
@@ -235,6 +270,7 @@ from repro_torch.kernels import fused_dense as fd  # noqa: E402
 from repro_torch.kernels import fused_mlp as fm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import slstm_scan as sl  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.launch import comparison as CMP  # noqa: E402
 from repro_torch.launch import dse_serve  # noqa: E402
@@ -248,6 +284,7 @@ from repro_torch.nn import blocks as NB  # noqa: E402
 from repro_torch.nn import layers as L  # noqa: E402
 from repro_torch.nn import moe as MOE  # noqa: E402
 from repro_torch.nn import ssm as SSM  # noqa: E402
+from repro_torch.nn import xlstm as XL  # noqa: E402
 from repro_torch.optim import (adam, apply_updates, tree_leaves,  # noqa: E402
                                tree_map, tree_unflatten)
 from repro_torch.train import step as TS  # noqa: E402
@@ -344,6 +381,11 @@ HYMBA_ARCH = "hymba-1.5b"
 #: once at step 7
 SSM_BWD_SHAPES = {"train step": LM_TRAIN, "prefill": PREFILL}
 HYMBA_LAUNCHER_ARGV = ["--arch", HYMBA_ARCH] + LAUNCHER_ARGV[2:]
+#: phase o: xlstm-1.3b at full width (6 repeats of [mLSTM x 7, sLSTM], d
+#: 2048, 4 heads of 512), float32 from seed 0: prefill at PREFILL, the
+#: Engine at SERVE; the sLSTM kernel alone at both paths' layer shapes
+XLSTM_ARCH = "xlstm-1.3b"
+SLSTM_SHAPES = {"prefill": PREFILL, "engine": (SERVE["slots"], 1)}
 #: seconds of each LM's ``init_params`` on the card, by label
 INIT_S: dict = {}
 
@@ -402,6 +444,7 @@ def zero_counts() -> None:
     fa.flash_attention.lse_launches = 0
     ss.ssm_scan.launches = 0
     ss.ssm_scan_bwd.launches = 0
+    sl.slstm_scan.launches = 0
     for wrapper, _ in DENSE_KERNELS.values():
         wrapper.launches = 0
 
@@ -411,7 +454,8 @@ def counts() -> dict:
            "flash_attention_f32": fa.flash_attention.launches,
            "flash_attention_f32 with lse": fa.flash_attention.lse_launches,
            "ssm_scan_f32": ss.ssm_scan.launches,
-           "ssm_scan_bwd_f32": ss.ssm_scan_bwd.launches}
+           "ssm_scan_bwd_f32": ss.ssm_scan_bwd.launches,
+           "slstm_scan_f32": sl.slstm_scan.launches}
     out.update({name: w.launches for name, (w, _) in DENSE_KERNELS.items()})
     return out
 
@@ -419,7 +463,7 @@ def counts() -> dict:
 def build_all() -> None:
     """Phase 1: one nvcc per source, started together."""
     loads = (fm.load_library, fd.load_library, fa.load_library,
-             ss.load_library)
+             ss.load_library, sl.load_library)
     with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
         for f in [pool.submit(load) for load in loads]:
             f.result()
@@ -429,19 +473,22 @@ def build_all() -> None:
         print(str(info["log"]).strip(), flush=True)
 
 
-#: the tensor-core kernel of each source, and the selective scan's two,
-#: whose instantiations ptxas must not spill, and how many there are
+#: the tensor-core kernel of each source, the selective scan's two and
+#: the sLSTM kernel, whose instantiations ptxas must not spill, and how
+#: many there are
 SPILL_CHECKS = (("dense_train.cu", "gemm_3xtf32_kernel", 12),
                 ("mlp_forward.cu", "gemm_3xtf32_kernel", 12),
                 ("flash_attention.cu", "flash_fwd_kernel", 20),
                 ("ssm_scan.cu", "ssm_scan_kernel", 4),
-                ("ssm_scan.cu", "ssm_scan_bwd_kernel", 4))
+                ("ssm_scan.cu", "ssm_scan_bwd_kernel", 4),
+                ("slstm_scan.cu", "slstm_scan_kernel", 48))
 
 
 def check_spills() -> dict:
     """ptxas's report (-Xptxas -v) for each instantiation of the
-    tensor-core kernel in each source that holds it, and of the selective
-    scan's forward and backward (one per state size each): registers and
+    tensor-core kernel in each source that holds it, of the selective
+    scan's forward and backward (one per state size each) and of the
+    sLSTM kernel (one per batch row count and head width): registers and
     no spill stores or loads."""
     out = {}
     for source, kernel, count in SPILL_CHECKS:
@@ -799,6 +846,7 @@ def step_bound_ms(cfg, model) -> float:
 
 #: device-time groups of a profile, by kernel name (the first that matches)
 PROFILE_GROUPS = (("flash_fwd_kernel", "flash_fwd_kernel"),
+                  ("slstm_scan_kernel", "slstm_scan_kernel"),
                   ("ssm_scan_kernel", "ssm_scan_kernel"),
                   ("ssm_scan_bwd_kernel", "ssm_scan_bwd_kernel"),
                   ("sum_parts_kernel", "ssm_scan_bwd_kernel"),
@@ -1217,13 +1265,18 @@ def prefill_flops(m, b: int, s: int) -> dict:
     w_up, w_down), an MoE layer's experts over their whole capacity
     buffers (2·3·E·cap·D·F a layer, at the default capacity), wo, the
     logits, the flash kernel's kept pairs, and an SSM branch's products
-    (in_proj D -> 2·Di, x_proj Di -> 1 + 2N, out_proj Di -> D)."""
+    (in_proj D -> 2·Di, x_proj Di -> 1 + 2N, out_proj Di -> D); for an
+    xLSTM model its blocks' products (`xlstm_flops`) instead."""
     out = {"projections": 0.0, "experts": 0.0, "wo": 0.0, "flash": 0.0,
            "ssm_projections": 0.0}
     t = b * s
     for seg in m.segments:
         for spec in seg.pattern:
             c = spec.cfg
+            if spec.kind != "dense":
+                for k, v in xlstm_flops(spec, b, s).items():
+                    out[k] = out.get(k, 0.0) + seg.repeats * v
+                continue
             ffn = 0 if c.n_experts else 3 * c.d_ff
             out["projections"] += seg.repeats * 2 * t * c.d_model * (
                 (c.n_heads + 2 * c.n_kv) * c.dh + ffn + c.n_experts)
@@ -1243,15 +1296,37 @@ def prefill_flops(m, b: int, s: int) -> dict:
     return out
 
 
+def xlstm_flops(spec, b: int, s: int, chunk: int = 64) -> dict:
+    """Flops of one xLSTM layer over (b, s) tokens as computed: an
+    mLSTM's projections (wqkv, wif, wz, wo) and its chunkwise products
+    (per chunk of L and head: the scores and their product with v, 2·L²·dh
+    each, the carried C's product with q and the chunk's update of C,
+    2·L·dh² each, and n's, 5·L·dh); an sLSTM's projections (wx, wo), its
+    recurrence apart (`slstm_bound_ms`)."""
+    c = spec.cfg
+    d, h, t = c.d_model, c.n_heads, b * s
+    dh = d // h
+    if spec.kind == "mlstm":
+        return {"mlstm_projections": 2 * t * d * (3 * d + 2 * h + 2 * d),
+                "mlstm_chunks": b * h * s * (4 * chunk * dh + 4 * dh * dh
+                                             + 5 * dh)}
+    return {"slstm_projections": 2 * t * d * 5 * d}
+
+
 def prefill_bound_ms(m, b: int, s: int) -> dict:
     """Least time of a prefill's parts at the float32 peak (TF32 off), and
-    for an SSM model its scans' (`ssm_bound_ms`, one a layer)."""
+    for an SSM model its scans' (`ssm_bound_ms`, one a layer), for an
+    xLSTM model its sLSTM recurrences' (`slstm_bound_ms`)."""
     out = {k: 1e3 * v / PEAK_F32_FLOPS
            for k, v in prefill_flops(m, b, s).items()}
-    scans = [sp.cfg for seg in m.segments for _ in range(seg.repeats)
-             for sp in seg.pattern if sp.cfg.ssm_state]
-    out["ssm_scan"] = sum(ssm_bound_ms(b, s, 2 * c.d_model, c.ssm_state)[0]
-                          for c in scans)
+    specs = [sp for seg in m.segments for _ in range(seg.repeats)
+             for sp in seg.pattern]
+    out["ssm_scan"] = sum(ssm_bound_ms(b, s, 2 * sp.cfg.d_model,
+                                       sp.cfg.ssm_state)[0]
+                          for sp in specs if sp.cfg.ssm_state)
+    out["slstm_scan"] = sum(slstm_bound_ms(b, s, sp.cfg.d_model,
+                                           sp.cfg.n_heads)[0]
+                            for sp in specs if sp.kind == "slstm")
     return out
 
 
@@ -1300,19 +1375,29 @@ def recorded_flash():
         ops._fa = fa
 
 
-def drive_prefill(m, params, label: str = "prefill") -> dict:
-    """Phase 6b (and l2, m2): make_prefill_step on PREFILL random prompts
-    through the kernels (flash's launches counted: one per layer, at each
-    layer's head dim and window; the selective scan's one per SSM layer)
-    and through the plain attention and scan loop (use_fused=False),
-    their last-token logits compared (for an MoE model
-    with the routing flips between the two routes counted, layer by
-    layer, and named in a failure), then warm times of both,
-    interleaved."""
-    b, s = PREFILL
-    toks = torch.randint(0, m.vocab, (b, s), device="cuda",
+def prefill_tokens(m, shape=PREFILL):
+    """The prefill's random prompts, from seed 0 on the card."""
+    return torch.randint(0, m.vocab, shape, device="cuda",
                          generator=torch.Generator(device="cuda")
                          .manual_seed(0))
+
+
+def drive_prefill(m, params, label: str = "prefill",
+                  hold_logits: bool = True, keep: list = None,
+                  rounds=("kernel", "plain", "plain", "kernel")) -> dict:
+    """Phase 6b (and l2, m2, o3): make_prefill_step on PREFILL random
+    prompts through the kernels (flash's launches counted: one per
+    attention layer, at each layer's head dim and window; the selective
+    scan's one per SSM layer; the sLSTM kernel's one per sLSTM layer)
+    and through the plain attention, scan and sLSTM loops
+    (use_fused=False),
+    their last-token logits compared (for an MoE model
+    with the routing flips between the two routes counted, layer by
+    layer, and named in a failure; with ``hold_logits=False`` the
+    distance is reported, not held, and `keep` receives both logits: see
+    `drive_xlstm_prefill`), then warm times of both in `rounds`."""
+    b, s = PREFILL
+    toks = prefill_tokens(m)
     routes = {"kernel": TS.make_prefill_step(m),
               "plain": TS.make_prefill_step(m, use_fused=False)}
     zero_counts()
@@ -1323,12 +1408,15 @@ def drive_prefill(m, params, label: str = "prefill") -> dict:
     with recorded_routes() as route_p:
         want = routes["plain"](params, {"tokens": toks})
         torch.cuda.synchronize()
-    assert launches["flash_attention_f32"] == m.n_layers, launches
-    layers = [sp.cfg for seg in m.segments for _ in range(seg.repeats)
-              for sp in seg.pattern]
+    specs = [sp for seg in m.segments for _ in range(seg.repeats)
+             for sp in seg.pattern]
+    layers = [sp.cfg for sp in specs if sp.kind == "dense"]
+    assert launches["flash_attention_f32"] == len(layers), launches
     assert calls == [(c.dh, c.window) for c in layers], calls
     assert launches["ssm_scan_f32"] == sum(1 for c in layers
                                            if c.ssm_state), launches
+    assert launches["slstm_scan_f32"] == sum(
+        1 for sp in specs if sp.kind == "slstm"), launches
     out = dict(launches=launches, bound_ms=prefill_bound_ms(m, b, s),
                flash_calls=[list(c) for c in dict.fromkeys(calls)])
     what = f"{label} logits"
@@ -1336,10 +1424,17 @@ def drive_prefill(m, params, label: str = "prefill") -> dict:
         out["routing_flips_by_layer"] = routing_flips(route_k, route_p)
         what += (f" ({sum(out['routing_flips_by_layer'])} routing flips "
                  f"between the routes)")
-    out.update(_logits_agree(what, got, want))
+    if hold_logits:
+        out.update(_logits_agree(what, got, want))
+    else:
+        assert bool(torch.isfinite(got).all()), f"{what}: not finite"
+        out["logits_vs_plain"] = dict(
+            max_abs_err=_err(got, want), max_abs=float(want.abs().max()),
+            argmax_equal=bool(torch.equal(got.argmax(-1), want.argmax(-1))))
+        keep.extend((got, want))
     del got, want, route_k, route_p
     times = {r: [] for r in routes}
-    for r in ("kernel", "plain", "plain", "kernel"):
+    for r in rounds:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         routes[r](params, {"tokens": toks})
@@ -3085,6 +3180,346 @@ def check_hymba_train(m, params) -> dict:
     return out
 
 
+def slstm_work(b: int, s: int, d: int, h: int) -> tuple:
+    """Bytes the sLSTM kernel must move (wx, rh, bias and the state (c, n,
+    m, h) read once; hs and the final state written once) and its float32
+    operations: the recurrent products, 2·dh for each of the 4 gate
+    columns of each (b, t, channel), and the 36 around them (8 adds into
+    the pre-activations, tanh, the sigmoid's 4, log-sigmoid's 8, the
+    stabilizer's 2, the gates' 5, c's 3, n's 2, h's 3; a transcendental
+    counted as one)."""
+    dh = d // h
+    n_bytes = 4 * (b * s * 4 * d + h * dh * 4 * dh + 4 * d + 4 * b * d
+                   + b * s * d + 4 * b * d)
+    return n_bytes, b * s * d * (8 * dh + 36)
+
+
+def slstm_bound_ms(b: int, s: int, d: int, h: int) -> tuple:
+    """Least time of one sLSTM recurrence on this card: its bytes over HBM
+    against its operations at the float32 SIMT peak (the S dependent
+    steps' latency is not counted)."""
+    return bound(*slstm_work(b, s, d, h))
+
+
+def xlstm_model():
+    """Phase o0: XLSTM_ARCH at full width, ``init_params(prng_key(0))`` on
+    the card (timed), its bits held to the CPU's draw
+    (`check_init_bits`)."""
+    m = configs.get_arch(XLSTM_ARCH)
+    params = init_lm(m, m.name)
+    bits = check_init_bits(m, params)
+    print(f"xlstm {m.name}: {MB.param_count(params)} params, {m.n_layers} "
+          f"layers ({[sp.kind for sp in m.segments[0].pattern]} x "
+          f"{m.segments[0].repeats}), init bits: {json.dumps(bits)}",
+          flush=True)
+    return m, params, dict(INIT_S[m.name], bits=bits)
+
+
+def xlstm_layer(m, params, kind: str):
+    """Layer 0 of the first stack of `kind` ("mlstm" or "slstm"): its
+    params (views) and its spec."""
+    for seg_p, seg in zip(params["segments"], m.segments):
+        for sp, spec in zip(seg_p, seg.pattern):
+            if spec.kind == kind:
+                return MB._layer(sp, 0), spec
+    raise ValueError(kind)
+
+
+def slstm_inputs(m, params, shape, seed: int = 23) -> tuple:
+    """The sLSTM kernel's inputs at `shape` (batch x seq) from layer 0 of
+    the sLSTM stack: wx = x @ wx of a random (B, S, D) x at rms 1, its rh
+    and bias, and the state the reference starts from; for one step (the
+    Engine's shape) the state a 16-step plain run from it leaves."""
+    b, s = shape
+    p, _ = xlstm_layer(m, params, "slstm")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        state = XL.slstm_state_init(b, m.d_model, "cuda")
+        if s == 1:
+            warm = torch.randn(b, 16, m.d_model, generator=gen,
+                               device="cuda") @ p["wx"]
+            _, state = ref.slstm_scan(warm, p["rh"], p["b"], state)
+        wx = torch.randn(b, s, m.d_model, generator=gen,
+                         device="cuda") @ p["wx"]
+    return wx, p["rh"], p["b"], state
+
+
+def _flat(run) -> tuple:
+    """(hs, c, n, m, h) of an sLSTM recurrence's (hs, state)."""
+    return (run[0], *run[1])
+
+
+def check_slstm_scan(m, params) -> dict:
+    """Phase o1: the sLSTM kernel against its plain loop
+    (``ref.slstm_scan``) on a layer's own weights at SLSTM_SHAPES: hs and
+    the final state within TOL·scale, the same bits twice, no further
+    from the float64 loop than 4x the plain float32 loop plus
+    1e-6·scale; CUDA-event times of the kernel and the plain loop beside
+    the bound.  No PyTorch call computes an sLSTM (library: none)."""
+    h = m.segments[0].pattern[0].cfg.n_heads
+    out = {}
+    for label, (b, s) in SLSTM_SHAPES.items():
+        args = slstm_inputs(m, params, (b, s))
+        got, again = sl.slstm_scan(*args), sl.slstm_scan(*args)
+        want = ref.slstm_scan(*args)
+        exact = ref.slstm_scan(*(t.double() for t in args[:3]),
+                               tuple(t.double() for t in args[3]))
+        torch.cuda.synchronize()
+        names = ("hs", "c", "n", "m", "h")
+        row = dict(
+            shape=[b, s, m.d_model, h],
+            max_abs_err=max(_hold(f"slstm_scan {label} {n}", g, w)
+                            for n, g, w in zip(names, _flat(got),
+                                               _flat(want))),
+            tol=TOL * max(1.0, float(want[0].abs().max())),
+            same_bits=all(torch.equal(x, y) for x, y in zip(_flat(got),
+                                                            _flat(again))))
+        assert row["same_bits"], f"slstm_scan {label}: two calls differ"
+        row.update(float64_errors(f"slstm_scan {label}", _flat(got),
+                                  _flat(want), _flat(exact)))
+        del got, again, want, exact
+        bnd, by = slstm_bound_ms(b, s, m.d_model, h)
+        n_bytes, ops_ = slstm_work(b, s, m.d_model, h)
+        row.update(ms=cuda_ms(lambda: sl.slstm_scan(*args)),
+                   plain_ms=cuda_ms(lambda: ref.slstm_scan(*args), reps=3,
+                                    warmup=1),
+                   bound_ms=bnd, bound_by=by, library_ms=None,
+                   bytes=n_bytes, operations=ops_)
+        row["us_per_step"] = 1e3 * row["ms"] / s
+        out[label] = row
+        print(f"slstm_scan_f32 {label}: " + json.dumps(row), flush=True)
+    return out
+
+
+def check_xlstm_layers(m, params, seed: int = 29) -> dict:
+    """Phase o2: one mLSTM layer (chunkwise at PREFILL) and one sLSTM layer
+    (the kernel and the plain loop) on a random (B, S, D) input at rms 1,
+    against the same layers in float64: the mLSTM (no kernel) within
+    TOL·scale of float64; the sLSTM's kernel route no further from
+    float64 than 4x the plain loop plus 1e-6·scale, and within TOL·scale
+    of it."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(*PREFILL, m.d_model, generator=gen, device="cuda")
+    out = {}
+    with torch.no_grad():
+        for kind in ("mlstm", "slstm"):
+            p, spec = xlstm_layer(m, params, kind)
+            p64 = tree_map(lambda a: a.double(), p)
+            heads = spec.cfg.n_heads
+            if kind == "mlstm":
+                got, _ = XL.mlstm_apply(p, x, heads)
+                exact, _ = XL.mlstm_apply(p64, x.double(), heads)
+                err = _err(got.double(), exact)
+                scale = max(1.0, float(exact.abs().max()))
+                assert err <= TOL * scale, f"mlstm layer: {err} from float64"
+                out[kind] = dict(max_abs_err_f64=err, tol=TOL * scale)
+            else:
+                got, _ = XL.slstm_apply(p, x, heads)
+                plain, _ = XL.slstm_apply(p, x, heads, use_fused=False)
+                exact, _ = XL.slstm_apply(p64, x.double(), heads,
+                                          use_fused=False)
+                out[kind] = dict(
+                    max_abs_err=_hold("slstm layer", got, plain),
+                    **float64_errors("slstm layer", (got,), (plain,),
+                                     (exact,)))
+            del got, exact
+    print("xlstm layers vs float64: " + json.dumps(out), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_slstm(limit: int, skip: int = 0):
+    """`limit` calls of ``nn/xlstm.slstm_apply`` on the kernel route, after
+    the first `skip`, kept as (params, x, heads, state), x and the state
+    copied (a decode step updates the state in place afterwards); each
+    call then runs as ever."""
+    apply, seen = XL.slstm_apply, []
+    calls = [0]
+
+    def rec(params, x, n_heads, state=None, use_fused=None):
+        if use_fused is None:
+            calls[0] += 1
+            if skip < calls[0] <= skip + limit:
+                seen.append((params, x.clone(), n_heads, None if state is None
+                             else tuple(t.clone() for t in state)))
+        return apply(params, x, n_heads, state=state, use_fused=use_fused)
+
+    XL.slstm_apply = rec
+    try:
+        yield seen
+    finally:
+        XL.slstm_apply = apply
+
+
+def check_slstm_calls(label: str, seen, f64_last: bool = False) -> list:
+    """Each recorded sLSTM layer call again through the kernel and through
+    the plain loop on its own input and state: the output and the final
+    state within TOL·scale; with `f64_last` the last call also against
+    the float64 loop (the kernel no further than 4x the plain loop plus
+    1e-6·scale)."""
+    rows = []
+    for i, (p, x, heads, state) in enumerate(seen):
+        with torch.no_grad():
+            got = XL.slstm_apply(p, x, heads, state=state)
+            want = XL.slstm_apply(p, x, heads, state=state, use_fused=False)
+            flat_k, flat_p = (got[0], *got[1]), (want[0], *want[1])
+            row = dict(x_rms=float(x.square().mean().sqrt()),
+                       max_abs_err=max(
+                           _hold(f"{label} sLSTM call {i} {n}", g, w)
+                           for n, g, w in zip(("y", "c", "n", "m", "h"),
+                                              flat_k, flat_p)))
+            if f64_last and i == len(seen) - 1:
+                exact = XL.slstm_apply(
+                    tree_map(lambda a: a.double(), p), x.double(), heads,
+                    state=None if state is None else tuple(
+                        t.double() for t in state), use_fused=False)
+                row.update(float64_errors(f"{label} sLSTM call {i}", flat_k,
+                                          flat_p, (exact[0], *exact[1])))
+        rows.append(row)
+    return rows
+
+
+def xlstm_cut(m, params, repeats: int = 1):
+    """xlstm cut to its first `repeats` repeats of the pattern (views of
+    the params)."""
+    seg = m.segments[0]
+    cut = dataclasses.replace(m, segments=(dataclasses.replace(
+        seg, repeats=repeats),))
+    return cut, dict(params, segments=[[tree_map(lambda a: a[:repeats], sp)
+                                        for sp in params["segments"][0]]])
+
+
+def drive_xlstm_prefill(m, params) -> dict:
+    """Phase o3: ``drive_prefill`` at full depth (6 sLSTM launches and no
+    flash launch asserted, timed, profiled).  Its last-token logits
+    through the kernel and through the plain loop are reported, not
+    held: at seed 0's random weights the residual stream grows ~4x a
+    repeat of the pattern (0.02 to ~840 rms before the last sLSTM layer)
+    and the float32 model's logits move by O(1) when its embedding moves
+    by one ulp (`sensitivity`), so no two float32 routes agree there;
+    both routes' distance from the float64 forward is reported beside
+    it.  What is held: each of the prefill's 6 sLSTM launches, again on
+    its own recorded input, within TOL·scale of the plain loop (the last
+    also against float64), and the prefill of the model cut to one
+    repeat of the pattern (8 layers, where one ulp moves nothing) through
+    both routes within TOL·scale."""
+    n_sl = sum(seg.repeats for seg in m.segments for sp in seg.pattern
+               if sp.kind == "slstm")
+    logits = []
+    with recorded_slstm(n_sl) as seen:
+        out = drive_prefill(m, params, "xlstm prefill", hold_logits=False,
+                            keep=logits, rounds=("kernel", "plain", "kernel"))
+    assert len(seen) == n_sl, len(seen)
+    out["slstm_calls_vs_plain"] = check_slstm_calls("xlstm prefill", seen,
+                                                    f64_last=True)
+    del seen
+    toks = prefill_tokens(m)
+    got, want = (t.double() for t in logits)
+    del logits
+    with torch.no_grad():
+        nudged = dict(params, embed={
+            "table": params["embed"]["table"] * (1 + 2 ** -23)})
+        moved = MB.forward(nudged, m, toks)[:, -1].double()
+        del nudged
+        p64 = tree_map(lambda a: a.double(), params)
+        exact = MB.forward(p64, m, toks, use_fused=False)[:, -1]
+        del p64
+    torch.cuda.empty_cache()
+    out["full_depth_logits"] = dict(
+        max_abs_f64=float(exact.abs().max()),
+        kernel_vs_f64=_err(got, exact), plain_vs_f64=_err(want, exact),
+        kernel_vs_plain=_err(got, want),
+        sensitivity=dict(what="kernel route, embedding x (1 + 2^-23)",
+                         moved_logits_by=_err(moved, got)))
+    cut, p1 = xlstm_cut(m, params)
+    with torch.no_grad():
+        got = TS.make_prefill_step(cut)(p1, {"tokens": toks})
+        want = TS.make_prefill_step(cut, use_fused=False)(p1,
+                                                          {"tokens": toks})
+    out["one_repeat"] = _logits_agree("xlstm prefill cut to one repeat",
+                                      got, want)
+    print("xlstm prefill checks: " + json.dumps(
+        {k: out[k] for k in ("logits_vs_plain", "slstm_calls_vs_plain",
+                             "full_depth_logits", "one_repeat")}),
+          flush=True)
+    return out
+
+
+def engine_vs_prefill(m, params, run: dict, label: str, hold: bool
+                      ) -> dict:
+    """The Engine's decode logits over the first wave's prompts against
+    the full-sequence forward at each position, and at the prompts' last
+    tokens against ``make_prefill_step`` (both stepwise at 12 tokens), and
+    its first new tokens against the prefill's argmax: held within
+    TOL·scale where `hold`, else reported."""
+    plen = SERVE["prompt_len"]
+    first = torch.tensor(run["prompts"][:SERVE["slots"]], device="cuda")
+    with torch.no_grad():
+        full = MB.forward(params, m, first)
+    want = TS.make_prefill_step(m)(params, {"tokens": first})
+    assert len(run["steps"]) == plen, len(run["steps"])
+    pairs = [(f"{label} decode step {st['clock']} vs the forward",
+              st["logits"], full[:, st["clock"]]) for st in run["steps"]]
+    pairs.append((f"{label} vs prefill logits",
+                  run["steps"][plen - 1]["logits"], want))
+    firsts = [r.out[0] for r in run["done"][:SERVE["slots"]]]
+    if hold:
+        errs = [_logits_agree(*pr) for pr in pairs]
+        assert firsts == want.argmax(-1).tolist(), (firsts, want.argmax(-1))
+    else:
+        errs = [dict(max_abs_err=_err(g, w), tol=TOL * max(
+            1.0, float(w.abs().max()))) for _, g, w in pairs]
+    return dict(steps=plen, held=hold,
+                decode_vs_forward_max_abs_err=max(
+                    e["max_abs_err"] for e in errs[:-1]),
+                engine_vs_prefill=errs[-1],
+                first_tokens_equal_prefill_argmax=firsts == want.argmax(
+                    -1).tolist())
+
+
+def drive_xlstm_serve(m, params) -> dict:
+    """Phase o4: the Engine serving SERVE's requests on xlstm-1.3b at full
+    depth, its launches counted from zero (one sLSTM launch an sLSTM
+    layer a decode step: the engine's steps and one more profiled; the
+    mLSTM's one-token cell is eager torch), ms and launches a step.  Its
+    decode logits are held to the stepwise forward and prefill step where
+    the float32 model is well conditioned: on the model cut to one repeat
+    of the pattern, served by a second Engine; at full depth they are
+    reported (see `drive_xlstm_prefill`), and the 6 sLSTM launches of the
+    step at the prompts' last token are held, on their own recorded
+    inputs and states, to the plain loop.  A step reads every weight (the tied head the whole
+    table): the bound is the params' bytes over HBM."""
+    plen = SERVE["prompt_len"]
+    n_sl = sum(seg.repeats for seg in m.segments for sp in seg.pattern
+               if sp.kind == "slstm")
+    zero_counts()
+    with recorded_slstm(n_sl, skip=n_sl * (plen - 1)) as seen:
+        run = run_engine(m, params, plen)
+    launches = counts()
+    steps = run["stats"]["engine_iters"] + 1
+    assert launches["slstm_scan_f32"] == n_sl * steps, (launches, steps)
+    assert launches["flash_attention_f32"] == 0, launches
+    calls = check_slstm_calls(f"xlstm engine step {plen - 1}", seen)
+    del seen
+    full = engine_vs_prefill(m, params, run, "xlstm engine", hold=False)
+    cut, p1 = xlstm_cut(m, params)
+    cut_run = run_engine(cut, p1, plen)
+    one = engine_vs_prefill(cut, p1, cut_run, "xlstm engine cut to one "
+                            "repeat", hold=True)
+    weight_bytes = 4 * MB.param_count(params)
+    out = dict(run["stats"], launches=launches,
+               slstm_launches_per_step=launches["slstm_scan_f32"] / steps,
+               decode_launches_per_step=run["stats"]["decode_step_profile"][
+                   "device_launches"],
+               weights_read_gb=weight_bytes / 1e9,
+               weights_read_ms=1e3 * weight_bytes / PEAK_HBM_BYTES,
+               slstm_calls_vs_plain=calls, full_depth=full,
+               one_repeat=dict(one, ms_per_decode_step=cut_run["stats"][
+                   "ms_per_decode_step"]))
+    print("xlstm serve: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements to this JSON")
@@ -3241,6 +3676,20 @@ def main() -> int:
     hymba_launcher = drive_lm_launcher(
         HYMBA_LAUNCHER_ARGV, "hymba launcher",
         ("flash_attention_f32 with lse", "ssm_scan_f32", "ssm_scan_bwd_f32"))
+
+    # phase o: xlstm-1.3b at full width, once phase n's state is freed; the
+    # prefill's and the Engine's launches counted from zero just before
+    # each (inside drive_prefill and drive_xlstm_serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m, params, xlstm_init = xlstm_model()
+    slstm = check_slstm_scan(m, params)
+    xlstm_layers = check_xlstm_layers(m, params)
+    xlstm_prefill = drive_xlstm_prefill(m, params)
+    xlstm_serve = drive_xlstm_serve(m, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     print("init seconds on the card: " + json.dumps(INIT_S), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here",
           flush=True)
@@ -3379,6 +3828,21 @@ def main() -> int:
                 hymba_train["launches"]["ssm_scan_bwd_f32"],
             "hymba_launcher": {k: r["launches"]["ssm_scan_bwd_f32"]
                                for k, r in hymba_launcher.items()}},
+    }, {
+        "name": "slstm_scan_f32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/slstm_scan.cu",
+        "replaces": "src/repro/nn/xlstm.py:209-228 (slstm_apply's cell "
+                    "under _chunked_scan / lax.scan; no Pallas kernel)",
+        "launches": xlstm_prefill["launches"]["slstm_scan_f32"],
+        "max_abs_err": max(r["max_abs_err"] for r in slstm.values()),
+        **{k: slstm["prefill"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "us_per_step", "max_abs_err_f64", "plain_max_abs_err_f64")},
+        "engine_step": slstm["engine"],
+        "launches_by_path": {
+            "xlstm_prefill": xlstm_prefill["launches"]["slstm_scan_f32"],
+            "xlstm_engine": xlstm_serve["launches"]["slstm_scan_f32"]},
     }]}
     if args.out:
         with open(args.out, "w") as fh:
@@ -3399,7 +3863,11 @@ def main() -> int:
                        "hymba_prefill": hymba_prefill,
                        "hymba_serve": hymba_serve, "ssm_scan_bwd": ssm_bwd,
                        "hymba_grad": hymba_grad, "hymba_train": hymba_train,
-                       "hymba_launcher": hymba_launcher, "init_s": INIT_S,
+                       "hymba_launcher": hymba_launcher,
+                       "xlstm_init": xlstm_init, "slstm_scan": slstm,
+                       "xlstm_layers": xlstm_layers,
+                       "xlstm_prefill": xlstm_prefill,
+                       "xlstm_serve": xlstm_serve, "init_s": INIT_S,
                        "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},
                       fh, indent=1)

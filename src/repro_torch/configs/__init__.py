@@ -2,8 +2,9 @@
 
 Every assigned architecture of the reference is listed; the port has the
 dense decoders (gemma3-1b, stablelm-1.6b, qwen3-14b, deepseek-coder-33b),
-the MoE decoders (mixtral-8x7b, phi3.5-moe) and the attention + SSM
-hybrid hymba-1.5b, each a module exposing
+the MoE decoders (mixtral-8x7b, phi3.5-moe), the attention + SSM
+hybrid hymba-1.5b and the recurrent xlstm-1.3b (mLSTM and sLSTM
+blocks), each a module exposing
 FULL and REDUCED ModelCfg objects equal field for field to the
 reference's.  The others raise ``NotImplementedError`` until their
 blocks are ported (ROADMAP Queue 1).  Shapes live in
@@ -29,7 +30,7 @@ _ARCHS = (
 
 #: the archs whose every block is ported
 PORTED = ("mixtral_8x7b", "phi35_moe", "stablelm_1_6b", "qwen3_14b",
-          "gemma3_1b", "deepseek_coder_33b", "hymba_1_5b")
+          "gemma3_1b", "deepseek_coder_33b", "hymba_1_5b", "xlstm_1_3b")
 
 _ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",

@@ -3,7 +3,8 @@
 The counterpart of the reference's ``kernels/ops.py``.  There the Pallas
 kernel runs on the TPU (or in interpret mode) and the jnp oracle
 elsewhere; here the device rule is the kernel wrapper's
-(``kernels/flash_attention.py``, ``kernels/ssm_scan.py``: a CPU tensor
+(``kernels/flash_attention.py``, ``kernels/ssm_scan.py``,
+``kernels/slstm_scan.py``: a CPU tensor
 gets the plain version, a CUDA tensor the kernel or an exception), and
 ``use_fused=False`` is the caller's explicit opt-out to the plain
 version on any device.
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import slstm_scan as _sl
 from repro_torch.kernels import ssm_scan as _ss
 
 
@@ -43,3 +45,15 @@ def ssm_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     if use_fused is False:
         return _ref.ssm_scan(dt, bmat, cmat, x, a, h0, chunk=chunk)
     return _ss.ssm_scan(dt, bmat, cmat, x, a, h0, chunk=chunk)
+
+
+def slstm_scan(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
+               state, *, use_fused: Optional[bool] = None):
+    """The sLSTM's recurrence: wx (B, S, 4D), rh (H, dh, 4dh), bias (4D,),
+    state (c, n, m, h) each (B, D) -> (hs (B, S, D), the final state).
+    By default ``kernels/slstm_scan.slstm_scan`` (the kernel on the card);
+    ``use_fused=False`` takes the plain loop (``kernels/ref.slstm_scan``,
+    differentiable by torch's autograd)."""
+    if use_fused is False:
+        return _ref.slstm_scan(wx, rh, bias, state)
+    return _sl.slstm_scan(wx, rh, bias, state)

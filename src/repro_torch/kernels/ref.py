@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels, and the MoE layer's
 dense-gather oracle (``moe_dispatch_ffn``, the reference's, which has no
-kernel).  ``ssm_scan`` is the plain version of the selective-scan kernel,
-whose reference is a ``lax.scan`` rather than a Pallas kernel.
+kernel).  ``ssm_scan`` and ``slstm_scan`` are the plain versions of the
+selective-scan and sLSTM kernels, whose references are ``lax.scan``s
+rather than Pallas kernels.
 
 Each function is the mathematical definition of its kernel with no tiling
 or hardware concerns.  The wrappers in ``kernels/`` take them for CPU
@@ -56,6 +57,13 @@ def dense_dw_db(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
     kernel."""
     g = _masked(dy, y, relu)
     return x.t() @ g, g.sum(0)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``: max(x, 0) +
+    log1p(exp(-|x|)), with no threshold (``F.softplus`` returns x itself
+    above 20).  ``jax.nn.log_sigmoid(x)`` is ``-softplus(-x)``."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
 #: the finite mask value of the reference (``-inf`` would turn a fully
@@ -219,3 +227,67 @@ def ssm_scan_bwd(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
             (g * b_c[:, :, None, :]).sum(-1) * dt_c))
     d_dt, d_b, d_c, d_x = (torch.cat(p[::-1], 1) for p in zip(*parts))
     return d_dt, d_b, d_c, d_x, d_a, carry
+
+
+def _slstm_cell(carry, wx_t: torch.Tensor, rh: torch.Tensor,
+                bias: torch.Tensor):
+    """One sLSTM step, the reference's ``cell`` op for op: the per-head
+    recurrence ``einsum("bhd,hde->bhe")`` flattened to (B, 4D), so head k's
+    4·dh outputs fill gate columns [k·4dh, (k+1)·4dh) (at H = 4 head k
+    alone feeds gate k of every channel), then ``pre = (wx_t + rec) +
+    bias``, the stabilized exponential gates and ``h = (o·c) / max(n,
+    1e-6)``."""
+    c, n, m, h_prev = carry
+    b, d = h_prev.shape
+    hd, dh = rh.shape[0], rh.shape[1]
+    rec = torch.einsum("bhd,hde->bhe", h_prev.reshape(b, hd, dh),
+                       rh).reshape(b, 4 * d)
+    pre = wx_t + rec + bias
+    z_t = torch.tanh(pre[:, :d])
+    i_raw = pre[:, d:2 * d]
+    f_raw = pre[:, 2 * d:3 * d]
+    o_t = torch.sigmoid(pre[:, 3 * d:])
+    logf = -softplus(-f_raw)
+    m_new = torch.maximum(logf + m, i_raw)
+    i_g = torch.exp(i_raw - m_new)
+    f_g = torch.exp(logf + m - m_new)
+    c = f_g * c + i_g * z_t
+    n = f_g * n + i_g
+    h = o_t * c / torch.clamp(n, min=1e-6)
+    return c, n, m_new, h
+
+
+def _slstm_steps(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
+                 c, n, m, h):
+    """`_slstm_cell` over wx's steps -> (hs (B, S, D), c, n, m, h)."""
+    hs = []
+    for t in range(wx.shape[1]):
+        c, n, m, h = _slstm_cell((c, n, m, h), wx[:, t], rh, bias)
+        hs.append(h)
+    return torch.stack(hs, 1), c, n, m, h
+
+
+def slstm_scan(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
+               state, chunk: int = 64):
+    """The sLSTM's recurrence as a time loop in torch ops — the plain
+    version of the sLSTM kernel.  wx (B, S, 4D) the projected inputs, rh
+    (H, dh, 4dh) the block-diagonal recurrent weights, bias (4D,), state
+    (c, n, m, h) each (B, D) -> (hs (B, S, D), the final (c, n, m, h)).
+
+    Under autograd, where ``S > chunk`` and `chunk` divides S (the
+    reference's ``_chunked_scan`` condition), each chunk of steps runs
+    under ``torch.utils.checkpoint`` (non-reentrant), as the reference's
+    ``jax.checkpoint``-ed chunks do; that changes no math.
+    Differentiable by torch's own autograd."""
+    s = wx.shape[1]
+    remat = (torch.is_grad_enabled() and chunk > 1 and s > chunk
+             and s % chunk == 0)
+    if not remat:
+        hs, *state = _slstm_steps(wx, rh, bias, *state)
+        return hs, tuple(state)
+    parts = []
+    for t0 in range(0, s, chunk):
+        hs, *state = checkpoint(_slstm_steps, wx[:, t0:t0 + chunk], rh,
+                                bias, *state, use_reentrant=False)
+        parts.append(hs)
+    return torch.cat(parts, 1), tuple(state)

@@ -6,8 +6,10 @@
 Every ported arch serves: the dense decoders, the MoE ones (mixtral-8x7b,
 phi3.5-moe), whose decode step routes its lanes together at the
 reference's capacity for that many tokens (``nn/moe``), so an MoE model's
-decode is not its prefill, in the reference as here, and hymba-1.5b,
-whose lanes carry an SSM state that a reused lane resets.  The params
+decode is not its prefill, in the reference as here, hymba-1.5b, whose
+lanes carry an SSM state that a reused lane resets, and xlstm-1.3b,
+whose lanes carry only recurrent states (the mLSTM's (C, n, m), the
+sLSTM's (c, n, m, h)): no KV cache, so no horizon.  The params
 come from ``models/base.init_params`` on ``prng_key(--seed)``: the
 reference's initial weights for the same seed.
 
@@ -51,8 +53,8 @@ class Request:
 def _recurrent_template(states, m):
     """A copy of the recurrent (ssm / xLSTM) portion of a freshly
     initialized decode state, per segment/spec: hymba's (h, tail) stacks,
-    and None where a spec carries no recurrent state (the dense and MoE
-    decoders).  KV caches are excluded: the per-lane `start` mask handles
+    an xLSTM layer's whole tuple, and None where a spec carries no
+    recurrent state (the dense and MoE decoders).  KV caches are excluded: the per-lane `start` mask handles
     them."""
     def copy(tree):
         return None if tree is None else tree_map(torch.clone, tree)

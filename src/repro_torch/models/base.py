@@ -9,6 +9,7 @@ axis as in the reference.
     plus a tail segment of 2 local layers
   * hymba (``ssm_state``: every block has the parallel SSM branch): five
     segments of pattern length 1, global layers first, middle and last
+  * xlstm (mLSTM:sLSTM 7:1): pattern [mlstm x7, slstm], repeats 6
 
 The reference scans over repeats (``lax.scan``); here a Python loop runs
 the layers in the same order, taking a segment's layers from its stacks
@@ -16,20 +17,21 @@ with one ``unbind(0)`` per leaf, so under autograd each stack's gradient
 is assembled once (indexing ``a[r]`` per layer would allocate a zero
 stack per layer in the backward).  ``forward(..., remat=True)`` runs each
 repeat of the pattern under ``torch.utils.checkpoint`` (non-reentrant),
-as the reference's ``jax.checkpoint`` does its scan body.  Only the
-``"dense"`` kind is ported, with its SwiGLU or MoE FFN and its optional
-SSM branch; the others (mlstm, slstm, whisper's enc/dec) raise
-``NotImplementedError`` (ROADMAP Queue 1).
+as the reference's ``jax.checkpoint`` does its scan body.  The kinds
+``"dense"`` (with its SwiGLU or MoE FFN and its optional SSM branch),
+``"mlstm"`` and ``"slstm"`` (``nn/xlstm``) are ported; whisper's enc/dec
+raise ``NotImplementedError`` (ROADMAP Queue 1).
 
 ``init_params(key, m, device)`` draws the reference's initial weights
 bit for bit from a threefry key (``core/prng``): the same splits and
 fold-ins, the same draws.
 
-Decode states mirror the param stacks: per segment and spec,
-``{"kv": (k, v), "len": int[, "ssm": (h, tail)]}`` with k, v (repeats, B,
-span, Hkv, dh), h (repeats, B, Di, N), tail (repeats, B, K-1, Di) and the
-shared count of cached tokens; decode writes the caches and the SSM
-states in place.
+Decode states mirror the param stacks: per segment and spec, for a
+dense block ``{"kv": (k, v), "len": int[, "ssm": (h, tail)]}`` with k, v
+(repeats, B, span, Hkv, dh), h (repeats, B, Di, N), tail (repeats, B,
+K-1, Di) and the shared count of cached tokens; for an xLSTM block the
+reference's tuple, stacked: the mLSTM's (C, n, m) and the sLSTM's (c, n,
+m, h).  Decode writes the caches and the recurrent states in place.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from repro_torch.core import prng
 from repro_torch.nn import blocks as B
 from repro_torch.nn import layers as L
 from repro_torch.nn import ssm as S
+from repro_torch.nn import xlstm as X
 from repro_torch.optim import tree_leaves, tree_map, tree_unflatten
 
 
@@ -92,26 +95,45 @@ def _not_ported(what: str) -> NotImplementedError:
 # ---------------------------------------------------------------------------
 # per-spec init/apply/decode dispatch
 # ---------------------------------------------------------------------------
+#: the layer kinds whose decode state is a recurrent tuple, not a dict
+RECURRENT = ("mlstm", "slstm")
+
+
 def spec_init(key: torch.Tensor, spec: LayerSpec, device):
+    cfg = spec.cfg
     if spec.kind == "dense":
-        return B.block_init(key, spec.cfg, device)
+        return B.block_init(key, cfg, device)
+    if spec.kind == "mlstm":
+        return X.mlstm_init(key, cfg.d_model, cfg.n_heads, device)
+    if spec.kind == "slstm":
+        return X.slstm_init(key, cfg.d_model, cfg.n_heads, device)
     raise _not_ported(f"layer kind {spec.kind!r}")
 
 
 def spec_apply(params, x, spec: LayerSpec, positions,
                use_fused: Optional[bool] = None):
+    """One layer over the sequence; ``use_fused=False`` takes the plain
+    attention, scan and sLSTM loop (the mLSTM has no kernel)."""
     if spec.kind == "dense":
         return B.block_apply(params, x, spec.cfg, positions,
                              use_fused=use_fused)
+    if spec.kind == "mlstm":
+        y, _ = X.mlstm_apply(params, x, spec.cfg.n_heads)
+        return x + y
+    if spec.kind == "slstm":
+        y, _ = X.slstm_apply(params, x, spec.cfg.n_heads,
+                             use_fused=use_fused)
+        return x + y
     raise _not_ported(f"layer kind {spec.kind!r}")
 
 
 def spec_state_init(spec: LayerSpec, batch: int, cache_len: int,
-                    device) -> Dict[str, Any]:
-    """Decode state of one layer: its KV cache (a ring of the window's
-    width for sliding-window layers), the count of cached tokens, and for
-    hymba's blocks an ``ssm`` entry, None here: `init_decode_state` sizes
-    it from the params."""
+                    device) -> Any:
+    """Decode state of one layer: for a dense block its KV cache (a ring
+    of the window's width for sliding-window layers), the count of cached
+    tokens, and for hymba's blocks an ``ssm`` entry, None here:
+    `init_decode_state` sizes it from the params; for an xLSTM block its
+    recurrent tuple (the reference's initial values)."""
     cfg = spec.cfg
     if spec.kind == "dense":
         span = cache_len if cfg.window is None else min(cfg.window, cache_len)
@@ -122,14 +144,28 @@ def spec_state_init(spec: LayerSpec, batch: int, cache_len: int,
         if cfg.ssm_state:
             st["ssm"] = None
         return st
+    if spec.kind == "mlstm":
+        return X.mlstm_state_init(batch, cfg.n_heads,
+                                  cfg.d_model // cfg.n_heads, device)
+    if spec.kind == "slstm":
+        return X.slstm_state_init(batch, cfg.d_model, device)
     raise _not_ported(f"layer kind {spec.kind!r}")
 
 
 def spec_decode(params, x1, spec: LayerSpec, pos, state, start=None):
+    """One token through one layer -> (x1, its new state): a dense block's
+    dict, an xLSTM block's tuple (the mLSTM's stepwise cell; the sLSTM's
+    kernel at S = 1 on the card)."""
     cfg = spec.cfg
     if spec.kind == "dense":
         return B.block_decode(params, x1, cfg, pos, state,
                               ring=cfg.window is not None, start=start)
+    if spec.kind == "mlstm":
+        y, st = X.mlstm_apply(params, x1, cfg.n_heads, state=state)
+        return x1 + y, st
+    if spec.kind == "slstm":
+        y, st = X.slstm_apply(params, x1, cfg.n_heads, state=state)
+        return x1 + y, st
     raise _not_ported(f"layer kind {spec.kind!r}")
 
 
@@ -236,6 +272,9 @@ def init_decode_state(params, m: ModelCfg, batch: int, cache_len: int):
         seg_states = []
         for spec in seg.pattern:
             st = spec_state_init(spec, batch, cache_len, device)
+            if spec.kind in RECURRENT:
+                seg_states.append(tuple(stack(t, seg.repeats) for t in st))
+                continue
             st["kv"] = tuple(stack(t, seg.repeats) for t in st["kv"])
             if "ssm" in st:
                 st["ssm"] = tuple(stack(t, seg.repeats) for t in
@@ -264,13 +303,20 @@ def decode_step(params, m: ModelCfg, token: torch.Tensor, pos: int, states,
     timeline, so one vector serves all layers).  Returns (logits (B, 1, V),
     new states); the caches and the SSM states are updated in place (a
     layer's new (h, tail) is copied into its view of the stacks: the
-    decode of the block returns it, as the reference's does)."""
+    decode of the block returns it, as the reference's does; an xLSTM
+    layer's new tuple likewise)."""
     x = L.embed_apply(params["embed"], token)
     pos_b = torch.full((token.shape[0], 1), pos, device=token.device)
     new_states = []
     for seg_p, seg, seg_st in zip(params["segments"], m.segments, states):
         for r in range(seg.repeats):
             for spec, sp, st in zip(seg.pattern, seg_p, seg_st):
+                if spec.kind in RECURRENT:
+                    views = _layer(st, r)
+                    x, out = spec_decode(_layer(sp, r), x, spec, pos_b, views)
+                    for view, new in zip(views, out):
+                        view.copy_(new)
+                    continue
                 layer_st = dict(st, kv=_layer(st["kv"], r))
                 ssm = st.get("ssm")
                 if ssm is not None:
@@ -280,7 +326,9 @@ def decode_step(params, m: ModelCfg, token: torch.Tensor, pos: int, states,
                 if ssm is not None:
                     for view, new in zip(layer_st["ssm"], out["ssm"]):
                         view.copy_(new)
-        new_states.append([dict(st, len=st["len"] + 1) for st in seg_st])
+        new_states.append([st if spec.kind in RECURRENT
+                           else dict(st, len=st["len"] + 1)
+                           for st, spec in zip(seg_st, seg.pattern)])
     return _head(params, m, x), new_states
 
 

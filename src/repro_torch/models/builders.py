@@ -1,7 +1,7 @@
 """Helpers that assemble ModelCfg objects: the dense and MoE decoders
-(uniform), gemma3's local:global interleave and hymba's global-sandwich
-layout.  The xLSTM and whisper builders come with their blocks (ROADMAP
-Queue 1)."""
+(uniform), gemma3's local:global interleave, hymba's global-sandwich
+layout and xLSTM's periodic mLSTM:sLSTM stack.  The whisper builder comes
+with its blocks (ROADMAP Queue 1)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -86,3 +86,21 @@ def sandwich_arch(
     return ModelCfg(name=name, family=family, d_model=d_model, vocab=vocab,
                     segments=segs, tied_embeddings=tied, sub_quadratic=True,
                     notes=notes)
+
+
+def xlstm_arch(
+    name: str, n_layers: int, d_model: int, n_heads: int, vocab: int, *,
+    slstm_every: int = 8, tied: bool = True, notes: str = "",
+) -> ModelCfg:
+    """mLSTM:sLSTM = (slstm_every-1):1 periodic stack (d_ff = 0: the blocks
+    carry their own projections)."""
+    cfg = BlockCfg(d_model=d_model, n_heads=n_heads, n_kv=n_heads, d_ff=0)
+    m = LayerSpec("mlstm", cfg)
+    s = LayerSpec("slstm", cfg)
+    reps, tail = divmod(n_layers, slstm_every)
+    segs = [Segment(reps, tuple([m] * (slstm_every - 1) + [s]))]
+    if tail:
+        segs.append(Segment(tail, (m,)))
+    return ModelCfg(name=name, family="ssm", d_model=d_model, vocab=vocab,
+                    segments=tuple(segs), tied_embeddings=tied,
+                    sub_quadratic=True, notes=notes)

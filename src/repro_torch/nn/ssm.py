@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import prng
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import softplus
 
 
 def ssm_init(key: torch.Tensor, d_model: int, d_state: int = 16,
@@ -70,13 +71,6 @@ def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     for i in range(1, k):
         out = out + xp[:, i:i + s] * w[i]
     return out + b
-
-
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``: max(x, 0) +
-    log1p(exp(-|x|)), with no threshold (``F.softplus`` returns x itself
-    above 20)."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def _selective_inputs(params, x: torch.Tensor):

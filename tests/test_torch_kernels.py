@@ -1,8 +1,9 @@
 """The port's kernels against the reference package: the whole-MLP
 forward, the dense layer of training with its two backward kernels, and
 the flash-attention forward; on the card also the selective scan of
-hymba's SSM branch (whose CPU route, the plain loop, is held to the
-reference in ``tests/test_torch_ssm.py``).
+hymba's SSM branch and xLSTM's sLSTM recurrence (whose CPU routes, the
+plain loops, are held to the reference in ``tests/test_torch_ssm.py``
+and ``tests/test_torch_xlstm.py``).
 
 On the CPU each wrapper takes its plain version; these tests hold that
 plain version (and the dispatch and autograd around it) to the
@@ -1337,3 +1338,128 @@ def test_cuda_hymba_train_steps(h100):
         assert float((a - b_).norm()) <= 1e-3 * max(float(b_.norm()), 1e-30)
     np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0],
                                rtol=1e-5)
+
+
+#: (B, S, D, H): the sLSTM kernel's shapes: the reduced widths (d 64 at
+#: H 4, 2 and 1), a chunk-sized and a ragged length, every row count up
+#: to the kernel's 8, and xlstm-1.3b's Engine step (4, 1) and prefill
+#: (2, 4096) layers
+CUDA_SLSTM_CASES = [(2, 12, 64, 4), (1, 128, 64, 2), (3, 37, 64, 1),
+                    (8, 5, 256, 4), (5, 3, 128, 2), (6, 2, 64, 4),
+                    (7, 2, 64, 4), (4, 1, 2048, 4), (2, 4096, 2048, 4)]
+
+
+def _slstm_inputs(rng, b, s, d, h, device):
+    """wx, rh, bias and a state (c, n, m, h) at an xLSTM layer's
+    magnitudes: rh at the init's (1/dh)^0.5, the init's bias, n > 0."""
+    dh = d // h
+    bias = np.concatenate([np.zeros(2 * d), np.full(d, 3.0), np.zeros(d)])
+    state = (rng.normal(size=(b, d)), np.abs(rng.normal(size=(b, d))) + 1e-6,
+             rng.normal(size=(b, d)), rng.normal(size=(b, d)) * 0.1)
+    wx, rh = rng.normal(size=(b, s, 4 * d)), rng.normal(size=(h, dh, 4 * dh))
+    as_t = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
+                                  device=device)
+    return (as_t(wx), as_t(rh * (1.0 / dh) ** 0.5), as_t(bias),
+            tuple(as_t(v) for v in state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_SLSTM_CASES)
+def test_cuda_slstm_scan_matches_plain(case, h100, rng):
+    """hs and the final (c, n, m, h) within 1e-4·max(1, max|plain|) of the
+    plain loop, two calls the same bits, one launch a call."""
+    from repro_torch.kernels import slstm_scan as SL
+    wx, rh, bias, state = _slstm_inputs(rng, *case, h100)
+    before = SL.slstm_scan.launches
+    got = SL.slstm_scan(wx, rh, bias, state)
+    again = SL.slstm_scan(wx, rh, bias, state)
+    want = ref.slstm_scan(wx, rh, bias, state)
+    torch.cuda.synchronize()
+    assert SL.slstm_scan.launches == before + 2
+    flat = lambda r: (r[0], *r[1])  # noqa: E731
+    for name, g, a, w in zip(("hs", "c", "n", "m", "h"), flat(got),
+                             flat(again), flat(want)):
+        assert bool(torch.isfinite(g).all()), name
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-4 * scale, (case, name)
+        assert torch.equal(g, a), f"{case} {name}: two calls differ"
+    assert torch.equal(got[0][:, -1], got[1][3])
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_scan_rejects_what_it_does_not_take(h100, rng,
+                                                       monkeypatch):
+    """A shape, dtype, layout, device or card the kernel does not take
+    raises, as do inputs that need a gradient (no backward kernel yet);
+    ``use_fused=False`` is the plain loop under autograd."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import slstm_scan as SL
+    wx, rh, bias, state = _slstm_inputs(rng, 2, 4, 64, 4, h100)
+    before = SL.slstm_scan.launches
+    with pytest.raises(ValueError, match="rows"):
+        SL.slstm_scan(*_slstm_inputs(rng, 9, 2, 64, 4, h100))
+    with pytest.raises(ValueError, match="multiple"):
+        SL.slstm_scan(*_slstm_inputs(rng, 1, 2, 40, 4, h100))
+    with pytest.raises(ValueError, match="dh one of"):
+        SL.slstm_scan(*_slstm_inputs(rng, 1, 2, 96, 16, h100))
+    with pytest.raises(ValueError, match="dh one of"):
+        SL.slstm_scan(*_slstm_inputs(rng, 1, 2, 96, 2, h100))
+    with pytest.raises(ValueError, match="shared memory"):
+        SL.slstm_scan(*_slstm_inputs(rng, 8, 1, 8192, 16, h100))
+    with pytest.raises(ValueError, match="bias"):
+        SL.slstm_scan(wx, rh, bias[1:], state)
+    with pytest.raises(ValueError, match="h has shape"):
+        SL.slstm_scan(wx, rh, bias, (*state[:3], state[3][:1]))
+    with pytest.raises(TypeError):
+        SL.slstm_scan(wx.double(), rh, bias, state)
+    with pytest.raises(ValueError, match="contiguous"):
+        SL.slstm_scan(wx.transpose(0, 1).contiguous().transpose(0, 1), rh,
+                      bias, state)
+    with pytest.raises(ValueError, match="is on"):
+        SL.slstm_scan(wx, rh.cpu(), bias, state)
+    live = wx.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="use_fused=False"):
+        SL.slstm_scan(live, rh, bias, state)
+    hs, _ = ops.slstm_scan(live, rh, bias, state, use_fused=False)
+    hs.sum().backward()
+    assert live.grad is not None
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda *a: (8, 0))
+    with pytest.raises(RuntimeError, match="sm_90a"):
+        SL.slstm_scan(wx, rh, bias, state)
+    assert SL.slstm_scan.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_reduced_forward_and_decode(h100):
+    """Reduced xlstm on the card from the seed's params: the forward at S
+    128 (chunkwise mLSTM) and 12 (stepwise) through the kernel (one sLSTM
+    launch a layer) within 1e-4·scale of the plain route; 12 decode steps
+    (one launch an sLSTM layer a step) within the same of the stepwise
+    forward."""
+    from repro_torch import configs
+    from repro_torch.kernels import slstm_scan as SL
+    from repro_torch.models import base as MB
+    m = configs.get_reduced("xlstm-1.3b")
+    n_sl = sum(seg.repeats for seg in m.segments for sp in seg.pattern
+               if sp.kind == "slstm")
+    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, h100)
+    g = torch.Generator().manual_seed(0)
+    for s in (128, 12):
+        toks = torch.randint(0, m.vocab, (2, s), generator=g).to(h100)
+        before = SL.slstm_scan.launches
+        with torch.no_grad():
+            got = MB.forward(params, m, toks)
+            want = MB.forward(params, m, toks, use_fused=False)
+        assert SL.slstm_scan.launches == before + n_sl
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-4 * scale, s
+    states = MB.init_decode_state(params, m, 2, 16)
+    before = SL.slstm_scan.launches
+    with torch.no_grad():
+        for t in range(toks.shape[1]):
+            logits, states = MB.decode_step(params, m, toks[:, t:t + 1], t,
+                                            states)
+            assert float((logits[:, 0] - want[:, t]).abs().max()) <= \
+                1e-4 * scale, t
+    assert SL.slstm_scan.launches == before + n_sl * toks.shape[1]

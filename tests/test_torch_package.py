@@ -52,7 +52,8 @@ def test_port_files_are_found():
                 "serve/request", "serve/cache", "serve/batcher",
                 "serve/server", "serve/faults", "serve/frontend",
                 "serve/online", "data/synthetic", "optim/schedule",
-                "optim/compress", "launch/train"):
+                "optim/compress", "launch/train", "nn/xlstm",
+                "kernels/slstm_scan", "configs/xlstm_1_3b"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "chip_smoke.py" in names
 
@@ -162,8 +163,9 @@ def test_kernel_module_import_builds_nothing():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_dense as FD
     from repro_torch.kernels import fused_mlp as FM
+    from repro_torch.kernels import slstm_scan as SL
     assert set(build._LIBS) == set(build.build_info)
-    for mod in (FM, FD, FA):
+    for mod in (FM, FD, FA, SL):
         assert mod.SOURCE.exists() and mod.SOURCE.suffix == ".cu"
         assert mod.SOURCE.parent == build.CSRC
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
