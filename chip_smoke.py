@@ -13,8 +13,8 @@ these runs on the 3xTF32 tensor-core tile, so each is also held to a
 float64 product.  ptxas's report of the four sources is checked for
 spills in every instantiation of their tensor-core kernels (the flash
 kernel's 20: 10 with the lse store, 10 without), of the selective scan's
-forward (4) and backward (4), and of the sLSTM kernel (48: a batch row
-count 1-8 by a head width 16-512).  Then, with
+forward (4) and backward (4), and of the sLSTM kernels (48 each, forward
+and backward: a batch row count 1-8 by a head width 16-512).  Then, with
 the paper's G and D (11 x 2048, batch 1024, random weights from fixed
 seeds):
 
@@ -221,6 +221,36 @@ first):
   last to ``make_prefill_step`` (both stepwise at 12 tokens), its first
   new tokens the prefill's argmax.
 
+Then xlstm-1.3b training (phase p, on phase o's params):
+
+- p1. the sLSTM backward kernel (``slstm_scan_bwd_f32``) at the train
+  step's (2, 2048, 2048, H 4) and the prefill's (2, 4096, ...) layer
+  shapes, on the input an sLSTM layer records in the model cut to one
+  repeat and a random dys, from the forward kernel's chunk states:
+  within TOL·scale of ``ref.slstm_scan_bwd`` and of torch's autograd of
+  the plain loop (d_wx, d_rh, d_bias and the initial state's four), the
+  same bits twice, within 4x the plain float64 error plus 1e-6·scale;
+  the forward's chunk states against the plain loop's; timed beside its
+  bound and the plain adjoint loop (library: none), and the forward with
+  and without chunk states;
+- p2. one gradient of the model cut to one repeat (8 layers) at 2 x
+  2048 of ``SyntheticStream``'s batch 0, remat on, through the kernels
+  (2 sLSTM forward launches and 1 backward, asserted; the same bits
+  twice) and through the plain loop (``use_fused=False``): the loss
+  within 1e-5 relative, each leaf within 1e-3 of max(its norm, 1e-6 x
+  the gradient's norm); both against a float64 gradient, the kernel
+  route no further than twice the plain route;
+- p3. ``make_train_step`` at full depth, 2 x 2048 (XLSTM_TRAIN_REMAT):
+  one warm step (its peak memory; its gradient's norm as the clip reads
+  it, in float32, and in float64; where the float32 norm overflows, the
+  plain route's gradient from the same state too, which must overflow
+  alike: the reference's math) and XLSTM_TRAIN_STEPS timed (6 sLSTM
+  backward launches a step and 6 forward, 12 with remat, asserted), each
+  loss and every gradient element finite, tokens/s beside the bound, the
+  peak memory, a profiled step;
+- p4. ``launch/train.main`` at the reduced xlstm config, 12 steps, once
+  whole and once failing at step 7: its losses equal the whole run's.
+
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
 it are the kernel table (JSON) and the card's name and power limit.
@@ -287,6 +317,7 @@ from repro_torch.nn import ssm as SSM  # noqa: E402
 from repro_torch.nn import xlstm as XL  # noqa: E402
 from repro_torch.optim import (adam, apply_updates, tree_leaves,  # noqa: E402
                                tree_map, tree_unflatten)
+from repro_torch.optim.adamw import global_norm  # noqa: E402
 from repro_torch.train import step as TS  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense, no sparsity)
@@ -386,6 +417,17 @@ HYMBA_LAUNCHER_ARGV = ["--arch", HYMBA_ARCH] + LAUNCHER_ARGV[2:]
 #: Engine at SERVE; the sLSTM kernel alone at both paths' layer shapes
 XLSTM_ARCH = "xlstm-1.3b"
 SLSTM_SHAPES = {"prefill": PREFILL, "engine": (SERVE["slots"], 1)}
+#: phase p: xlstm-1.3b training on phase o's params at LM_TRAIN: the
+#: sLSTM backward alone at the train step's and the prefill's layer
+#: shapes; the train step at full depth, XLSTM_TRAIN_STEPS timed after a
+#: warm one, without remat (the reference's default is remat; a gradient
+#: without it peaks at ~48 GB on the card, under the ~70 GB past which
+#: remat pays, PERF.md §6); the launcher at the reduced config,
+#: restarted once at step 7
+SLSTM_BWD_SHAPES = {"train step": LM_TRAIN, "prefill": PREFILL}
+XLSTM_TRAIN_REMAT = False
+XLSTM_TRAIN_STEPS = 2
+XLSTM_LAUNCHER_ARGV = ["--arch", XLSTM_ARCH] + LAUNCHER_ARGV[2:]
 #: seconds of each LM's ``init_params`` on the card, by label
 INIT_S: dict = {}
 
@@ -445,6 +487,7 @@ def zero_counts() -> None:
     ss.ssm_scan.launches = 0
     ss.ssm_scan_bwd.launches = 0
     sl.slstm_scan.launches = 0
+    sl.slstm_scan_bwd.launches = 0
     for wrapper, _ in DENSE_KERNELS.values():
         wrapper.launches = 0
 
@@ -455,7 +498,8 @@ def counts() -> dict:
            "flash_attention_f32 with lse": fa.flash_attention.lse_launches,
            "ssm_scan_f32": ss.ssm_scan.launches,
            "ssm_scan_bwd_f32": ss.ssm_scan_bwd.launches,
-           "slstm_scan_f32": sl.slstm_scan.launches}
+           "slstm_scan_f32": sl.slstm_scan.launches,
+           "slstm_scan_bwd_f32": sl.slstm_scan_bwd.launches}
     out.update({name: w.launches for name, (w, _) in DENSE_KERNELS.items()})
     return out
 
@@ -474,22 +518,23 @@ def build_all() -> None:
 
 
 #: the tensor-core kernel of each source, the selective scan's two and
-#: the sLSTM kernel, whose instantiations ptxas must not spill, and how
+#: the sLSTM's two, whose instantiations ptxas must not spill, and how
 #: many there are
 SPILL_CHECKS = (("dense_train.cu", "gemm_3xtf32_kernel", 12),
                 ("mlp_forward.cu", "gemm_3xtf32_kernel", 12),
                 ("flash_attention.cu", "flash_fwd_kernel", 20),
                 ("ssm_scan.cu", "ssm_scan_kernel", 4),
                 ("ssm_scan.cu", "ssm_scan_bwd_kernel", 4),
-                ("slstm_scan.cu", "slstm_scan_kernel", 48))
+                ("slstm_scan.cu", "slstm_scan_kernel", 48),
+                ("slstm_scan.cu", "slstm_scan_bwd_kernel", 48))
 
 
 def check_spills() -> dict:
     """ptxas's report (-Xptxas -v) for each instantiation of the
     tensor-core kernel in each source that holds it, of the selective
     scan's forward and backward (one per state size each) and of the
-    sLSTM kernel (one per batch row count and head width): registers and
-    no spill stores or loads."""
+    sLSTM's forward and backward (one per batch row count and head width
+    each): registers and no spill stores or loads."""
     out = {}
     for source, kernel, count in SPILL_CHECKS:
         log = str(build.build_info[source]["log"])
@@ -847,6 +892,7 @@ def step_bound_ms(cfg, model) -> float:
 #: device-time groups of a profile, by kernel name (the first that matches)
 PROFILE_GROUPS = (("flash_fwd_kernel", "flash_fwd_kernel"),
                   ("slstm_scan_kernel", "slstm_scan_kernel"),
+                  ("slstm_scan_bwd_kernel", "slstm_scan_bwd_kernel"),
                   ("ssm_scan_kernel", "ssm_scan_kernel"),
                   ("ssm_scan_bwd_kernel", "ssm_scan_bwd_kernel"),
                   ("sum_parts_kernel", "ssm_scan_bwd_kernel"),
@@ -855,15 +901,18 @@ PROFILE_GROUPS = (("flash_fwd_kernel", "flash_fwd_kernel"),
                   ("copy", "copies"))
 
 
-def profile_step(step, args) -> dict:
+def profile_step(step, args, cpu: bool = True) -> dict:
     """One warm step under torch.profiler: the device's busy time and idle
     share, its launches, the kernels that take the most device time, and
-    the device ms of PROFILE_GROUPS (the rest as "other")."""
+    the device ms of PROFILE_GROUPS (the rest as "other").  With
+    ``cpu=False`` only the device's activity is traced: a step of a few
+    hundred thousand launches then takes seconds to read, not minutes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
+                                            else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         step(*args)
         torch.cuda.synchronize()
@@ -3520,6 +3569,325 @@ def drive_xlstm_serve(m, params) -> dict:
     return out
 
 
+def slstm_bwd_work(b: int, s: int, d: int, h: int) -> tuple:
+    """Bytes the sLSTM's backward (the kernel and its wrapper's d_rh and
+    d_bias products) must move: wx, hs, dys, rh, bias, h0 and the (B,
+    ⌈S/64⌉, D) chunk states (c, n, m) read once; d_wx, d_rh, d_bias and
+    the initial state's four cotangents written once.  Its float32
+    operations: the pre-activations again, the recurrent adjoint and
+    d_rh, 2·dh for each of the 4 gate columns of each (b, t, channel)
+    each, and ~80 pointwise around them (the forward's 36 again and the
+    adjoint's ~44; a transcendental counted as one)."""
+    dh = d // h
+    nc = sl.n_chunks(s)
+    n_bytes = 4 * (b * s * 4 * d + 2 * b * s * d + 2 * h * dh * 4 * dh
+                   + 2 * 4 * d + b * d + 3 * b * nc * d + b * s * 4 * d
+                   + 4 * b * d)
+    return n_bytes, b * s * d * (3 * 8 * dh + 80)
+
+
+def slstm_layer_input(m, params, shape, seed: int = 31) -> tuple:
+    """The sLSTM recurrence's inputs as the model gives them at `shape`
+    (batch x seq): the input the sLSTM layer records in the model cut to
+    one repeat on SyntheticStream's batch `seed`, through its wx; its rh
+    and bias; the reference's initial state."""
+    cut, p1 = xlstm_cut(m, params)
+    toks = lm_train_batch(cut, seed, shape)["tokens"]
+    with recorded_slstm(1) as seen, torch.no_grad():
+        MB.forward(p1, cut, toks)
+        p, x, _, _ = seen[0]
+        wx = (x @ p["wx"]).float()
+    state = XL.slstm_state_init(shape[0], m.d_model, "cuda")
+    return wx, p["rh"], p["b"], state
+
+
+def check_slstm_bwd(m, params) -> dict:
+    """Phase p1: the sLSTM's backward kernel (``slstm_scan_bwd_f32``) at
+    SLSTM_BWD_SHAPES on an sLSTM layer's recorded input and a random dys
+    (the final state's cotangents None, as in the model), from the
+    forward kernel's chunk states (held to the plain loop's): within
+    TOL·scale of its plain version (``ref.slstm_scan_bwd`` on the plain
+    loop's chunk states) and of torch's autograd of the plain loop, the
+    same bits twice, no further from a float64 autograd of the plain loop
+    than 4x the plain float32 autograd's error plus 1e-6·scale.
+    CUDA-event medians of the backward (the kernel and its d_rh / d_bias
+    products), of the products alone (the kernel's time is the
+    difference), of the forward with and without its chunk states, and one
+    call of the plain adjoint loop, beside the bound.  No PyTorch call
+    computes an sLSTM's backward (library: none)."""
+    rows = {}
+    heads = m.segments[0].pattern[-1].cfg.n_heads
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    names = ("d_wx", "d_rh", "d_bias", "dc0", "dn0", "dm0", "dh0")
+    for label, shape in SLSTM_BWD_SHAPES.items():
+        wx, rh, bias, state = slstm_layer_input(m, params, shape)
+        b, s, d = shape[0], shape[1], m.d_model
+        dys = torch.randn(b, s, d, generator=gen, device="cuda")
+        hs, fin, chunks = sl.slstm_scan_fwd(wx, rh, bias, state)
+        p_hs, _, p_chunks = ref.slstm_scan(wx, rh, bias, state,
+                                           boundaries=True)
+        chunk_err = max(_hold(f"slstm chunk states {label} {n}", g, w)
+                        for n, g, w in zip("cnm", chunks, p_chunks))
+        got = sl.slstm_scan_bwd(wx, rh, bias, state, hs, chunks, dys)
+        again = sl.slstm_scan_bwd(wx, rh, bias, state, hs, chunks, dys)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        assert same, f"slstm_scan_bwd {label}: two calls differ"
+        del again
+        plain = ref.slstm_scan_bwd(wx, rh, bias, state, p_hs, p_chunks, dys)
+        err = max(_hold(f"slstm_scan_bwd {label} {n} vs its plain version",
+                        x, y) for n, x, y in zip(names, got, plain))
+        del plain, p_hs, p_chunks
+
+        def autograd(dtype):
+            return _vjp(lambda *t: ref.slstm_scan(*t[:3], t[3:])[0],
+                        [t.to(dtype) for t in (wx, rh, bias, *state)],
+                        dys.to(dtype))[1:]
+
+        want = autograd(torch.float32)
+        err_autograd = max(_hold(f"slstm_scan_bwd {label} {n} vs autograd",
+                                 x, y) for n, x, y in zip(names, got, want))
+        exact = autograd(torch.float64)
+        row = dict(shape=[b, s, d, heads], max_abs_err=err,
+                   max_abs_err_vs_autograd=err_autograd,
+                   chunk_states_max_abs_err=chunk_err,
+                   tol=TOL * max(1.0, max(float(w.abs().max())
+                                          for w in want)),
+                   same_bits=same,
+                   **float64_errors(f"slstm_scan_bwd {label}", got, want,
+                                    exact))
+        del got, want, exact
+        n_bytes, ops_ = slstm_bwd_work(b, s, d, heads)
+        bnd, by = bound(n_bytes, ops_)
+
+        def bwd():
+            return sl.slstm_scan_bwd(wx, rh, bias, state, hs, chunks, dys)
+
+        row.update(
+            ms=cuda_ms(bwd, reps=10),
+            weight_grads_ms=cuda_ms(lambda: ref.slstm_weight_grads(
+                state[3], hs, wx, heads)),
+            fwd_chunks_ms=cuda_ms(lambda: sl.slstm_scan_fwd(
+                wx, rh, bias, state), reps=10),
+            fwd_ms=cuda_ms(lambda: sl.slstm_scan_fwd(
+                wx, rh, bias, state, boundaries=False), reps=10),
+            plain_ms=cuda_ms(lambda: ref.slstm_scan_bwd(
+                wx, rh, bias, state, hs, chunks, dys), reps=1, warmup=0),
+            bound_ms=bnd, bound_by=by, library_ms=None, bytes=n_bytes,
+            operations=ops_,
+            kernel_bound_ms=bound(n_bytes, ops_ - b * s * d * 8 * (
+                d // heads))[0],
+            fwd_bound_ms=slstm_bound_ms(b, s, d, heads)[0])
+        row["us_per_step"] = 1e3 * row["ms"] / s
+        row["kernel_ms_by_difference"] = row["ms"] - row["weight_grads_ms"]
+        rows[label] = row
+        print(f"slstm_scan_bwd_f32 {label}: " + json.dumps(row), flush=True)
+        del wx, dys, hs, chunks
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _loss_grads_f64(m, params, batch) -> tuple:
+    """The loss and gradients of ``next_token_loss`` in float64 through
+    the plain loop (float64 params, float64 logits and loss), remat on."""
+    p64 = tree_map(lambda a: a.double(), params)
+    live = [t.requires_grad_(True) for t in tree_leaves(p64)]
+    logits = MB.forward(tree_unflatten(p64, live), m, batch["tokens"],
+                        use_fused=False, remat=True)
+    logz = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
+    loss = (logz - gold).mean()
+    del logits, logz, gold
+    grads = torch.autograd.grad(loss, live)
+    return loss.detach(), list(grads)
+
+
+def check_xlstm_grad(m, params) -> dict:
+    """Phase p2: one gradient of xlstm cut to one repeat of its pattern (7
+    mLSTM layers and an sLSTM layer at full width, where the float32
+    model is well conditioned) on SyntheticStream's batch 0 at LM_TRAIN,
+    remat on: the kernel route (``SLSTMScanFn``: 2 forward launches and 1
+    backward, asserted; its launches counted from zero) twice, the same
+    bits, and against the plain route (``use_fused=False``: torch's
+    autograd of the plain loop) from the same state: the loss within 1e-5
+    relative, each leaf within 1e-3 of max(its norm, 1e-6 x the whole
+    gradient's norm) (the mLSTM's b_i and the sLSTM's i-gate bias are
+    zero up to rounding: a constant on the input gate shifts c, n and m
+    together); both routes against a float64 gradient, the kernel route's
+    largest leaf error (by the same measure) at most twice the plain
+    route's."""
+    cut, p1 = xlstm_cut(m, params)
+    batch0 = lm_train_batch(cut, 0)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    loss_k, g_k = TS.loss_and_grads(cut, p1, batch0, remat=True)
+    torch.cuda.synchronize()
+    grads_ms = 1e3 * (time.perf_counter() - t0)
+    launches = counts()
+    assert launches["slstm_scan_f32"] == 2 and \
+        launches["slstm_scan_bwd_f32"] == 1, launches
+    loss_2, g_2 = TS.loss_and_grads(cut, p1, batch0, remat=True)
+    same = bool(torch.equal(loss_k, loss_2)) and all(
+        torch.equal(a, b_) for a, b_ in zip(tree_leaves(g_k),
+                                            tree_leaves(g_2)))
+    assert same, "two gradients of the kernel route differ"
+    del g_2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_p, g_p = TS.loss_and_grads(cut, p1, batch0, remat=True,
+                                    use_fused=False)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    g_k, g_p = tree_leaves(g_k), tree_leaves(g_p)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    assert np.isfinite(loss_k), loss_k
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), (loss_k, loss_p)
+    total = float(torch.stack([g.norm() for g in g_p]).norm())
+
+    def errs(got, want, norm):
+        return [float((a - w).norm()) / max(float(w.norm()), 1e-6 * norm)
+                for a, w in zip(got, want)]
+
+    vs_plain = errs(g_k, g_p, total)
+    assert max(vs_plain) <= 1e-3, f"gradient leaf {int(np.argmax(vs_plain))}" \
+        f": {max(vs_plain)} of its norm from the plain route's"
+    loss_64, g_64 = _loss_grads_f64(cut, p1, batch0)
+    total_64 = float(torch.stack([g.norm() for g in g_64]).norm())
+    k64 = errs((g.double() for g in g_k), g_64, total_64)
+    p64 = errs((g.double() for g in g_p), g_64, total_64)
+    assert max(k64) <= 2 * max(p64), (max(k64), max(p64))
+    out = dict(layers=cut.n_layers, batch=list(LM_TRAIN), loss=loss_k,
+               plain_loss=loss_p, float64_loss=float(loss_64),
+               max_grad_norm_err_vs_plain=max(vs_plain),
+               max_grad_norm_err_f64=max(k64),
+               plain_max_grad_norm_err_f64=max(p64),
+               n_grad_leaves=len(vs_plain), grads_same_bits_twice=same,
+               launches=launches, remat=True, grads_ms=grads_ms,
+               plain_grads_ms=plain_ms)
+    print("xlstm grad: " + json.dumps(out), flush=True)
+    del g_k, g_p, g_64
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_train_bound_ms(n_params: int, remat: bool) -> float:
+    """Least time of an xlstm train step at the float32 peak (67 TFLOP/s,
+    TF32 off): 6·N·tokens, plus 2·N·tokens for the forward that remat
+    runs again (no attention; the sLSTM's recurrent products are rh's
+    share of N)."""
+    b, s = LM_TRAIN
+    return 1e3 * (8 if remat else 6) * n_params * b * s / PEAK_F32_FLOPS
+
+
+def grad_norms(grads) -> dict:
+    """The gradient's global norm as the clip reads it (``global_norm``:
+    squares summed in float32, the reference's), in float64, and whether
+    every element is finite."""
+    leaves = tree_leaves(grads)
+    return dict(f32=float(global_norm(grads)),
+                f64=float(torch.stack([g.double().norm()
+                                       for g in leaves]).norm()),
+                elements_finite=all(bool(torch.isfinite(g).all())
+                                    for g in leaves))
+
+
+def check_xlstm_train(m, params) -> dict:
+    """Phase p3: xlstm-1.3b's ``make_train_step`` at full depth, batch
+    LM_TRAIN of SyntheticStream, remat XLSTM_TRAIN_REMAT: one warm step
+    (timed, its peak memory), then XLSTM_TRAIN_STEPS timed ones (host
+    clock ended by a synchronize), their launches counted from zero (an
+    sLSTM layer's backward once and its forward once, twice with remat, a
+    step), each step's loss and every gradient element finite (its norms,
+    ``grad_norms``, read by the ``grad_compress`` hook, which returns the
+    gradients as they are), the peak memory, one more step profiled (the
+    device's activity only: ~271k launches).
+    Where the warm step's float32 norm (the clip's) is not finite, the
+    plain route's gradient (``use_fused=False``, remat) from the same
+    state and batch too: the same overflow there is the reference's math
+    (ROADMAP Queue 3 item 5), not the kernels'.  Updates `params` in
+    place."""
+    n_params = MB.param_count(params)
+    n_sl = sum(seg.repeats for seg in m.segments for sp in seg.pattern
+               if sp.kind == "slstm")
+    batches = [lm_train_batch(m, i) for i in range(XLSTM_TRAIN_STEPS + 2)]
+    start = tree_map(torch.clone, params)
+    norms = []
+
+    def record_norm(grads):
+        norms.append(grad_norms(grads))
+        return grads
+
+    step, optim = TS.make_train_step(m, remat=XLSTM_TRAIN_REMAT,
+                                     grad_compress=record_norm)
+    opt = optim.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, met = step(params, opt, batches[0])          # warm
+    torch.cuda.synchronize()
+    warm = dict(ms=1e3 * (time.perf_counter() - t0), loss=float(met["loss"]),
+                norms=norms[0],
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                / 1e9)
+    if not np.isfinite(warm["norms"]["f32"]):
+        t0 = time.perf_counter()
+        loss, grads = TS.loss_and_grads(m, start, batches[0], remat=True,
+                                        use_fused=False)
+        torch.cuda.synchronize()
+        warm["plain_route"] = dict(
+            grads_ms=1e3 * (time.perf_counter() - t0), loss=float(loss),
+            norms=grad_norms(grads))
+        del grads
+        assert not np.isfinite(warm["plain_route"]["norms"]["f32"]), \
+            ("the kernel route's gradient norm overflows, the plain "
+             "route's does not", warm)
+    del start
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [warm["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for b_ in batches[1:XLSTM_TRAIN_STEPS + 1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, b_)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(met["loss"]))
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert np.isfinite(losses).all() and all(
+        n["elements_finite"] for n in norms), (losses, norms)
+    fwd = n_sl * (2 if XLSTM_TRAIN_REMAT else 1)
+    assert launches["slstm_scan_f32"] == fwd * XLSTM_TRAIN_STEPS, launches
+    assert launches["slstm_scan_bwd_f32"] == n_sl * XLSTM_TRAIN_STEPS, \
+        launches
+    ms = statistics.median(times)
+    out = dict(
+        arch=m.name, n_params=n_params, batch=list(LM_TRAIN),
+        remat=XLSTM_TRAIN_REMAT, losses=losses, grad_norms=norms,
+        clip_norm_finite=all(np.isfinite(n["f32"]) for n in norms),
+        warm_step=warm, step_ms=times, ms_per_step=ms,
+        tokens_per_s=LM_TRAIN[0] * LM_TRAIN[1] / (ms / 1e3),
+        bound_ms_per_step=xlstm_train_bound_ms(n_params, XLSTM_TRAIN_REMAT),
+        launches=launches,
+        launches_per_step={k: v / XLSTM_TRAIN_STEPS
+                           for k, v in launches.items() if v},
+        max_memory_allocated_gb=peak / 1e9)
+    t0 = time.perf_counter()
+    out["profile"] = profile_step(lambda: step(params, opt, batches[-1]), (),
+                                  cpu=False)
+    out["profile_s"] = time.perf_counter() - t0
+    out["device_launches_per_step"] = out["profile"]["device_launches"]
+    print("xlstm train: " + json.dumps(out), flush=True)
+    del opt, batches
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements to this JSON")
@@ -3530,6 +3898,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def elapsed(label: str) -> None:
+        print(f"chip_smoke: {label} at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     card = smi()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -3538,12 +3911,14 @@ def main() -> int:
     build_all()
     spills = check_spills()
 
+    elapsed("phase 2")
     # phase 2: each kernel against its plain version; one full-width step
     kern = check_kernel()
     dense = check_dense()
     flash = check_flash()
     step = check_step(Im2colModel())
 
+    elapsed("phase 3")
     # phase 3: the serving path, counts zeroed just before it
     zero_counts()
     runs = {"dnnweaver": drive_path(DnnWeaverModel()),
@@ -3557,6 +3932,7 @@ def main() -> int:
     for name, run in runs.items():
         paths[name]["profile"] = profile_path(name, run)
 
+    elapsed("phase a")
     # phase a: the dense route on the same engines, counts zeroed just
     # before it
     zero_counts()
@@ -3567,6 +3943,7 @@ def main() -> int:
     assert dense_launches["mlp_forward_f32"] > 0, \
         "the dense route never launched the whole-MLP kernel"
 
+    elapsed("phase 4")
     # phase 4: the training path, counts zeroed just before it
     zero_counts()
     train = drive_train(Im2colModel())
@@ -3580,12 +3957,15 @@ def main() -> int:
     assert train_launches["mlp_forward_f32"] > 0, \
         "explore_batch on the trained G never launched the whole-MLP kernel"
 
+    elapsed("phase 5")
     # phase 5: quality at the reference's reduced scale
     quality = quality_run()
 
+    elapsed("phase b")
     # phase b: the whole MLP's gradient at LargeMLP's shapes
     mlp_grad = check_mlp_grad(Im2colModel())
 
+    elapsed("phase c")
     # phase c: LargeMLP at full width: one step against the plain route
     # and float64, the 17-layer whole MLP, then train + explore with the
     # counts zeroed just before
@@ -3601,18 +3981,22 @@ def main() -> int:
         assert baseline_launches[name] > 0, \
             f"LargeMLP's train and explore never launched {name}"
 
+    elapsed("phase d")
     # phase d: DRL's rollout and SA on the card against the CPU port
     drl_sa = drive_drl_sa()
 
+    elapsed("phase e")
     # phase e: Table 5 on dnnweaver, GANDSE's row from phase 5
     t5 = table5(quality)
 
+    elapsed("phases f-h")
     # phases f-h: the DSE serving tier at G 11 x 2048, counts zeroed just
     # before each
     serve_sync = drive_serve_sync()
     serve_conc = drive_serve_concurrent()
     online_run = drive_online(step["launches"])
 
+    elapsed("phase 6")
     # phase 6: the LM serving path at full width, counts zeroed just before
     # its prefill (inside drive_prefill)
     m, params = lm_model()
@@ -3628,12 +4012,14 @@ def main() -> int:
           + json.dumps(per_prefill), flush=True)
     torch.cuda.empty_cache()
 
+    elapsed("phases i-k")
     # phases i-k: LM training; the train steps' and the launcher's counts
     # zeroed just before each (inside check_lm_train, drive_lm_launcher)
     flash_grad = check_flash_grad()
     lm_train = check_lm_train()
     lm_launcher = drive_lm_launcher()
 
+    elapsed("phase l")
     # phase l: the MoE decoders, once phase j's state is freed; the
     # launches of each path counted from zero just before it (inside
     # drive_prefill, drive_moe_serve and check_moe_train)
@@ -3653,6 +4039,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_train = check_moe_train()
 
+    elapsed("phase m")
     # phase m: hymba-1.5b at full width, once phase l's state is freed;
     # the prefill's and the Engine's launches counted from zero just
     # before each (inside drive_prefill and drive_hymba_serve)
@@ -3663,6 +4050,7 @@ def main() -> int:
     hymba_prefill = drive_prefill(m, params, "hymba prefill")
     hymba_serve = drive_hymba_serve(m, params)
 
+    elapsed("phase n")
     # phase n: hymba-1.5b training on phase m's params (the train step
     # updates them in place, so it runs last); the gradient's, the train
     # steps' and the launcher's counts zeroed just before each (inside
@@ -3677,6 +4065,7 @@ def main() -> int:
         HYMBA_LAUNCHER_ARGV, "hymba launcher",
         ("flash_attention_f32 with lse", "ssm_scan_f32", "ssm_scan_bwd_f32"))
 
+    elapsed("phase o")
     # phase o: xlstm-1.3b at full width, once phase n's state is freed; the
     # prefill's and the Engine's launches counted from zero just before
     # each (inside drive_prefill and drive_xlstm_serve)
@@ -3687,9 +4076,24 @@ def main() -> int:
     xlstm_layers = check_xlstm_layers(m, params)
     xlstm_prefill = drive_xlstm_prefill(m, params)
     xlstm_serve = drive_xlstm_serve(m, params)
+
+    # phase p: xlstm-1.3b training on phase o's params (the train step
+    # updates them in place, so it runs last); the gradient's, the train
+    # steps' and the launcher's counts zeroed just before each (inside
+    # check_xlstm_grad, check_xlstm_train and drive_lm_launcher)
+    elapsed("phase p")
+    slstm_bwd = check_slstm_bwd(m, params)
+    elapsed("p2")
+    xlstm_grad = check_xlstm_grad(m, params)
+    elapsed("p3")
+    xlstm_train = check_xlstm_train(m, params)
+    elapsed("p4")
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    xlstm_launcher = drive_lm_launcher(
+        XLSTM_LAUNCHER_ARGV, "xlstm launcher",
+        ("slstm_scan_f32", "slstm_scan_bwd_f32"))
     print("init seconds on the card: " + json.dumps(INIT_S), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here",
           flush=True)
@@ -3840,9 +4244,38 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "us_per_step", "max_abs_err_f64", "plain_max_abs_err_f64")},
         "engine_step": slstm["engine"],
+        "with_chunk_states_ms": {label: r["fwd_chunks_ms"]
+                                 for label, r in slstm_bwd.items()},
         "launches_by_path": {
             "xlstm_prefill": xlstm_prefill["launches"]["slstm_scan_f32"],
-            "xlstm_engine": xlstm_serve["launches"]["slstm_scan_f32"]},
+            "xlstm_engine": xlstm_serve["launches"]["slstm_scan_f32"],
+            "xlstm_gradient": xlstm_grad["launches"]["slstm_scan_f32"],
+            "xlstm_train_steps":
+                xlstm_train["launches"]["slstm_scan_f32"],
+            "xlstm_launcher": {k: r["launches"]["slstm_scan_f32"]
+                               for k, r in xlstm_launcher.items()}},
+    }, {
+        "name": "slstm_scan_bwd_f32",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/slstm_scan.cu",
+        "replaces": "src/repro/nn/xlstm.py:209-228 (XLA's autodiff of "
+                    "slstm_apply's cell under the jax.checkpoint-ed "
+                    "_chunked_scan, xlstm.py:20-34; no Pallas kernel)",
+        "launches": xlstm_train["launches"]["slstm_scan_bwd_f32"],
+        "max_abs_err": max(r["max_abs_err"] for r in slstm_bwd.values()),
+        **{k: slstm_bwd["train step"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "kernel_ms_by_difference", "kernel_bound_ms", "weight_grads_ms",
+            "shape", "us_per_step", "max_abs_err_f64",
+            "plain_max_abs_err_f64")},
+        "shapes": {label: r for label, r in slstm_bwd.items()
+                   if label != "train step"},
+        "launches_by_path": {
+            "xlstm_gradient": xlstm_grad["launches"]["slstm_scan_bwd_f32"],
+            "xlstm_train_steps":
+                xlstm_train["launches"]["slstm_scan_bwd_f32"],
+            "xlstm_launcher": {k: r["launches"]["slstm_scan_bwd_f32"]
+                               for k, r in xlstm_launcher.items()}},
     }]}
     if args.out:
         with open(args.out, "w") as fh:
@@ -3867,7 +4300,11 @@ def main() -> int:
                        "xlstm_init": xlstm_init, "slstm_scan": slstm,
                        "xlstm_layers": xlstm_layers,
                        "xlstm_prefill": xlstm_prefill,
-                       "xlstm_serve": xlstm_serve, "init_s": INIT_S,
+                       "xlstm_serve": xlstm_serve,
+                       "slstm_scan_bwd": slstm_bwd,
+                       "xlstm_grad": xlstm_grad,
+                       "xlstm_train": xlstm_train,
+                       "xlstm_launcher": xlstm_launcher, "init_s": INIT_S,
                        "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},
                       fh, indent=1)

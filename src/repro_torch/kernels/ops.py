@@ -51,9 +51,11 @@ def slstm_scan(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
                state, *, use_fused: Optional[bool] = None):
     """The sLSTM's recurrence: wx (B, S, 4D), rh (H, dh, 4dh), bias (4D,),
     state (c, n, m, h) each (B, D) -> (hs (B, S, D), the final state).
-    By default ``kernels/slstm_scan.slstm_scan`` (the kernel on the card);
-    ``use_fused=False`` takes the plain loop (``kernels/ref.slstm_scan``,
-    differentiable by torch's autograd)."""
+    By default ``kernels/slstm_scan.slstm_scan``: the kernel on the card,
+    and under autograd ``SLSTMScanFn`` (the forward kernel with its chunk
+    states, then the backward kernel; on the CPU their plain versions).
+    ``use_fused=False`` takes the plain loop (``kernels/ref.slstm_scan``)
+    under torch's own autograd."""
     if use_fused is False:
         return _ref.slstm_scan(wx, rh, bias, state)
     return _sl.slstm_scan(wx, rh, bias, state)

@@ -12,6 +12,7 @@ product is full float32 like the reference.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -59,11 +60,29 @@ def dense_dw_db(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
     return x.t() @ g, g.sum(0)
 
 
+@functools.lru_cache(maxsize=None)
+def _scalar(value: float, dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """`value` as a 0-dim tensor, made once per dtype and device (a new
+    one on the card would be a copy from the host at every call)."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def maximum(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``jnp.maximum(x, value)`` for a constant: the values of
+    ``torch.clamp(x, min=value)`` (the bits too, but a NaN's payload and
+    the sign of a zero against 0.0, which torch's vectorized maximum may
+    return as +0.0), and jax's gradient, which splits a tie 0.5 / 0.5
+    where ``clamp`` passes the whole of it to x."""
+    return torch.maximum(x, _scalar(value, x.dtype, x.device))
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``: max(x, 0) +
     log1p(exp(-|x|)), with no threshold (``F.softplus`` returns x itself
-    above 20).  ``jax.nn.log_sigmoid(x)`` is ``-softplus(-x)``."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+    above 20); its gradient at 0 is jax's 0.5 (``maximum``).
+    ``jax.nn.log_sigmoid(x)`` is ``-softplus(-x)``."""
+    return maximum(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
 #: the finite mask value of the reference (``-inf`` would turn a fully
@@ -229,32 +248,46 @@ def ssm_scan_bwd(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     return d_dt, d_b, d_c, d_x, d_a, carry
 
 
-def _slstm_cell(carry, wx_t: torch.Tensor, rh: torch.Tensor,
-                bias: torch.Tensor):
-    """One sLSTM step, the reference's ``cell`` op for op: the per-head
-    recurrence ``einsum("bhd,hde->bhe")`` flattened to (B, 4D), so head k's
-    4·dh outputs fill gate columns [k·4dh, (k+1)·4dh) (at H = 4 head k
-    alone feeds gate k of every channel), then ``pre = (wx_t + rec) +
-    bias``, the stabilized exponential gates and ``h = (o·c) / max(n,
-    1e-6)``."""
-    c, n, m, h_prev = carry
+def _slstm_pre(h_prev: torch.Tensor, wx_t: torch.Tensor, rh: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """A step's pre-activations (B, 4D), the reference's order: the
+    per-head recurrence ``einsum("bhd,hde->bhe")`` flattened to (B, 4D),
+    so head k's 4·dh outputs fill gate columns [k·4dh, (k+1)·4dh) (at
+    H = 4 head k alone feeds gate k of every channel), then ``(wx_t +
+    rec) + bias``."""
     b, d = h_prev.shape
     hd, dh = rh.shape[0], rh.shape[1]
     rec = torch.einsum("bhd,hde->bhe", h_prev.reshape(b, hd, dh),
                        rh).reshape(b, 4 * d)
-    pre = wx_t + rec + bias
-    z_t = torch.tanh(pre[:, :d])
-    i_raw = pre[:, d:2 * d]
-    f_raw = pre[:, 2 * d:3 * d]
-    o_t = torch.sigmoid(pre[:, 3 * d:])
+    return wx_t + rec + bias
+
+
+def _slstm_gates(pre: torch.Tensor):
+    """(z, i_raw, f_raw, o) of the gate columns [z | i | f | o]."""
+    d = pre.shape[-1] // 4
+    return (torch.tanh(pre[:, :d]), pre[:, d:2 * d], pre[:, 2 * d:3 * d],
+            torch.sigmoid(pre[:, 3 * d:]))
+
+
+def _slstm_update(pre: torch.Tensor, c, n, m):
+    """The stabilized exponential gates and the new (c, n, m, h):
+    ``h = (o·c) / max(n, 1e-6)``."""
+    z_t, i_raw, f_raw, o_t = _slstm_gates(pre)
     logf = -softplus(-f_raw)
     m_new = torch.maximum(logf + m, i_raw)
     i_g = torch.exp(i_raw - m_new)
     f_g = torch.exp(logf + m - m_new)
     c = f_g * c + i_g * z_t
     n = f_g * n + i_g
-    h = o_t * c / torch.clamp(n, min=1e-6)
+    h = o_t * c / maximum(n, 1e-6)
     return c, n, m_new, h
+
+
+def _slstm_cell(carry, wx_t: torch.Tensor, rh: torch.Tensor,
+                bias: torch.Tensor):
+    """One sLSTM step, the reference's ``cell`` op for op."""
+    c, n, m, h_prev = carry
+    return _slstm_update(_slstm_pre(h_prev, wx_t, rh, bias), c, n, m)
 
 
 def _slstm_steps(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
@@ -268,11 +301,15 @@ def _slstm_steps(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
 
 
 def slstm_scan(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
-               state, chunk: int = 64):
+               state, chunk: int = 64, *, boundaries: bool = False):
     """The sLSTM's recurrence as a time loop in torch ops — the plain
     version of the sLSTM kernel.  wx (B, S, 4D) the projected inputs, rh
     (H, dh, 4dh) the block-diagonal recurrent weights, bias (4D,), state
-    (c, n, m, h) each (B, D) -> (hs (B, S, D), the final (c, n, m, h)).
+    (c, n, m, h) each (B, D) -> (hs (B, S, D), the final (c, n, m, h));
+    with ``boundaries=True`` also (c, n, m) entering each chunk of
+    `chunk` steps, each (B, ⌈S/chunk⌉, D): index k is the state after
+    k·chunk steps (the initial state first), what the backward
+    (``slstm_scan_bwd``) recomputes each chunk from.
 
     Under autograd, where ``S > chunk`` and `chunk` divides S (the
     reference's ``_chunked_scan`` condition), each chunk of steps runs
@@ -282,12 +319,123 @@ def slstm_scan(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
     s = wx.shape[1]
     remat = (torch.is_grad_enabled() and chunk > 1 and s > chunk
              and s % chunk == 0)
-    if not remat:
+    if not (remat or boundaries):
         hs, *state = _slstm_steps(wx, rh, bias, *state)
         return hs, tuple(state)
-    parts = []
+    parts, starts = [], []
     for t0 in range(0, s, chunk):
-        hs, *state = checkpoint(_slstm_steps, wx[:, t0:t0 + chunk], rh,
-                                bias, *state, use_reentrant=False)
+        starts.append(state[:3])
+        part = (wx[:, t0:t0 + chunk], rh, bias, *state)
+        if remat:
+            hs, *state = checkpoint(_slstm_steps, *part, use_reentrant=False)
+        else:
+            hs, *state = _slstm_steps(*part)
         parts.append(hs)
-    return torch.cat(parts, 1), tuple(state)
+    out = torch.cat(parts, 1), tuple(state)
+    if boundaries:
+        return (*out, tuple(torch.stack(v, 1) for v in zip(*starts)))
+    return out
+
+
+def _tie(x: torch.Tensor, y) -> torch.Tensor:
+    """jax's share of ``max(x, y)``'s gradient that goes to x: 1 where
+    x > y, 0.5 at a tie, 0 below."""
+    return (x > y).to(x.dtype) + 0.5 * (x == y).to(x.dtype)
+
+
+def _slstm_cell_adjoint(pre: torch.Tensor, c, n, m, g_h, g_c, g_n, g_m):
+    """One step of the sLSTM's adjoint, as autodiff differentiates the
+    reference's ``cell``: from the step's pre-activations and the state
+    entering it (c, n, m), the cotangents of the step's h and of the
+    state leaving it, to d_pre (B, 4D) and the cotangents of (c, n, m)
+    entering it.  Every path is kept: m inside both exponentials and
+    through ``m_new = max(logf + m, i)``; both ``max``es split a tie 0.5
+    / 0.5; ``logf = -softplus(-f)`` takes ``logaddexp``'s derivative
+    ``exp(y - softplus(y))`` at y = -f."""
+    z, i_raw, f_raw, o = _slstm_gates(pre)
+    sp = softplus(-f_raw)
+    lm = -sp + m                                  # logf + m
+    m_new = torch.maximum(lm, i_raw)
+    i_g = torch.exp(i_raw - m_new)
+    f_g = torch.exp(lm - m_new)
+    c_new = f_g * c + i_g * z
+    n_new = f_g * n + i_g
+    den = maximum(n_new, 1e-6)
+    num = o * c_new                               # h = num / den
+    d_num = g_h / den
+    g_c = g_c + d_num * o
+    g_n = g_n + (-g_h * num / (den * den)) * _tie(n_new, 1e-6)
+    u_f = (g_c * c + g_n * n) * f_g               # d f_g · f_g
+    u_i = (g_c * z + g_n) * i_g                   # d i_g · i_g
+    d_m_new = g_m - u_i - u_f
+    sel = _tie(lm, i_raw)
+    d_lm = u_f + sel * d_m_new                    # d logf = d m
+    d_pre = torch.cat([g_c * i_g * (1 - z * z),
+                       u_i + (1 - sel) * d_m_new,
+                       d_lm * torch.exp(-f_raw - sp),
+                       d_num * c_new * o * (1 - o)], -1)
+    return d_pre, g_c * f_g, g_n * f_g, d_lm
+
+
+def slstm_scan_bwd(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
+                   state, hs: torch.Tensor, chunks,
+                   dys: Optional[torch.Tensor] = None, d_state=None,
+                   chunk: int = 64):
+    """The sLSTM recurrence's backward by its adjoint loop — the plain
+    version of the backward kernel.  From the forward's inputs (wx, rh,
+    bias, the initial state (c, n, m, h)), its hs and the states entering
+    each chunk (`chunks`, ``slstm_scan(..., boundaries=True)``'s (c, n,
+    m)), and the cotangents of hs (`dys`, (B, S, D)) and of the final
+    (c, n, m, h) (`d_state`; None, or any one None, is zeros), chunk by
+    chunk from the last: the chunk's pre-activations again from h_{t-1}
+    (hs, h0 at t = 0) and its states again from the chunk's start (the
+    forward's ops, so its bits), then t backward: ``_slstm_cell_adjoint``
+    with the cotangent of h_t = dys_t + the recurrent adjoint from t + 1,
+
+        d_h_{t-1}[k·dh + i] = Σ_e rh[k, i, e] · d_pre_t[k·4dh + e],
+
+    then ``d_rh[k] = Σ_{b,t} h_{t-1}[k·dh:(k+1)·dh] ⊗ d_pre_t[k·4dh:
+    (k+1)·4dh]`` and ``d_bias = Σ_{b,t} d_pre_t``.  Returns (d_wx (=
+    d_pre, (B, S, 4D)), d_rh, d_bias, dc0, dn0, dm0, dh0).  Torch ops in a
+    time loop: a yardstick, not a route."""
+    b, s, four_d = wx.shape
+    d = four_d // 4
+    hd, dh = rh.shape[0], rh.shape[1]
+    zero = torch.zeros_like(state[0])
+    g_c, g_n, g_m, g_h = (zero if g is None else g
+                          for g in (d_state or (None,) * 4))
+    h_prev = torch.cat([state[3][:, None], hs[:, :-1]], 1)
+    d_pre = torch.empty_like(wx)
+    for k in reversed(range(chunks[0].shape[1])):
+        t0 = k * chunk
+        c, n, m = (v[:, k] for v in chunks)
+        pres, prev = [], []
+        for t in range(t0, min(t0 + chunk, s)):
+            pres.append(_slstm_pre(h_prev[:, t], wx[:, t], rh, bias))
+            prev.append((c, n, m))
+            c, n, m, _ = _slstm_update(pres[-1], c, n, m)
+        for t in reversed(range(t0, min(t0 + chunk, s))):
+            if dys is not None:
+                g_h = g_h + dys[:, t]
+            d_pre[:, t], g_c, g_n, g_m = _slstm_cell_adjoint(
+                pres[t - t0], *prev[t - t0], g_h, g_c, g_n, g_m)
+            g_h = torch.einsum("bhe,hde->bhd",
+                               d_pre[:, t].reshape(b, hd, 4 * dh),
+                               rh).reshape(b, d)
+    return (d_pre, *slstm_weight_grads(state[3], hs, d_pre, hd),
+            g_c, g_n, g_m, g_h)
+
+
+def slstm_weight_grads(h0: torch.Tensor, hs: torch.Tensor,
+                       d_pre: torch.Tensor, heads: int):
+    """(d_rh, d_bias) from every step's d_pre (B, S, 4D) and h_{t-1} (h0,
+    then hs): ``d_rh[k] = Σ_{b,t} h_{t-1}[k·dh:(k+1)·dh] ⊗ d_pre_t[k·4dh:
+    (k+1)·4dh]`` as one batched product over the heads, ``d_bias =
+    Σ_{b,t} d_pre_t``.  Plain products, as the reference leaves them to
+    XLA; the backward kernel's wrapper takes them too."""
+    b, s, d = hs.shape
+    dh = d // heads
+    h_prev = torch.cat([h0[:, None], hs[:, :-1]], 1)
+    d_rh = torch.einsum("bshd,bshe->hde", h_prev.reshape(b, s, heads, dh),
+                        d_pre.reshape(b, s, heads, 4 * dh))
+    return d_rh, d_pre.sum((0, 1))

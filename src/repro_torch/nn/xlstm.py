@@ -31,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import prng
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import softplus
+from repro_torch.kernels.ref import maximum, softplus
 from repro_torch.nn import layers as L
 
 #: the stabilizer's start, the reference's (a finite "minus infinity")
@@ -115,8 +115,7 @@ def _mlstm_cell(carry, inp):
                                                * k[..., None, :])
     n = f_g * n + i_g * k
     num = torch.einsum("bhde,bhe->bhd", c, q)
-    den = torch.clamp(torch.einsum("bhd,bhd->bh", n, q).abs(),
-                      min=1.0)[..., None]
+    den = maximum(torch.einsum("bhd,bhd->bh", n, q).abs(), 1.0)[..., None]
     return (c, n, m_new), num / den
 
 
@@ -186,7 +185,7 @@ def mlstm_chunkwise(q, k, v, i_raw, f_raw, state, chunk: int):
         num = (torch.einsum("blsh,bshd->blhd", wsc, vv)
                + cw[..., None] * torch.einsum("bhde,blhe->blhd", c0, qq))
         den = wsc.sum(2) + cw * torch.einsum("bhd,blhd->blh", n0, qq)
-        outs.append(num / torch.clamp(den.abs(), min=1.0)[..., None])
+        outs.append(num / maximum(den.abs(), 1.0)[..., None])
 
         # ---- state update (once per chunk) ----
         m_l = m_t[:, -1]                                  # (B,H)

@@ -1389,9 +1389,11 @@ def test_cuda_slstm_scan_matches_plain(case, h100, rng):
 @pytest.mark.cuda
 def test_cuda_slstm_scan_rejects_what_it_does_not_take(h100, rng,
                                                        monkeypatch):
-    """A shape, dtype, layout, device or card the kernel does not take
-    raises, as do inputs that need a gradient (no backward kernel yet);
-    ``use_fused=False`` is the plain loop under autograd."""
+    """A shape, dtype, layout, device or card the kernels do not take
+    raises, in the forward and in the backward; inputs that need a
+    gradient reach ``SLSTMScanFn`` (one forward and one backward launch),
+    through the wrapper and through ``ops``; ``use_fused=False`` is the
+    plain loop under autograd."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import slstm_scan as SL
     wx, rh, bias, state = _slstm_inputs(rng, 2, 4, 64, 4, h100)
@@ -1417,17 +1419,156 @@ def test_cuda_slstm_scan_rejects_what_it_does_not_take(h100, rng,
                       bias, state)
     with pytest.raises(ValueError, match="is on"):
         SL.slstm_scan(wx, rh.cpu(), bias, state)
+    assert SL.slstm_scan.launches == before
+    for fn in (SL.slstm_scan, ops.slstm_scan):
+        live = wx.clone().requires_grad_(True)
+        counts = (SL.slstm_scan.launches, SL.slstm_scan_bwd.launches)
+        hs, _ = fn(live, rh, bias, state)
+        assert type(hs.grad_fn).__name__ == "SLSTMScanFnBackward"
+        hs.sum().backward()
+        torch.cuda.synchronize()
+        assert (SL.slstm_scan.launches, SL.slstm_scan_bwd.launches) == \
+            (counts[0] + 1, counts[1] + 1)
+        assert live.grad is not None
     live = wx.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="use_fused=False"):
-        SL.slstm_scan(live, rh, bias, state)
     hs, _ = ops.slstm_scan(live, rh, bias, state, use_fused=False)
+    assert "SLSTMScanFn" not in type(hs.grad_fn).__name__
     hs.sum().backward()
     assert live.grad is not None
+    hs, _, chunks = SL.slstm_scan_fwd(wx, rh, bias, state)
+    dys = torch.ones_like(hs)
+    with pytest.raises(ValueError, match="c_chunks"):
+        SL.slstm_scan_bwd(wx, rh, bias, state, hs,
+                          (chunks[0][:, :0], *chunks[1:]), dys)
+    with pytest.raises(ValueError, match="dys"):
+        SL.slstm_scan_bwd(wx, rh, bias, state, hs, chunks, dys[:, 1:])
+    with pytest.raises(ValueError, match="dh has shape"):
+        SL.slstm_scan_bwd(wx, rh, bias, state, hs, chunks, dys,
+                          (None, None, None, dys[:, 0, :1]))
+    with pytest.raises(TypeError):
+        SL.slstm_scan_bwd(wx, rh, bias, state, hs, chunks, dys.double())
+    with pytest.raises(ValueError, match="is on"):
+        SL.slstm_scan_bwd(wx, rh, bias, state, hs, chunks, dys.cpu())
+    big = _slstm_inputs(rng, 8, 1, 8192, 16, h100)
+    with pytest.raises(ValueError, match="shared memory"):
+        SL.slstm_scan_bwd(*big, torch.empty(8, 1, 8192, device=h100),
+                          tuple(torch.empty(8, 1, 8192, device=h100)
+                                for _ in range(3)))
     monkeypatch.setattr(torch.cuda, "get_device_capability",
                         lambda *a: (8, 0))
     with pytest.raises(RuntimeError, match="sm_90a"):
         SL.slstm_scan(wx, rh, bias, state)
-    assert SL.slstm_scan.launches == before
+
+
+#: (B, S, D, H): the backward's shapes: the reduced widths, lengths that
+#: cross a chunk of 64 or end inside one, 8 rows, dh 512 past a chunk,
+#: and xlstm-1.3b's train step layer (2, 2048)
+CUDA_SLSTM_BWD_CASES = [(2, 12, 64, 4), (1, 128, 64, 2), (3, 100, 64, 1),
+                        (8, 5, 256, 4), (2, 130, 2048, 4),
+                        (2, 2048, 2048, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_SLSTM_BWD_CASES)
+def test_cuda_slstm_scan_backward_matches_plain(case, h100, rng):
+    """The backward kernel on the forward kernel's chunk states against
+    ``ref.slstm_scan_bwd`` on the plain loop's, every cotangent given:
+    d_wx, d_rh, d_bias and the initial state's four within
+    1e-4·max(1, max|plain|), two calls the same bits, one launch a call.
+    The forward's chunk states within the same of the plain loop's, and
+    its hs and final state the same bits as without them.  Then
+    ``SLSTMScanFn``'s outputs and gradients against torch's autograd of
+    the plain loop, within the same tolerance."""
+    from repro_torch.kernels import slstm_scan as SL
+    b, s, d, h = case
+    wx, rh, bias, state = _slstm_inputs(rng, *case, h100)
+    as_t = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
+                                  device=h100)
+    dys = as_t(rng.normal(size=(b, s, d)))
+    d_state = tuple(as_t(rng.normal(size=(b, d))) for _ in range(4))
+    hs, fin, chunks = SL.slstm_scan_fwd(wx, rh, bias, state)
+    alone = SL.slstm_scan_fwd(wx, rh, bias, state, boundaries=False)
+    assert torch.equal(hs, alone[0])
+    assert all(torch.equal(x, y) for x, y in zip(fin, alone[1]))
+    _, _, want_chunks = ref.slstm_scan(wx, rh, bias, state, boundaries=True)
+    for name, g, w in zip("cnm", chunks, want_chunks):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-4 * scale, (case, name)
+    before = SL.slstm_scan_bwd.launches
+    got = SL.slstm_scan_bwd(wx, rh, bias, state, hs, chunks, dys, d_state)
+    again = SL.slstm_scan_bwd(wx, rh, bias, state, hs, chunks, dys, d_state)
+    torch.cuda.synchronize()
+    assert SL.slstm_scan_bwd.launches == before + 2
+    plain_hs, _, plain_chunks = ref.slstm_scan(wx, rh, bias, state,
+                                               boundaries=True)
+    want = ref.slstm_scan_bwd(wx, rh, bias, state, plain_hs, plain_chunks,
+                              dys, d_state)
+    names = ("d_wx", "d_rh", "d_bias", "dc0", "dn0", "dm0", "dh0")
+    for name, g, a, w in zip(names, got, again, want):
+        assert bool(torch.isfinite(g).all()), (case, name)
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-4 * scale, (case, name)
+        assert torch.equal(g, a), f"{case} {name}: two calls differ"
+
+    def vjp(fn):
+        live = [t.clone().requires_grad_(True) for t in (wx, rh, bias,
+                                                          *state)]
+        out, st = fn(*live[:3], tuple(live[3:]))
+        loss = (out * dys).sum() + sum((x * g).sum()
+                                       for x, g in zip(st, d_state))
+        return [out.detach(), *torch.autograd.grad(loss, live)]
+
+    got, want = vjp(SL.slstm_scan), vjp(ref.slstm_scan)
+    for name, g, w in zip(("hs",) + names, got, want):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-4 * scale, (case, name)
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_train_steps(h100):
+    """Reduced xlstm on the card from the seed's params, the kernel route
+    (``SLSTMScanFn``'s two kernels, remat on) against the plain route
+    (``use_fused=False``): one gradient, each leaf within 1e-3 of
+    max(its norm, 1e-6 x the whole gradient's norm) (the mLSTM's b_i is
+    zero up to rounding); then 3 ``make_train_step`` steps each, the
+    losses within 1e-5 relative, with two forward launches (remat) and
+    one backward launch an sLSTM layer a step."""
+    from repro_torch import configs
+    from repro_torch.kernels import slstm_scan as SL
+    from repro_torch.models import base as MB
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import step as TS
+    m = configs.get_reduced("xlstm-1.3b")
+    n_sl = sum(seg.repeats for seg in m.segments for sp in seg.pattern
+               if sp.kind == "slstm")
+    g = torch.Generator().manual_seed(0)
+    batches = [{k: torch.randint(0, m.vocab, (2, 128), generator=g).to(h100)
+                for k in ("tokens", "labels")} for _ in range(3)]
+    counters = lambda: (SL.slstm_scan.launches,  # noqa: E731
+                        SL.slstm_scan_bwd.launches)
+    runs = {}
+    for route, fused in (("kernel", None), ("plain", False)):
+        params = MB.init_params(prng.prng_key(torch.tensor(0)), m, h100)
+        _, grads = TS.loss_and_grads(m, params, batches[0], remat=True,
+                                     use_fused=fused)
+        step, optim = TS.make_train_step(m, lr=1e-3, use_fused=fused)
+        opt = optim.init(params)
+        before = counters()
+        losses = []
+        for b_ in batches:
+            params, opt, met = step(params, opt, b_)
+            losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        runs[route] = (losses, tree_leaves(grads), tuple(
+            x - y for x, y in zip(counters(), before)))
+    assert runs["kernel"][2] == (3 * 2 * n_sl, 3 * n_sl)
+    assert runs["plain"][2] == (0, 0)
+    total = float(torch.stack([x.norm() for x in runs["plain"][1]]).norm())
+    for a, b_ in zip(runs["kernel"][1], runs["plain"][1]):
+        assert float((a - b_).norm()) <= 1e-3 * max(float(b_.norm()),
+                                                    1e-6 * total)
+    np.testing.assert_allclose(runs["kernel"][0], runs["plain"][0],
+                               rtol=1e-5)
 
 
 @pytest.mark.cuda
