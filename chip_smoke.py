@@ -251,6 +251,31 @@ Then xlstm-1.3b training (phase p, on phase o's params):
 - p4. ``launch/train.main`` at the reduced xlstm config, 12 steps, once
   whole and once failing at step 7: its losses equal the whole run's.
 
+Then whisper-small (phase q; float32 from seed 0, phase p's state freed
+first; 8 windows of 1500 stub frames, ``normal · 0.1``, and the
+decoder's 448-token context):
+
+- q1. the flash kernel at whisper's four attention shapes, 8 x 12 heads
+  of 64 (the encoder's 1500 x 1500 and the cross-attention's 448 x 1500
+  without a mask, the decoder's 448 x 448 causal, decode's 1 x 1500),
+  with and without lse (`flash_row`: the plain version, float64, the
+  same bits twice, SDPA and the bound beside it); ``FlashAttentionFn``
+  at the cross-attention's and the encoder's shapes (`flash_grad_row`);
+- q2. ``init_params(prng_key(0))`` at full width (12 + 12 layers, d 768,
+  vocab 51865; 295,882,752 params), its bits sampled against the CPU's
+  draw; ``encode`` (12 flash launches) and ``make_prefill_step`` on a
+  4-token prompt (36) against the plain route; ``make_decode_step`` on
+  one ``encode``: the prompt a token a step, then 60 greedy steps (12
+  launches a step), the prompt's logits held to the teacher-forced
+  forward and the first 8 steps to the plain route's; ms and bounds, a
+  prefill and a decode step profiled;
+- q3. one gradient at full depth (36 flash launches with lse) against
+  the plain route, and the model cut to 2 + 2 layers against float64
+  (the kernel route within twice the plain route's error);
+  ``make_train_step`` (no remat): one warm step and LM_TRAIN_STEPS
+  timed, 36 launches with lse a step, decoder tokens/s and frames/s
+  beside the bound, the peak memory, a profiled step.
+
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
 it are the kernel table (JSON) and the card's name and power limit.
@@ -307,6 +332,7 @@ from repro_torch.launch import dse_serve  # noqa: E402
 from repro_torch.launch import online  # noqa: E402
 from repro_torch.launch import quality as Q  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.configs.whisper_small import DECODER_TRAIN_LEN  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.models import base as MB  # noqa: E402
 from repro_torch.nn import attention as A  # noqa: E402
@@ -428,6 +454,39 @@ SLSTM_BWD_SHAPES = {"train step": LM_TRAIN, "prefill": PREFILL}
 XLSTM_TRAIN_REMAT = False
 XLSTM_TRAIN_STEPS = 2
 XLSTM_LAUNCHER_ARGV = ["--arch", XLSTM_ARCH] + LAUNCHER_ARGV[2:]
+#: phase q: whisper-small at full width (12 encoder + 12 decoder layers,
+#: d 768, 12 heads of 64, d_ff 3072, vocab 51865, tied; 295,882,752
+#: params), float32 from seed 0, once phase p's state is freed: a batch
+#: of WHISPER_BATCH 30 s windows (1500 stub frames each, ``normal · 0.1``)
+#: and the decoder's 448-token context (``DECODER_TRAIN_LEN``).  Serving:
+#: a WHISPER_PROMPT-token prompt, fed a token a decode step, then
+#: WHISPER_NEW greedy steps, the first WHISPER_TEACHER held to the plain
+#: route's; the float64 gradient on the model cut to WHISPER_CUT_LAYERS
+#: encoder and decoder layers
+WHISPER_ARCH = "whisper-small"
+WHISPER_BATCH = 8
+WHISPER_PROMPT = 4
+WHISPER_NEW = 60
+WHISPER_TEACHER = 8
+WHISPER_CUT_LAYERS = 2
+#: the flash kernel at whisper's attention shapes, as FLASH_SHAPES
+WHISPER_FLASH_SHAPES = {
+    "whisper encoder 8x12x1500x64": (8, 12, 12, 1500, 1500, 64, False,
+                                     None, 0),
+    "whisper decoder 8x12x448x64": (8, 12, 12, 448, 448, 64, True, None, 0),
+    "whisper cross 8x12x448x1500x64": (8, 12, 12, 448, 1500, 64, False,
+                                       None, 0),
+    "whisper decode cross 8x12x1x1500x64": (8, 12, 12, 1, 1500, 64, False,
+                                            None, 0),
+}
+#: the flash Function at whisper's unmasked shapes: (B, H, Hkv, Sq, Sk, D,
+#: causal, window)
+WHISPER_FLASH_GRAD_SHAPES = {
+    "whisper cross 8x12x448x1500x64": (8, 12, 12, 448, 1500, 64, False,
+                                       None),
+    "whisper encoder 8x12x1500x64": (8, 12, 12, 1500, 1500, 64, False,
+                                     None),
+}
 #: seconds of each LM's ``init_params`` on the card, by label
 INIT_S: dict = {}
 
@@ -1199,74 +1258,98 @@ def profile_path(name: str, run: dict) -> dict:
     return out
 
 
-def check_flash() -> dict:
-    """Phase 6a: the flash-attention kernel against its plain version at
-    FLASH_SHAPES.  float32: within TOL of the plain version, and no
-    further from float64 attention than 4x the plain version plus
-    1e-6·scale (as the tile is held).  bf16: within BF16_TOL, and within
-    one bf16 ulp (at the larger of the two) plus 1e-5·scale of the plain
-    version's output, since both compute in float32 before the last
-    rounding.  Two calls give the same bits.  CUDA-event medians of the
-    kernel, the plain version and one library call
+def flash_row(label: str, shape, q, k, v, dtype, tol, lse: bool = False
+              ) -> dict:
+    """One flash shape and dtype: within `tol`·scale of the plain
+    version, the same bits twice; float32 also against float64 attention
+    (at most 4x the plain version's error plus 1e-6·scale), bf16 within
+    one bf16 ulp plus 1e-5·scale of the plain version's output.  With
+    `lse`, the kernel that stores lse: out the same bits, lse within
+    1e-5·max(1, |lse|) of the plain version's, and its time.  CUDA-event
+    medians of the kernel, the plain version and one library call
     (``scaled_dot_product_attention`` with the same boolean mask, a
     yardstick the port never calls)."""
     import torch.nn.functional as F
+    b, h, hkv, sq, sk, d, causal, window, q_offset = shape
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    qpos = torch.arange(sq, device="cuda") + q_offset
+    kpos = torch.arange(sk, device="cuda")
+    keep = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+    if causal:
+        keep &= qpos[:, None] >= kpos[None, :]
+    if window:
+        keep &= qpos[:, None] - kpos[None, :] < window
+    got, again = fa.flash_attention(q, k, v, **kw), \
+        fa.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    name = f"flash {label} {dtype}"
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    scale = max(1.0, float(want.float().abs().max()))
+    err = _err(got.float(), want.float())
+    assert err <= tol * scale, f"{name}: {err}"
+    same = torch.equal(got, again)
+    assert same, f"{name}: two calls differ"
+    row = dict(max_abs_err=err, tol=tol * scale, same_bits=same)
+    if dtype == torch.float32:
+        exact = flash_float64(q, k, v, **kw)
+        row.update(float64_errors(name, (got,), (want,), (exact,)))
+        del exact
+    else:
+        diff = (got.float() - want.float()).abs()
+        ulp = bf16_ulp(torch.maximum(got.float().abs(),
+                                     want.float().abs()))
+        excess = float((diff - ulp).max())
+        assert excess <= 1e-5 * scale, \
+            f"{name}: {excess} past one bf16 ulp"
+        row.update(max_ulps=float((diff / ulp).max()),
+                   max_excess_over_one_ulp=excess)
+    if lse:
+        o_lse, lse_k = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        _, lse_p = ref.flash_attention(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o_lse, got), f"{name}: lse changed out"
+        lse_err = float(((lse_k - lse_p).abs()
+                         / lse_p.abs().clamp(min=1.0)).max())
+        assert lse_err <= 1e-5, f"{name}: lse {lse_err}"
+        row.update(out_same_bits_with_lse=True, lse_max_rel_err=lse_err,
+                   lse_ms=cuda_ms(lambda: fa.flash_attention(
+                       q, k, v, return_lse=True, **kw)))
+        del o_lse, lse_k, lse_p
+    bnd, by = flash_bound_ms(shape, dtype)
+    row.update(
+        ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+        plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, **kw)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep, enable_gqa=True)),
+        bound_ms=bnd, bound_by=by,
+        bound_4d_ms=flash_bound_4d_ms(shape, dtype),
+        bound_peak=("3xTF32, 495 TFLOP/s" if dtype == torch.float32
+                    else "bf16 with P split, 989 TFLOP/s"),
+        kept_pairs_per_head=kept_pairs(sq, sk, causal, window, q_offset))
+    print(f"{name}: " + json.dumps(row), flush=True)
+    return row
+
+
+def check_flash() -> dict:
+    """Phase 6a: the flash-attention kernel against its plain version at
+    FLASH_SHAPES (`flash_row`).  float32: within TOL of the plain
+    version, and no further from float64 attention than 4x the plain
+    version plus 1e-6·scale (as the tile is held).  bf16: within
+    BF16_TOL, and within one bf16 ulp (at the larger of the two) plus
+    1e-5·scale of the plain version's output, since both compute in
+    float32 before the last rounding.  Two calls give the same bits."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = {}
     for label, shape in FLASH_SHAPES.items():
-        b, h, hkv, sq, sk, d, causal, window, q_offset = shape
-        kw = dict(causal=causal, window=window, q_offset=q_offset)
-        qpos = torch.arange(sq, device="cuda") + q_offset
-        kpos = torch.arange(sk, device="cuda")
-        keep = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
-        if causal:
-            keep &= qpos[:, None] >= kpos[None, :]
-        if window:
-            keep &= qpos[:, None] - kpos[None, :] < window
+        b, h, hkv, sq, sk, d = shape[:6]
         q32 = torch.randn(b, h, sq, d, generator=gen, device="cuda")
         k32 = torch.randn(b, hkv, sk, d, generator=gen, device="cuda")
         v32 = torch.randn(b, hkv, sk, d, generator=gen, device="cuda")
         for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
             q, k, v = (t.to(dtype) for t in (q32, k32, v32))
-            got, again = fa.flash_attention(q, k, v, **kw), \
-                fa.flash_attention(q, k, v, **kw)
-            want = ref.flash_attention(q, k, v, **kw)
-            torch.cuda.synchronize()
-            name = f"flash {label} {dtype}"
-            assert got.dtype == dtype and bool(torch.isfinite(got).all())
-            scale = max(1.0, float(want.float().abs().max()))
-            err = _err(got.float(), want.float())
-            assert err <= tol * scale, f"{name}: {err}"
-            same = torch.equal(got, again)
-            assert same, f"{name}: two calls differ"
-            row = dict(max_abs_err=err, tol=tol * scale, same_bits=same)
-            if dtype == torch.float32:
-                exact = flash_float64(q, k, v, **kw)
-                row.update(float64_errors(name, (got,), (want,), (exact,)))
-                del exact
-            else:
-                diff = (got.float() - want.float()).abs()
-                ulp = bf16_ulp(torch.maximum(got.float().abs(),
-                                             want.float().abs()))
-                excess = float((diff - ulp).max())
-                assert excess <= 1e-5 * scale, \
-                    f"{name}: {excess} past one bf16 ulp"
-                row.update(max_ulps=float((diff / ulp).max()),
-                           max_excess_over_one_ulp=excess)
-            bnd, by = flash_bound_ms(shape, dtype)
-            row.update(
-                ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
-                plain_ms=cuda_ms(lambda: ref.flash_attention(q, k, v, **kw)),
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=keep, enable_gqa=True)),
-                bound_ms=bnd, bound_by=by,
-                bound_4d_ms=flash_bound_4d_ms(shape, dtype),
-                bound_peak=("3xTF32, 495 TFLOP/s" if dtype == torch.float32
-                            else "bf16 with P split, 989 TFLOP/s"),
-                kept_pairs_per_head=kept_pairs(sq, sk, causal, window,
-                                               q_offset))
-            rows[label, str(dtype).split(".")[-1]] = row
-            print(f"{name}: " + json.dumps(row), flush=True)
+            rows[label, str(dtype).split(".")[-1]] = flash_row(
+                label, shape, q, k, v, dtype, tol)
     return rows
 
 
@@ -1420,6 +1503,18 @@ def recorded_flash():
     ops._fa = types.SimpleNamespace(flash_attention=rec)
     try:
         yield seen
+    finally:
+        ops._fa = fa
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """Every ``kernels/ops.flash_attention`` call takes the plain version
+    (as ``use_fused=False`` does where a path has that option): the
+    decode step's plain route."""
+    ops._fa = types.SimpleNamespace(flash_attention=ref.flash_attention)
+    try:
+        yield
     finally:
         ops._fa = fa
 
@@ -2256,12 +2351,13 @@ def _same(a, b) -> bool:
 def flash_grad_work(shape) -> tuple:
     """Bytes and kept (query, key) pairs of one flash attention's forward
     (q, k, v read, o and lse written) and backward (q, k, v, o, dO and lse
-    read, dq, dk and dv written), float32, causal."""
-    b, h, hkv, s, d, window = shape
-    big, small, rows = b * h * s * d, b * hkv * s * d, b * h * s
+    read, dq, dk and dv written), float32; `shape` (B, H, Hkv, Sq, Sk, D,
+    causal, window)."""
+    b, h, hkv, sq, sk, d, causal, window = shape
+    big, small, rows = b * h * sq * d, b * hkv * sk * d, b * h * sq
     fwd = 4 * (2 * big + 2 * small + rows)
     bwd = 4 * (4 * big + 4 * small + rows)
-    return fwd, bwd, b * h * kept_pairs(s, s, True, window, 0)
+    return fwd, bwd, b * h * kept_pairs(sq, sk, causal, window, 0)
 
 
 def flash_grad_bound_ms(shape) -> dict:
@@ -2272,7 +2368,7 @@ def flash_grad_bound_ms(shape) -> dict:
     the tensor cores (67 TFLOP/s, TF32 off); beside it the backward of a
     hand-written 3xTF32 kernel (30·D flops a pair at 495 TFLOP/s)."""
     fwd_b, bwd_b, pairs = flash_grad_work(shape)
-    d = shape[4]
+    d = shape[5]
     fwd = bound(fwd_b, 3 * 4 * d * pairs, PEAK_TF32_FLOPS)
     bwd = bound(bwd_b, 10 * d * pairs)
     bwd_tc = bound(bwd_b, 3 * 10 * d * pairs, PEAK_TF32_FLOPS)
@@ -2289,78 +2385,82 @@ def _vjp(fn, inputs, dout) -> list:
     return [out.detach()] + [t.grad for t in leaves]
 
 
-def check_flash_grad() -> dict:
-    """Phase i: ``nn/attention.FlashAttentionFn`` (the kernel's forward
-    with lse, the blocked torch-ops backward) at FLASH_GRAD_SHAPES,
-    float32, on (B, S, H, D) tensors as the model passes them.  The
-    kernel's out the same bits with and without lse; lse within
-    1e-5·max(1, |lse|) of the plain version's; out, dq, dk and dv from a
-    float64 autograd of the same inputs no further than 4x the plain
-    float32 route's (``use_fused=False``, torch's autograd) plus
-    1e-6·scale; the same bits twice.  CUDA-event medians: the forward with
-    and without lse, the backward alone, the Function's and the plain
-    route's forward + backward, and SDPA's forward and forward + backward
-    (float32, the same boolean mask; a yardstick the port never calls)."""
+def flash_grad_row(label: str, shape, gen) -> dict:
+    """``nn/attention.FlashAttentionFn`` (the kernel's forward with lse,
+    the blocked torch-ops backward) at one (B, H, Hkv, Sq, Sk, D, causal,
+    window) shape, float32, on (B, S, H, D) tensors as the model passes
+    them.  The kernel's out the same bits with and without lse; lse
+    within 1e-5·max(1, |lse|) of the plain version's; out, dq, dk and dv
+    from a float64 autograd of the same inputs no further than 4x the
+    plain float32 route's (``use_fused=False``, torch's autograd) plus
+    1e-6·scale; the same bits twice.  CUDA-event medians: the forward
+    with and without lse, the backward alone, the Function's and the
+    plain route's forward + backward, and SDPA's forward and forward +
+    backward (float32, the same boolean mask; a yardstick the port never
+    calls)."""
     import torch.nn.functional as F
+    b, h, hkv, sq, sk, d, causal, window = shape
+    kw = dict(causal=causal, window=window)
+    q, k, v, do = (torch.randn(b, n, m, d, generator=gen, device="cuda")
+                   for n, m in ((sq, h), (sk, hkv), (sk, hkv), (sq, h)))
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    o_alone = fa.flash_attention(qt, kt, vt, **kw)
+    o_lse, lse = fa.flash_attention(qt, kt, vt, return_lse=True, **kw)
+    _, lse_plain = ref.flash_attention(qt, kt, vt, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o_alone, o_lse), f"{label}: lse changed out"
+    lse_err = float(((lse - lse_plain).abs()
+                     / lse_plain.abs().clamp(min=1.0)).max())
+    assert lse_err <= 1e-5, f"{label}: lse {lse_err}"
+    del lse_plain
+    kern = lambda *t: A.flash_attention(*t, **kw)
+    plain = lambda *t: A.flash_attention(*t, use_fused=False, **kw)
+    f64 = lambda a, b_, c: flash_float64(
+        a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2), causal,
+        window, 0).transpose(1, 2)
+    got = _vjp(kern, (q, k, v), do)
+    again = _vjp(kern, (q, k, v), do)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    assert same, f"{label}: two calls differ"
+    del again
+    want = _vjp(plain, (q, k, v), do)
+    exact = _vjp(f64, tuple(t.double() for t in (q, k, v)), do.double())
+    row = dict(lse_max_rel_err=lse_err, same_bits=True,
+               out_same_bits_with_lse=True,
+               **float64_errors(f"flash grad {label}", got, want, exact))
+    row["max_abs_err_vs_plain"] = {
+        n: _err(x, y) for n, x, y in zip(("out", "dq", "dk", "dv"), got,
+                                         want)}
+    del got, want, exact
+    keep = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+    if causal:
+        keep = keep.tril()
+    if window:
+        keep &= ~torch.ones_like(keep).tril(-window)
+    sdpa = lambda a, b_, c: F.scaled_dot_product_attention(
+        a, b_, c, attn_mask=keep, enable_gqa=True)
+    row.update(
+        fwd_ms=cuda_ms(lambda: fa.flash_attention(qt, kt, vt, **kw)),
+        fwd_lse_ms=cuda_ms(lambda: fa.flash_attention(
+            qt, kt, vt, return_lse=True, **kw)),
+        bwd_ms=cuda_ms(lambda: A.flash_backward(qt, kt, vt, o_lse, lse,
+                                                dot, **kw)),
+        fwd_bwd_ms=cuda_ms(lambda: _vjp(kern, (q, k, v), do)),
+        plain_fwd_bwd_ms=cuda_ms(lambda: _vjp(plain, (q, k, v), do)),
+        library_fwd_ms=cuda_ms(lambda: sdpa(qt, kt, vt)),
+        library_fwd_bwd_ms=cuda_ms(lambda: _vjp(sdpa, (qt, kt, vt), dot)),
+        **flash_grad_bound_ms(shape))
+    print(f"flash grad {label}: " + json.dumps(row), flush=True)
+    return row
+
+
+def check_flash_grad() -> dict:
+    """Phase i: `flash_grad_row` at FLASH_GRAD_SHAPES, causal (Sq = Sk)."""
     gen = torch.Generator(device="cuda").manual_seed(19)
-    f32 = torch.float32
-    rows = {}
-    for label, shape in FLASH_GRAD_SHAPES.items():
-        b, h, hkv, s, d, window = shape
-        kw = dict(causal=True, window=window)
-        q, k, v, do = (torch.randn(b, s, n, d, generator=gen, device="cuda")
-                       for n in (h, hkv, hkv, h))
-        qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-        o_alone = fa.flash_attention(qt, kt, vt, **kw)
-        o_lse, lse = fa.flash_attention(qt, kt, vt, return_lse=True, **kw)
-        _, lse_plain = ref.flash_attention(qt, kt, vt, return_lse=True, **kw)
-        torch.cuda.synchronize()
-        assert torch.equal(o_alone, o_lse), f"{label}: lse changed out"
-        lse_err = float(((lse - lse_plain).abs()
-                         / lse_plain.abs().clamp(min=1.0)).max())
-        assert lse_err <= 1e-5, f"{label}: lse {lse_err}"
-        del lse_plain
-        kern = lambda *t: A.flash_attention(*t, **kw)
-        plain = lambda *t: A.flash_attention(*t, use_fused=False, **kw)
-        f64 = lambda a, b_, c: flash_float64(
-            a.transpose(1, 2), b_.transpose(1, 2), c.transpose(1, 2), True,
-            window, 0).transpose(1, 2)
-        got = _vjp(kern, (q, k, v), do)
-        again = _vjp(kern, (q, k, v), do)
-        torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(got, again))
-        assert same, f"{label}: two calls differ"
-        del again
-        want = _vjp(plain, (q, k, v), do)
-        exact = _vjp(f64, tuple(t.double() for t in (q, k, v)), do.double())
-        row = dict(lse_max_rel_err=lse_err, same_bits=True,
-                   out_same_bits_with_lse=True,
-                   **float64_errors(f"flash grad {label}", got, want, exact))
-        row["max_abs_err_vs_plain"] = {
-            n: _err(x, y) for n, x, y in zip(("out", "dq", "dk", "dv"), got,
-                                             want)}
-        del got, want, exact
-        keep = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
-        if window:
-            keep &= ~torch.ones_like(keep).tril(-window)
-        sdpa = lambda a, b_, c: F.scaled_dot_product_attention(
-            a, b_, c, attn_mask=keep, enable_gqa=True)
-        row.update(
-            fwd_ms=cuda_ms(lambda: fa.flash_attention(qt, kt, vt, **kw)),
-            fwd_lse_ms=cuda_ms(lambda: fa.flash_attention(
-                qt, kt, vt, return_lse=True, **kw)),
-            bwd_ms=cuda_ms(lambda: A.flash_backward(qt, kt, vt, o_lse, lse,
-                                                    dot, **kw)),
-            fwd_bwd_ms=cuda_ms(lambda: _vjp(kern, (q, k, v), do)),
-            plain_fwd_bwd_ms=cuda_ms(lambda: _vjp(plain, (q, k, v), do)),
-            library_fwd_ms=cuda_ms(lambda: sdpa(qt, kt, vt)),
-            library_fwd_bwd_ms=cuda_ms(lambda: _vjp(sdpa, (qt, kt, vt),
-                                                    dot)),
-            **flash_grad_bound_ms(shape))
-        rows[label] = row
-        print(f"flash grad {label}: " + json.dumps(row), flush=True)
-        del q, k, v, do, qt, kt, vt, dot, o_alone, o_lse, lse, keep
-    return rows
+    return {label: flash_grad_row(label, (b, h, hkv, s, s, d, True, window),
+                                  gen)
+            for label, (b, h, hkv, s, d, window) in FLASH_GRAD_SHAPES.items()}
 
 
 def lm_train_batch(m, step: int, shape=LM_TRAIN) -> dict:
@@ -2391,10 +2491,11 @@ def lm_train_bound_ms(m, n_params: int) -> float:
 
 @contextlib.contextmanager
 def float64_block():
-    """The block's attention and RMSNorm in float64 (the port's compute
-    them in float32 whatever their inputs): the reference of
-    ``check_lm_block``."""
-    attn, norm = A.flash_attention, L.rmsnorm_apply
+    """The blocks' attention, RMSNorm and LayerNorm in float64 (the
+    port's compute them in float32 whatever their inputs): the reference
+    of ``check_lm_block`` and of whisper's float64 gradient."""
+    attn, norm, lnorm = A.flash_attention, L.rmsnorm_apply, \
+        L.layernorm_apply
 
     def attn64(q, k, v, *, causal=True, window=None, **_):
         return flash_float64(q.transpose(1, 2), k.transpose(1, 2),
@@ -2405,11 +2506,18 @@ def float64_block():
         return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) \
             * params["scale"]
 
-    A.flash_attention, L.rmsnorm_apply = attn64, norm64
+    def lnorm64(params, x, eps=1e-5):
+        c = x - x.mean(-1, keepdim=True)
+        return c * torch.rsqrt(c.square().mean(-1, keepdim=True) + eps) \
+            * params["scale"] + params["bias"]
+
+    A.flash_attention, L.rmsnorm_apply, L.layernorm_apply = \
+        attn64, norm64, lnorm64
     try:
         yield
     finally:
-        A.flash_attention, L.rmsnorm_apply = attn, norm
+        A.flash_attention, L.rmsnorm_apply, L.layernorm_apply = \
+            attn, norm, lnorm
 
 
 def check_lm_block(m, params, batch) -> dict:
@@ -2896,16 +3004,19 @@ def check_init_bits(m, params, seed: int = 0, sample: int = 1 << 14
                     ) -> dict:
     """The card's initial weights against the CPU's draw (which the tests
     hold to the reference's), for the embedding table and layer 0 of
-    every stack.  The CPU runs ``init_params`` on the model cut to one
-    layer a segment (layer 0's keys are the full model's) with each
+    every stack (an encoder's too, and its ``pos_embed``).  The CPU runs
+    ``init_params`` on the model cut to one layer a segment (layer 0's
+    keys are the full model's) with each
     weight's draw replaced by a marker that records its key and scale;
     then for each weight the CPU draws `sample` counters at its start,
     its middle, its end and (past ``prng.CHUNK``) across the first chunk
     boundary, and those elements of the card's weight must have the same
     bits.  The leaves that are not drawn (norm scales, zeros, -4.6,
     A_log) are compared whole."""
-    cut = dataclasses.replace(m, segments=tuple(
-        dataclasses.replace(sg, repeats=1) for sg in m.segments))
+    one = lambda segs: tuple(  # noqa: E731
+        dataclasses.replace(sg, repeats=1) for sg in segs)
+    cut = dataclasses.replace(m, segments=one(m.segments), enc_segments=(
+        None if m.enc_segments is None else one(m.enc_segments)))
     drawn, draw = [], prng.normal_scaled
 
     def marker(key, shape, scale, device):
@@ -2917,13 +3028,20 @@ def check_init_bits(m, params, seed: int = 0, sample: int = 1 << 14
         cpu = MB.init_params(prng.prng_key(torch.tensor(seed)), cut, "cpu")
     finally:
         prng.normal_scaled = draw
-    pairs = [(c, d) for c, d in zip(tree_leaves(cpu["embed"]),
-                                    tree_leaves(params["embed"]))]
-    pairs += [(c[0], d[0]) for cs, ds in zip(cpu["segments"],
-                                             params["segments"])
-              for c, d in zip(tree_leaves(cs), tree_leaves(ds))]
-    pairs += [(c, d) for k in cpu if k not in ("embed", "segments")
-              for c, d in zip(tree_leaves(cpu[k]), tree_leaves(params[k]))]
+    def layer0_and_rest(cpu_tree, card_tree):
+        """(cpu, card) leaf pairs: layer 0 of each segment stack, the other
+        leaves whole."""
+        out = [(c[0], d[0]) for cs, ds in zip(cpu_tree["segments"],
+                                              card_tree["segments"])
+               for c, d in zip(tree_leaves(cs), tree_leaves(ds))]
+        return out + [(c, d) for k in cpu_tree
+                      if k not in ("segments", "encoder")
+                      for c, d in zip(tree_leaves(cpu_tree[k]),
+                                      tree_leaves(card_tree[k]))]
+
+    pairs = layer0_and_rest(cpu, params)
+    if "encoder" in cpu:
+        pairs += layer0_and_rest(cpu["encoder"], params["encoder"])
     sampled = whole = counters = 0
     for c, d in pairs:
         assert c.shape == d.shape, (c.shape, d.shape)
@@ -3689,11 +3807,15 @@ def check_slstm_bwd(m, params) -> dict:
 
 def _loss_grads_f64(m, params, batch) -> tuple:
     """The loss and gradients of ``next_token_loss`` in float64 through
-    the plain loop (float64 params, float64 logits and loss), remat on."""
+    the plain loop (float64 params, float64 logits and loss), remat on;
+    an encoder-decoder encodes ``batch["frames"]`` first, in float64."""
     p64 = tree_map(lambda a: a.double(), params)
     live = [t.requires_grad_(True) for t in tree_leaves(p64)]
-    logits = MB.forward(tree_unflatten(p64, live), m, batch["tokens"],
-                        use_fused=False, remat=True)
+    tree = tree_unflatten(p64, live)
+    enc = None if m.enc_segments is None else MB.encode(
+        tree, m, batch["frames"].double(), use_fused=False, remat=True)
+    logits = MB.forward(tree, m, batch["tokens"], use_fused=False,
+                        remat=True, enc_out=enc)
     logz = torch.logsumexp(logits, -1)
     gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
     loss = (logz - gold).mean()
@@ -3883,6 +4005,358 @@ def check_xlstm_train(m, params) -> dict:
     out["profile_s"] = time.perf_counter() - t0
     out["device_launches_per_step"] = out["profile"]["device_launches"]
     print("xlstm train: " + json.dumps(out), flush=True)
+    del opt, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_frames(m, seed: int = 0):
+    """WHISPER_BATCH 30 s windows of stub frame embeddings (B,
+    ``max_enc_len`` = 1500, D), ``normal · 0.1`` from `seed`, on the
+    card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(WHISPER_BATCH, m.max_enc_len, m.d_model, generator=g,
+                       device="cuda") * 0.1
+
+
+def whisper_model():
+    """Phase q0: WHISPER_ARCH at full width, ``init_params(prng_key(0))``
+    on the card (timed), its bits held to the CPU's draw
+    (`check_init_bits`: the decoder's and the encoder's layer 0, the
+    embedding and ``pos_embed``)."""
+    m = configs.get_arch(WHISPER_ARCH)
+    params = init_lm(m, m.name)
+    bits = check_init_bits(m, params)
+    print(f"whisper {m.name}: {MB.param_count(params)} params, "
+          f"{sum(s.n_layers for s in m.enc_segments)} + {m.n_layers} "
+          f"layers, init bits: {json.dumps(bits)}", flush=True)
+    return m, params, dict(INIT_S[m.name], bits=bits)
+
+
+def whisper_layers(m) -> tuple:
+    """(encoder layers, decoder layers)."""
+    return (sum(s.n_layers for s in m.enc_segments), m.n_layers)
+
+
+def whisper_flops(m, b: int, s_enc: int, s_dec: int,
+                  encoder: bool = True) -> dict:
+    """Flops of a whisper forward's parts as computed (each product
+    2·M·K·N): the encoder's projections (wq, wkv, wo, the GEGLU's three;
+    with ``encoder=False`` none, as at decode), the decoder's (the self-
+    and cross-attention's wq and wo, the self-attention's wkv, the
+    GEGLU's), the cross-attention's K/V (``enc_out @ wkv`` in every
+    decoder layer, over all S_enc frames), the tied logits, and the flash
+    kernel's 4·D a kept (query, key) pair (the encoder's all pairs, the
+    decoder's causal ones, the cross-attention's all S_dec x S_enc)."""
+    c = m.segments[0].pattern[0].cfg
+    n_enc, n_dec = whisper_layers(m)
+    d, qd, kvd = c.d_model, c.n_heads * c.dh, c.n_kv * c.dh
+    attn_ffn = 2 * d * (qd + 2 * kvd + qd + 3 * c.d_ff)   # a token's
+    per_pair = 4 * c.dh * b * c.n_heads
+    out = {"encoder_projections": 0.0,
+           "decoder_projections": n_dec * b * s_dec * (attn_ffn + 4 * d * qd),
+           "cross_kv": n_dec * 2 * b * s_enc * d * 2 * kvd,
+           "logits": 2 * b * s_dec * d * m.vocab,
+           "flash": per_pair * n_dec * (
+               kept_pairs(s_dec, s_dec, True, None, 0) + s_dec * s_enc)}
+    if encoder:
+        out["encoder_projections"] = n_enc * b * s_enc * attn_ffn
+        out["flash"] += per_pair * n_enc * s_enc * s_enc
+    return out
+
+
+def whisper_bound_ms(flops: dict) -> dict:
+    """Least time of each part: the products at the float32 SIMT peak (67
+    TFLOP/s, TF32 off: cuBLAS SGEMM), flash at three TF32 products at 495
+    TFLOP/s (its 3xTF32), as ``flash_bound_ms`` counts it."""
+    return {k: 1e3 * (3 * v / PEAK_TF32_FLOPS if k == "flash"
+                      else v / PEAK_F32_FLOPS) for k, v in flops.items()}
+
+
+def check_whisper_flash() -> dict:
+    """Phase q1: the flash kernel at whisper's four attention shapes
+    (WHISPER_FLASH_SHAPES: the encoder's 1500 x 1500 without a mask, the
+    decoder's 448 x 448 causal, the cross-attention's 448 x 1500 and
+    decode's 1 x 1500 without one), float32, with and without lse
+    (`flash_row`); then ``FlashAttentionFn``'s out, dq, dk and dv at the
+    cross-attention's and the encoder's shapes (`flash_grad_row`)."""
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    rows = {}
+    for label, shape in WHISPER_FLASH_SHAPES.items():
+        b, h, hkv, sq, sk, d = shape[:6]
+        q = torch.randn(b, h, sq, d, generator=gen, device="cuda")
+        k, v = (torch.randn(b, hkv, sk, d, generator=gen, device="cuda")
+                for _ in range(2))
+        rows[label] = flash_row(label, shape, q, k, v, torch.float32, TOL,
+                                lse=True)
+        del q, k, v
+    grads = {label: flash_grad_row(label, shape, gen)
+             for label, shape in WHISPER_FLASH_GRAD_SHAPES.items()}
+    torch.cuda.empty_cache()
+    return dict(forward=rows, grad=grads)
+
+
+def drive_whisper_serve(m, params) -> dict:
+    """Phase q2: serving whisper at full width on WHISPER_BATCH windows.
+    ``encode`` through the kernel (one flash launch an encoder layer,
+    counted from zero) and the plain attention, within TOL·scale;
+    ``make_prefill_step`` on the frames and a WHISPER_PROMPT-token prompt
+    (one launch an encoder layer and two a decoder layer), its last
+    logits against the plain route's; then ``make_decode_step`` from one
+    ``encode`` (counts zeroed just before): a KV cache of
+    DECODER_TRAIN_LEN, the prompt fed a token a step, then WHISPER_NEW
+    greedy steps, one cross-attention launch a decoder layer a step.
+    Held: the decode logits at the prompt's positions to a
+    teacher-forced ``forward``, and the first WHISPER_TEACHER steps to
+    the plain route's decode (`plain_flash`, its own plain ``encode``) on
+    the kernel route's tokens.  Host-clock ms of encode, prefill (both
+    routes) and a decode step, beside their bounds; a prefill and a
+    decode step profiled."""
+    b, n_prompt = WHISPER_BATCH, WHISPER_PROMPT
+    n_enc, n_dec = whisper_layers(m)
+    frames = whisper_frames(m)
+    prompt = torch.randint(0, m.vocab, (b, n_prompt), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    batch = {"frames": frames, "tokens": prompt}
+    out = {}
+    with torch.no_grad():
+        zero_counts()
+        enc = MB.encode(params, m, frames)
+        torch.cuda.synchronize()
+        launches = counts()
+        assert launches["flash_attention_f32"] == n_enc, launches
+        enc_plain = MB.encode(params, m, frames, use_fused=False)
+        out["encode"] = dict(
+            launches=launches,
+            max_abs_err=_hold("whisper encode", enc, enc_plain),
+            max_abs=float(enc_plain.abs().max()),
+            ms=host_ms(lambda: MB.encode(params, m, frames)),
+            plain_ms=host_ms(lambda: MB.encode(params, m, frames,
+                                               use_fused=False), reps=1))
+    s_enc = frames.shape[1]
+    out["encode"]["bound_ms"] = whisper_bound_ms({   # no decoder tokens
+        k: v for k, v in whisper_flops(m, b, s_enc, 0).items()
+        if k in ("encoder_projections", "flash")})
+    print("whisper encode: " + json.dumps(out["encode"]), flush=True)
+
+    routes = {"kernel": TS.make_prefill_step(m),
+              "plain": TS.make_prefill_step(m, use_fused=False)}
+    zero_counts()
+    got = routes["kernel"](params, batch)
+    torch.cuda.synchronize()
+    launches = counts()
+    assert launches["flash_attention_f32"] == n_enc + 2 * n_dec, launches
+    want = routes["plain"](params, batch)
+    pre = dict(launches=launches,
+               **_logits_agree("whisper prefill logits", got, want))
+    del got, want
+    for r in routes:
+        pre[f"{r}_ms_per_prefill"] = host_ms(
+            lambda: routes[r](params, batch), reps=2 if r == "kernel" else 1)
+    pre["bound_ms"] = whisper_bound_ms(whisper_flops(m, b, s_enc, n_prompt))
+    pre["bound_ms_per_prefill"] = sum(pre["bound_ms"].values())
+    pre["frames_per_s"] = b * s_enc / (pre["kernel_ms_per_prefill"] / 1e3)
+    pre["profile"] = profile_step(lambda: routes["kernel"](params, batch), ())
+    out["prefill"] = pre
+    print("whisper prefill: " + json.dumps(pre), flush=True)
+
+    dec = TS.make_decode_step(m)
+    states = MB.init_decode_state(params, m, b, DECODER_TRAIN_LEN)
+    toks = [prompt[:, t:t + 1] for t in range(n_prompt)]
+    kept, times = [], []
+    zero_counts()
+    for t in range(n_prompt + WHISPER_NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, states = dec(params, toks[t], t, states, enc)
+        nxt = logits[:, 0].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        if t < max(WHISPER_TEACHER, n_prompt):
+            kept.append(logits[:, 0].clone())
+        if t + 1 >= n_prompt:
+            toks.append(nxt)
+    launches = counts()
+    steps = n_prompt + WHISPER_NEW
+    assert launches["flash_attention_f32"] == n_dec * steps, launches
+    with torch.no_grad():
+        full = MB.forward(params, m, prompt, enc_out=enc)
+    vs_forward = max(_hold(f"whisper decode step {t} vs forward",
+                           kept[t], full[:, t]) for t in range(n_prompt))
+    del full
+    st_p = MB.init_decode_state(params, m, b, DECODER_TRAIN_LEN)
+    vs_plain = []
+    with plain_flash():
+        for t in range(WHISPER_TEACHER):
+            lp, st_p = dec(params, toks[t], t, st_p, enc_plain)
+            vs_plain.append(_hold(f"whisper decode step {t} vs plain",
+                                  kept[t], lp[:, 0]))
+    del st_p, kept
+    weights = 4 * sum(t.numel() for k, v in params.items()
+                      if k != "encoder" for t in tree_leaves(v))
+    dflops = whisper_flops(m, b, s_enc, 1, encoder=False)
+    ds = dict(
+        launches=launches, steps=steps,
+        flash_launches_per_step=launches["flash_attention_f32"] / steps,
+        max_abs_err_vs_forward=vs_forward,
+        max_abs_err_vs_plain_teacher_forced=max(vs_plain),
+        ms_per_decode_step=statistics.median(times[n_prompt:]),
+        step_ms_min_max=[min(times), max(times)],
+        new_tok_per_s=b * WHISPER_NEW / (sum(times[n_prompt:]) / 1e3),
+        bound_ms=whisper_bound_ms(dflops),
+        weights_and_enc_out_read_ms=1e3 * (weights + 4 * n_dec * enc.numel())
+        / PEAK_HBM_BYTES,
+        cross_kv_share_of_bound=dflops["cross_kv"] / sum(
+            v for k, v in dflops.items() if k != "flash"),
+        profile=profile_step(lambda: dec(params, toks[0], steps, states,
+                                         enc), ()))
+    ds["bound_ms_per_step"] = sum(ds["bound_ms"].values())
+    out["decode"] = ds
+    print("whisper decode: " + json.dumps(ds), flush=True)
+    del enc, enc_plain, states
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_train_batch(m, step: int) -> dict:
+    """Step `step`: WHISPER_BATCH windows of frames (seed 100 + step) and
+    SyntheticStream's (seed 0) tokens and labels at DECODER_TRAIN_LEN."""
+    toks, labels = SyntheticStream(DataConfig(
+        vocab=m.vocab, seq_len=DECODER_TRAIN_LEN, global_batch=WHISPER_BATCH,
+        seed=0)).batch(step)
+    return {"frames": whisper_frames(m, seed=100 + step),
+            "tokens": torch.from_numpy(toks).to("cuda", torch.long),
+            "labels": torch.from_numpy(labels).to("cuda", torch.long)}
+
+
+def whisper_cut(m, params, n: int = WHISPER_CUT_LAYERS):
+    """The model cut to `n` encoder and `n` decoder layers at full width,
+    and its params: views of the first `n` of each stack."""
+    def cut(segs):
+        return tuple(dataclasses.replace(sg, repeats=n) for sg in segs)
+
+    def first(segments_params):
+        return [[tree_map(lambda a: a[:n], sp) for sp in seg]
+                for seg in segments_params]
+
+    mc = dataclasses.replace(m, segments=cut(m.segments),
+                             enc_segments=cut(m.enc_segments))
+    pc = dict(params, segments=first(params["segments"]),
+              encoder=dict(params["encoder"], segments=first(
+                  params["encoder"]["segments"])))
+    return mc, pc
+
+
+def check_whisper_grad(m, params) -> dict:
+    """Phase q3a: one gradient of whisper at full depth on
+    `whisper_train_batch` 0, no remat: the kernel route (36 flash launches
+    with lse, asserted) against the plain route (``use_fused=False``,
+    remat): the loss within 1e-5 relative, each leaf within 1e-3 of its
+    norm; its peak memory.  Then the model cut to WHISPER_CUT_LAYERS
+    encoder and decoder layers: both routes against a float64 gradient
+    (`float64_block`), the kernel route's largest leaf error (of the
+    leaf's norm) at most twice the plain route's."""
+    n_enc, n_dec = whisper_layers(m)
+    batch = whisper_train_batch(m, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    loss_k, g_k = TS.loss_and_grads(m, params, batch)
+    torch.cuda.synchronize()
+    grads_ms = 1e3 * (time.perf_counter() - t0)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert launches["flash_attention_f32 with lse"] == n_enc + 2 * n_dec, \
+        launches
+    t0 = time.perf_counter()
+    loss_p, g_p = TS.loss_and_grads(m, params, batch, remat=True,
+                                    use_fused=False)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    assert np.isfinite(loss_k), loss_k
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), (loss_k, loss_p)
+    errs = [_norm_err(a, b_) for a, b_ in zip(tree_leaves(g_k),
+                                              tree_leaves(g_p))]
+    assert max(errs) <= 1e-3, f"gradient leaf {int(np.argmax(errs))}: " \
+        f"{max(errs)} of its norm from the plain route's"
+    out = dict(loss=loss_k, plain_loss=loss_p,
+               max_grad_norm_err_vs_plain=max(errs), n_grad_leaves=len(errs),
+               launches=launches, remat=False, grads_ms=grads_ms,
+               plain_grads_remat_ms=plain_ms,
+               grads_max_memory_allocated_gb=peak / 1e9)
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    mc, pc = whisper_cut(m, params)
+    _, g_k = TS.loss_and_grads(mc, pc, batch)
+    _, g_p = TS.loss_and_grads(mc, pc, batch, use_fused=False)
+    with float64_block():
+        loss_64, g_64 = _loss_grads_f64(mc, pc, batch)
+    k64 = [_norm_err(a, w) for a, w in zip(tree_leaves(g_k), g_64)]
+    p64 = [_norm_err(a, w) for a, w in zip(tree_leaves(g_p), g_64)]
+    assert max(k64) <= 2 * max(p64), (max(k64), max(p64))
+    out["cut"] = dict(layers=[WHISPER_CUT_LAYERS] * 2,
+                      float64_loss=float(loss_64),
+                      max_grad_norm_err_f64=max(k64),
+                      plain_max_grad_norm_err_f64=max(p64))
+    print("whisper grad: " + json.dumps(out), flush=True)
+    del g_k, g_p, g_64
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_whisper_train(m, params) -> dict:
+    """Phase q3b: ``make_train_step(remat=False)`` at full depth on
+    `whisper_train_batch`: one warm step and LM_TRAIN_STEPS timed (host
+    clock ended by a synchronize), their launches counted from zero (36
+    flash launches a step, all with lse: 12 encoder, 12 decoder
+    self-attention, 12 cross-attention), decoder tokens/s and frames/s,
+    the bound (3x the forward's products at 67 TFLOP/s plus attention's
+    12·D flops a kept pair and head, as ``lm_train_bound_ms``), the peak
+    memory, one more step profiled.  Updates `params` in place."""
+    n_enc, n_dec = whisper_layers(m)
+    n_params = MB.param_count(params)
+    step, optim = TS.make_train_step(m, remat=False)
+    opt = optim.init(params)
+    params, opt, met = step(params, opt, whisper_train_batch(m, 0))  # warm
+    losses = [float(met["loss"])]
+    batches = [whisper_train_batch(m, i)
+               for i in range(1, LM_TRAIN_STEPS + 2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for b_ in batches[:LM_TRAIN_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, b_)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(met["loss"]))
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert np.isfinite(losses).all(), losses
+    per_step = n_enc + 2 * n_dec
+    for key in ("flash_attention_f32", "flash_attention_f32 with lse"):
+        assert launches[key] == per_step * LM_TRAIN_STEPS, (key, launches)
+    flops = whisper_flops(m, WHISPER_BATCH, m.max_enc_len, DECODER_TRAIN_LEN)
+    gemm = sum(v for k, v in flops.items() if k != "flash")
+    bound = 1e3 * (3 * gemm + 3 * flops["flash"]) / PEAK_F32_FLOPS
+    ms = statistics.median(times)
+    out = dict(
+        arch=m.name, n_params=n_params, batch=WHISPER_BATCH,
+        frames=m.max_enc_len, decoder_tokens=DECODER_TRAIN_LEN, remat=False,
+        losses=losses, step_ms=times, ms_per_step=ms,
+        decoder_tokens_per_s=WHISPER_BATCH * DECODER_TRAIN_LEN / (ms / 1e3),
+        frames_per_s=WHISPER_BATCH * m.max_enc_len / (ms / 1e3),
+        bound_ms_per_step=bound, forward_tflop=sum(flops.values()) / 1e12,
+        launches=launches, flash_launches_per_step=per_step,
+        max_memory_allocated_gb=peak / 1e9,
+        profile=profile_step(lambda: step(params, opt, batches[-1]), ()))
+    out["device_launches_per_step"] = out["profile"]["device_launches"]
+    print("whisper train: " + json.dumps(out), flush=True)
     del opt, batches
     torch.cuda.empty_cache()
     return out
@@ -4094,6 +4568,23 @@ def main() -> int:
     xlstm_launcher = drive_lm_launcher(
         XLSTM_LAUNCHER_ARGV, "xlstm launcher",
         ("slstm_scan_f32", "slstm_scan_bwd_f32"))
+
+    elapsed("phase q")
+    # phase q: whisper-small at full width, once phase p's state is freed;
+    # the encoder's, the prefill's, the decode loop's, the gradient's and
+    # the train steps' launches counted from zero just before each (inside
+    # drive_whisper_serve, check_whisper_grad and check_whisper_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper_flash = check_whisper_flash()
+    m, params, whisper_init = whisper_model()
+    whisper_serve = drive_whisper_serve(m, params)
+    elapsed("q3")
+    whisper_grad = check_whisper_grad(m, params)
+    whisper_train = check_whisper_train(m, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     print("init seconds on the card: " + json.dumps(INIT_S), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here",
           flush=True)
@@ -4169,7 +4660,15 @@ def main() -> int:
             "hymba_prefill": hymba_prefill["launches"]["flash_attention_f32"],
             "hymba_engine": hymba_serve["launches"]["flash_attention_f32"],
             "hymba_train_steps":
-                hymba_train["launches"]["flash_attention_f32"]},
+                hymba_train["launches"]["flash_attention_f32"],
+            "whisper_encode":
+                whisper_serve["encode"]["launches"]["flash_attention_f32"],
+            "whisper_prefill":
+                whisper_serve["prefill"]["launches"]["flash_attention_f32"],
+            "whisper_decode_steps":
+                whisper_serve["decode"]["launches"]["flash_attention_f32"],
+            "whisper_train_steps":
+                whisper_train["launches"]["flash_attention_f32"]},
         "lse_launches_by_path": {
             "lm_train_steps":
                 lm_train["launches"]["flash_attention_f32 with lse"],
@@ -4177,6 +4676,10 @@ def main() -> int:
                 moe_train["launches"]["flash_attention_f32 with lse"],
             "hymba_train_steps":
                 hymba_train["launches"]["flash_attention_f32 with lse"],
+            "whisper_gradient":
+                whisper_grad["launches"]["flash_attention_f32 with lse"],
+            "whisper_train_steps":
+                whisper_train["launches"]["flash_attention_f32 with lse"],
             "lm_launcher": {k: r["launches"]["flash_attention_f32 with lse"]
                             for k, r in lm_launcher.items()}},
         "lse": {label: {k: r[k] for k in (
@@ -4191,6 +4694,12 @@ def main() -> int:
         "shapes": {f"{label} {t}": r for (label, t), r in flash.items()
                    if (label, t) != ("gemma3 global 2x4x4096x256",
                                      "float32")},
+        "whisper_shapes": whisper_flash["forward"],
+        "whisper_function_fwd_bwd": {label: {k: r[k] for k in (
+            "fwd_bwd_ms", "bwd_ms", "plain_fwd_bwd_ms", "library_fwd_ms",
+            "library_fwd_bwd_ms", "bound_ms", "bound_by", "max_abs_err_f64",
+            "plain_max_abs_err_f64")}
+            for label, r in whisper_flash["grad"].items()},
     }, {
         "name": "ssm_scan_f32",
         "route": "cuda",
@@ -4304,7 +4813,12 @@ def main() -> int:
                        "slstm_scan_bwd": slstm_bwd,
                        "xlstm_grad": xlstm_grad,
                        "xlstm_train": xlstm_train,
-                       "xlstm_launcher": xlstm_launcher, "init_s": INIT_S,
+                       "xlstm_launcher": xlstm_launcher,
+                       "whisper_flash": whisper_flash,
+                       "whisper_init": whisper_init,
+                       "whisper_serve": whisper_serve,
+                       "whisper_grad": whisper_grad,
+                       "whisper_train": whisper_train, "init_s": INIT_S,
                        "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},
                       fh, indent=1)

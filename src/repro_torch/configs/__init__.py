@@ -3,12 +3,12 @@
 Every assigned architecture of the reference is listed; the port has the
 dense decoders (gemma3-1b, stablelm-1.6b, qwen3-14b, deepseek-coder-33b),
 the MoE decoders (mixtral-8x7b, phi3.5-moe), the attention + SSM
-hybrid hymba-1.5b and the recurrent xlstm-1.3b (mLSTM and sLSTM
-blocks), each a module exposing
-FULL and REDUCED ModelCfg objects equal field for field to the
-reference's.  The others raise ``NotImplementedError`` until their
-blocks are ported (ROADMAP Queue 1).  Shapes live in
-``repro_torch.configs.shapes``.
+hybrid hymba-1.5b, the recurrent xlstm-1.3b (mLSTM and sLSTM blocks)
+and the encoder-decoder whisper-small, each a module exposing FULL and
+REDUCED ModelCfg objects equal field for field to the reference's
+(whisper's also ``DECODER_TRAIN_LEN``).  qwen2-vl-7b raises
+``NotImplementedError`` until M-RoPE is ported (ROADMAP Queue 1).
+Shapes live in ``repro_torch.configs.shapes``.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ _ARCHS = (
 
 #: the archs whose every block is ported
 PORTED = ("mixtral_8x7b", "phi35_moe", "stablelm_1_6b", "qwen3_14b",
-          "gemma3_1b", "deepseek_coder_33b", "hymba_1_5b", "xlstm_1_3b")
+          "gemma3_1b", "deepseek_coder_33b", "hymba_1_5b", "xlstm_1_3b",
+          "whisper_small")
 
 _ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",

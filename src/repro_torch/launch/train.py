@@ -16,6 +16,10 @@
   * straggler watchdog: steps slower than ``factor x`` the running median
     are flagged.
 
+An encoder-decoder (whisper-small) raises ``ValueError`` at once: the
+synthetic stream makes no audio frames, so the reference's launcher
+cannot train it either (it fails inside its step).
+
 ``--device`` defaults to the card and raises where there is none; the CPU
 runs only when named.  There is no mesh (one card): the reference's
 ``make_host_mesh`` belongs to the multi-device half (ROADMAP Queue 1).
@@ -111,8 +115,13 @@ def main(argv=None) -> int:
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     m = configs.get_reduced(args.arch) if args.reduced else configs.get_arch(args.arch)
+    if m.enc_segments is not None:
+        raise ValueError(
+            f"{args.arch} is an encoder-decoder: its train step needs "
+            f"batch['frames'], which SyntheticStream does not make (the "
+            f"reference's launcher cannot train it either)")
+    device = resolve_device(args.device)
     train_step_fn, optim = TS.make_train_step(m, lr=args.lr, remat=False)
 
     def initial_state():

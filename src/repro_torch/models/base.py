@@ -10,6 +10,8 @@ axis as in the reference.
   * hymba (``ssm_state``: every block has the parallel SSM branch): five
     segments of pattern length 1, global layers first, middle and last
   * xlstm (mLSTM:sLSTM 7:1): pattern [mlstm x7, slstm], repeats 6
+  * whisper: one decoder segment of ``"dec"`` blocks and, in
+    ``enc_segments``, one encoder segment of ``"enc"`` blocks
 
 The reference scans over repeats (``lax.scan``); here a Python loop runs
 the layers in the same order, taking a segment's layers from its stacks
@@ -19,17 +21,21 @@ stack per layer in the backward).  ``forward(..., remat=True)`` runs each
 repeat of the pattern under ``torch.utils.checkpoint`` (non-reentrant),
 as the reference's ``jax.checkpoint`` does its scan body.  The kinds
 ``"dense"`` (with its SwiGLU or MoE FFN and its optional SSM branch),
-``"mlstm"`` and ``"slstm"`` (``nn/xlstm``) are ported; whisper's enc/dec
-raise ``NotImplementedError`` (ROADMAP Queue 1).
+``"mlstm"`` and ``"slstm"`` (``nn/xlstm``), and whisper's ``"enc"`` and
+``"dec"`` are ported.  ``encode`` runs the encoder over precomputed frame
+embeddings; ``forward`` and ``decode_step`` take its output as
+``enc_out``, which every ``"dec"`` layer attends to.
 
 ``init_params(key, m, device)`` draws the reference's initial weights
 bit for bit from a threefry key (``core/prng``): the same splits and
 fold-ins, the same draws.
 
 Decode states mirror the param stacks: per segment and spec, for a
-dense block ``{"kv": (k, v), "len": int[, "ssm": (h, tail)]}`` with k, v
-(repeats, B, span, Hkv, dh), h (repeats, B, Di, N), tail (repeats, B,
-K-1, Di) and the shared count of cached tokens; for an xLSTM block the
+dense or whisper decoder block ``{"kv": (k, v), "len": int[, "ssm": (h,
+tail)]}`` with k, v (repeats, B, span, Hkv, dh), h (repeats, B, Di, N),
+tail (repeats, B, K-1, Di) and the shared count of cached tokens (a
+whisper decoder keeps no cache of the encoder's K and V: each step
+recomputes them, as the reference does); for an xLSTM block the
 reference's tuple, stacked: the mLSTM's (C, n, m) and the sLSTM's (c, n,
 m, h).  Decode writes the caches and the recurrent states in place.
 """
@@ -51,8 +57,8 @@ from repro_torch.optim import tree_leaves, tree_map, tree_unflatten
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    """kind: dense | mlstm | slstm (cfg.n_experts / ssm_state select MoE /
-    hymba inside the dense block)."""
+    """kind: dense | mlstm | slstm | enc | dec (cfg.n_experts / ssm_state
+    select MoE / hymba inside the dense block)."""
 
     kind: str
     cfg: B.BlockCfg
@@ -88,10 +94,6 @@ class ModelCfg:
         return sum(s.n_layers for s in self.segments)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1)")
-
-
 # ---------------------------------------------------------------------------
 # per-spec init/apply/decode dispatch
 # ---------------------------------------------------------------------------
@@ -107,13 +109,18 @@ def spec_init(key: torch.Tensor, spec: LayerSpec, device):
         return X.mlstm_init(key, cfg.d_model, cfg.n_heads, device)
     if spec.kind == "slstm":
         return X.slstm_init(key, cfg.d_model, cfg.n_heads, device)
-    raise _not_ported(f"layer kind {spec.kind!r}")
+    if spec.kind == "enc":
+        return B.enc_block_init(key, cfg, device)
+    if spec.kind == "dec":
+        return B.dec_block_init(key, cfg, device)
+    raise ValueError(spec.kind)
 
 
 def spec_apply(params, x, spec: LayerSpec, positions,
-               use_fused: Optional[bool] = None):
-    """One layer over the sequence; ``use_fused=False`` takes the plain
-    attention, scan and sLSTM loop (the mLSTM has no kernel)."""
+               use_fused: Optional[bool] = None, enc_out=None):
+    """One layer over the sequence (a ``"dec"`` layer also attends to
+    `enc_out`); ``use_fused=False`` takes the plain attention, scan and
+    sLSTM loop (the mLSTM has no kernel)."""
     if spec.kind == "dense":
         return B.block_apply(params, x, spec.cfg, positions,
                              use_fused=use_fused)
@@ -124,18 +131,25 @@ def spec_apply(params, x, spec: LayerSpec, positions,
         y, _ = X.slstm_apply(params, x, spec.cfg.n_heads,
                              use_fused=use_fused)
         return x + y
-    raise _not_ported(f"layer kind {spec.kind!r}")
+    if spec.kind == "enc":
+        return B.enc_block_apply(params, x, spec.cfg, positions,
+                                 use_fused=use_fused)
+    if spec.kind == "dec":
+        return B.dec_block_apply(params, x, enc_out, spec.cfg, positions,
+                                 use_fused=use_fused)
+    raise ValueError(spec.kind)
 
 
 def spec_state_init(spec: LayerSpec, batch: int, cache_len: int,
                     device) -> Any:
-    """Decode state of one layer: for a dense block its KV cache (a ring
-    of the window's width for sliding-window layers), the count of cached
+    """Decode state of one layer: for a dense block or a whisper decoder
+    block its KV cache (a ring of the window's width for sliding-window
+    layers), the count of cached
     tokens, and for hymba's blocks an ``ssm`` entry, None here:
     `init_decode_state` sizes it from the params; for an xLSTM block its
     recurrent tuple (the reference's initial values)."""
     cfg = spec.cfg
-    if spec.kind == "dense":
+    if spec.kind in ("dense", "dec"):
         span = cache_len if cfg.window is None else min(cfg.window, cache_len)
         kv = tuple(torch.zeros((batch, span, cfg.n_kv, cfg.dh),
                                dtype=torch.float32, device=device)
@@ -149,24 +163,29 @@ def spec_state_init(spec: LayerSpec, batch: int, cache_len: int,
                                   cfg.d_model // cfg.n_heads, device)
     if spec.kind == "slstm":
         return X.slstm_state_init(batch, cfg.d_model, device)
-    raise _not_ported(f"layer kind {spec.kind!r}")
+    raise ValueError(spec.kind)
 
 
-def spec_decode(params, x1, spec: LayerSpec, pos, state, start=None):
-    """One token through one layer -> (x1, its new state): a dense block's
-    dict, an xLSTM block's tuple (the mLSTM's stepwise cell; the sLSTM's
-    kernel at S = 1 on the card)."""
+def spec_decode(params, x1, spec: LayerSpec, pos, state, enc_out=None,
+                start=None):
+    """One token through one layer -> (x1, its new state): a dense or
+    whisper decoder block's dict (the latter attends to `enc_out`), an
+    xLSTM block's tuple (the mLSTM's stepwise cell; the sLSTM's kernel at
+    S = 1 on the card)."""
     cfg = spec.cfg
     if spec.kind == "dense":
         return B.block_decode(params, x1, cfg, pos, state,
                               ring=cfg.window is not None, start=start)
+    if spec.kind == "dec":
+        return B.dec_block_decode(params, x1, enc_out, cfg, pos, state,
+                                  start=start)
     if spec.kind == "mlstm":
         y, st = X.mlstm_apply(params, x1, cfg.n_heads, state=state)
         return x1 + y, st
     if spec.kind == "slstm":
         y, st = X.slstm_apply(params, x1, cfg.n_heads, state=state)
         return x1 + y, st
-    raise _not_ported(f"layer kind {spec.kind!r}")
+    raise ValueError(spec.kind)
 
 
 # ---------------------------------------------------------------------------
@@ -193,11 +212,11 @@ def init_params(key: torch.Tensor, m: ModelCfg, device) -> Dict[str, Any]:
     params on `device`: `key` a (2,) int64 threefry key
     (``prng.prng_key(torch.tensor(seed))``) split four ways (embed, body,
     head, encoder); segment i draws from ``fold_in(body, i)``, an untied
-    ``lm_head`` from the head key.  The draws run as eager torch on
-    `device` (``core/prng``)."""
-    if m.enc_segments is not None:
-        raise _not_ported("the whisper encoder-decoder")
-    r_embed, r_body, r_head, _ = prng.split(key.to(device), 4)
+    ``lm_head`` from the head key; whisper's ``encoder`` its segment i
+    from ``fold_in(encoder, i)`` and its ``pos_embed`` (max_enc_len, D)
+    from ``fold_in(encoder, 999)``, x 0.02.  The draws run as eager torch
+    on `device` (``core/prng``)."""
+    r_embed, r_body, r_head, r_enc = prng.split(key.to(device), 4)
     p: Dict[str, Any] = {
         "embed": L.embed_init(r_embed, m.vocab, m.d_model, device),
         "segments": [_segment_init(prng.fold_in(r_body, i), seg, device)
@@ -207,6 +226,15 @@ def init_params(key: torch.Tensor, m: ModelCfg, device) -> Dict[str, Any]:
     if not m.tied_embeddings:
         p["lm_head"] = prng.normal_scaled(r_head, (m.d_model, m.vocab),
                                           (1.0 / m.d_model) ** 0.5, device)
+    if m.enc_segments is not None:
+        p["encoder"] = {
+            "segments": [_segment_init(prng.fold_in(r_enc, i), seg, device)
+                         for i, seg in enumerate(m.enc_segments)],
+            "pos_embed": prng.normal_scaled(prng.fold_in(r_enc, 999),
+                                            (m.max_enc_len, m.d_model), 0.02,
+                                            device),
+            "ln_f": L.layernorm_init(m.d_model, device),
+        }
     return p
 
 
@@ -219,20 +247,23 @@ def _unstacked(tree) -> list:
 
 
 def _run_segments(segments_params, segs: Tuple[Segment, ...], x, positions,
-                  use_fused: Optional[bool] = None, remat: bool = False):
+                  use_fused: Optional[bool] = None, remat: bool = False,
+                  enc_out=None):
     for seg_p, seg in zip(segments_params, segs):
-        def body(xc, layer_params, _seg=seg):
+        def body(xc, layer_params, enc, _seg=seg):
             for spec, sp in zip(_seg.pattern, layer_params):
-                xc = spec_apply(sp, xc, spec, positions, use_fused=use_fused)
+                xc = spec_apply(sp, xc, spec, positions, use_fused=use_fused,
+                                enc_out=enc)
             return xc
 
         per_spec = [_unstacked(sp) for sp in seg_p]
         for r in range(seg.repeats):
             layer_params = [layers[r] for layers in per_spec]
             if remat:
-                x = checkpoint(body, x, layer_params, use_reentrant=False)
+                x = checkpoint(body, x, layer_params, enc_out,
+                               use_reentrant=False)
             else:
-                x = body(x, layer_params)
+                x = body(x, layer_params, enc_out)
     return x
 
 
@@ -243,22 +274,42 @@ def _head(params, m: ModelCfg, x):
     return x @ params["lm_head"]
 
 
+def encode(params, m: ModelCfg, frames: torch.Tensor, remat: bool = False,
+           use_fused: Optional[bool] = None) -> torch.Tensor:
+    """Whisper's encoder over precomputed (stub) frame embeddings (B,
+    S_enc, D): ``pos_embed`` added (tiled cyclically when S_enc exceeds
+    ``max_enc_len``), the encoder segments at positions 0..S_enc-1 (their
+    attention applies RoPE too, as the reference's does), then the
+    encoder's LayerNorm ``ln_f``."""
+    enc = params["encoder"]
+    se = frames.shape[1]
+    pos_tab = enc["pos_embed"]
+    if se > pos_tab.shape[0]:          # extend cyclically for oversize stubs
+        pos_tab = pos_tab.repeat(-(-se // pos_tab.shape[0]), 1)
+    x = frames + pos_tab[None, :se]
+    positions = torch.arange(se, device=frames.device)[None].expand(
+        frames.shape[:2])
+    x = _run_segments(enc["segments"], m.enc_segments, x, positions,
+                      use_fused=use_fused, remat=remat)
+    return L.layernorm_apply(enc["ln_f"], x)
+
+
 def forward(params, m: ModelCfg, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             use_fused: Optional[bool] = None,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False,
+            enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V).  positions defaults to arange.
     ``use_fused=False`` takes the plain attention instead of the kernel;
     ``remat=True`` recomputes each repeat of a segment's pattern in the
-    backward instead of keeping its activations."""
-    if m.enc_segments is not None:
-        raise _not_ported("the whisper encoder-decoder")
+    backward instead of keeping its activations.  An encoder-decoder's
+    decoder layers attend to `enc_out` (``encode``'s output)."""
     x = L.embed_apply(params["embed"], tokens)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)[
             None].expand(tokens.shape)
     x = _run_segments(params["segments"], m.segments, x, positions,
-                      use_fused=use_fused, remat=remat)
+                      use_fused=use_fused, remat=remat, enc_out=enc_out)
     return _head(params, m, x)
 
 
@@ -295,9 +346,12 @@ def _ssm_params_proto(params, m: ModelCfg):
 
 
 def decode_step(params, m: ModelCfg, token: torch.Tensor, pos: int, states,
+                enc_out: Optional[torch.Tensor] = None,
                 start: Optional[torch.Tensor] = None):
     """One-token decode.  token (B, 1) int; pos the absolute position (an
-    int).  start: optional (B,) per-lane first valid KV position — the
+    int).  enc_out: an encoder-decoder's ``encode`` output, which every
+    decoder layer attends to (through the flash kernel on the card).
+    start: optional (B,) per-lane first valid KV position — the
     stale-cache mask a continuous-batching engine passes when a batch lane
     has been reused for a new request (every attention layer shares one
     timeline, so one vector serves all layers).  Returns (logits (B, 1, V),
@@ -322,7 +376,7 @@ def decode_step(params, m: ModelCfg, token: torch.Tensor, pos: int, states,
                 if ssm is not None:
                     layer_st["ssm"] = _layer(ssm, r)
                 x, out = spec_decode(_layer(sp, r), x, spec, pos_b, layer_st,
-                                     start=start)
+                                     enc_out=enc_out, start=start)
                 if ssm is not None:
                     for view, new in zip(layer_st["ssm"], out["ssm"]):
                         view.copy_(new)

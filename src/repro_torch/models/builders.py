@@ -1,7 +1,7 @@
 """Helpers that assemble ModelCfg objects: the dense and MoE decoders
 (uniform), gemma3's local:global interleave, hymba's global-sandwich
-layout and xLSTM's periodic mLSTM:sLSTM stack.  The whisper builder comes
-with its blocks (ROADMAP Queue 1)."""
+layout, xLSTM's periodic mLSTM:sLSTM stack and whisper's
+encoder-decoder."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -104,3 +104,21 @@ def xlstm_arch(
     return ModelCfg(name=name, family="ssm", d_model=d_model, vocab=vocab,
                     segments=tuple(segs), tied_embeddings=tied,
                     sub_quadratic=True, notes=notes)
+
+
+def encdec_arch(
+    name: str, n_enc: int, n_dec: int, d_model: int, n_heads: int,
+    n_kv: int, d_ff: int, vocab: int, *, max_enc_len: int = 1500,
+    tied: bool = True, notes: str = "",
+) -> ModelCfg:
+    """Whisper-style encoder-decoder.  The conv audio front end is a STUB:
+    the model takes precomputed frame embeddings (B, S_enc, D)."""
+    enc = LayerSpec("enc", BlockCfg(d_model=d_model, n_heads=n_heads,
+                                    n_kv=n_kv, d_ff=d_ff))
+    dec = LayerSpec("dec", BlockCfg(d_model=d_model, n_heads=n_heads,
+                                    n_kv=n_kv, d_ff=d_ff))
+    return ModelCfg(name=name, family="audio", d_model=d_model, vocab=vocab,
+                    segments=(Segment(n_dec, (dec,)),),
+                    enc_segments=(Segment(n_enc, (enc,)),),
+                    max_enc_len=max_enc_len, tied_embeddings=tied,
+                    notes=notes)

@@ -1,20 +1,25 @@
-"""The decoder block of the LM substrate: GQA / sliding-window / qk-norm
-attention and a SwiGLU FFN, or with ``n_experts > 0`` the MoE FFN
-(``nn/moe``), and with ``ssm_state > 0`` hymba's parallel SSM branch
-(``nn/ssm``, mixed as ``mix_a·attn + mix_s·ssm``), as (init, apply,
-decode) functions on dict params in the reference's layout.  Init draws
-the reference's bits from a threefry key (``core/prng``), split as the
-reference splits it.
+"""The blocks of the LM substrate, as (init, apply, decode) functions on
+dict params in the reference's layout: the decoder block (GQA /
+sliding-window / qk-norm attention and a SwiGLU FFN, or with
+``n_experts > 0`` the MoE FFN (``nn/moe``), and with ``ssm_state > 0``
+hymba's parallel SSM branch (``nn/ssm``, mixed as ``mix_a·attn +
+mix_s·ssm``)), and whisper's pre-LN encoder and decoder blocks
+(LayerNorm, a GEGLU FFN with the tanh gelu, non-causal self-attention in
+the encoder, causal self-attention then cross-attention over the
+encoder's output in the decoder).  Init draws the reference's bits from
+a threefry key (``core/prng``), split as the reference splits it.
 
 Full-sequence attention runs through ``nn/attention.flash_attention`` and
 the SSM's recurrence through ``kernels/ops.ssm_scan``, so on the card
 through the flash-attention and selective-scan kernels; ``use_fused=False``
 opts those two calls out to their plain versions and touches nothing
-else.  The MoE FFN takes the (B, S, D) tokens as one (B·S, D) batch, as
-the reference does, so a decode step routes its lanes together (with the
-reference's capacity for that many tokens).  M-RoPE and the whisper
-blocks are not ported yet (ROADMAP Queue 1) and raise
-``NotImplementedError``.
+else.  Whisper's cross-attention goes through the flash kernel too (Sq
+queries against the encoder's Sk keys, no mask; one query at decode),
+where the reference calls its unblocked ``attention_reference``.  The
+MoE FFN takes the (B, S, D) tokens as one (B·S, D) batch, as the
+reference does, so a decode step routes its lanes together (with the
+reference's capacity for that many tokens).  M-RoPE is not ported yet
+(ROADMAP Queue 1) and raises ``NotImplementedError``.
 
 Decode updates the KV cache in place (the reference returns a new cache):
 the caches of a segment are one (repeats, B, span, Hkv, dh) tensor, and a
@@ -210,3 +215,92 @@ def block_decode(params, x1, cfg: BlockCfg, pos, state, *, ring: bool = False,
     x1 = x1 + mix
     h = L.rmsnorm_apply(params["ln2"], x1)
     return x1 + ffn_apply(params["ffn"], h, cfg), new_state
+
+
+# ---------------------------------------------------------------------------
+# whisper's encoder and decoder blocks: pre-LN, a GEGLU FFN; the absolute
+# positions are the model's, the attention still applies RoPE as the
+# reference's does; the encoder's attention is non-causal, the decoder
+# adds cross-attention over the encoder's output
+# ---------------------------------------------------------------------------
+def _geglu(params, h):
+    """``gelu(h·w_gate) ⊙ (h·w_up) · w_down`` with ``jax.nn.gelu``'s
+    default, the tanh approximation (torch's default, the erf form, lands
+    up to ~5e-4 away)."""
+    g = torch.nn.functional.gelu(h @ params["w_gate"], approximate="tanh")
+    return (g * (h @ params["w_up"])) @ params["w_down"]
+
+
+def enc_block_init(key: torch.Tensor, cfg: BlockCfg, device):
+    """Attention and FFN from ``split(key, 2)``."""
+    r = prng.split(key.to(device), 2)
+    return {
+        "ln1": L.layernorm_init(cfg.d_model, device),
+        "attn": attn_init(r[0], cfg, device),
+        "ln2": L.layernorm_init(cfg.d_model, device),
+        "ffn": ffn_init(r[1], cfg, device),
+    }
+
+
+def enc_block_apply(params, x, cfg: BlockCfg, positions,
+                    use_fused: Optional[bool] = None):
+    h = L.layernorm_apply(params["ln1"], x)
+    x = x + attn_apply(params["attn"], h, cfg, positions, causal=False,
+                       use_fused=use_fused)
+    h = L.layernorm_apply(params["ln2"], x)
+    return x + _geglu(params["ffn"], h)
+
+
+def dec_block_init(key: torch.Tensor, cfg: BlockCfg, device):
+    """Self-attention, cross-attention and FFN from ``split(key, 3)``."""
+    r = prng.split(key.to(device), 3)
+    return {
+        "ln1": L.layernorm_init(cfg.d_model, device),
+        "self_attn": attn_init(r[0], cfg, device),
+        "ln_x": L.layernorm_init(cfg.d_model, device),
+        "cross_attn": attn_init(r[1], cfg, device),
+        "ln2": L.layernorm_init(cfg.d_model, device),
+        "ffn": ffn_init(r[2], cfg, device),
+    }
+
+
+def _cross_attn(params, x, enc_out, cfg: BlockCfg,
+                use_fused: Optional[bool] = None):
+    """q from x (B, S, D), k and v from ``enc_out @ wkv`` (B, S_enc, D);
+    no RoPE, no mask."""
+    b, s, _ = x.shape
+    dh = cfg.dh
+    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, dh)
+    se = enc_out.shape[1]
+    kv = (enc_out @ params["wkv"]).reshape(b, se, 2 * cfg.n_kv, dh)
+    k, v = kv[:, :, : cfg.n_kv], kv[:, :, cfg.n_kv:]
+    o = A.flash_attention(q, k, v, causal=False, use_fused=use_fused)
+    return o.reshape(b, s, -1) @ params["wo"]
+
+
+def dec_block_apply(params, x, enc_out, cfg: BlockCfg, positions,
+                    use_fused: Optional[bool] = None):
+    h = L.layernorm_apply(params["ln1"], x)
+    x = x + attn_apply(params["self_attn"], h, cfg, positions, causal=True,
+                       use_fused=use_fused)
+    h = L.layernorm_apply(params["ln_x"], x)
+    x = x + _cross_attn(params["cross_attn"], h, enc_out, cfg,
+                        use_fused=use_fused)
+    h = L.layernorm_apply(params["ln2"], x)
+    return x + _geglu(params["ffn"], h)
+
+
+def dec_block_decode(params, x1, enc_out, cfg: BlockCfg, pos, state,
+                     start=None):
+    """One token: self-attention against the KV cache (written in place),
+    then cross-attention over all of ``enc_out``, whose K and V are
+    recomputed every step as the reference's are."""
+    h = L.layernorm_apply(params["ln1"], x1)
+    mix, kv = attn_decode(params["self_attn"], h, cfg, pos, state["kv"],
+                          state["len"], start=start)
+    x1 = x1 + mix
+    h = L.layernorm_apply(params["ln_x"], x1)
+    x1 = x1 + _cross_attn(params["cross_attn"], h, enc_out, cfg)
+    h = L.layernorm_apply(params["ln2"], x1)
+    return x1 + _geglu(params["ffn"], h), dict(state, kv=kv,
+                                                len=state["len"] + 1)

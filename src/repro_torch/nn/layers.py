@@ -1,10 +1,10 @@
 """Layers as plain functions on tensors: the MLP of G and D, and the LM
-substrate's RMSNorm, embedding and RoPE.
+substrate's RMSNorm, LayerNorm (whisper's), embedding and RoPE.
 
 Params keep the reference package's layout — ``{"layers": [{"w": (in,
 out), "b": (out,)}, ...]}``, ``{"scale"}``, ``{"table": (vocab, dim)}`` —
 so the kernels read ``x @ w`` directly and converted params compare like
-with like.  LayerNorm and M-RoPE come with the models that use them.
+with like.  M-RoPE comes with the model that uses it.
 """
 from __future__ import annotations
 
@@ -81,6 +81,22 @@ def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = x.to(torch.float32).square().mean(-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * params["scale"]).to(x.dtype)
+
+
+def layernorm_init(dim: int, device):
+    return {"scale": torch.ones(dim, dtype=torch.float32, device=device),
+            "bias": torch.zeros(dim, dtype=torch.float32, device=device)}
+
+
+def layernorm_apply(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The reference's LayerNorm: in float32, the population variance
+    (``jnp.var``: the mean of the squared deviations), then cast back to
+    x's dtype."""
+    xf = x.to(torch.float32)
+    centered = xf - xf.mean(-1, keepdim=True)
+    var = centered.square().mean(-1, keepdim=True)
+    y = centered * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
 
 
 def embed_init(key: torch.Tensor, vocab: int, dim: int, device):

@@ -36,14 +36,23 @@ def loss_and_grads(m: MB.ModelCfg, params, batch: Dict[str, torch.Tensor], *,
                    remat: bool = False, use_fused: Optional[bool] = None
                    ) -> Tuple[torch.Tensor, Any]:
     """(loss, grads) of ``next_token_loss`` over ``MB.forward``, the
-    gradients a tree of params' structure.  The params are differentiated
-    through aliases (``detach``), so the caller's tensors gain no grad and
-    may be updated in place afterwards."""
+    gradients a tree of params' structure; an encoder-decoder first
+    encodes ``batch["frames"]`` (``MB.encode``, under the same `remat` and
+    `use_fused`), as the reference's ``loss_fn`` does.  The params are
+    differentiated through aliases (``detach``), so the caller's tensors
+    gain no grad and may be updated in place afterwards."""
     live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
-        logits = MB.forward(tree_unflatten(params, live), m, batch["tokens"],
+        tree = tree_unflatten(params, live)
+        enc_out = None
+        if m.enc_segments is not None:
+            enc_out = MB.encode(tree, m, batch["frames"], remat=remat,
+                                use_fused=use_fused)
+        logits = MB.forward(tree, m, batch["tokens"],
                             positions=batch.get("positions"),
-                            use_fused=use_fused, remat=remat)
+                            use_fused=use_fused, remat=remat,
+                            enc_out=enc_out)
+        del enc_out
         loss = next_token_loss(logits, batch["labels"])
         del logits
         grads = torch.autograd.grad(loss, live)
@@ -64,7 +73,8 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
     (``donate_argnums``); the returned params and state are the same
     tensors as those passed in.
 
-    ``microbatches > 1`` splits the batch along axis 0 and accumulates the
+    ``microbatches > 1`` splits the batch (``frames`` too) along axis 0
+    and accumulates the
     float32 gradients and losses of the pieces in order, then scales both
     by 1/microbatches, as the reference's ``lax.scan`` does.
     ``grad_compress`` is a callable on the gradient tree (the reference's
@@ -110,14 +120,19 @@ def make_prefill_step(m: MB.ModelCfg, *,
                       use_fused: Optional[bool] = None) -> Callable:
     """prefill_step(params, batch) -> last-position logits (B, V).
 
-    ``batch["tokens"]`` (B, S); ``batch["positions"]`` optional.  Every
-    attention layer runs the flash-attention kernel on the card;
+    ``batch["tokens"]`` (B, S); ``batch["positions"]`` optional; an
+    encoder-decoder's ``batch["frames"]`` (B, S_enc, D), encoded first.
+    Every attention layer runs the flash-attention kernel on the card;
     ``use_fused=False`` takes the plain attention instead."""
     def prefill_step(params, batch):
         with torch.no_grad():
+            enc_out = None
+            if m.enc_segments is not None:
+                enc_out = MB.encode(params, m, batch["frames"],
+                                    use_fused=use_fused)
             logits = MB.forward(params, m, batch["tokens"],
                                 positions=batch.get("positions"),
-                                use_fused=use_fused)
+                                use_fused=use_fused, enc_out=enc_out)
         # a copy, so the (B, S, V) logits are freed on return
         return logits[:, -1].clone()
 
@@ -125,10 +140,12 @@ def make_prefill_step(m: MB.ModelCfg, *,
 
 
 def make_decode_step(m: MB.ModelCfg) -> Callable:
-    """decode_step(params, token, pos, states, start=None) -> (logits
-    (B, 1, V), states); see ``models/base.decode_step``."""
-    def decode_step(params, token, pos, states, start=None):
+    """decode_step(params, token, pos, states, enc_out=None, start=None)
+    -> (logits (B, 1, V), states), the reference's argument order; see
+    ``models/base.decode_step``."""
+    def decode_step(params, token, pos, states, enc_out=None, start=None):
         with torch.no_grad():
-            return MB.decode_step(params, m, token, pos, states, start=start)
+            return MB.decode_step(params, m, token, pos, states,
+                                  enc_out=enc_out, start=start)
 
     return decode_step

@@ -1163,6 +1163,117 @@ def test_cuda_flash_function_matches_plain(case, h100, rng):
     assert float(err.max()) <= 1e-5, f"{case} lse {float(err.max())}"
 
 
+#: (B, H, Hkv, Sq, Sk, D): whisper's attention shapes cut small, all
+#: without a mask: the encoder's (a ragged last key tile), the
+#: cross-attention's Sq < Sk, decode's one query, and whisper-small's own
+#: cross-attention (448 queries against 1500 frames)
+CUDA_FLASH_NONCAUSAL_CASES = [(2, 4, 4, 200, 200, 64),
+                              (2, 4, 4, 56, 200, 64),
+                              (2, 4, 4, 1, 200, 64),
+                              (1, 12, 12, 448, 1500, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_FLASH_NONCAUSAL_CASES)
+def test_cuda_flash_non_causal_at_whisper_shapes(case, h100, rng):
+    """The kernel without a mask at Sq ≠ Sk and a ragged Sk, float32,
+    with and without lse: out within 1e-4 of max(1, max|plain|), the same
+    bits twice and with lse; lse within 1e-5 of max(1, |lse|) of the
+    plain version's."""
+    from repro_torch.kernels import flash_attention as FA
+    b, h, hkv, sq, sk, d = case
+    q, k, v = (t.to(h100) for t in map(
+        torch.from_numpy, _qkv(rng, b, h, hkv, sq, sk, d)))
+    got = FA.flash_attention(q, k, v, causal=False)
+    again = FA.flash_attention(q, k, v, causal=False)
+    o_lse, lse = FA.flash_attention(q, k, v, causal=False, return_lse=True)
+    want, want_lse = ref.flash_attention(q, k, v, causal=False,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _flash_close(got, want, 1e-4, str(case))
+    assert torch.equal(got, again) and torch.equal(got, o_lse)
+    err = (lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)
+    assert float(err.max()) <= 1e-5, f"{case} lse {float(err.max())}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_block", [512, 24])
+def test_cuda_flash_function_at_sq_ne_sk(q_block, h100, rng):
+    """``FlashAttentionFn`` without a mask, 56 queries against 200 keys
+    (GQA 4:2), its backward in one block or in blocks of 24 (a ragged
+    last one): out, dq, dk and dv within 1e-4 of max(1, max|plain|) of
+    the plain attention under torch's autograd."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.nn import attention as A
+    b, h, hkv, sq, sk, d = 2, 4, 2, 56, 200, 64
+    arrays = (rng.normal(size=(b, sq, h, d)), rng.normal(size=(b, sk, hkv, d)),
+              rng.normal(size=(b, sk, hkv, d)), rng.normal(size=(b, sq, h, d)))
+    q, k, v, do = (torch.tensor(a, dtype=torch.float32, device=h100)
+                   for a in arrays)
+    grads = {}
+    for route, fused in (("kernel", None), ("plain", False)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = FA.flash_attention.lse_launches
+        out = A.flash_attention(*leaves, causal=False, use_fused=fused,
+                                q_block=q_block)
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert FA.flash_attention.lse_launches == before + (route == "kernel")
+        grads[route] = [out.detach()] + [t.grad for t in leaves]
+    for name, got, want in zip(("out", "dq", "dk", "dv"), grads["kernel"],
+                               grads["plain"]):
+        assert bool(torch.isfinite(got).all()), name
+        _flash_close(got, want, 1e-4, f"q_block {q_block} {name}")
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_reduced_prefill_decode_and_gradient(h100):
+    """Reduced whisper on the card: the prefill step (frames encoded) and
+    4 decode steps with ``enc_out`` through the kernel against the plain
+    route (``use_fused=False`` and the plain decode), within 1e-4 of
+    max(1, max|plain|); 6 flash launches a prefill (2 encoder, 2 decoder,
+    2 cross-attention), 2 a decode step (the cross-attention's one
+    query); the gradient with ``frames`` within 1e-3 of each leaf's norm
+    of the plain route's, 6 flash launches with lse."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import base as MB
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import step as TS
+    m = configs.get_reduced("whisper-small")
+    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, h100)
+    g = torch.Generator(device=h100).manual_seed(0)
+    frames = torch.randn(2, 48, m.d_model, generator=g, device=h100) * 0.1
+    toks = torch.randint(0, m.vocab, (2, 16), generator=g, device=h100)
+    batch = {"frames": frames, "tokens": toks}
+    before = FA.flash_attention.launches
+    got = TS.make_prefill_step(m)(params, batch)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 6
+    want = TS.make_prefill_step(m, use_fused=False)(params, batch)
+    _flash_close(got, want, 1e-4, "prefill")
+    enc = MB.encode(params, m, frames)
+    dec = TS.make_decode_step(m)
+    states = MB.init_decode_state(params, m, 2, 16)
+    for t in range(4):
+        before = FA.flash_attention.launches
+        logits, states = dec(params, toks[:, t:t + 1], t, states, enc)
+        assert FA.flash_attention.launches == before + 2
+    full = MB.forward(params, m, toks[:, :4], use_fused=False,
+                      enc_out=MB.encode(params, m, frames, use_fused=False))
+    _flash_close(logits[:, 0], full[:, 3], 1e-4, "decode")
+    batch["labels"] = torch.roll(toks, -1, 1)
+    before = FA.flash_attention.lse_launches
+    loss_k, g_k = TS.loss_and_grads(m, params, batch)
+    assert FA.flash_attention.lse_launches == before + 6
+    loss_p, g_p = TS.loss_and_grads(m, params, batch, use_fused=False)
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for a, b_ in zip(tree_leaves(g_k), tree_leaves(g_p)):
+        assert float((a - b_).norm()) <= 1e-3 * float(b_.norm())
+
+
 #: (B, S, Di, N): the selective scan's shapes; ragged tiles of the time
 #: axis and of the channels, every state size it is built for, and
 #: hymba-1.5b's prefill layer

@@ -53,7 +53,8 @@ def test_port_files_are_found():
                 "serve/server", "serve/faults", "serve/frontend",
                 "serve/online", "data/synthetic", "optim/schedule",
                 "optim/compress", "launch/train", "nn/xlstm",
-                "kernels/slstm_scan", "configs/xlstm_1_3b"):
+                "kernels/slstm_scan", "configs/xlstm_1_3b",
+                "configs/whisper_small"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "chip_smoke.py" in names
 
