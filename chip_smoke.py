@@ -3,7 +3,9 @@
     python3 chip_smoke.py [--out results.json]
 
 Builds the port's CUDA kernels from the sources in this checkout (one
-nvcc per source, in parallel) and holds each against its plain PyTorch
+nvcc per source, all started together; the sLSTM's, the longest, runs on
+beside phases 2-n and is waited for before phase o, the first to launch
+it) and holds each against its plain PyTorch
 version at the main path's shapes: the whole-MLP forward at the serving
 path's (both models' G at 64 rows, im2col's also at 1024; a row's bits
 the same at 3, 64 and 1024 rows), and the dense layer's forward, dx and
@@ -240,12 +242,13 @@ Then xlstm-1.3b training (phase p, on phase o's params):
   within 1e-5 relative, each leaf within 1e-3 of max(its norm, 1e-6 x
   the gradient's norm); both against a float64 gradient, the kernel
   route no further than twice the plain route;
-- p3. ``make_train_step`` at full depth, 2 x 2048 (XLSTM_TRAIN_REMAT):
-  one warm step (its peak memory; its gradient's norm as the clip reads
+- p3. ``make_train_step`` on the first 3 of the 6 repeats (24 layers;
+  cut for the script's time limit), 2 x 2048 (XLSTM_TRAIN_REMAT): one
+  warm step (its peak memory; its gradient's norm as the clip reads
   it, in float32, and in float64; where the float32 norm overflows, the
   plain route's gradient from the same state too, which must overflow
-  alike: the reference's math) and XLSTM_TRAIN_STEPS timed (6 sLSTM
-  backward launches a step and 6 forward, 12 with remat, asserted), each
+  alike: the reference's math) and XLSTM_TRAIN_STEPS timed (3 sLSTM
+  backward launches a step and 3 forward, 6 with remat, asserted), each
   loss and every gradient element finite, tokens/s beside the bound, the
   peak memory, a profiled step;
 - p4. ``launch/train.main`` at the reduced xlstm config, 12 steps, once
@@ -275,6 +278,34 @@ decoder's 448-token context):
   ``make_train_step`` (no remat): one warm step and LM_TRAIN_STEPS
   timed, 36 launches with lse a step, decoder tokens/s and frames/s
   beside the bound, the peak memory, a profiled step.
+
+Then qwen2-vl-7b (phase r; float32 from seed 0, phase q's state freed
+first; 28 layers, d 3584, 28 heads / 4 kv of 128, d_ff 18944, vocab
+152064, untied, M-RoPE sections (16, 24, 24)):
+
+- r1. the flash kernel at qwen2-vl's layer, 2 x 28 / 4 kv x 4096 x 128
+  causal (a GQA group of 7), with and without lse (`flash_row`), and
+  ``FlashAttentionFn`` at 2 x 2048 (`flash_grad_row`);
+- r2. ``init_params(prng_key(0))`` at full width (7,615,487,488 params,
+  asserted), its bits sampled against the CPU's draw;
+  ``make_prefill_step`` at 2 x 4096 with the default text positions and
+  with QWEN_VISION's (3, B, S) M-RoPE positions (28 flash launches each,
+  logits held to the plain route's), timed beside the bound, profiled;
+- r3. the ``Engine`` at SERVE (text positions from its clock), its
+  prompt-end logits held to the prefill step's, ms a decode step beside
+  the weights' read, a profiled step;
+- r4. the model cut to QWEN_TRAIN_LAYERS layers (the full model's first
+  layers, embedding and head), 2 x 2048 with QWEN_VISION's positions:
+  layer 0's block against float64 (`check_lm_block`); one gradient
+  through the kernels against the plain route (loss within 1e-5
+  relative, each leaf within 1e-3 of its norm); the model cut to one
+  layer at 1 x 512 against float64 (the kernel route within twice the
+  plain route's error); ``make_train_step`` (no remat): one warm step and
+  LM_TRAIN_STEPS timed (one flash launch with lse a layer and step,
+  asserted), tokens/s beside the bound, the peak memory, a profiled
+  step; then one step in 2 microbatches (the positions cut along B; two
+  launches with lse a layer), its loss within 1e-5 of the unsplit
+  loss's on the same state.
 
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
@@ -332,6 +363,7 @@ from repro_torch.launch import dse_serve  # noqa: E402
 from repro_torch.launch import online  # noqa: E402
 from repro_torch.launch import quality as Q  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.configs.qwen2_vl_7b import vision_positions  # noqa: E402
 from repro_torch.configs.whisper_small import DECODER_TRAIN_LEN  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.models import base as MB  # noqa: E402
@@ -445,13 +477,15 @@ XLSTM_ARCH = "xlstm-1.3b"
 SLSTM_SHAPES = {"prefill": PREFILL, "engine": (SERVE["slots"], 1)}
 #: phase p: xlstm-1.3b training on phase o's params at LM_TRAIN: the
 #: sLSTM backward alone at the train step's and the prefill's layer
-#: shapes; the train step at full depth, XLSTM_TRAIN_STEPS timed after a
-#: warm one, without remat (the reference's default is remat; a gradient
-#: without it peaks at ~48 GB on the card, under the ~70 GB past which
-#: remat pays, PERF.md §6); the launcher at the reduced config,
-#: restarted once at step 7
+#: shapes; the train step on the first XLSTM_TRAIN_REPEATS of the 6
+#: repeats (24 of 48 layers: the script's time limit), XLSTM_TRAIN_STEPS
+#: timed after a warm one, without remat (the reference's default is
+#: remat; a full-depth gradient without it peaks at ~48 GB on the card,
+#: under the ~70 GB past which remat pays, PERF.md §6); the launcher at
+#: the reduced config, restarted once at step 7
 SLSTM_BWD_SHAPES = {"train step": LM_TRAIN, "prefill": PREFILL}
 XLSTM_TRAIN_REMAT = False
+XLSTM_TRAIN_REPEATS = 3
 XLSTM_TRAIN_STEPS = 2
 XLSTM_LAUNCHER_ARGV = ["--arch", XLSTM_ARCH] + LAUNCHER_ARGV[2:]
 #: phase q: whisper-small at full width (12 encoder + 12 decoder layers,
@@ -487,6 +521,29 @@ WHISPER_FLASH_GRAD_SHAPES = {
     "whisper encoder 8x12x1500x64": (8, 12, 12, 1500, 1500, 64, False,
                                      None),
 }
+#: phase r: qwen2-vl-7b at full width (7,615,487,488 params), float32
+#: from seed 0, once phase q's state is freed; its training at
+#: QWEN_TRAIN_LAYERS of 28 layers (params, gradients and Adam's two
+#: moments of the full depth come to ~122 GB)
+QWEN_ARCH = "qwen2-vl-7b"
+QWEN_PARAMS = 7_615_487_488
+QWEN_TRAIN_LAYERS = 4
+#: a prompt's vision layout (Qwen2-VL, arXiv:2409.12191 §2.1): 16 text
+#: tokens, a 32 x 32 image at one temporal position, then text
+QWEN_VISION = dict(text=16, grid=32)
+QWEN_FLASH_SHAPES = {
+    "qwen2-vl 2x28x4096x128 kv4": (2, 28, 4, 4096, 4096, 128, True, None,
+                                   0),
+}
+#: the flash Function at qwen2-vl's train step: (B, H, Hkv, Sq, Sk, D,
+#: causal, window)
+QWEN_FLASH_GRAD_SHAPES = {
+    "qwen2-vl 2x28x2048x128 kv4": (2, 28, 4, 2048, 2048, 128, True, None),
+}
+#: the float64 gradient's batch and its layout (16 text tokens, a 16 x 16
+#: image, then text)
+QWEN_F64_BATCH = (1, 512)
+QWEN_F64_VISION = dict(text=16, grid=16)
 #: seconds of each LM's ``init_params`` on the card, by label
 INIT_S: dict = {}
 
@@ -563,17 +620,28 @@ def counts() -> dict:
     return out
 
 
-def build_all() -> None:
-    """Phase 1: one nvcc per source, started together."""
-    loads = (fm.load_library, fd.load_library, fa.load_library,
-             ss.load_library, sl.load_library)
-    with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
-        for f in [pool.submit(load) for load in loads]:
-            f.result()
-    for name, info in build.build_info.items():
+def print_builds(names) -> None:
+    for name in names:
+        info = build.build_info[name]
         print(f"built {name} -> {info['path']} in {info['seconds']:.1f} s",
               flush=True)
         print(str(info["log"]).strip(), flush=True)
+
+
+def build_all() -> concurrent.futures.Future:
+    """Phase 1: one nvcc per source, started together.  Waits for every
+    source but the sLSTM's, the longest build (its 96 instantiations),
+    which no phase before o launches: that nvcc runs on beside phases 2-n,
+    and the Future it returns is waited for before phase o."""
+    loads = (fm.load_library, fd.load_library, fa.load_library,
+             ss.load_library)
+    pool = concurrent.futures.ThreadPoolExecutor(len(loads) + 1)
+    late = pool.submit(sl.load_library)
+    for f in [pool.submit(load) for load in loads]:
+        f.result()
+    pool.shutdown(wait=False)
+    print_builds(list(build.build_info))
+    return late
 
 
 #: the tensor-core kernel of each source, the selective scan's two and
@@ -588,7 +656,7 @@ SPILL_CHECKS = (("dense_train.cu", "gemm_3xtf32_kernel", 12),
                 ("slstm_scan.cu", "slstm_scan_bwd_kernel", 48))
 
 
-def check_spills() -> dict:
+def check_spills(sources) -> dict:
     """ptxas's report (-Xptxas -v) for each instantiation of the
     tensor-core kernel in each source that holds it, of the selective
     scan's forward and backward (one per state size each) and of the
@@ -596,6 +664,8 @@ def check_spills() -> dict:
     each): registers and no spill stores or loads."""
     out = {}
     for source, kernel, count in SPILL_CHECKS:
+        if source not in sources:
+            continue
         log = str(build.build_info[source]["log"])
         if not log:
             print(f"{source} was loaded from an earlier build: no ptxas "
@@ -960,37 +1030,40 @@ PROFILE_GROUPS = (("flash_fwd_kernel", "flash_fwd_kernel"),
                   ("copy", "copies"))
 
 
-def profile_step(step, args, cpu: bool = True) -> dict:
+def profile_step(step, args) -> dict:
     """One warm step under torch.profiler: the device's busy time and idle
     share, its launches, the kernels that take the most device time, and
-    the device ms of PROFILE_GROUPS (the rest as "other").  With
-    ``cpu=False`` only the device's activity is traced: a step of a few
-    hundred thousand launches then takes seconds to read, not minutes."""
+    the device ms of PROFILE_GROUPS (the rest as "other").  Only the
+    device's activity is traced (nothing here reads the host's), and its
+    raw events are summed by name: ``key_averages`` would first build a
+    Python object an event, tens of seconds for a step of ~150k
+    launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu
-                                            else [])
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(*args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in dev)
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    by_name = {}                       # name: [count, device ms]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            row = by_name.setdefault(e.name(), [0, 0.0])
+            row[0] += 1
+            row[1] += e.duration_ns() / 1e6
+    busy_ms = sum(ms for _, ms in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     groups = {name: 0.0 for _, name in PROFILE_GROUPS}
     groups["other"] = 0.0
-    for e in dev:
-        name = next((n for key, n in PROFILE_GROUPS if key in e.key), "other")
-        groups[name] += e.self_device_time_total / 1e3
-    return dict(profiled_wall_ms=1e3 * wall, device_busy_ms=busy_us / 1e3,
-                device_idle_share=1.0 - busy_us / 1e3 / (1e3 * wall),
-                device_launches=sum(e.count for e in dev),
+    for key, (_, ms) in by_name.items():
+        name = next((n for k, n in PROFILE_GROUPS if k in key), "other")
+        groups[name] += ms
+    return dict(profiled_wall_ms=1e3 * wall, device_busy_ms=busy_ms,
+                device_idle_share=1.0 - busy_ms / (1e3 * wall),
+                device_launches=sum(n for n, _ in by_name.values()),
                 device_ms_by_group=groups,
-                top_kernels=[[e.key[:110], e.count,
-                              e.self_device_time_total / 1e3] for e in top])
+                top_kernels=[[key[:110], n, ms] for key, (n, ms) in top])
 
 
 def drive_train(model) -> dict:
@@ -1528,7 +1601,8 @@ def prefill_tokens(m, shape=PREFILL):
 
 def drive_prefill(m, params, label: str = "prefill",
                   hold_logits: bool = True, keep: list = None,
-                  rounds=("kernel", "plain", "plain", "kernel")) -> dict:
+                  rounds=("kernel", "plain"),
+                  positions=None) -> dict:
     """Phase 6b (and l2, m2, o3): make_prefill_step on PREFILL random
     prompts through the kernels (flash's launches counted: one per
     attention layer, at each layer's head dim and window; the selective
@@ -1539,19 +1613,33 @@ def drive_prefill(m, params, label: str = "prefill",
     with the routing flips between the two routes counted, layer by
     layer, and named in a failure; with ``hold_logits=False`` the
     distance is reported, not held, and `keep` receives both logits: see
-    `drive_xlstm_prefill`), then warm times of both in `rounds`."""
+    `drive_xlstm_prefill`), then one more call of each route in
+    `rounds`; every call is timed (host clock, ended by a synchronize)
+    and each route's least time is reported.
+    `positions` (qwen2-vl's (3, B, S) M-RoPE ids) join the batch."""
     b, s = PREFILL
     toks = prefill_tokens(m)
+    batch = {"tokens": toks}
+    if positions is not None:
+        batch["positions"] = positions
     routes = {"kernel": TS.make_prefill_step(m),
               "plain": TS.make_prefill_step(m, use_fused=False)}
+    times = {"kernel": [], "plain": []}
+
+    def timed(r):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = routes[r](params, batch)
+        torch.cuda.synchronize()
+        times[r].append(1e3 * (time.perf_counter() - t0))
+        return y
+
     zero_counts()
     with recorded_routes() as route_k, recorded_flash() as calls:
-        got = routes["kernel"](params, {"tokens": toks})
-        torch.cuda.synchronize()
+        got = timed("kernel")
     launches = counts()
     with recorded_routes() as route_p:
-        want = routes["plain"](params, {"tokens": toks})
-        torch.cuda.synchronize()
+        want = timed("plain")
     specs = [sp for seg in m.segments for _ in range(seg.repeats)
              for sp in seg.pattern]
     layers = [sp.cfg for sp in specs if sp.kind == "dense"]
@@ -1577,19 +1665,14 @@ def drive_prefill(m, params, label: str = "prefill",
             argmax_equal=bool(torch.equal(got.argmax(-1), want.argmax(-1))))
         keep.extend((got, want))
     del got, want, route_k, route_p
-    times = {r: [] for r in routes}
     for r in rounds:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        routes[r](params, {"tokens": toks})
-        torch.cuda.synchronize()
-        times[r].append(1e3 * (time.perf_counter() - t0))
+        timed(r)
     for r, ts in times.items():
         out[f"{r}_ms_per_prefill"] = min(ts)
         out[f"{r}_prompt_tok_per_s"] = b * s / (min(ts) / 1e3)
     out["bound_ms_per_prefill"] = sum(out["bound_ms"].values())
-    out["profile"] = profile_step(lambda: routes["kernel"](
-        params, {"tokens": toks}), ())
+    out["profile"] = profile_step(lambda: routes["kernel"](params, batch),
+                                  ())
     print(f"{label}: " + json.dumps(out), flush=True)
     return out
 
@@ -1636,22 +1719,26 @@ def run_engine(m, params, capture_until: int) -> dict:
         decode_step_profile=profile))
 
 
-def drive_serve(m, params) -> dict:
-    """Phase 6c: the Engine serving SERVE's requests, then its logits at
-    the prompts' last tokens (plain decode attention) held to
+def drive_serve(m, params, label: str = "serve") -> dict:
+    """Phase 6c (and r3): the Engine serving SERVE's requests, its
+    launches counted from zero (none of flash: decode attention is the
+    plain version), then its logits at the prompts' last tokens held to
     make_prefill_step's on those prompts (kernel)."""
     plen = SERVE["prompt_len"]
+    zero_counts()
     run = run_engine(m, params, plen)
+    launches = counts()
+    assert launches["flash_attention_f32"] == 0, launches
     first = torch.tensor(run["prompts"][:SERVE["slots"]], device="cuda")
     want = TS.make_prefill_step(m)(params, {"tokens": first})
     weight_bytes = 4 * MB.param_count(params)
     out = dict(weights_read_ms=1e3 * weight_bytes / PEAK_HBM_BYTES,
-               **run["stats"],
+               **run["stats"], launches=launches,
                **_logits_agree("engine vs prefill logits",
                                run["steps"][plen - 1]["logits"], want))
     assert [r.out[0] for r in run["done"][:SERVE["slots"]]] == \
         want.argmax(-1).tolist()
-    print("serve: " + json.dumps(out), flush=True)
+    print(f"{label}: " + json.dumps(out), flush=True)
     return out
 
 
@@ -2522,7 +2609,8 @@ def float64_block():
 
 def check_lm_block(m, params, batch) -> dict:
     """One full-width block (layer 0) forward and backward on the batch's
-    embeddings, through the kernel route, the plain route and float64:
+    embeddings (at its positions, if it has them), through the kernel
+    route, the plain route and float64:
     the output and every gradient (input and params) from float64 no
     further than 4x the plain float32 route's plus 1e-6·scale."""
     cfg = m.segments[0].pattern[0].cfg
@@ -2530,7 +2618,10 @@ def check_lm_block(m, params, batch) -> dict:
     x = L.embed_apply(params["embed"], batch["tokens"]).detach()
     dy = torch.randn(x.shape, device="cuda",
                      generator=torch.Generator(device="cuda").manual_seed(3))
-    pos = torch.arange(x.shape[1], device="cuda")[None].expand(x.shape[:2])
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(x.shape[1], device="cuda")[None].expand(
+            x.shape[:2])
     leaves = tree_leaves(lp)
 
     def run(use_fused, dtype=torch.float32):
@@ -2546,6 +2637,61 @@ def check_lm_block(m, params, batch) -> dict:
     out["max_norm_err_kernel_vs_plain"] = max(
         _norm_err(a, b_) for a, b_ in zip(got, want))
     return out
+
+
+def grads_vs_plain(m, params, batch) -> dict:
+    """One gradient through the kernels (a flash launch with lse a layer,
+    asserted) against the plain route (``use_fused=False``, with remat:
+    without it the plain attention keeps a score matrix a layer): the loss
+    within 1e-5 relative, each leaf within 1e-3 of its norm."""
+    zero_counts()
+    loss_k, g_k = TS.loss_and_grads(m, params, batch)
+    launches = counts()
+    assert launches["flash_attention_f32 with lse"] == m.n_layers, launches
+    loss_p, g_p = TS.loss_and_grads(m, params, batch, remat=True,
+                                    use_fused=False)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    assert np.isfinite(loss_k), loss_k
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), (loss_k, loss_p)
+    errs = [_norm_err(a, b_) for a, b_ in zip(tree_leaves(g_k),
+                                              tree_leaves(g_p))]
+    assert max(errs) <= 1e-3, f"gradient leaf {int(np.argmax(errs))}: " \
+        f"{max(errs)} of its norm from the plain route's"
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    return dict(loss=loss_k, plain_loss=loss_p, grad_launches=launches,
+                max_grad_norm_err_vs_plain=max(errs), n_grad_leaves=len(errs))
+
+
+def timed_train_steps(step, params, opt, warm, batches, flash_per_step: int
+                      ) -> tuple:
+    """One warm `step` on the batch `warm`, then one on each of `batches`
+    timed (host clock ended by a synchronize), their launches counted
+    from zero: `flash_per_step` flash launches a step, all with lse
+    (asserted); every loss finite; the peak memory of the timed steps.
+    Returns (params, opt, the measurements)."""
+    params, opt, met = step(params, opt, warm)
+    losses = [float(met["loss"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for b_ in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, b_)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(met["loss"]))
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert np.isfinite(losses).all(), losses
+    for key in ("flash_attention_f32", "flash_attention_f32 with lse"):
+        assert launches[key] == flash_per_step * len(batches), (key,
+                                                                launches)
+    return params, opt, dict(
+        losses=losses, step_ms=times, ms_per_step=statistics.median(times),
+        launches=launches, max_memory_allocated_gb=peak / 1e9)
 
 
 def check_lm_train() -> dict:
@@ -2567,21 +2713,7 @@ def check_lm_train() -> dict:
                block=check_lm_block(m, params, batch0))
     print(f"lm train block: {json.dumps(out['block'])}", flush=True)
 
-    loss_k, g_k = TS.loss_and_grads(m, params, batch0)
-    loss_p, g_p = TS.loss_and_grads(m, params, batch0, remat=True,
-                                    use_fused=False)
-    loss_k, loss_p = float(loss_k), float(loss_p)
-    assert np.isfinite(loss_k), loss_k
-    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), (loss_k, loss_p)
-    errs = [_norm_err(a, b_) for a, b_ in zip(tree_leaves(g_k),
-                                              tree_leaves(g_p))]
-    assert max(errs) <= 1e-3, f"gradient leaf {int(np.argmax(errs))}: " \
-        f"{max(errs)} of its norm from the plain route's"
-    out.update(loss=loss_k, plain_loss=loss_p,
-               max_grad_norm_err_vs_plain=max(errs),
-               n_grad_leaves=len(errs))
-    del g_k, g_p
-    torch.cuda.empty_cache()
+    out.update(grads_vs_plain(m, params, batch0))
 
     def grads_ms(**kw) -> float:
         """Host ms of one warm loss_and_grads (forward and backward)."""
@@ -2595,39 +2727,18 @@ def check_lm_train() -> dict:
                plain_grads_remat_ms=grads_ms(remat=True, use_fused=False))
 
     step, optim = TS.make_train_step(m, remat=False)
-    opt = optim.init(params)
-    params, opt, met = step(params, opt, batch0)             # warm
-    losses = [float(met["loss"])]
     batches = [lm_train_batch(m, i) for i in range(1, LM_TRAIN_STEPS + 2)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    times = []
-    for b_ in batches[:LM_TRAIN_STEPS]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, met = step(params, opt, b_)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-        losses.append(float(met["loss"]))
-    launches = counts()
-    peak = torch.cuda.max_memory_allocated()
-    assert np.isfinite(losses).all(), losses
-    n_layers = m.n_layers
-    for key in ("flash_attention_f32", "flash_attention_f32 with lse"):
-        assert launches[key] == n_layers * LM_TRAIN_STEPS, (key, launches)
-    ms = statistics.median(times)
-    out.update(
-        losses=losses, step_ms=times, ms_per_step=ms,
-        tokens_per_s=LM_TRAIN[0] * LM_TRAIN[1] / (ms / 1e3),
-        bound_ms_per_step=lm_train_bound_ms(m, n_params),
-        launches=launches,
-        flash_launches_per_step=launches["flash_attention_f32"]
-        / LM_TRAIN_STEPS,
-        max_memory_allocated_gb=peak / 1e9,
-        profile=profile_step(lambda: step(params, opt, batches[-1]), ()))
+    params, opt, run = timed_train_steps(step, params, optim.init(params),
+                                         batch0, batches[:LM_TRAIN_STEPS],
+                                         m.n_layers)
+    out.update(run, tokens_per_s=LM_TRAIN[0] * LM_TRAIN[1]
+               / (run["ms_per_step"] / 1e3),
+               bound_ms_per_step=lm_train_bound_ms(m, n_params),
+               flash_launches_per_step=m.n_layers,
+               profile=profile_step(lambda: step(params, opt, batches[-1]),
+                                    ()))
     out["device_launches_per_step"] = out["profile"]["device_launches"]
-    out["optimizer_ms"] = ms - out["grads_ms"]
+    out["optimizer_ms"] = out["ms_per_step"] - out["grads_ms"]
     print("lm train: " + json.dumps(out), flush=True)
     del params, opt, batches
     torch.cuda.empty_cache()
@@ -2903,35 +3014,16 @@ def check_moe_train() -> dict:
     torch.cuda.empty_cache()
 
     step, optim = TS.make_train_step(m, remat=False)
-    opt = optim.init(params)
-    params, opt, met = step(params, opt, batch0)             # warm
-    losses = [float(met["loss"])]
     batches = [lm_train_batch(m, i, MOE_TRAIN)
                for i in range(1, MOE_TRAIN_STEPS + 2)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    times = []
-    for b_ in batches[:MOE_TRAIN_STEPS]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, met = step(params, opt, b_)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-        losses.append(float(met["loss"]))
-    launches = counts()
-    peak = torch.cuda.max_memory_allocated()
-    assert np.isfinite(losses).all(), losses
-    for key in ("flash_attention_f32", "flash_attention_f32 with lse"):
-        assert launches[key] == m.n_layers * MOE_TRAIN_STEPS, (key, launches)
-    ms = statistics.median(times)
+    params, opt, run = timed_train_steps(step, params, optim.init(params),
+                                         batch0, batches[:MOE_TRAIN_STEPS],
+                                         m.n_layers)
     b, s = MOE_TRAIN
     out.update(
-        losses=losses, step_ms=times, ms_per_step=ms,
-        tokens_per_s=b * s / (ms / 1e3),
+        run, tokens_per_s=b * s / (run["ms_per_step"] / 1e3),
         bound_ms_per_step=3e3 * sum(prefill_flops(m, b, s).values())
         / PEAK_F32_FLOPS,
-        launches=launches, max_memory_allocated_gb=peak / 1e9,
         profile=profile_step(lambda: step(params, opt, batches[-1]), ()))
     print("moe train: " + json.dumps(out), flush=True)
     del params, opt, batches
@@ -3546,10 +3638,13 @@ def check_slstm_calls(label: str, seen, f64_last: bool = False) -> list:
     return rows
 
 
-def xlstm_cut(m, params, repeats: int = 1):
-    """xlstm cut to its first `repeats` repeats of the pattern (views of
-    the params)."""
+def cut_repeats(m, params, repeats: int = 1):
+    """A one-segment model (xlstm, qwen2-vl) cut to the first `repeats`
+    repeats of its pattern at full width, and its params: the first
+    `repeats` of each stack (views), the other leaves as they are."""
     seg = m.segments[0]
+    assert len(m.segments) == 1 and repeats <= seg.repeats, (m.segments,
+                                                             repeats)
     cut = dataclasses.replace(m, segments=(dataclasses.replace(
         seg, repeats=repeats),))
     return cut, dict(params, segments=[[tree_map(lambda a: a[:repeats], sp)
@@ -3575,7 +3670,7 @@ def drive_xlstm_prefill(m, params) -> dict:
     logits = []
     with recorded_slstm(n_sl) as seen:
         out = drive_prefill(m, params, "xlstm prefill", hold_logits=False,
-                            keep=logits, rounds=("kernel", "plain", "kernel"))
+                            keep=logits, rounds=("kernel",))
     assert len(seen) == n_sl, len(seen)
     out["slstm_calls_vs_plain"] = check_slstm_calls("xlstm prefill", seen,
                                                     f64_last=True)
@@ -3598,7 +3693,7 @@ def drive_xlstm_prefill(m, params) -> dict:
         kernel_vs_plain=_err(got, want),
         sensitivity=dict(what="kernel route, embedding x (1 + 2^-23)",
                          moved_logits_by=_err(moved, got)))
-    cut, p1 = xlstm_cut(m, params)
+    cut, p1 = cut_repeats(m, params)
     with torch.no_grad():
         got = TS.make_prefill_step(cut)(p1, {"tokens": toks})
         want = TS.make_prefill_step(cut, use_fused=False)(p1,
@@ -3669,7 +3764,7 @@ def drive_xlstm_serve(m, params) -> dict:
     calls = check_slstm_calls(f"xlstm engine step {plen - 1}", seen)
     del seen
     full = engine_vs_prefill(m, params, run, "xlstm engine", hold=False)
-    cut, p1 = xlstm_cut(m, params)
+    cut, p1 = cut_repeats(m, params)
     cut_run = run_engine(cut, p1, plen)
     one = engine_vs_prefill(cut, p1, cut_run, "xlstm engine cut to one "
                             "repeat", hold=True)
@@ -3709,7 +3804,7 @@ def slstm_layer_input(m, params, shape, seed: int = 31) -> tuple:
     (batch x seq): the input the sLSTM layer records in the model cut to
     one repeat on SyntheticStream's batch `seed`, through its wx; its rh
     and bias; the reference's initial state."""
-    cut, p1 = xlstm_cut(m, params)
+    cut, p1 = cut_repeats(m, params)
     toks = lm_train_batch(cut, seed, shape)["tokens"]
     with recorded_slstm(1) as seen, torch.no_grad():
         MB.forward(p1, cut, toks)
@@ -3814,7 +3909,8 @@ def _loss_grads_f64(m, params, batch) -> tuple:
     tree = tree_unflatten(p64, live)
     enc = None if m.enc_segments is None else MB.encode(
         tree, m, batch["frames"].double(), use_fused=False, remat=True)
-    logits = MB.forward(tree, m, batch["tokens"], use_fused=False,
+    logits = MB.forward(tree, m, batch["tokens"],
+                        positions=batch.get("positions"), use_fused=False,
                         remat=True, enc_out=enc)
     logz = torch.logsumexp(logits, -1)
     gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
@@ -3838,7 +3934,7 @@ def check_xlstm_grad(m, params) -> dict:
     together); both routes against a float64 gradient, the kernel route's
     largest leaf error (by the same measure) at most twice the plain
     route's."""
-    cut, p1 = xlstm_cut(m, params)
+    cut, p1 = cut_repeats(m, params)
     batch0 = lm_train_batch(cut, 0)
     torch.cuda.synchronize()
     zero_counts()
@@ -3915,20 +4011,22 @@ def grad_norms(grads) -> dict:
 
 
 def check_xlstm_train(m, params) -> dict:
-    """Phase p3: xlstm-1.3b's ``make_train_step`` at full depth, batch
-    LM_TRAIN of SyntheticStream, remat XLSTM_TRAIN_REMAT: one warm step
+    """Phase p3: xlstm-1.3b's ``make_train_step`` on its first
+    XLSTM_TRAIN_REPEATS repeats (`cut_repeats`), batch LM_TRAIN of
+    SyntheticStream, remat XLSTM_TRAIN_REMAT: one warm step
     (timed, its peak memory), then XLSTM_TRAIN_STEPS timed ones (host
     clock ended by a synchronize), their launches counted from zero (an
     sLSTM layer's backward once and its forward once, twice with remat, a
     step), each step's loss and every gradient element finite (its norms,
     ``grad_norms``, read by the ``grad_compress`` hook, which returns the
-    gradients as they are), the peak memory, one more step profiled (the
-    device's activity only: ~271k launches).
+    gradients as they are), the peak memory, one more step profiled.
     Where the warm step's float32 norm (the clip's) is not finite, the
     plain route's gradient (``use_fused=False``, remat) from the same
     state and batch too: the same overflow there is the reference's math
     (ROADMAP Queue 3 item 5), not the kernels'.  Updates `params` in
     place."""
+    of = m.n_layers
+    m, params = cut_repeats(m, params, XLSTM_TRAIN_REPEATS)
     n_params = MB.param_count(params)
     n_sl = sum(seg.repeats for seg in m.segments for sp in seg.pattern
                if sp.kind == "slstm")
@@ -3990,6 +4088,8 @@ def check_xlstm_train(m, params) -> dict:
     ms = statistics.median(times)
     out = dict(
         arch=m.name, n_params=n_params, batch=list(LM_TRAIN),
+        reduced=dict(n_layers=m.n_layers, of=of,
+                     why="the script's time limit"),
         remat=XLSTM_TRAIN_REMAT, losses=losses, grad_norms=norms,
         clip_norm_finite=all(np.isfinite(n["f32"]) for n in norms),
         warm_step=warm, step_ms=times, ms_per_step=ms,
@@ -4000,8 +4100,7 @@ def check_xlstm_train(m, params) -> dict:
                            for k, v in launches.items() if v},
         max_memory_allocated_gb=peak / 1e9)
     t0 = time.perf_counter()
-    out["profile"] = profile_step(lambda: step(params, opt, batches[-1]), (),
-                                  cpu=False)
+    out["profile"] = profile_step(lambda: step(params, opt, batches[-1]), ())
     out["profile_s"] = time.perf_counter() - t0
     out["device_launches_per_step"] = out["profile"]["device_launches"]
     print("xlstm train: " + json.dumps(out), flush=True)
@@ -4073,16 +4172,12 @@ def whisper_bound_ms(flops: dict) -> dict:
                       else v / PEAK_F32_FLOPS) for k, v in flops.items()}
 
 
-def check_whisper_flash() -> dict:
-    """Phase q1: the flash kernel at whisper's four attention shapes
-    (WHISPER_FLASH_SHAPES: the encoder's 1500 x 1500 without a mask, the
-    decoder's 448 x 448 causal, the cross-attention's 448 x 1500 and
-    decode's 1 x 1500 without one), float32, with and without lse
-    (`flash_row`); then ``FlashAttentionFn``'s out, dq, dk and dv at the
-    cross-attention's and the encoder's shapes (`flash_grad_row`)."""
+def check_flash_at(shapes: dict, grad_shapes: dict) -> dict:
+    """`flash_row` with and without lse at each of `shapes`, float32, and
+    `flash_grad_row` at each of `grad_shapes`."""
     gen = torch.Generator(device="cuda").manual_seed(37)
     rows = {}
-    for label, shape in WHISPER_FLASH_SHAPES.items():
+    for label, shape in shapes.items():
         b, h, hkv, sq, sk, d = shape[:6]
         q = torch.randn(b, h, sq, d, generator=gen, device="cuda")
         k, v = (torch.randn(b, hkv, sk, d, generator=gen, device="cuda")
@@ -4091,7 +4186,7 @@ def check_whisper_flash() -> dict:
                                 lse=True)
         del q, k, v
     grads = {label: flash_grad_row(label, shape, gen)
-             for label, shape in WHISPER_FLASH_GRAD_SHAPES.items()}
+             for label, shape in grad_shapes.items()}
     torch.cuda.empty_cache()
     return dict(forward=rows, grad=grads)
 
@@ -4319,45 +4414,153 @@ def check_whisper_train(m, params) -> dict:
     n_enc, n_dec = whisper_layers(m)
     n_params = MB.param_count(params)
     step, optim = TS.make_train_step(m, remat=False)
-    opt = optim.init(params)
-    params, opt, met = step(params, opt, whisper_train_batch(m, 0))  # warm
-    losses = [float(met["loss"])]
     batches = [whisper_train_batch(m, i)
                for i in range(1, LM_TRAIN_STEPS + 2)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    times = []
-    for b_ in batches[:LM_TRAIN_STEPS]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, met = step(params, opt, b_)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-        losses.append(float(met["loss"]))
-    launches = counts()
-    peak = torch.cuda.max_memory_allocated()
-    assert np.isfinite(losses).all(), losses
     per_step = n_enc + 2 * n_dec
-    for key in ("flash_attention_f32", "flash_attention_f32 with lse"):
-        assert launches[key] == per_step * LM_TRAIN_STEPS, (key, launches)
+    params, opt, run = timed_train_steps(
+        step, params, optim.init(params), whisper_train_batch(m, 0),
+        batches[:LM_TRAIN_STEPS], per_step)
     flops = whisper_flops(m, WHISPER_BATCH, m.max_enc_len, DECODER_TRAIN_LEN)
     gemm = sum(v for k, v in flops.items() if k != "flash")
     bound = 1e3 * (3 * gemm + 3 * flops["flash"]) / PEAK_F32_FLOPS
-    ms = statistics.median(times)
+    ms = run["ms_per_step"]
     out = dict(
-        arch=m.name, n_params=n_params, batch=WHISPER_BATCH,
+        run, arch=m.name, n_params=n_params, batch=WHISPER_BATCH,
         frames=m.max_enc_len, decoder_tokens=DECODER_TRAIN_LEN, remat=False,
-        losses=losses, step_ms=times, ms_per_step=ms,
         decoder_tokens_per_s=WHISPER_BATCH * DECODER_TRAIN_LEN / (ms / 1e3),
         frames_per_s=WHISPER_BATCH * m.max_enc_len / (ms / 1e3),
         bound_ms_per_step=bound, forward_tflop=sum(flops.values()) / 1e12,
-        launches=launches, flash_launches_per_step=per_step,
-        max_memory_allocated_gb=peak / 1e9,
+        flash_launches_per_step=per_step,
         profile=profile_step(lambda: step(params, opt, batches[-1]), ()))
     out["device_launches_per_step"] = out["profile"]["device_launches"]
     print("whisper train: " + json.dumps(out), flush=True)
     del opt, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen_model():
+    """Phase r2a: QWEN_ARCH at full width, ``init_params(prng_key(0))`` on
+    the card (timed), QWEN_PARAMS params, its bits held to the CPU's
+    draw (`check_init_bits`)."""
+    m = configs.get_arch(QWEN_ARCH)
+    params = init_lm(m, m.name)
+    n = MB.param_count(params)
+    assert n == QWEN_PARAMS, n
+    bits = check_init_bits(m, params)
+    print(f"qwen {m.name}: {n} params, {m.n_layers} layers, M-RoPE "
+          f"{m.segments[0].pattern[0].cfg.mrope_sections}, init bits: "
+          f"{json.dumps(bits)}", flush=True)
+    return m, params, dict(INIT_S[m.name], bits=bits)
+
+
+def qwen_positions(b: int, s: int, layout=None):
+    """(3, b, s) M-RoPE positions of `layout` (QWEN_VISION) on the card."""
+    return vision_positions(b, s, device="cuda", **(layout or QWEN_VISION))
+
+
+def qwen_train_batch(m, step: int, shape=None, layout=None) -> dict:
+    """`lm_train_batch` at `shape` (LM_TRAIN) with `layout`'s (3, B, S)
+    positions."""
+    shape = shape or LM_TRAIN
+    return dict(lm_train_batch(m, step, shape),
+                positions=qwen_positions(*shape, layout))
+
+
+def check_qwen_train(mc, pc, of: int) -> dict:
+    """Phase r4 on the model cut to QWEN_TRAIN_LAYERS of `of` layers,
+    batch LM_TRAIN with QWEN_VISION's positions: layer 0's block against
+    float64; one gradient through the kernels (a flash launch with lse a
+    layer, asserted) against the plain route (``use_fused=False``, remat):
+    the loss within 1e-5 relative, each leaf within 1e-3 of its norm;
+    the model cut to one layer at QWEN_F64_BATCH against float64, the
+    kernel route within twice the plain route's error;
+    ``make_train_step`` (no remat): one warm step and LM_TRAIN_STEPS timed
+    (host clock ended by a synchronize), a flash launch with lse a layer
+    and step, tokens/s beside ``lm_train_bound_ms``, the peak memory, a
+    profiled step; then one step in 2 microbatches (two launches with lse
+    a layer), its loss within 1e-5 of ``loss_and_grads``' on the same
+    params and batch.  Updates `pc` in place."""
+    n_layers = mc.n_layers
+    n_params = MB.param_count(pc)
+    batch0 = qwen_train_batch(mc, 0)
+    out = dict(arch=mc.name, reduced=dict(
+        n_layers=n_layers, of=of, why="params, gradients and Adam's "
+        "moments of the full depth come to ~122 GB"),
+        n_params=n_params, batch=list(LM_TRAIN), vision=QWEN_VISION,
+        block=check_lm_block(mc, pc, batch0))
+    print(f"qwen train block: {json.dumps(out['block'])}", flush=True)
+
+    out.update(grads_vs_plain(mc, pc, batch0))
+
+    m1, p1 = cut_repeats(mc, pc, 1)
+    b64 = qwen_train_batch(m1, 0, QWEN_F64_BATCH, QWEN_F64_VISION)
+    _, g_k = TS.loss_and_grads(m1, p1, b64)
+    _, g_p = TS.loss_and_grads(m1, p1, b64, use_fused=False)
+    with float64_block():
+        loss_64, g_64 = _loss_grads_f64(m1, p1, b64)
+    k64 = [_norm_err(a, w) for a, w in zip(tree_leaves(g_k), g_64)]
+    p64 = [_norm_err(a, w) for a, w in zip(tree_leaves(g_p), g_64)]
+    assert max(k64) <= 2 * max(p64), (max(k64), max(p64))
+    out["cut"] = dict(layers=1, batch=list(QWEN_F64_BATCH),
+                      float64_loss=float(loss_64),
+                      max_grad_norm_err_f64=max(k64),
+                      plain_max_grad_norm_err_f64=max(p64))
+    print("qwen grad: " + json.dumps(out), flush=True)
+    del g_k, g_p, g_64, p1
+    torch.cuda.empty_cache()
+
+    step, optim = TS.make_train_step(mc, remat=False)
+    batches = [qwen_train_batch(mc, i) for i in range(1, LM_TRAIN_STEPS + 2)]
+    pc, opt, run = timed_train_steps(step, pc, optim.init(pc), batch0,
+                                     batches[:LM_TRAIN_STEPS], n_layers)
+    out.update(run, tokens_per_s=LM_TRAIN[0] * LM_TRAIN[1]
+               / (run["ms_per_step"] / 1e3),
+               bound_ms_per_step=lm_train_bound_ms(mc, n_params),
+               profile=profile_step(lambda: step(pc, opt, batches[-1]), ()))
+    out["device_launches_per_step"] = out["profile"]["device_launches"]
+
+    last = batches[-1]
+    loss_1, g = TS.loss_and_grads(mc, pc, last)
+    del g
+    step2, _ = TS.make_train_step(mc, remat=False, microbatches=2)
+    zero_counts()
+    pc, opt, met = step2(pc, opt, last)
+    launches2 = counts()
+    assert launches2["flash_attention_f32 with lse"] == 2 * n_layers, \
+        launches2
+    loss_1, loss_2 = float(loss_1), float(met["loss"])
+    assert abs(loss_2 - loss_1) <= 1e-5 * abs(loss_1), (loss_2, loss_1)
+    out["microbatches"] = dict(microbatches=2, loss=loss_2,
+                               unsplit_loss=loss_1, launches=launches2)
+    print("qwen train: " + json.dumps(out), flush=True)
+    del opt, batches, last
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_r() -> dict:
+    """Phase r, qwen2-vl-7b at full width: r1 the flash kernel at its
+    layer (`check_flash_at`), r2 init and the prefills with text and
+    vision positions (`drive_prefill`), r3 the ``Engine``
+    (`drive_serve`), r4 training on the cut model (`check_qwen_train`,
+    once the full model is freed); each path's launches counted from zero
+    just before it."""
+    out = dict(flash=check_flash_at(QWEN_FLASH_SHAPES, QWEN_FLASH_GRAD_SHAPES))
+    m, params, out["init"] = qwen_model()
+    out["prefill"] = drive_prefill(m, params, "qwen prefill")
+    out["prefill_vision"] = drive_prefill(
+        m, params, "qwen prefill vision", rounds=("kernel",),
+        positions=qwen_positions(*PREFILL))
+    out["serve"] = drive_serve(m, params, "qwen serve")
+    mc, pc = cut_repeats(m, params, QWEN_TRAIN_LAYERS)
+    pc = tree_map(torch.clone, pc)     # copies, so the full model can go
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = check_qwen_train(mc, pc, m.n_layers)
+    del pc
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -4382,8 +4585,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # phase 1: build every kernel, one nvcc per source, in parallel
-    build_all()
-    spills = check_spills()
+    slstm_build = build_all()
+    spills = check_spills([src for src, _, _ in SPILL_CHECKS
+                           if src != "slstm_scan.cu"])
 
     elapsed("phase 2")
     # phase 2: each kernel against its plain version; one full-width step
@@ -4545,6 +4749,9 @@ def main() -> int:
     # each (inside drive_prefill and drive_xlstm_serve)
     gc.collect()
     torch.cuda.empty_cache()
+    slstm_build.result()
+    print_builds(["slstm_scan.cu"])
+    spills.update(check_spills(["slstm_scan.cu"]))
     m, params, xlstm_init = xlstm_model()
     slstm = check_slstm_scan(m, params)
     xlstm_layers = check_xlstm_layers(m, params)
@@ -4576,7 +4783,8 @@ def main() -> int:
     # drive_whisper_serve, check_whisper_grad and check_whisper_train)
     gc.collect()
     torch.cuda.empty_cache()
-    whisper_flash = check_whisper_flash()
+    whisper_flash = check_flash_at(WHISPER_FLASH_SHAPES,
+                                   WHISPER_FLASH_GRAD_SHAPES)
     m, params, whisper_init = whisper_model()
     whisper_serve = drive_whisper_serve(m, params)
     elapsed("q3")
@@ -4585,6 +4793,12 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    elapsed("phase r")
+    # phase r: qwen2-vl-7b at full width, once phase q's state is freed;
+    # each path's launches counted from zero just before it (inside
+    # drive_prefill, phase_r and check_qwen_train)
+    qwen = phase_r()
     print("init seconds on the card: " + json.dumps(INIT_S), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here",
           flush=True)
@@ -4641,8 +4855,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:32",
         "launches": prefill["launches"]["flash_attention_f32"],
-        "max_abs_err": max(r["max_abs_err"] for (_, t), r in flash.items()
-                           if t == "float32"),
+        "max_abs_err": max([r["max_abs_err"] for (_, t), r in flash.items()
+                            if t == "float32"]
+                           + [r["max_abs_err"] for r in
+                              qwen["flash"]["forward"].values()]),
         **{k: flash["gemma3 global 2x4x4096x256", "float32"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                      "bound_4d_ms")},
@@ -4668,7 +4884,13 @@ def main() -> int:
             "whisper_decode_steps":
                 whisper_serve["decode"]["launches"]["flash_attention_f32"],
             "whisper_train_steps":
-                whisper_train["launches"]["flash_attention_f32"]},
+                whisper_train["launches"]["flash_attention_f32"],
+            "qwen_prefill": qwen["prefill"]["launches"]["flash_attention_f32"],
+            "qwen_prefill_vision":
+                qwen["prefill_vision"]["launches"]["flash_attention_f32"],
+            "qwen_engine": qwen["serve"]["launches"]["flash_attention_f32"],
+            "qwen_train_steps":
+                qwen["train"]["launches"]["flash_attention_f32"]},
         "lse_launches_by_path": {
             "lm_train_steps":
                 lm_train["launches"]["flash_attention_f32 with lse"],
@@ -4680,6 +4902,12 @@ def main() -> int:
                 whisper_grad["launches"]["flash_attention_f32 with lse"],
             "whisper_train_steps":
                 whisper_train["launches"]["flash_attention_f32 with lse"],
+            "qwen_gradient":
+                qwen["train"]["grad_launches"]["flash_attention_f32 with lse"],
+            "qwen_train_steps":
+                qwen["train"]["launches"]["flash_attention_f32 with lse"],
+            "qwen_train_microbatches": qwen["train"]["microbatches"][
+                "launches"]["flash_attention_f32 with lse"],
             "lm_launcher": {k: r["launches"]["flash_attention_f32 with lse"]
                             for k, r in lm_launcher.items()}},
         "lse": {label: {k: r[k] for k in (
@@ -4700,6 +4928,12 @@ def main() -> int:
             "library_fwd_bwd_ms", "bound_ms", "bound_by", "max_abs_err_f64",
             "plain_max_abs_err_f64")}
             for label, r in whisper_flash["grad"].items()},
+        "qwen_shapes": qwen["flash"]["forward"],
+        "qwen_function_fwd_bwd": {label: {k: r[k] for k in (
+            "fwd_bwd_ms", "bwd_ms", "plain_fwd_bwd_ms", "library_fwd_ms",
+            "library_fwd_bwd_ms", "bound_ms", "bound_by", "max_abs_err_f64",
+            "plain_max_abs_err_f64")}
+            for label, r in qwen["flash"]["grad"].items()},
     }, {
         "name": "ssm_scan_f32",
         "route": "cuda",
@@ -4818,7 +5052,8 @@ def main() -> int:
                        "whisper_init": whisper_init,
                        "whisper_serve": whisper_serve,
                        "whisper_grad": whisper_grad,
-                       "whisper_train": whisper_train, "init_s": INIT_S,
+                       "whisper_train": whisper_train, "qwen": qwen,
+                       "init_s": INIT_S,
                        "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},
                       fh, indent=1)

@@ -1,13 +1,13 @@
 """Architecture registry: ``get_arch(name)`` / ``get_reduced(name)``.
 
-Every assigned architecture of the reference is listed; the port has the
+Every assigned architecture of the reference is listed and ported: the
 dense decoders (gemma3-1b, stablelm-1.6b, qwen3-14b, deepseek-coder-33b),
-the MoE decoders (mixtral-8x7b, phi3.5-moe), the attention + SSM
-hybrid hymba-1.5b, the recurrent xlstm-1.3b (mLSTM and sLSTM blocks)
-and the encoder-decoder whisper-small, each a module exposing FULL and
-REDUCED ModelCfg objects equal field for field to the reference's
-(whisper's also ``DECODER_TRAIN_LEN``).  qwen2-vl-7b raises
-``NotImplementedError`` until M-RoPE is ported (ROADMAP Queue 1).
+the vision-language decoder qwen2-vl-7b (M-RoPE), the MoE decoders
+(mixtral-8x7b, phi3.5-moe), the attention + SSM hybrid hymba-1.5b, the
+recurrent xlstm-1.3b (mLSTM and sLSTM blocks) and the encoder-decoder
+whisper-small, each a module exposing FULL and REDUCED ModelCfg objects
+equal field for field to the reference's (whisper's also
+``DECODER_TRAIN_LEN``).
 Shapes live in ``repro_torch.configs.shapes``.
 """
 from __future__ import annotations
@@ -28,10 +28,8 @@ _ARCHS = (
     "hymba_1_5b",
 )
 
-#: the archs whose every block is ported
-PORTED = ("mixtral_8x7b", "phi35_moe", "stablelm_1_6b", "qwen3_14b",
-          "gemma3_1b", "deepseek_coder_33b", "hymba_1_5b", "xlstm_1_3b",
-          "whisper_small")
+#: the archs whose every block is ported: all of them
+PORTED = _ARCHS
 
 _ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",
@@ -59,9 +57,6 @@ def _module(name: str):
     arch = canonical(name)
     if arch not in _ARCHS:
         raise ValueError(f"unknown arch {name!r}")
-    if arch not in PORTED:
-        raise NotImplementedError(f"{arch} needs blocks that are not ported "
-                                  f"yet (ROADMAP Queue 1)")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

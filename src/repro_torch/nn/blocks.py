@@ -18,8 +18,9 @@ queries against the encoder's Sk keys, no mask; one query at decode),
 where the reference calls its unblocked ``attention_reference``.  The
 MoE FFN takes the (B, S, D) tokens as one (B·S, D) batch, as the
 reference does, so a decode step routes its lanes together (with the
-reference's capacity for that many tokens).  M-RoPE is not ported yet
-(ROADMAP Queue 1) and raises ``NotImplementedError``.
+reference's capacity for that many tokens).  With ``mrope_sections``
+(qwen2-vl) q and k take M-RoPE over (3, B, S) positions; (B, S) text
+positions are broadcast to all three rows, in prefill and in decode.
 
 Decode updates the KV cache in place (the reference returns a new cache):
 the caches of a segment are one (repeats, B, span, Hkv, dh) tensor, and a
@@ -39,9 +40,6 @@ from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as M
 from repro_torch.nn import ssm as S
-
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1)"
-
 
 @dataclasses.dataclass(frozen=True)
 class BlockCfg:
@@ -63,11 +61,6 @@ class BlockCfg:
     @property
     def dh(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
-
-
-def _check_dense(cfg: BlockCfg) -> None:
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE " + _NOT_PORTED)
 
 
 # ---------------------------------------------------------------------------
@@ -101,8 +94,14 @@ def _qkv(params, x, cfg: BlockCfg, positions):
     if cfg.qk_norm:
         q = L.rmsnorm_apply(params["q_norm"], q)
         k = L.rmsnorm_apply(params["k_norm"], k)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections is not None:
+        if positions.dim() == 2:       # text-only: t/h/w positions coincide
+            positions = positions[None].expand((3,) + positions.shape)
+        q = L.apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = L.apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+    else:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -120,7 +119,8 @@ def attn_decode(params, x1, cfg: BlockCfg, pos, kv_cache, cache_len: int, *,
                 ring: bool = False, start=None):
     """One-token decode.  kv_cache: (k (B, Sc, Hkv, dh), v), written in
     place at slot ``cache_len`` (mod Sc on a ring); returns (y1, cache).
-    `pos` is the absolute position, (B, 1); `start` the optional (B,)
+    `pos` is the absolute position, (B, 1) (under M-RoPE broadcast to
+    its three rows); `start` the optional (B,)
     per-lane stale-KV mask (see ``decode_attention``)."""
     q, k, v = _qkv(params, x1, cfg, pos)
     kc, vc = kv_cache
@@ -170,7 +170,6 @@ def block_init(key: torch.Tensor, cfg: BlockCfg, device):
     """The reference's ``block_init``: attention, FFN and (hymba) SSM from
     ``split(key, 3)``; hymba's mixing weights ``mix_a``, ``mix_s`` are
     0-d ones."""
-    _check_dense(cfg)
     r = prng.split(key.to(device), 3)
     p = {
         "ln1": L.rmsnorm_init(cfg.d_model, device),
@@ -187,7 +186,6 @@ def block_init(key: torch.Tensor, cfg: BlockCfg, device):
 
 def block_apply(params, x, cfg: BlockCfg, positions,
                 use_fused: Optional[bool] = None):
-    _check_dense(cfg)
     h = L.rmsnorm_apply(params["ln1"], x)
     mix = attn_apply(params["attn"], h, cfg, positions, use_fused=use_fused)
     if cfg.ssm_state:
@@ -203,7 +201,6 @@ def block_decode(params, x1, cfg: BlockCfg, pos, state, *, ring: bool = False,
     """state: {'kv': (k, v), 'len': int[, 'ssm': (h, tail)]}; returns (y1,
     new state), whose 'ssm' is the new (h, tail) (the caller writes it
     back; the KV cache is written in place)."""
-    _check_dense(cfg)
     h = L.rmsnorm_apply(params["ln1"], x1)
     mix, kv = attn_decode(params["attn"], h, cfg, pos, state["kv"],
                           state["len"], ring=ring, start=start)

@@ -4,11 +4,12 @@ substrate's RMSNorm, LayerNorm (whisper's), embedding and RoPE.
 Params keep the reference package's layout — ``{"layers": [{"w": (in,
 out), "b": (out,)}, ...]}``, ``{"scale"}``, ``{"table": (vocab, dim)}`` —
 so the kernels read ``x @ w`` directly and converted params compare like
-with like.  M-RoPE comes with the model that uses it.
+with like.  M-RoPE (qwen2-vl's multimodal RoPE) rotates sections of the
+rotary dims by the temporal, height and width rows of its positions.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -129,8 +130,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (..., seq, heads, head_dim); positions: broadcastable (..., seq)."""
     inv = rope_freqs(x.shape[-1], theta, x.device)             # (half,)
     ang = positions[..., :, None].to(torch.float32) * inv      # (..., seq, half)
+    return _rotate(x, ang)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (..., seq, heads, head_dim) with its two halves rotated by the
+    angles (..., seq, half), shared by every head."""
     ang = ang[..., None, :]                                    # (..., seq, 1, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
+                sections: Tuple[int, int, int],
+                theta: float = 10000.0) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the rotary half-dims are cut into
+    (temporal, height, width) sections, each rotated by its own row of
+    the positions.
+
+    x: (..., seq, heads, head_dim); positions_3d: (3, ..., seq);
+    sections: the half-dims of each row, summing to head_dim // 2.  Each
+    angle is the float32 product ``apply_rope`` forms, so where the three
+    rows are equal the output has ``apply_rope``'s bits."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    inv = rope_freqs(x.shape[-1], theta, x.device)             # (half,)
+    angs, off = [], 0
+    for axis, sec in enumerate(sections):
+        p = positions_3d[axis]
+        angs.append(p[..., :, None].to(torch.float32) * inv[off:off + sec])
+        off += sec
+    return _rotate(x, torch.cat(angs, dim=-1))

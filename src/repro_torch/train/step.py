@@ -59,6 +59,19 @@ def loss_and_grads(m: MB.ModelCfg, params, batch: Dict[str, torch.Tensor], *,
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
+def _split(x: torch.Tensor, microbatches: int) -> torch.Tensor:
+    """The reference's microbatch split: a value of ``ndim >= 2`` whose
+    axis 0 is 3 is taken for (3, B, S) M-RoPE positions and cut along
+    axis 1, the microbatch axis then moved to the front; any other value
+    is cut along axis 0.  At B = 3 the test also takes (3, S) tokens and
+    labels and (3, S_enc, D) frames for positions and cuts them along
+    their second axis, as the reference does (qwen2-vl's (3, 1, S)
+    positions then meet (3, S/3) tokens, and M-RoPE fails to broadcast)."""
+    if x.dim() >= 2 and x.shape[0] == 3:
+        return x.reshape(3, microbatches, -1, *x.shape[2:]).movedim(1, 0)
+    return x.reshape(microbatches, -1, *x.shape[1:])
+
+
 def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
                     microbatches: int = 1, grad_compress=None,
                     use_fused: Optional[bool] = None
@@ -73,10 +86,10 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
     (``donate_argnums``); the returned params and state are the same
     tensors as those passed in.
 
-    ``microbatches > 1`` splits the batch (``frames`` too) along axis 0
-    and accumulates the
-    float32 gradients and losses of the pieces in order, then scales both
-    by 1/microbatches, as the reference's ``lax.scan`` does.
+    ``microbatches > 1`` splits every value of the batch by the
+    reference's rule (``_split``) and accumulates the float32 gradients
+    and losses of the pieces in order, then scales both by
+    1/microbatches, as the reference's ``lax.scan`` does.
     ``grad_compress`` is a callable on the gradient tree (the reference's
     calling convention).  Every attention layer runs the flash kernel on
     the card, differentiated by ``nn/attention.FlashAttentionFn``;
@@ -88,8 +101,7 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
         if microbatches <= 1:
             return loss_and_grads(m, params, batch, remat=remat,
                                   use_fused=use_fused)
-        micro = {k: v.reshape(microbatches, -1, *v.shape[1:])
-                 for k, v in batch.items()}
+        micro = {k: _split(v, microbatches) for k, v in batch.items()}
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
         g_sum = [torch.zeros_like(p, dtype=torch.float32)

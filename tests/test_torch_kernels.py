@@ -1274,6 +1274,76 @@ def test_cuda_whisper_reduced_prefill_decode_and_gradient(h100):
         assert float((a - b_).norm()) <= 1e-3 * float(b_.norm())
 
 
+#: (B, H, Hkv, S, D): qwen2-vl-7b's attention (28 heads on 4 kv heads,
+#: a GQA group of 7, head dim 128) at small S, one ragged
+CUDA_FLASH_GQA7_CASES = [(1, 28, 4, 200, 128), (2, 7, 1, 130, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_FLASH_GQA7_CASES)
+def test_cuda_flash_at_a_gqa_group_of_7(case, h100, rng):
+    """Causal, float32, with and without lse: out within 1e-4 of max(1,
+    max|plain|), the same bits twice and with lse; lse within 1e-5 of
+    max(1, |lse|) of the plain version's."""
+    from repro_torch.kernels import flash_attention as FA
+    b, h, hkv, s, d = case
+    q, k, v = (t.to(h100) for t in map(
+        torch.from_numpy, _qkv(rng, b, h, hkv, s, s, d)))
+    got = FA.flash_attention(q, k, v)
+    again = FA.flash_attention(q, k, v)
+    o_lse, lse = FA.flash_attention(q, k, v, return_lse=True)
+    want, want_lse = ref.flash_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _flash_close(got, want, 1e-4, str(case))
+    assert torch.equal(got, again) and torch.equal(got, o_lse)
+    err = (lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)
+    assert float(err.max()) <= 1e-5, f"{case} lse {float(err.max())}"
+
+
+@pytest.mark.cuda
+def test_cuda_qwen2_vl_reduced_prefill_decode_and_gradient(h100):
+    """Reduced qwen2-vl on the card with a vision layout of (3, B, S)
+    M-RoPE positions: the prefill step through the kernel against the
+    plain route, within 1e-4 of max(1, max|plain|), one flash launch a
+    layer; 8 decode steps of text positions against the plain forward's
+    logits; the gradient within 1e-3 of each leaf's norm of the plain
+    route's, one flash launch with lse a layer."""
+    from repro_torch import configs
+    from repro_torch.configs.qwen2_vl_7b import vision_positions
+    from repro_torch.core import prng
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import base as MB
+    from repro_torch.optim import tree_leaves
+    from repro_torch.train import step as TS
+    m = configs.get_reduced("qwen2-vl-7b")
+    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, h100)
+    g = torch.Generator(device=h100).manual_seed(0)
+    toks = torch.randint(0, m.vocab, (2, 48), generator=g, device=h100)
+    batch = {"tokens": toks,
+             "positions": vision_positions(2, 48, 4, 4, device=h100)}
+    before = FA.flash_attention.launches
+    got = TS.make_prefill_step(m)(params, batch)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + m.n_layers
+    want = TS.make_prefill_step(m, use_fused=False)(params, batch)
+    _flash_close(got, want, 1e-4, "prefill")
+    dec = TS.make_decode_step(m)
+    states = MB.init_decode_state(params, m, 2, 16)
+    for t in range(8):
+        logits, states = dec(params, toks[:, t:t + 1], t, states)
+    full = MB.forward(params, m, toks[:, :8], use_fused=False)
+    _flash_close(logits[:, 0], full[:, 7], 1e-4, "decode")
+    batch["labels"] = torch.roll(toks, -1, 1)
+    before = FA.flash_attention.lse_launches
+    loss_k, g_k = TS.loss_and_grads(m, params, batch)
+    assert FA.flash_attention.lse_launches == before + m.n_layers
+    loss_p, g_p = TS.loss_and_grads(m, params, batch, use_fused=False)
+    assert abs(float(loss_k) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+    for a, b_ in zip(tree_leaves(g_k), tree_leaves(g_p)):
+        assert float((a - b_).norm()) <= 1e-3 * float(b_.norm())
+
+
 #: (B, S, Di, N): the selective scan's shapes; ragged tiles of the time
 #: axis and of the channels, every state size it is built for, and
 #: hymba-1.5b's prefill layer

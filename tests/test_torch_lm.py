@@ -40,7 +40,7 @@ from repro_torch.train import step as TTS
 
 PORTED = ["gemma3-1b", "stablelm-1.6b", "qwen3-14b", "deepseek-coder-33b",
           "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b",
-          "xlstm-1.3b", "whisper-small"]
+          "xlstm-1.3b", "whisper-small", "qwen2-vl-7b"]
 MODEL_TOL = dict(rtol=1e-4, atol=2e-5)
 
 
@@ -71,11 +71,10 @@ def test_configs_equal_the_reference_field_for_field(arch, which):
     assert port.n_layers == ref.n_layers
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-7b"])
-def test_unported_archs_raise(arch):
+def test_every_reference_arch_is_ported():
     assert TC.list_archs() == JC.list_archs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.get_reduced(arch)
+    assert sorted(TC.PORTED) == sorted(TC.list_archs())
+    assert sorted(TC.canonical(a) for a in PORTED) == sorted(TC.PORTED)
 
 
 def test_param_count_and_full_width_shapes():

@@ -28,7 +28,7 @@ from repro_torch.models import base as TMB
 
 ARCHS = ["gemma3-1b", "qwen3-14b", "stablelm-1.6b", "deepseek-coder-33b",
          "mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "hymba-1.5b", "xlstm-1.3b",
-         "whisper-small"]
+         "whisper-small", "qwen2-vl-7b"]
 
 
 def _key(seed: int) -> torch.Tensor:

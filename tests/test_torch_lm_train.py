@@ -46,7 +46,7 @@ from repro_torch.optim import tree_leaves
 from repro_torch.train import step as TTS
 
 PORTED = ["gemma3-1b", "stablelm-1.6b", "qwen3-14b", "deepseek-coder-33b",
-          "hymba-1.5b"]
+          "hymba-1.5b", "qwen2-vl-7b"]
 
 
 def _t(a):
@@ -257,12 +257,16 @@ def test_train_steps_match_reference(n):
     assert int(got_opt.step) == int(want_opt.step) == n
 
 
-def test_microbatches_match_reference():
+@pytest.mark.parametrize("batch,microbatches", [(4, 2), (3, 3)])
+def test_microbatches_match_reference(batch, microbatches):
+    """At batch 3 the reference's split takes the (3, S) tokens and
+    labels for M-RoPE positions and cuts them along S; the port's too."""
     m, jp, tm, tp = _carried("stablelm-1.6b")
-    jb, tb = _batch(m.vocab, 4, 32)
-    want_p, _, want_l = _ref_steps(m, jp, [jb], 1, lr=3e-4, microbatches=2)
+    jb, tb = _batch(m.vocab, batch, 48)
+    want_p, _, want_l = _ref_steps(m, jp, [jb], 1, lr=3e-4,
+                                   microbatches=microbatches)
     got_p, _, got_l = _port_steps(tm, tp, [tb], 1, lr=3e-4, remat=False,
-                                  microbatches=2)
+                                  microbatches=microbatches)
     np.testing.assert_allclose(got_l, want_l, rtol=1e-5)
     for g, w in zip(jax.tree.leaves(convert.lm_params_to_numpy(got_p)),
                     jax.tree.leaves(want_p)):

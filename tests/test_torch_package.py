@@ -54,7 +54,7 @@ def test_port_files_are_found():
                 "serve/online", "data/synthetic", "optim/schedule",
                 "optim/compress", "launch/train", "nn/xlstm",
                 "kernels/slstm_scan", "configs/xlstm_1_3b",
-                "configs/whisper_small"):
+                "configs/whisper_small", "configs/qwen2_vl_7b"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "chip_smoke.py" in names
 
