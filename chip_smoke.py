@@ -307,6 +307,29 @@ first; 28 layers, d 3584, 28 heads / 4 kv of 128, d_ff 18944, vocab
   launches with lse a layer), its loss within 1e-5 of the unsplit
   loss's on the same state.
 
+Then the cost tools (phase s, phase r's state freed first):
+
+- s1. each hand-written kernel at a shape the script launches, on the
+  card and on ``meta``: the meta call's outputs have the launch's
+  shapes, dtypes and strides (flash's lse and the scans' chunk states
+  too), and no launch counter moves;
+- s2. every path timed above (the LM prefills, ``Engine`` steps and train
+  steps, whisper's ``encode``, prefill and decode step, the MoE layers)
+  counted at its own shape and config by ``train/step.build_case`` and
+  ``utils/op_cost`` on meta, in a process of its own started with the
+  script (``--count-paths``, `count_paths`); its ``t_compute``,
+  ``t_memory``, ``t_bound`` and bottleneck on the card's roofline
+  (``utils/roofline``) beside the time its phase measured and the
+  script's hand bound; every measured time at least its ``t_bound``;
+  the counted params of every model built equal the card's;
+  ``launch/dryrun.CARD_BYTES`` the card's ``total_memory``;
+- s3. ``launch/perf``'s sweep on the card: stablelm-1.6b's train step at
+  2 x 2048, microbatches 1 and 2 by remat off and on, one warm step and
+  two timed each, the peak memory reset before each: its time at least
+  its counted ``t_bound``, its ``max_memory_allocated`` beside the
+  counted peak, and a flash launch with lse a layer and microbatch (two
+  under remat) a step, as the meta count says.
+
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
 it are the kernel table (JSON) and the card's name and power limit.
@@ -317,6 +340,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import gc
 import io
 import json
@@ -359,11 +383,13 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import slstm_scan as sl  # noqa: E402
 from repro_torch.kernels import ssm_scan as ss  # noqa: E402
 from repro_torch.launch import comparison as CMP  # noqa: E402
+from repro_torch.launch import dryrun as DR  # noqa: E402
 from repro_torch.launch import dse_serve  # noqa: E402
 from repro_torch.launch import online  # noqa: E402
 from repro_torch.launch import quality as Q  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.configs.qwen2_vl_7b import vision_positions  # noqa: E402
+from repro_torch.configs.shapes import Shape  # noqa: E402
 from repro_torch.configs.whisper_small import DECODER_TRAIN_LEN  # noqa: E402
 from repro_torch.launch import train as LT  # noqa: E402
 from repro_torch.models import base as MB  # noqa: E402
@@ -377,6 +403,8 @@ from repro_torch.optim import (adam, apply_updates, tree_leaves,  # noqa: E402
                                tree_map, tree_unflatten)
 from repro_torch.optim.adamw import global_norm  # noqa: E402
 from repro_torch.train import step as TS  # noqa: E402
+from repro_torch.utils import op_cost  # noqa: E402
+from repro_torch.utils import roofline as RL  # noqa: E402
 
 # H100 SXM data-sheet peaks (dense, no sparsity)
 PEAK_F32_FLOPS = 67e12      # float32 outside the tensor cores
@@ -546,6 +574,14 @@ QWEN_F64_BATCH = (1, 512)
 QWEN_F64_VISION = dict(text=16, grid=16)
 #: seconds of each LM's ``init_params`` on the card, by label
 INIT_S: dict = {}
+#: the config of each model ``init_lm`` built, by the same label
+MODELS: dict = {}
+#: phase s3: launch/perf's sweep of LM_TRAIN_ARCH's train step at
+#: LM_TRAIN, (microbatches, remat) a variant, PERF_SWEEP_STEPS timed steps
+#: after one warm step each
+PERF_SWEEP = tuple((micro, remat) for micro in (1, 2)
+                   for remat in (False, True))
+PERF_SWEEP_STEPS = 2
 
 
 def smi() -> str:
@@ -574,11 +610,10 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def mlp_work(m: int, ws, bs) -> tuple:
     """Bytes the whole-MLP forward must move (each input read once, the
     output written once) and its 2·M·K·N product flops per layer (the
-    bias adds apart)."""
-    d_in, d_out = ws[0].shape[0], ws[-1].shape[1]
-    n_bytes = 4 * (m * d_in + sum(w.numel() for w in ws)
-                   + sum(b.numel() for b in bs) + m * d_out)
-    return n_bytes, sum(2 * m * w.shape[0] * w.shape[1] for w in ws)
+    bias adds apart): the kernel's own ``fm.work``."""
+    flops, n_bytes, _ = fm.work(m, [ws[0].shape[0]]
+                                + [w.shape[1] for w in ws])
+    return n_bytes, flops
 
 
 def mlp_bound_ms(m: int, ws, bs) -> tuple:
@@ -594,6 +629,14 @@ def mlp_simt_bound_ms(m: int, ws, bs) -> float:
     adds at the float32 SIMT peak."""
     n_bytes, flops = mlp_work(m, ws, bs)
     return bound(n_bytes, flops + m * sum(b.numel() for b in bs))[0]
+
+
+#: the launch counters' names (``counts``), which the kernels' meta
+#: routes also charge under (flash with lse apart from flash without)
+KERNEL_NAMES = ("mlp_forward_f32", "dense_forward_f32", "dense_dx_f32",
+                "dense_dw_db_f32", "flash_attention_f32",
+                "flash_attention_f32 with lse", "ssm_scan_f32",
+                "ssm_scan_bwd_f32", "slstm_scan_f32", "slstm_scan_bwd_f32")
 
 
 def zero_counts() -> None:
@@ -729,24 +772,16 @@ def dense_bound_ms(kernel: str, m: int, k: int, n: int, relu: bool) -> tuple:
     return bound(n_bytes, 3 * 2 * m * k * n, PEAK_TF32_FLOPS)
 
 
-def kept_pairs(sq: int, sk: int, causal: bool, window, q_offset: int) -> int:
-    """(query, key) pairs the masks keep for one head: what the kernel's
-    arithmetic scales with."""
-    qpos = np.arange(sq, dtype=np.int64) + q_offset
-    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
-    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
+#: (query, key) pairs the masks keep for one head
+kept_pairs = fa.kept_pairs
 
 
 def flash_work(shape, dtype) -> tuple:
     """Bytes one flash-attention call must move (q, k, v read once, o
     written once) and the 4·D flops of QKᵀ and PV for every kept (query,
-    key) pair."""
-    b, h, hkv, sq, sk, d, causal, window, q_offset = shape
-    size = torch.empty((), dtype=dtype).element_size()
-    n_bytes = size * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
-    return n_bytes, 4 * d * b * h * kept_pairs(sq, sk, causal, window,
-                                                q_offset)
+    key) pair (``fa.work``'s bytes; its float32 flops)."""
+    work = functools.partial(fa.work, *shape)
+    return work(dtype)[1], work(torch.float32)[0]
 
 
 def flash_bound_ms(shape, dtype) -> tuple:
@@ -1436,6 +1471,7 @@ def init_lm(m, label: str):
     torch.cuda.synchronize()
     INIT_S[label] = dict(seconds=time.perf_counter() - t0,
                          params=MB.param_count(params))
+    MODELS[label] = m
     print(f"init {label}: " + json.dumps(INIT_S[label]), flush=True)
     return params
 
@@ -1519,10 +1555,13 @@ def xlstm_flops(spec, b: int, s: int, chunk: int = 64) -> dict:
 
 
 def prefill_bound_ms(m, b: int, s: int) -> dict:
-    """Least time of a prefill's parts at the float32 peak (TF32 off), and
-    for an SSM model its scans' (`ssm_bound_ms`, one a layer), for an
-    xLSTM model its sLSTM recurrences' (`slstm_bound_ms`)."""
-    out = {k: 1e3 * v / PEAK_F32_FLOPS
+    """Least time of a prefill's parts at the float32 peak (TF32 off), the
+    flash kernel's at three TF32 products at 495 TFLOP/s (its 3xTF32, as
+    ``flash_bound_ms``), and for an SSM model its scans' (`ssm_bound_ms`,
+    one a layer), for an xLSTM model its sLSTM recurrences'
+    (`slstm_bound_ms`)."""
+    out = {k: 1e3 * (3 * v / PEAK_TF32_FLOPS if k == "flash"
+                     else v / PEAK_F32_FLOPS)
            for k, v in prefill_flops(m, b, s).items()}
     specs = [sp for seg in m.segments for _ in range(seg.repeats)
              for sp in seg.pattern]
@@ -2562,10 +2601,13 @@ def lm_train_batch(m, step: int, shape=LM_TRAIN) -> dict:
 
 def lm_train_bound_ms(m, n_params: int) -> float:
     """Least time of a train step at the float32 peak (67 TFLOP/s, TF32
-    off): 6·N·tokens, plus attention's 12·D flops (4 forward, 8 backward)
-    per kept (query, key) pair and head; plus, for each SSM layer, the
+    off): 6·N·tokens (N without an untied embedding table: a lookup, no
+    product), plus attention's 12·D flops (4 forward, 8 backward) per
+    kept (query, key) pair and head; plus, for each SSM layer, the
     selective scan's forward and backward bounds (bytes)."""
     b, s = LM_TRAIN
+    if not m.tied_embeddings:
+        n_params -= m.vocab * m.d_model
     attn = sum(seg.repeats * 12 * sp.cfg.dh * sp.cfg.n_heads * b
                * kept_pairs(s, s, True, sp.cfg.window, 0)
                for seg in m.segments for sp in seg.pattern)
@@ -2897,9 +2939,7 @@ def moe_model(n_layers: int):
     (``dataclasses.replace``), float32 params from seed 0 on the card,
     and the cut as a `reduced` record."""
     full = configs.get_arch(MOE_ARCH)
-    seg = full.segments[0]
-    m = dataclasses.replace(full, segments=(
-        dataclasses.replace(seg, repeats=n_layers),))
+    m = cut_config(full, n_layers)
     params = init_lm(m, f"{m.name} {n_layers} layers")
     reduced = dict(n_layers=n_layers, of=full.n_layers,
                    why="the full depth is 187 GB of float32 params")
@@ -3032,13 +3072,10 @@ def check_moe_train() -> dict:
 
 
 def ssm_work(b: int, s: int, di: int, n: int) -> tuple:
-    """Bytes the selective scan must move (dt, x, bmat, cmat, a, h0 read
-    once; ys and the final state written once) and its float32
-    operations: at each (b, t, d, n) the product dt·a, the exponential,
-    two products dt·b·x, a fused multiply-add (2) and h·c with its add to
-    the sum over n: 8, the exponential counted as one."""
-    n_bytes = 4 * (3 * b * s * di + 2 * b * s * n + di * n + 2 * b * di * n)
-    return n_bytes, 8 * b * s * di * n
+    """Bytes the selective scan must move and its float32 operations (8
+    at each (b, t, d, n)): the kernel's own ``ss.work``."""
+    ops_, n_bytes, _ = ss.work(b, s, di, n)
+    return n_bytes, ops_
 
 
 def ssm_bound_ms(b: int, s: int, di: int, n: int) -> tuple:
@@ -3048,21 +3085,14 @@ def ssm_bound_ms(b: int, s: int, di: int, n: int) -> tuple:
 
 
 def ssm_bwd_work(b: int, s: int, di: int, n: int) -> tuple:
-    """Bytes the scan's backward must move (dt, x, dys, bmat, cmat, a and
-    the (B, ⌈S/64⌉, Di, N) chunk states read once; d_dt, d_x, d_bmat,
-    d_cmat, d_a and d_h0 written once), the bytes of the kernel's partial
-    sums over its blocks of 256 / N channels (written, then read), and its
-    float32 operations at each (b, t, d, n): the state again (6, as the
-    forward's), and the adjoint's 20 (g's fused multiply-add, exp(dt·a),
-    its product with h, g·dt, d_a's fused multiply-add, d_dt's term (4)
-    and sum, d_x's product and sum, d_b's and d_c's products and sums, the
-    carry): 26, an exponential counted as one."""
-    nc = ss.n_chunks(s)
-    n_bytes = 4 * (5 * b * s * di + 4 * b * s * n + 2 * di * n
-                   + b * nc * di * n + b * di * n)
+    """Bytes the scan's backward must move and its float32 operations (26
+    at each (b, t, d, n)), the kernel's own ``ss.bwd_work``, with the
+    bytes of its partial sums over its blocks of 256 / N channels
+    (written, then read) between them."""
+    ops_, n_bytes, _ = ss.bwd_work(b, s, di, n)
     blocks = -(-di // (256 // n))
     partials = 4 * 2 * (2 * b * blocks * s * n + b * di * n)
-    return n_bytes, partials, 26 * b * s * di * n
+    return n_bytes, partials, ops_
 
 
 def ssm_bwd_bound_ms(b: int, s: int, di: int, n: int) -> tuple:
@@ -3440,17 +3470,10 @@ def check_hymba_train(m, params) -> dict:
 
 
 def slstm_work(b: int, s: int, d: int, h: int) -> tuple:
-    """Bytes the sLSTM kernel must move (wx, rh, bias and the state (c, n,
-    m, h) read once; hs and the final state written once) and its float32
-    operations: the recurrent products, 2·dh for each of the 4 gate
-    columns of each (b, t, channel), and the 36 around them (8 adds into
-    the pre-activations, tanh, the sigmoid's 4, log-sigmoid's 8, the
-    stabilizer's 2, the gates' 5, c's 3, n's 2, h's 3; a transcendental
-    counted as one)."""
-    dh = d // h
-    n_bytes = 4 * (b * s * 4 * d + h * dh * 4 * dh + 4 * d + 4 * b * d
-                   + b * s * d + 4 * b * d)
-    return n_bytes, b * s * d * (8 * dh + 36)
+    """Bytes the sLSTM kernel must move and its float32 operations
+    (b·s·d·(8·dh + 36)): the kernel's own ``sl.work``."""
+    ops_, n_bytes, _ = sl.work(b, s, d, h)
+    return n_bytes, ops_
 
 
 def slstm_bound_ms(b: int, s: int, d: int, h: int) -> tuple:
@@ -3638,17 +3661,22 @@ def check_slstm_calls(label: str, seen, f64_last: bool = False) -> list:
     return rows
 
 
-def cut_repeats(m, params, repeats: int = 1):
-    """A one-segment model (xlstm, qwen2-vl) cut to the first `repeats`
-    repeats of its pattern at full width, and its params: the first
-    `repeats` of each stack (views), the other leaves as they are."""
+def cut_config(m, repeats: int):
+    """A one-segment model (mixtral, xlstm, qwen2-vl) cut to the first
+    `repeats` repeats of its pattern at full width."""
     seg = m.segments[0]
     assert len(m.segments) == 1 and repeats <= seg.repeats, (m.segments,
                                                              repeats)
-    cut = dataclasses.replace(m, segments=(dataclasses.replace(
+    return dataclasses.replace(m, segments=(dataclasses.replace(
         seg, repeats=repeats),))
-    return cut, dict(params, segments=[[tree_map(lambda a: a[:repeats], sp)
-                                        for sp in params["segments"][0]]])
+
+
+def cut_repeats(m, params, repeats: int = 1):
+    """`cut_config` and its params: the first `repeats` of each stack
+    (views), the other leaves as they are."""
+    return cut_config(m, repeats), dict(
+        params, segments=[[tree_map(lambda a: a[:repeats], sp)
+                           for sp in params["segments"][0]]])
 
 
 def drive_xlstm_prefill(m, params) -> dict:
@@ -3989,13 +4017,18 @@ def check_xlstm_grad(m, params) -> dict:
     return out
 
 
-def xlstm_train_bound_ms(n_params: int, remat: bool) -> float:
+def xlstm_train_bound_ms(m, n_params: int, remat: bool) -> float:
     """Least time of an xlstm train step at the float32 peak (67 TFLOP/s,
-    TF32 off): 6·N·tokens, plus 2·N·tokens for the forward that remat
-    runs again (no attention; the sLSTM's recurrent products are rh's
-    share of N)."""
+    TF32 off): 6·N·tokens and the mLSTM chunks' products three times
+    (forward, backward's two), plus one more forward for remat (no
+    attention; the sLSTM's recurrent products are rh's share of N)."""
     b, s = LM_TRAIN
-    return 1e3 * (8 if remat else 6) * n_params * b * s / PEAK_F32_FLOPS
+    chunks = sum(seg.repeats * xlstm_flops(sp, b, s)["mlstm_chunks"]
+                 for seg in m.segments for sp in seg.pattern
+                 if sp.kind == "mlstm")
+    passes = 4 if remat else 3
+    return 1e3 * (passes * (2 * n_params * b * s + chunks)
+                  ) / PEAK_F32_FLOPS
 
 
 def grad_norms(grads) -> dict:
@@ -4094,7 +4127,8 @@ def check_xlstm_train(m, params) -> dict:
         clip_norm_finite=all(np.isfinite(n["f32"]) for n in norms),
         warm_step=warm, step_ms=times, ms_per_step=ms,
         tokens_per_s=LM_TRAIN[0] * LM_TRAIN[1] / (ms / 1e3),
-        bound_ms_per_step=xlstm_train_bound_ms(n_params, XLSTM_TRAIN_REMAT),
+        bound_ms_per_step=xlstm_train_bound_ms(
+            m, n_params, XLSTM_TRAIN_REMAT),
         launches=launches,
         launches_per_step={k: v / XLSTM_TRAIN_STEPS
                            for k, v in launches.items() if v},
@@ -4565,13 +4599,337 @@ def phase_r() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase s: the cost tools (utils/op_cost, utils/roofline, train/step's
+# build_case, launch/perf) beside the card
+# ---------------------------------------------------------------------------
+def shape_of(kind: str, b: int, s: int) -> Shape:
+    return Shape(f"{kind}_{b}x{s}", s, b, kind)
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def path_cases() -> dict:
+    """Phase s2's paths, each the case of what its phase times, at the
+    phase's own shapes and configs: label -> a function building its
+    ``TS.Case`` on meta structs."""
+    get = configs.get_arch
+    gemma, mixtral, hymba, xlstm, whisper, qwen = (get(a) for a in (
+        LM_ARCH, MOE_ARCH, HYMBA_ARCH, XLSTM_ARCH, WHISPER_ARCH, QWEN_ARCH))
+    prefill = shape_of("prefill", *PREFILL)
+    engine = shape_of("decode", SERVE["slots"], SERVE["cache_len"])
+    train = shape_of("train", *LM_TRAIN)
+    build = (lambda m, shape, **kw:                         # noqa: E731
+             lambda: TS.build_case(m, shape, **kw))
+    cases = {
+        "prefill": build(gemma, prefill),
+        "serve": build(gemma, engine),
+        "lm train": build(get(LM_TRAIN_ARCH), train, remat=False),
+        "moe prefill": build(cut_config(mixtral, MOE_SERVE_LAYERS), prefill),
+        "moe serve": build(cut_config(mixtral, MOE_SERVE_LAYERS), engine),
+        "moe train": build(cut_config(mixtral, MOE_TRAIN_LAYERS),
+                           shape_of("train", *MOE_TRAIN), remat=False),
+        "hymba prefill": build(hymba, prefill),
+        "hymba serve": build(hymba, engine),
+        "hymba train": build(hymba, train, remat=False),
+        "xlstm prefill": build(xlstm, prefill),
+        "xlstm serve": build(xlstm, engine),
+        "xlstm train": build(cut_config(xlstm, XLSTM_TRAIN_REPEATS), train,
+                             remat=XLSTM_TRAIN_REMAT),
+        "whisper decode": build(whisper, shape_of(
+            "decode", WHISPER_BATCH, DECODER_TRAIN_LEN)),
+        "whisper train": build(whisper, shape_of(
+            "train", WHISPER_BATCH, whisper.max_enc_len), remat=False),
+        "qwen prefill": build(qwen, prefill),
+        "qwen serve": build(qwen, engine),
+        "qwen train": build(cut_config(qwen, QWEN_TRAIN_LAYERS), train,
+                            remat=False),
+    }
+
+    def encode():
+        p = TS.param_structs(whisper)
+        return TS.Case("whisper encode", lambda p_, f: MB.encode(
+            p_, whisper, f), (p, _meta((WHISPER_BATCH, whisper.max_enc_len,
+                                        whisper.d_model))))
+
+    def whisper_prefill():
+        frames = _meta((WHISPER_BATCH, whisper.max_enc_len, whisper.d_model))
+        toks = _meta((WHISPER_BATCH, WHISPER_PROMPT), torch.int32)
+        return TS.Case("whisper prefill", TS.make_prefill_step(whisper), (
+            TS.param_structs(whisper), {"frames": frames, "tokens": toks}))
+
+    def moe_layer(arch):
+        cfg = get(arch).segments[0].pattern[0].cfg
+        p = MOE.moe_init(prng.prng_key(torch.tensor(0)), cfg.n_experts,
+                         cfg.d_model, cfg.d_ff, "meta")
+        x = _meta((PREFILL[0] * PREFILL[1], cfg.d_model))
+        return TS.Case(f"moe layer {arch}", lambda p_, x_: MOE.moe_apply(
+            p_, x_, top_k=cfg.top_k), (p, x))
+
+    cases.update({"whisper encode": encode,
+                  "whisper prefill": whisper_prefill})
+    cases.update({f"moe layer {a}": functools.partial(moe_layer, a)
+                  for a in MOE_LAYER_ARCHS})
+    m = get(LM_TRAIN_ARCH)
+    cases.update({f"s3 micro={mi} remat={int(r)}": build(
+        m, train, remat=r, microbatches=mi) for mi, r in PERF_SWEEP})
+    return cases
+
+
+def count_paths(out_path: str) -> None:
+    """Phase s2's counts, made on meta in a process of their own while
+    the card runs phases 2-r (``--count-paths``): each path's case run
+    once under ``utils/op_cost``, its roofline terms on the card, its
+    peak of live bytes, its params, its kernels' calls; written to
+    `out_path` as JSON."""
+    torch.set_num_threads(1)
+    out = {}
+    for label, make in path_cases().items():
+        t0 = time.perf_counter()
+        case = make()
+        c = op_cost.count(case.fn, *case.args)[1]
+        counted = c.totals()
+        rl = RL.from_counted(label, counted)
+        out[label] = dict(
+            t_compute_ms=1e3 * rl.t_compute, t_memory_ms=1e3 * rl.t_memory,
+            t_bound_ms=1e3 * rl.t_bound, bottleneck=rl.bottleneck,
+            flops_by_unit=counted["flops_by_unit"],
+            hbm_bytes=counted["hbm_bytes"], peak_bytes=counted["peak_bytes"],
+            n_params=MB.param_count(case.args[0]),
+            kernel_calls={r["op"]: r["calls"] for r in c.top_ops(10 ** 6)
+                          if r["op"] in KERNEL_NAMES},
+            trace_s=time.perf_counter() - t0)
+        del case, counted, c
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+
+
+def start_counting() -> tuple:
+    """Phase s2's counts in a process of their own (`count_paths`), started
+    with the script: (the process, the file it writes)."""
+    fd_, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd_)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--count-paths", path])
+    return proc, path
+
+
+def check_meta_routes() -> dict:
+    """Phase s1: each hand-written kernel at a shape the script launches,
+    on the card and on meta: the meta call's outputs have the launch's
+    shapes, dtypes and strides, and it moves no launch counter."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rand = lambda *sh: torch.randn(sh, generator=gen,  # noqa: E731
+                                   device="cuda")
+    model = Im2colModel()
+    g_params = G.init_generator(prng.prng_key(torch.tensor(11)), G.GANConfig(
+        n_net=model.net_space.n_dims), model.space, "cuda")
+    ws = [lay["w"] for lay in g_params["layers"]]
+    bs = [lay["b"] for lay in g_params["layers"]]
+    m_, k_, n_, relu = DENSE_SHAPES["hidden 2048->2048"]
+    x, w, b = rand(m_, k_), rand(k_, n_) / k_ ** 0.5, rand(n_)
+    y = fd.dense_forward(x, w, b, relu)
+    dy = rand(m_, n_)
+    fb, fh, fhkv, fsq, fsk, fd_, fc, fw, fo = FLASH_SHAPES[
+        "gemma3 local 2x4x4096x256 w1024"]
+    q, k, v = rand(fb, fh, fsq, fd_), rand(fb, fhkv, fsk, fd_), rand(
+        fb, fhkv, fsk, fd_)
+    sb, ss_ = LM_TRAIN
+    di, n = 2 * configs.get_arch(HYMBA_ARCH).d_model, 16
+    scan = (rand(sb, ss_, di).abs() * 0.1, rand(sb, ss_, n), rand(sb, ss_, n),
+            rand(sb, ss_, di), -rand(di, n).abs(), rand(sb, di, n))
+    xd = configs.get_arch(XLSTM_ARCH).d_model
+    heads = 4
+    lb, ls = SLSTM_SHAPES["engine"]
+    sl_in = (rand(lb, ls, 4 * xd) * 0.3, rand(heads, xd // heads,
+                                              4 * xd // heads) * 0.05,
+             rand(4 * xd) * 0.1,
+             (torch.zeros(lb, xd, device="cuda"),
+              torch.full((lb, xd), 1e-6, device="cuda"),
+              torch.full((lb, xd), -1e30, device="cuda"),
+              torch.zeros(lb, xd, device="cuda")))
+    calls = {
+        "mlp_forward_f32": (fm.fused_mlp, (rand(N_TASKS, ws[0].shape[0]), ws,
+                                           bs)),
+        "dense_forward_f32": (fd.dense_forward, (x, w, b, relu)),
+        "dense_dx_f32": (fd.dense_dx, (dy, y, w, relu)),
+        "dense_dw_db_f32": (fd.dense_dw_db, (x, dy, y, relu)),
+        "flash_attention_f32": (functools.partial(
+            fa.flash_attention, causal=fc, window=fw, q_offset=fo),
+            (q, k, v)),
+        "flash_attention_f32 with lse": (functools.partial(
+            fa.flash_attention, causal=fc, window=fw, q_offset=fo,
+            return_lse=True), (q, k, v)),
+        "ssm_scan_f32": (ss.ssm_scan_fwd, scan),
+        "slstm_scan_f32": (sl.slstm_scan_fwd, sl_in),
+    }
+    on_card = {name: fn(*args) for name, (fn, args) in calls.items()}
+    hc = on_card["ssm_scan_f32"][2]
+    calls["ssm_scan_bwd_f32"] = (ss.ssm_scan_bwd, (*scan[:5], hc,
+                                                    rand(sb, ss_, di)))
+    hs_, _, ch = on_card["slstm_scan_f32"]
+    calls["slstm_scan_bwd_f32"] = (sl.slstm_scan_bwd, (
+        *sl_in, hs_, ch, rand(lb, ls, xd)))
+    for name in ("ssm_scan_bwd_f32", "slstm_scan_bwd_f32"):
+        fn, args = calls[name]
+        on_card[name] = fn(*args)
+    torch.cuda.synchronize()
+
+    def layout(out):
+        return [None if t is None else (list(t.shape), str(t.dtype),
+                                        list(t.stride()))
+                for t in tree_leaves(out)]
+
+    to_meta = lambda a: tree_map(  # noqa: E731
+        lambda t: t.to("meta") if torch.is_tensor(t) else t, a)
+    rows = {}
+    for name, (fn, args) in calls.items():
+        meta_args = to_meta(list(args))
+        before = counts()
+        got = fn(*meta_args)
+        assert counts() == before, f"{name}: the meta call moved a counter"
+        want = layout(on_card[name])
+        assert layout(got) == want, (name, layout(got), want)
+        assert all(t is None or t.is_meta for t in tree_leaves(got)), name
+        rows[name] = dict(outputs=len(want), layouts=want)
+    del on_card
+    torch.cuda.empty_cache()
+    print("meta routes vs the card: " + json.dumps(
+        {k: r["outputs"] for k, r in rows.items()}), flush=True)
+    return rows
+
+
+def check_bounds(counted: dict, measured: dict, trained: dict) -> dict:
+    """Phase s2: each path's counted ``t_compute``, ``t_memory``,
+    ``t_bound`` and bottleneck beside the time its phase measured and
+    PERF.md's hand bound; every measured time at least its ``t_bound``;
+    the counted params of every model ``init_lm`` built (and of the cut
+    train steps) equal the card's; ``CARD_BYTES`` the card's memory."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert DR.CARD_BYTES == total, (DR.CARD_BYTES, total)
+    for label, m in MODELS.items():
+        n = MB.param_count(TS.param_structs(m))
+        assert n == INIT_S[label]["params"], (label, n, INIT_S[label])
+    for label, n_card in trained.items():
+        assert counted[label]["n_params"] == n_card, (label, n_card,
+                                                      counted[label])
+    rows = {}
+    paths = [k for k in counted if not k.startswith("s3 ")]
+    for label in paths + [k for k in measured if k not in paths]:
+        c = counted[label.replace(" vision", "")]
+        row = {k: c[k] for k in ("t_compute_ms", "t_memory_ms", "t_bound_ms",
+                                 "bottleneck", "flops_by_unit", "hbm_bytes",
+                                 "peak_bytes", "n_params", "trace_s")}
+        if label in measured:
+            ms, hand_ms = measured[label]
+            row.update(measured_ms=ms, hand_bound_ms=hand_ms,
+                       measured_over_t_bound=ms / c["t_bound_ms"],
+                       t_bound_over_hand=c["t_bound_ms"] / hand_ms)
+        rows[label] = row
+        print(f"bound {label}: " + json.dumps(row), flush=True)
+        if label in measured:
+            assert row["measured_ms"] >= c["t_bound_ms"], \
+                f"{label}: {row['measured_ms']} ms on the card under its " \
+                f"bound {c['t_bound_ms']}"
+    return dict(paths=rows, card_bytes=total,
+                params_checked=sorted(MODELS) + sorted(trained))
+
+
+def perf_sweep(counted: dict) -> dict:
+    """Phase s3: ``launch/perf``'s sweep on the card.  LM_TRAIN_ARCH's
+    train step at LM_TRAIN, float32 from seed 0, each PERF_SWEEP variant
+    (microbatches, remat): its peak memory reset, one warm step and
+    PERF_SWEEP_STEPS timed (host clock ended by a synchronize), its
+    launches counted from zero; the least step time and
+    ``max_memory_allocated`` beside the counted ``t_bound`` and peak.
+    Each step makes one flash launch with lse a layer and microbatch,
+    and under remat one more in the recompute, as the meta count of the
+    same step says; the time at least its ``t_bound``."""
+    m = configs.get_arch(LM_TRAIN_ARCH)
+    params = init_lm(m, f"{m.name} (phase s3)")
+    batches = [lm_train_batch(m, i) for i in range(PERF_SWEEP_STEPS + 1)]
+    rows, launches = {}, {}
+    for micro, remat in PERF_SWEEP:
+        label = f"s3 micro={micro} remat={int(remat)}"
+        c = counted[label]
+        lse_per_step = m.n_layers * micro * (2 if remat else 1)
+        assert c["kernel_calls"].get("flash_attention_f32 with lse") == \
+            lse_per_step, (label, c["kernel_calls"])
+        step, optim = TS.make_train_step(m, remat=remat, microbatches=micro)
+        opt = optim.init(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        times = []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, _ = step(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        launches[label] = counts()
+        peak = torch.cuda.max_memory_allocated()
+        assert launches[label]["flash_attention_f32 with lse"] == \
+            lse_per_step * len(batches), (label, launches[label])
+        ms = min(times[1:])
+        rows[label] = dict(
+            micro=micro, remat=remat, step_ms=times[1:], warm_ms=times[0],
+            ms=ms, t_bound_ms=c["t_bound_ms"], bottleneck=c["bottleneck"],
+            ms_over_t_bound=ms / c["t_bound_ms"], peak_bytes=peak,
+            predicted_peak_bytes=c["peak_bytes"],
+            peak_over_predicted=peak / c["peak_bytes"],
+            flash_lse_per_step=lse_per_step)
+        print(f"perf {label}: " + json.dumps(rows[label]), flush=True)
+        assert ms >= c["t_bound_ms"], (label, ms, c["t_bound_ms"])
+        del opt, step
+        torch.cuda.empty_cache()
+    del params, batches
+    torch.cuda.empty_cache()
+    return dict(variants=rows, launches=launches)
+
+
+def phase_s(counting: tuple, measured: dict, trained: dict) -> dict:
+    """Phase s: s1 the meta routes against the card; s2 the counted
+    bounds beside the measured times (the counts made by `count_paths`
+    beside phases 2-r); s3 the perf sweep on the card."""
+    out = dict(meta_routes=check_meta_routes())
+    proc, path = counting
+    assert proc.wait() == 0, f"count_paths exited {proc.returncode}"
+    with open(path) as fh:
+        counted = json.load(fh)
+    os.unlink(path)
+    print("phase s2 trace seconds: " + json.dumps(
+        {k: round(v["trace_s"], 2) for k, v in counted.items()}), flush=True)
+    out["bounds"] = check_bounds(counted, measured, trained)
+    out["perf"] = perf_sweep(counted)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements to this JSON")
+    ap.add_argument("--count-paths", metavar="JSON",
+                    help="only phase s2's counts on meta (the script starts "
+                    "this itself)")
     args = ap.parse_args()
+    if args.count_paths:
+        count_paths(args.count_paths)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    counting = start_counting()
+    try:
+        return run_phases(args, counting)
+    finally:
+        if counting[0].poll() is None:
+            counting[0].kill()
+            counting[0].wait()
+
+
+def run_phases(args, counting: tuple) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -4799,6 +5157,63 @@ def main() -> int:
     # each path's launches counted from zero just before it (inside
     # drive_prefill, phase_r and check_qwen_train)
     qwen = phase_r()
+
+    elapsed("phase s")
+    # phase s: the cost tools beside the card, once phase r's state is
+    # freed; s2's counts were made beside phases 2-r, s3's launches
+    # counted from zero just before each variant (inside perf_sweep)
+    gc.collect()
+    torch.cuda.empty_cache()
+    measured = {   # label: (the time its phase measured, its hand bound)
+        "prefill": (prefill["kernel_ms_per_prefill"],
+                    prefill["bound_ms_per_prefill"]),
+        "serve": (lm_serve["ms_per_decode_step"], lm_serve["weights_read_ms"]),
+        "lm train": (lm_train["ms_per_step"], lm_train["bound_ms_per_step"]),
+        **{f"moe layer {a}": (r["ms"], r["bound_ms"])
+           for a, r in moe_layers.items()},
+        "moe prefill": (moe_prefill["kernel_ms_per_prefill"],
+                        moe_prefill["bound_ms_per_prefill"]),
+        "moe serve": (moe_serve["ms_per_decode_step"],
+                      moe_serve["weights_read_ms"]),
+        "moe train": (moe_train["ms_per_step"],
+                      moe_train["bound_ms_per_step"]),
+        "hymba prefill": (hymba_prefill["kernel_ms_per_prefill"],
+                          hymba_prefill["bound_ms_per_prefill"]),
+        "hymba serve": (hymba_serve["ms_per_decode_step"],
+                        hymba_serve["weights_read_ms"]),
+        "hymba train": (hymba_train["ms_per_step"],
+                        hymba_train["bound_ms_per_step"]),
+        "xlstm prefill": (xlstm_prefill["kernel_ms_per_prefill"],
+                          xlstm_prefill["bound_ms_per_prefill"]),
+        "xlstm serve": (xlstm_serve["ms_per_decode_step"],
+                        xlstm_serve["weights_read_ms"]),
+        "xlstm train": (xlstm_train["ms_per_step"],
+                        xlstm_train["bound_ms_per_step"]),
+        "whisper encode": (whisper_serve["encode"]["ms"], sum(
+            whisper_serve["encode"]["bound_ms"].values())),
+        "whisper prefill": (whisper_serve["prefill"]["kernel_ms_per_prefill"],
+                            whisper_serve["prefill"]["bound_ms_per_prefill"]),
+        "whisper decode": (whisper_serve["decode"]["ms_per_decode_step"],
+                           whisper_serve["decode"]["bound_ms_per_step"]),
+        "whisper train": (whisper_train["ms_per_step"],
+                          whisper_train["bound_ms_per_step"]),
+        "qwen prefill": (qwen["prefill"]["kernel_ms_per_prefill"],
+                         qwen["prefill"]["bound_ms_per_prefill"]),
+        "qwen prefill vision": (
+            qwen["prefill_vision"]["kernel_ms_per_prefill"],
+            qwen["prefill_vision"]["bound_ms_per_prefill"]),
+        "qwen serve": (qwen["serve"]["ms_per_decode_step"],
+                       qwen["serve"]["weights_read_ms"]),
+        "qwen train": (qwen["train"]["ms_per_step"],
+                       qwen["train"]["bound_ms_per_step"]),
+    }
+    trained = {label: r["n_params"] for label, r in (
+        ("lm train", lm_train), ("moe train", moe_train),
+        ("hymba train", hymba_train), ("xlstm train", xlstm_train),
+        ("whisper train", whisper_train), ("qwen train", qwen["train"]))}
+    cost = phase_s(counting, measured, trained)
+    sweep_launches = {label: r["flash_attention_f32 with lse"]
+                      for label, r in cost["perf"]["launches"].items()}
     print("init seconds on the card: " + json.dumps(INIT_S), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here",
           flush=True)
@@ -4890,7 +5305,9 @@ def main() -> int:
                 qwen["prefill_vision"]["launches"]["flash_attention_f32"],
             "qwen_engine": qwen["serve"]["launches"]["flash_attention_f32"],
             "qwen_train_steps":
-                qwen["train"]["launches"]["flash_attention_f32"]},
+                qwen["train"]["launches"]["flash_attention_f32"],
+            "perf_sweep": {label: r["flash_attention_f32"]
+                           for label, r in cost["perf"]["launches"].items()}},
         "lse_launches_by_path": {
             "lm_train_steps":
                 lm_train["launches"]["flash_attention_f32 with lse"],
@@ -4908,6 +5325,7 @@ def main() -> int:
                 qwen["train"]["launches"]["flash_attention_f32 with lse"],
             "qwen_train_microbatches": qwen["train"]["microbatches"][
                 "launches"]["flash_attention_f32 with lse"],
+            "perf_sweep": sweep_launches,
             "lm_launcher": {k: r["launches"]["flash_attention_f32 with lse"]
                             for k, r in lm_launcher.items()}},
         "lse": {label: {k: r[k] for k in (
@@ -5053,6 +5471,7 @@ def main() -> int:
                        "whisper_serve": whisper_serve,
                        "whisper_grad": whisper_grad,
                        "whisper_train": whisper_train, "qwen": qwen,
+                       "phase_s": cost,
                        "init_s": INIT_S,
                        "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},

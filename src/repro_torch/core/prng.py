@@ -54,7 +54,13 @@ def threefry2x32(k1, k2, x1, x2):
     Returns the two output words.
 
     x1 is only ever added to, and reaches x2 through an xor that is masked,
-    so it is reduced mod 2^32 once, at the end (it stays below 2^37)."""
+    so it is reduced mod 2^32 once, at the end (it stays below 2^37).
+    On the ``meta`` device the words' shapes alone (a key is hashed only
+    to shape the draws ``normal_scaled`` then skips)."""
+    if k1.is_meta:
+        shape = torch.broadcast_shapes(*(torch.as_tensor(t).shape
+                                         for t in (k1, k2, x1, x2)))
+        return (torch.empty(shape, dtype=torch.int64, device="meta"),) * 2
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x1 = x1 + ks[0]
     x2 = (x2 + ks[1]) & MASK32
@@ -149,8 +155,11 @@ def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     sum rounds once; rounding that sum to float32 gives the fused result
     unless the sum lies exactly halfway between two float32 values (its
     low 29 bits a one and 28 zeros) or below float32's smallest normal.
-    Only those few elements are redone, by `_fma_exact`."""
+    Only those few elements are redone, by `_fma_exact`; on the ``meta``
+    device there are none to find."""
     s = a.double() * b + c
+    if s.is_meta:
+        return s.float()
     shape = s.shape
     s = torch.atleast_1d(s)
     r = s.float()
@@ -348,7 +357,10 @@ def normal_scaled(key: torch.Tensor, shape, scale: float, device
     -> a float32 tensor of `shape` on `device`.  A leaf of more than
     `CHUNK` elements is drawn `CHUNK` counters at a time into the
     preallocated leaf, which gives the same bits as one draw and bounds
-    the temporaries."""
+    the temporaries.  On the ``meta`` device nothing is drawn: the leaf's
+    shape and dtype alone."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
     n = int(np.prod(shape, dtype=np.int64))
     key = key.to(device)
     if n <= CHUNK:

@@ -6,7 +6,8 @@ C interface loaded by ctypes.  A library's file name carries a hash of
 its source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.  Two
 sources build in parallel (one lock per source); nothing is built when a
-module is imported.
+module is imported.  ``route`` is the device rule the kernel wrappers
+share.
 """
 from __future__ import annotations
 
@@ -82,6 +83,19 @@ def load(source: Path, bind: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
                                        path=str(lib_path), log=log)
         _LIBS[source.name] = lib
         return lib
+
+
+def route(device: torch.device) -> str:
+    """The device rule of every kernel wrapper: ``"plain"`` for a CPU
+    tensor (the plain version), ``"kernel"`` for a CUDA tensor (the kernel
+    or an exception), ``"meta"`` for a meta tensor (empty meta outputs of
+    the kernel's shapes, dtypes and strides, no launch, the kernel's work
+    charged to ``utils/op_cost``'s counter).  Any other device raises."""
+    kind = {"cpu": "plain", "cuda": "kernel", "meta": "meta"}.get(device.type)
+    if kind is None:
+        raise ValueError(f"the port's kernels take CPU, CUDA or meta tensors, "
+                         f"not {device}")
+    return kind
 
 
 def check_card(device: torch.device, what: str) -> None:

@@ -26,21 +26,25 @@ pair 12·D flops of TF32 products at 495 TFLOP/s (float32) or 6·D of bf16
 at 989 TFLOP/s; the bytes of q, k, v and o are two orders of magnitude
 smaller at the LM's shapes.
 
-The device rule lives here: a CPU tensor gets the plain version
-(``kernels/ref.flash_attention``); a CUDA tensor gets the kernel or an
-exception (a card that is not sm_90, a failed build, an unsupported head
-dim, dtype or layout, a refused launch) — nothing falls back.
+The device rule lives here (``build.route``): a CPU tensor gets the plain
+version (``kernels/ref.flash_attention``); a CUDA tensor gets the kernel
+or an exception (a card that is not sm_90, a failed build, an unsupported
+head dim, dtype or layout, a refused launch) — nothing falls back; a meta
+tensor gets empty meta outputs of the kernel's shapes, dtypes and strides,
+launches nothing and charges ``work`` to ``utils/op_cost``'s counter.
 ``kernels/ops.flash_attention`` adds only the caller's ``use_fused=False``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.utils import op_cost as _cost
 
 SOURCE = _build.CSRC / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -72,7 +76,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} is not one the kernel is built for "
                          f"{HEAD_DIMS}")
-    _build.check_card(q.device, "the flash-attention kernel")
+    if q.device.type == "cuda":
+        _build.check_card(q.device, "the flash-attention kernel")
     if q.dtype not in _ENTRY:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     # the kernel copies 16 bytes at a time along d: rows must be aligned
@@ -89,6 +94,34 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"last dim, got strides {t.stride()}")
 
 
+def kept_pairs(sq: int, sk: int, causal: bool, window: Optional[int],
+               q_offset: int) -> int:
+    """(query, key) pairs the masks keep for one head: what the kernel's
+    arithmetic scales with (it skips the key tiles outside the band)."""
+    qpos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def work(b: int, h: int, hkv: int, sq: int, sk: int, d: int, causal: bool,
+         window: Optional[int], q_offset: int, dtype: torch.dtype,
+         lse: bool = False) -> Tuple[float, float, str]:
+    """One call's own work: (flops, bytes, unit).  float32: the 4·D flops
+    of QKᵀ and PV for every kept (query, key) pair, on the 3xTF32 tile
+    (``tf32x3``); bf16: 6·D a pair (QKᵀ once, PV twice for P's hi + lo
+    split) on the bf16 tensor cores.  Bytes: q, k and v read once, o (and
+    lse) written once."""
+    size = torch.empty((), dtype=dtype).element_size()
+    n_bytes = size * (2 * b * h * sq * d + 2 * b * hkv * sk * d)
+    if lse:
+        n_bytes += 4 * b * h * sq
+    pairs = b * h * kept_pairs(sq, sk, causal, window, q_offset)
+    if dtype == torch.float32:
+        return 4.0 * d * pairs, float(n_bytes), "tf32x3"
+    return 6.0 * d * pairs, float(n_bytes), "bf16"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0, return_lse: bool = False):
@@ -98,8 +131,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in ``flash_attention.launches``, and those that also store
-    lse in ``flash_attention.lse_launches``) or raise."""
-    if q.device.type == "cpu":
+    lse in ``flash_attention.lse_launches``) or raise; meta tensors get
+    the outputs' shapes and charge ``work``."""
+    if _build.route(q.device) == "plain":
         return _ref.flash_attention(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset, return_lse=return_lse)
     _check(q, k, v)
@@ -110,6 +144,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if out.numel() == 0:
+        return (out, lse) if return_lse else out
+    if q.device.type == "meta":
+        _cost.charge(_ENTRY[q.dtype] + " with lse" * return_lse, *work(
+            b, h, k.shape[1], sq, k.shape[2], d, causal, window, q_offset,
+            q.dtype, return_lse))
         return (out, lse) if return_lse else out
     lib = load_library()
     strides = (ctypes.c_longlong * 12)(

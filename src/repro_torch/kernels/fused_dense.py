@@ -22,10 +22,12 @@ split only where the output has too few tiles for the card.  PERF.md
 keeps the times beside the bounds.
 
 The device rule lives in each kernel's wrapper (``dense_forward``,
-``dense_dx``, ``dense_dw_db``): a CPU tensor gets the plain version
-(``kernels/ref.py``), a CUDA tensor the kernel or an exception (a card
-that is not sm_90, a failed build, a refused launch).  Each wrapper
-counts its launches in ``<wrapper>.launches``.  Kernels launch on
+``dense_dx``, ``dense_dw_db``; ``build.route``): a CPU tensor gets the
+plain version (``kernels/ref.py``), a CUDA tensor the kernel or an
+exception (a card that is not sm_90, a failed build, a refused launch), a
+meta tensor empty meta outputs and its ``work`` charged to
+``utils/op_cost``'s counter, with no launch.  Each wrapper counts its
+launches in ``<wrapper>.launches``.  Kernels launch on
 PyTorch's current stream; workspace and outputs come from the caching
 allocator.
 """
@@ -38,6 +40,7 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.utils import op_cost as _cost
 
 SOURCE = _build.CSRC / "dense_train.cu"
 
@@ -70,12 +73,26 @@ def _check(*operands: Tuple[str, torch.Tensor, Tuple[int, ...]]) -> None:
     """sm_90, float32, contiguous, one device, and each operand of the
     shape the call implies: (name, tensor, expected shape) triples."""
     device = operands[0][1].device
-    _build.check_card(device, "the dense training kernels")
+    if device.type == "cuda":
+        _build.check_card(device, "the dense training kernels")
     for name, t, shape in operands:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shape}")
     _build.check_operands(device, ((name, t) for name, t, _ in operands))
+
+
+def work(kernel: str, m: int, k: int, n: int, relu: bool
+         ) -> Tuple[float, float, str]:
+    """One call's own work: (flops, bytes, unit), the 2·M·K·N product on
+    the 3xTF32 tile (``tf32x3``; the bias adds, db sums and masks are a
+    fraction of a percent) and the bytes of each operand read once and
+    each output written once (dy and, under relu, y for the mask)."""
+    dy_y = m * n * (2 if relu else 1)
+    n_bytes = {"dense_forward_f32": m * k + k * n + n + m * n,
+               "dense_dx_f32": dy_y + k * n + m * k,
+               "dense_dw_db_f32": m * k + dy_y + k * n + n}[kernel]
+    return 2.0 * m * k * n, 4.0 * n_bytes, "tf32x3"
 
 
 def _workspace(n: int, device: torch.device) -> torch.Tensor:
@@ -94,7 +111,7 @@ def _raise_on(err: int, what: str) -> None:
 def dense_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   relu: bool) -> torch.Tensor:
     """y = [relu](x @ w + b): x (M, K), w (K, N), b (N,) -> (M, N)."""
-    if x.device.type == "cpu":
+    if _build.route(x.device) == "plain":
         return _ref.fused_dense(x, w, b, relu)
     m, k = _shape2(x, "x")
     n = _shape2(w, "w")[1]
@@ -102,15 +119,20 @@ def dense_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
+    if x.is_meta:
+        _cost.charge("dense_forward_f32", *work("dense_forward_f32", m, k, n,
+                                                relu))
+        return y
     lib = load_library()
     # the workspace is freed on return while the kernel may still run:
     # safe, because the caching allocator reuses it only for work queued
     # later on this same stream
-    work = _workspace(lib.dense_train_workspace(m, n, k), x.device)
+    scratch = _workspace(lib.dense_train_workspace(m, n, k), x.device)
     with torch.cuda.device(x.device):
         _raise_on(lib.dense_forward_f32(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), m, k, n,
-            int(relu), work.data_ptr(), _stream(x.device)), "dense_forward_f32")
+            int(relu), scratch.data_ptr(), _stream(x.device)),
+            "dense_forward_f32")
     dense_forward.launches += 1
     return y
 
@@ -119,7 +141,7 @@ def dense_dx(dy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
              relu: bool) -> torch.Tensor:
     """dx = (dy ⊙ [y > 0]) @ wᵀ (no mask without relu): dy, y (M, N),
     w (K, N) -> (M, K)."""
-    if dy.device.type == "cpu":
+    if _build.route(dy.device) == "plain":
         return _ref.dense_dx(dy, y, w, relu)
     m, n = _shape2(dy, "dy")
     k = _shape2(w, "w")[0]
@@ -127,13 +149,17 @@ def dense_dx(dy: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     dx = torch.empty((m, k), dtype=torch.float32, device=dy.device)
     if m == 0:
         return dx
+    if dy.is_meta:
+        _cost.charge("dense_dx_f32", *work("dense_dx_f32", m, k, n, relu))
+        return dx
     lib = load_library()
-    work = _workspace(lib.dense_backward_workspace(m, k, n, int(relu)),
-                      dy.device)
+    scratch = _workspace(lib.dense_backward_workspace(m, k, n, int(relu)),
+                         dy.device)
     with torch.cuda.device(dy.device):
         _raise_on(lib.dense_dx_f32(
             dy.data_ptr(), y.data_ptr(), w.data_ptr(), dx.data_ptr(), m, k, n,
-            int(relu), work.data_ptr(), _stream(dy.device)), "dense_dx_f32")
+            int(relu), scratch.data_ptr(), _stream(dy.device)),
+            "dense_dx_f32")
     dense_dx.launches += 1
     return dx
 
@@ -142,7 +168,7 @@ def dense_dw_db(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
                 relu: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dW, db) = (xᵀ @ g, Σ_M g), g = dy ⊙ [y > 0] (dy without relu):
     x (M, K), dy, y (M, N) -> (K, N), (N,)."""
-    if x.device.type == "cpu":
+    if _build.route(x.device) == "plain":
         return _ref.dense_dw_db(x, dy, y, relu)
     m, k = _shape2(x, "x")
     n = _shape2(dy, "dy")[1]
@@ -151,13 +177,17 @@ def dense_dw_db(x: torch.Tensor, dy: torch.Tensor, y: torch.Tensor,
     db = torch.empty((n,), dtype=torch.float32, device=x.device)
     if m == 0:
         return dw.zero_(), db.zero_()
+    if x.is_meta:
+        _cost.charge("dense_dw_db_f32", *work("dense_dw_db_f32", m, k, n,
+                                              relu))
+        return dw, db
     lib = load_library()
-    work = _workspace(lib.dense_backward_workspace(m, k, n, int(relu)),
-                      x.device)
+    scratch = _workspace(lib.dense_backward_workspace(m, k, n, int(relu)),
+                         x.device)
     with torch.cuda.device(x.device):
         _raise_on(lib.dense_dw_db_f32(
             x.data_ptr(), dy.data_ptr(), y.data_ptr(), dw.data_ptr(),
-            db.data_ptr(), m, k, n, int(relu), work.data_ptr(),
+            db.data_ptr(), m, k, n, int(relu), scratch.data_ptr(),
             _stream(x.device)), "dense_dw_db_f32")
     dense_dw_db.launches += 1
     return dw, db

@@ -26,11 +26,13 @@ The kernel is built with ``nvcc`` at first use from the sources in this
 package into ``kernels/build/`` (``kernels/build.py``: a plain C
 interface, loaded with ctypes) and launched on PyTorch's current stream.
 
-The device rule lives in each kernel's wrapper, here ``fused_mlp``: a CPU
-tensor gets the plain version (``kernels/ref.py``); a CUDA tensor gets the
-kernel or an exception (a card that is not sm_90, a failed build, a
-refused launch) — nothing falls back.  ``kernels/dispatch.py`` only adds the caller's
-``use_fused=False`` opt-out.
+The device rule lives in each kernel's wrapper, here ``fused_mlp``
+(``build.route``): a CPU tensor gets the plain version
+(``kernels/ref.py``); a CUDA tensor gets the kernel or an exception (a
+card that is not sm_90, a failed build, a refused launch) — nothing falls
+back; a meta tensor gets an empty meta output and charges ``work`` to
+``utils/op_cost``'s counter, with no launch.  ``kernels/dispatch.py``
+only adds the caller's ``use_fused=False`` opt-out.
 
 Both routes are differentiable, as the reference's ``custom_vjp`` is: the
 plain version through autograd, the kernel through ``FusedMLP``, whose
@@ -40,13 +42,14 @@ backward re-runs the layer chain on the dense kernels of
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import fused_dense as _fd
 from repro_torch.kernels import ref as _ref
+from repro_torch.utils import op_cost as _cost
 
 SOURCE = _build.CSRC / "mlp_forward.cu"
 
@@ -74,7 +77,8 @@ def _check(x: torch.Tensor, ws: Sequence[torch.Tensor],
         raise ValueError(f"need one bias per weight, got {len(ws)} and {len(bs)}")
     if x.dim() != 2:
         raise ValueError(f"x must be (M, D_in), got shape {tuple(x.shape)}")
-    _build.check_card(x.device, "the whole-MLP kernel")
+    if x.device.type == "cuda":
+        _build.check_card(x.device, "the whole-MLP kernel")
     width = x.shape[1]
     for i, (w, b) in enumerate(zip(ws, bs)):
         if w.dim() != 2 or w.shape[0] != width or b.shape != (w.shape[1],):
@@ -84,6 +88,16 @@ def _check(x: torch.Tensor, ws: Sequence[torch.Tensor],
     _build.check_operands(x.device, [
         ("x", x), *((f"w{i}", w) for i, w in enumerate(ws)),
         *((f"b{i}", b) for i, b in enumerate(bs))])
+
+
+def work(m: int, dims: Sequence[int]) -> Tuple[float, float, str]:
+    """One call's own work over layers of widths ``dims`` (input first):
+    (flops, bytes, unit), the layers' 2·M·K·N products on the 3xTF32 tile
+    (``tf32x3``), and x, every weight and bias read once and the output
+    written once (the activations stay in L2)."""
+    pairs = list(zip(dims[:-1], dims[1:]))
+    n_bytes = m * dims[0] + sum(k * n + n for k, n in pairs) + m * dims[-1]
+    return 2.0 * m * sum(k * n for k, n in pairs), 4.0 * n_bytes, "tf32x3"
 
 
 def _launch(x: torch.Tensor, ws: Sequence[torch.Tensor],
@@ -96,6 +110,9 @@ def _launch(x: torch.Tensor, ws: Sequence[torch.Tensor],
     out = torch.empty((m, dims[-1]), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
+    if x.is_meta:
+        _cost.charge("mlp_forward_f32", *work(m, dims))
+        return out
     lib = load_library()
     n = len(ws)
     dims_c = (ctypes.c_int * (n + 1))(*dims)
@@ -104,16 +121,16 @@ def _launch(x: torch.Tensor, ws: Sequence[torch.Tensor],
     hidden = max(dims[1:-1], default=1)
     act = torch.empty((2, m, hidden), dtype=torch.float32, device=x.device)
     # split-K partial tiles (see the kernel's header note)
-    work = torch.empty(max(lib.mlp_forward_f32_workspace(dims_c, n, m), 1),
-                       dtype=torch.float32, device=x.device)
-    # act and work are freed on return while the kernels may still run:
+    scratch = torch.empty(max(lib.mlp_forward_f32_workspace(dims_c, n, m), 1),
+                          dtype=torch.float32, device=x.device)
+    # act and scratch are freed on return while the kernels may still run:
     # safe, because the caching allocator reuses their memory only for
     # work queued later on this same stream
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.mlp_forward_f32(x.data_ptr(), w_ptrs, b_ptrs, dims_c, n, m,
                                   act[0].data_ptr(), act[1].data_ptr(),
-                                  work.data_ptr(), out.data_ptr(), stream)
+                                  scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mlp_forward_f32 launch failed with CUDA error {err}")
     fused_mlp.launches += 1
@@ -173,8 +190,9 @@ def fused_mlp(x: torch.Tensor, ws: Sequence[torch.Tensor],
     CPU tensors take the plain version (differentiated by autograd); CUDA
     tensors launch the kernel (one grid per layer from one C call, counted
     once in ``fused_mlp.launches``) or raise, and differentiate through
-    `FusedMLP`."""
-    if x.device.type == "cpu":
+    `FusedMLP`; meta tensors take `FusedMLP` too, its charges in place of
+    the launches."""
+    if _build.route(x.device) == "plain":
         return _ref.fused_mlp(x, ws, bs)
     if len(ws) != len(bs):
         raise ValueError(f"need one bias per weight, got {len(ws)} and {len(bs)}")

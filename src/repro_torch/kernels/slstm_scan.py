@@ -7,7 +7,8 @@ Replaces no Pallas kernel: the reference's recurrence is the ``cell`` of
 ``_chunked_scan``/``lax.scan``, which XLA compiles and differentiates;
 eager torch would take ~15 launches a time step, so on the card it is one
 launch a layer for the whole sequence each way (and one a decode step, at
-S = 1).  A persistent grid, launched cooperatively: each block owns 16
+S = 1), for each group of up to MAX_BATCH = 8 batch rows.  A persistent
+grid, launched cooperatively: each block owns 16
 channels' four gate columns, its threads keep those columns of rh in
 registers, form the pre-activations from h_{t-1} (staged in shared
 memory) and update c, n, m in registers, then wait at a grid barrier
@@ -27,27 +28,32 @@ the backward's products (the recompute's and the adjoint's, 68.7 GFLOP,
 1.03 ms) over its bytes (~0.1 ms).  The S dependent steps, each a
 grid-wide exchange, set a latency floor above both.
 
-The device rule lives here: a CPU tensor gets the plain versions
-(``kernels/ref.slstm_scan``, ``ref.slstm_scan_bwd``); a CUDA tensor gets
-the kernels or an exception (a card that is not sm_90, a failed build, a
-shape, dtype or layout the kernels do not take, a grid that cannot be
-co-resident, a refused launch).  Nothing falls back.  Inputs that need a
-gradient go through ``SLSTMScanFn`` on either device.
+The device rule lives here (``build.route``): a CPU tensor gets the plain
+versions (``kernels/ref.slstm_scan``, ``ref.slstm_scan_bwd``); a CUDA
+tensor gets the kernels or an exception (a card that is not sm_90, a
+failed build, a shape, dtype or layout the kernels do not take, a grid
+that cannot be co-resident, a refused launch); a meta tensor gets empty
+meta outputs (the chunk states too) and charges ``work`` or ``bwd_work``
+to ``utils/op_cost``'s counter, with no launch.  Nothing falls back.
+Inputs that need a gradient go through ``SLSTMScanFn`` on either device.
 ``kernels/ops.slstm_scan`` adds only the caller's ``use_fused=False``
 (torch's autograd of the plain loop).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.utils import op_cost as _cost
 
 SOURCE = _build.CSRC / "slstm_scan.cu"
-#: batch rows the kernels are built for (a template parameter: 1..MAX_BATCH)
+#: batch rows the kernels are built for (a template parameter: 1..MAX_BATCH);
+#: the wrappers take a larger batch in groups of MAX_BATCH rows, a launch
+#: a group
 MAX_BATCH = 8
 #: channels a block owns (D must be a multiple), and the threads that
 #: share one gate column's dot product in the forward
@@ -126,8 +132,8 @@ def _check(wx, rh, bias, state, backward: bool = False, **more) -> None:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{shapes[name]}")
     if s < 1 or not 1 <= b <= MAX_BATCH:
-        raise ValueError(f"the sLSTM kernel takes 1..{MAX_BATCH} rows and "
-                         f"S >= 1; got B = {b}, S = {s}")
+        raise ValueError(f"the sLSTM kernel takes 1..{MAX_BATCH} rows a "
+                         f"launch and S >= 1; got B = {b}, S = {s}")
     if d % CHANNELS or dh not in HEAD_DIMS:
         raise ValueError(f"the sLSTM kernel takes D a multiple of {CHANNELS} "
                          f"and dh one of {HEAD_DIMS}; got D = {d}, dh = {dh}")
@@ -136,8 +142,56 @@ def _check(wx, rh, bias, state, backward: bool = False, **more) -> None:
         raise ValueError(f"the sLSTM kernel at B = {b}, D = {d} needs {smem} "
                          f"bytes of shared memory a block, more than "
                          f"{SMEM_LIMIT}")
-    _build.check_card(wx.device, "the sLSTM kernel")
+    if wx.device.type == "cuda":
+        _build.check_card(wx.device, "the sLSTM kernel")
     _build.check_operands(wx.device, named.items())
+
+
+def work(b: int, s: int, d: int, h: int, boundaries: bool = False
+         ) -> Tuple[float, float, str]:
+    """The forward's own work: (operations, bytes, unit).  The recurrent
+    products, 2·dh for each of the 4 gate columns of each (b, t, channel),
+    and the 36 around them (8 adds into the pre-activations, tanh, the
+    sigmoid's 4, log-sigmoid's 8, the stabilizer's 2, the gates' 5, c's 3,
+    n's 2, h's 3; a transcendental counted as one), float32 on the SIMT
+    cores (``fp32_simt``).  Bytes: wx, rh, bias and the state read once,
+    hs and the final state (and the chunk states) written once."""
+    dh = d // h
+    n_bytes = (b * s * 4 * d + h * dh * 4 * dh + 4 * d + 4 * b * d
+               + b * s * d + 4 * b * d)
+    if boundaries:
+        n_bytes += 3 * b * n_chunks(s) * d
+    return float(b * s * d * (8 * dh + 36)), 4.0 * n_bytes, "fp32_simt"
+
+
+def bwd_work(b: int, s: int, d: int, h: int) -> Tuple[float, float, str]:
+    """The backward kernel's own work (d_rh and d_bias are plain products
+    after it, counted as such): (operations, bytes, unit).  The
+    pre-activations again and the recurrent adjoint, 2·dh for each of the
+    4 gate columns of each (b, t, channel) each, and ~80 pointwise around
+    them (the forward's 36 again and the adjoint's ~44).  Bytes: wx, hs,
+    dys, rh, bias, h0 and the chunk states (c, n, m) read once; d_wx and
+    the initial state's four cotangents written once."""
+    dh = d // h
+    n_bytes = (b * s * 4 * d + 2 * b * s * d + h * dh * 4 * dh + 4 * d
+               + b * d + 3 * b * n_chunks(s) * d + b * s * 4 * d + 4 * b * d)
+    return float(b * s * d * (16 * dh + 80)), 4.0 * n_bytes, "fp32_simt"
+
+
+def _row_groups(b: int) -> list:
+    """The batch's rows in groups of at most MAX_BATCH, one launch each
+    (rows are independent); a batch of none is one (refused) group."""
+    return [slice(i, i + MAX_BATCH) for i in range(0, max(b, 1), MAX_BATCH)]
+
+
+def _cat_rows(parts: list):
+    """The row groups' results joined along the batch: (nested) tuples
+    element by element, None kept; one group's as it is."""
+    if len(parts) == 1 or parts[0] is None:
+        return parts[0]
+    if isinstance(parts[0], tuple):
+        return tuple(_cat_rows(list(p)) for p in zip(*parts))
+    return torch.cat(parts)
 
 
 def _launch(name: str, err: int, d: int, device) -> None:
@@ -154,11 +208,16 @@ def slstm_scan_fwd(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
     `boundaries`, the states (c, n, m) entering every chunk of CHUNK
     steps, each (B, ⌈S/CHUNK⌉, D), the initial state first.  CPU tensors
     take the plain loop; CUDA tensors launch ``slstm_scan_f32`` (counted
-    in ``slstm_scan.launches``) or raise.  Not differentiable itself:
-    ``SLSTMScanFn`` is."""
-    if wx.device.type == "cpu":
+    in ``slstm_scan.launches``) or raise; meta tensors charge ``work``.
+    Not differentiable itself: ``SLSTMScanFn`` is."""
+    if _build.route(wx.device) == "plain":
         return _ref.slstm_scan(wx, rh, bias, state, chunk=CHUNK,
                                boundaries=boundaries)
+    if wx.dim() == 3 and wx.shape[0] > MAX_BATCH:
+        return _cat_rows([slstm_scan_fwd(wx[g], rh, bias,
+                                         tuple(t[g] for t in state),
+                                         boundaries)
+                          for g in _row_groups(wx.shape[0])])
     _check(wx, rh, bias, state)
     b, s, four_d = wx.shape
     d = four_d // 4
@@ -167,6 +226,10 @@ def slstm_scan_fwd(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
     chunks = (tuple(torch.empty((b, n_chunks(s), d), dtype=wx.dtype,
                                 device=wx.device) for _ in range(3))
               if boundaries else (None,) * 3)
+    if wx.is_meta:
+        _cost.charge("slstm_scan_f32", *work(b, s, d, rh.shape[0],
+                                             boundaries))
+        return (hs, out, chunks) if boundaries else (hs, out)
     lib = load_library()
     stream = torch.cuda.current_stream(wx.device).cuda_stream
     with torch.cuda.device(wx.device):
@@ -190,13 +253,26 @@ def slstm_scan_bwd(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
     take the plain adjoint loop (``ref.slstm_scan_bwd``); CUDA tensors
     launch ``slstm_scan_bwd_f32`` (counted in ``slstm_scan_bwd.launches``;
     d_rh and d_bias are ``ref.slstm_weight_grads``'s plain products) or
-    raise."""
-    if wx.device.type == "cpu":
+    raise; meta tensors charge ``bwd_work`` and run those products on
+    meta."""
+    if _build.route(wx.device) == "plain":
         return _ref.slstm_scan_bwd(wx, rh, bias, state, hs, chunks, dys,
                                    d_state, chunk=CHUNK)
     if dys is None:
         dys = torch.zeros_like(hs)
     d_state = tuple(d_state or (None,) * 4)
+    rows = (lambda g, ts: tuple(None if t is None else t[g] for t in ts))
+    d_wx, *d_init = _cat_rows([
+        _bwd_rows(wx[g], rh, bias, rows(g, state), hs[g], rows(g, chunks),
+                  dys[g], rows(g, d_state))
+        for g in _row_groups(wx.shape[0] if wx.dim() == 3 else 0)])
+    return (d_wx, *_ref.slstm_weight_grads(state[3], hs, d_wx, rh.shape[0]),
+            *d_init)
+
+
+def _bwd_rows(wx, rh, bias, state, hs, chunks, dys, d_state):
+    """The backward kernel on at most MAX_BATCH rows: (d_wx, dc0, dn0,
+    dm0, dh0)."""
     more = dict(hs=hs, dys=dys, **dict(zip(("c_chunks", "n_chunks",
                                             "m_chunks"), chunks)))
     more.update((k, g) for k, g in zip(("dc", "dn", "dm", "dh"), d_state)
@@ -206,6 +282,9 @@ def slstm_scan_bwd(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
     d = four_d // 4
     d_wx = torch.empty_like(wx)
     d_init = tuple(torch.empty_like(t) for t in state)
+    if wx.is_meta:
+        _cost.charge("slstm_scan_bwd_f32", *bwd_work(b, s, d, rh.shape[0]))
+        return (d_wx, *d_init)
     work = torch.empty((b, CHUNK, KEPT, d), dtype=wx.dtype, device=wx.device)
     lib = load_library()
     stream = torch.cuda.current_stream(wx.device).cuda_stream
@@ -219,8 +298,7 @@ def slstm_scan_bwd(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
             work.data_ptr(), b, s, d, rh.shape[0], stream)
     _launch("slstm_scan_bwd_f32", err, d, wx.device)
     slstm_scan_bwd.launches += 1
-    return (d_wx, *_ref.slstm_weight_grads(state[3], hs, d_wx, rh.shape[0]),
-            *d_init)
+    return (d_wx, *d_init)
 
 
 class SLSTMScanFn(torch.autograd.Function):
@@ -261,7 +339,7 @@ def slstm_scan(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
             t.requires_grad for t in (wx, rh, bias, *state)):
         hs, *out = SLSTMScanFn.apply(wx, rh, bias, *state)
         return hs, tuple(out)
-    if wx.device.type == "cpu":
+    if _build.route(wx.device) == "plain":
         return _ref.slstm_scan(wx, rh, bias, state)
     return slstm_scan_fwd(wx, rh, bias, state, boundaries=False)
 

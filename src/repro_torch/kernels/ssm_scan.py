@@ -20,23 +20,26 @@ Bound on an H100 SXM: the bytes of dt, x and ys (B, S, Di) over 3.35 TB/s
 forward; of dt, x, dys, d_dt and d_x backward; the B·S·Di·N exponentials
 and the few float32 operations around each come second.
 
-The device rule lives here: a CPU tensor gets the plain versions
-(``kernels/ref.ssm_scan``, ``ref.ssm_scan_bwd``); a CUDA tensor gets the
-kernels or an exception (a card that is not sm_90, a failed build, an
-unsupported shape, dtype or layout, a refused launch).  Nothing falls
-back.  Inputs that need a gradient go through ``SSMScanFn`` on either
-device.  ``kernels/ops.ssm_scan`` adds only the caller's
-``use_fused=False``.
+The device rule lives here (``build.route``): a CPU tensor gets the plain
+versions (``kernels/ref.ssm_scan``, ``ref.ssm_scan_bwd``); a CUDA tensor
+gets the kernels or an exception (a card that is not sm_90, a failed
+build, an unsupported shape, dtype or layout, a refused launch); a meta
+tensor gets empty meta outputs (the chunk states too) and charges
+``work`` or ``bwd_work`` to ``utils/op_cost``'s counter, with no launch.
+Nothing falls back.  Inputs that need a gradient go through
+``SSMScanFn`` on either device.  ``kernels/ops.ssm_scan`` adds only the
+caller's ``use_fused=False``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
+from repro_torch.utils import op_cost as _cost
 
 SOURCE = _build.CSRC / "ssm_scan.cu"
 STATE_SIZES = (4, 8, 16, 32)
@@ -82,8 +85,37 @@ def _check(dt, bmat, cmat, x, a, **more) -> None:
     if n not in STATE_SIZES:
         raise ValueError(f"state size {n} is not one the kernel is built for "
                          f"{STATE_SIZES}")
-    _build.check_card(dt.device, "the selective-scan kernel")
+    if dt.device.type == "cuda":
+        _build.check_card(dt.device, "the selective-scan kernel")
     _build.check_operands(dt.device, named.items())
+
+
+def work(b: int, s: int, di: int, n: int, boundaries: bool = False
+         ) -> Tuple[float, float, str]:
+    """The forward's own work: (operations, bytes, unit).  At each (b, t,
+    d, n) the product dt·a, the exponential, two products dt·b·x, a fused
+    multiply-add (2) and h·c with its add to the sum over n: 8 float32
+    operations on the SIMT cores (``fp32_simt``), an exponential counted
+    as one.  Bytes: dt, x, bmat, cmat, a and h0 read once, ys and the
+    final state (and the chunk states) written once."""
+    n_bytes = 3 * b * s * di + 2 * b * s * n + di * n + 2 * b * di * n
+    if boundaries:
+        n_bytes += b * n_chunks(s) * di * n
+    return 8.0 * b * s * di * n, 4.0 * n_bytes, "fp32_simt"
+
+
+def bwd_work(b: int, s: int, di: int, n: int) -> Tuple[float, float, str]:
+    """The backward's own work: (operations, bytes, unit).  At each (b,
+    t, d, n) the state again (6, as the forward's) and the adjoint's 20
+    (g's fused multiply-add, exp(dt·a), its product with h, g·dt, d_a's
+    fused multiply-add, d_dt's term (4) and sum, d_x's product and sum,
+    d_b's and d_c's products and sums, the carry): 26 float32 operations.
+    Bytes: dt, x, dys, bmat, cmat, a and the chunk states read once;
+    d_dt, d_x, d_bmat, d_cmat, d_a and d_h0 written once (the partial
+    sums the kernel writes and reads again are its own choice)."""
+    n_bytes = (5 * b * s * di + 4 * b * s * n + 2 * di * n
+               + b * n_chunks(s) * di * n + b * di * n)
+    return 26.0 * b * s * di * n, 4.0 * n_bytes, "fp32_simt"
 
 
 def _launch(name: str, err: int) -> None:
@@ -98,8 +130,9 @@ def ssm_scan_fwd(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     the state entering every chunk of CHUNK steps, h_chunks (B,
     ⌈S/CHUNK⌉, Di, N), h0 first.  CPU tensors take the plain loop; CUDA
     tensors launch ``ssm_scan_f32`` (counted in ``ssm_scan.launches``)
-    or raise.  Not differentiable itself: ``SSMScanFn`` is."""
-    if dt.device.type == "cpu":
+    or raise; meta tensors charge ``work``.  Not differentiable itself:
+    ``SSMScanFn`` is."""
+    if _build.route(dt.device) == "plain":
         return _ref.ssm_scan(dt, bmat, cmat, x, a, h0, chunk=CHUNK,
                              boundaries=boundaries)
     _check(dt, bmat, cmat, x, a, h0=h0)
@@ -109,6 +142,9 @@ def ssm_scan_fwd(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     h = torch.empty_like(h0)
     h_chunks = (torch.empty((b, n_chunks(s), di, n), dtype=dt.dtype,
                             device=dt.device) if boundaries else None)
+    if dt.is_meta:
+        _cost.charge("ssm_scan_f32", *work(b, s, di, n, boundaries))
+        return (ys, h, h_chunks) if boundaries else (ys, h)
     lib = load_library()
     stream = torch.cuda.current_stream(dt.device).cuda_stream
     with torch.cuda.device(dt.device):
@@ -129,8 +165,9 @@ def ssm_scan_bwd(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     cotangents of ys and of the final state (None: zeros) -> (d_dt,
     d_bmat, d_cmat, d_x, d_a, d_h0).  CPU tensors take the plain adjoint
     loop (``ref.ssm_scan_bwd``); CUDA tensors launch ``ssm_scan_bwd_f32``
-    (counted in ``ssm_scan_bwd.launches``) or raise."""
-    if dt.device.type == "cpu":
+    (counted in ``ssm_scan_bwd.launches``) or raise; meta tensors charge
+    ``bwd_work``."""
+    if _build.route(dt.device) == "plain":
         return _ref.ssm_scan_bwd(dt, bmat, cmat, x, a, h_chunks, dys,
                                  dh_last, chunk=CHUNK)
     more = dict(h_chunks=h_chunks, dys=dys)
@@ -139,13 +176,16 @@ def ssm_scan_bwd(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     _check(dt, bmat, cmat, x, a, **more)
     b, s, di = dt.shape
     n = a.shape[-1]
-    lib = load_library()
-    work = torch.empty(lib.ssm_scan_bwd_workspace(b, s, di, n),
-                       dtype=dt.dtype, device=dt.device)
     d_dt, d_x = torch.empty_like(dt), torch.empty_like(x)
     d_b, d_c = torch.empty_like(bmat), torch.empty_like(cmat)
     d_a = torch.empty_like(a)
     d_h0 = torch.empty((b, di, n), dtype=dt.dtype, device=dt.device)
+    if dt.is_meta:
+        _cost.charge("ssm_scan_bwd_f32", *bwd_work(b, s, di, n))
+        return d_dt, d_b, d_c, d_x, d_a, d_h0
+    lib = load_library()
+    work = torch.empty(lib.ssm_scan_bwd_workspace(b, s, di, n),
+                       dtype=dt.dtype, device=dt.device)
     stream = torch.cuda.current_stream(dt.device).cuda_stream
     with torch.cuda.device(dt.device):
         err = lib.ssm_scan_bwd_f32(
@@ -197,7 +237,7 @@ def ssm_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (dt, bmat, cmat, x, a, h0)):
         return SSMScanFn.apply(dt, bmat, cmat, x, a, h0)
-    if dt.device.type == "cpu":
+    if _build.route(dt.device) == "plain":
         return _ref.ssm_scan(dt, bmat, cmat, x, a, h0, chunk=chunk)
     return ssm_scan_fwd(dt, bmat, cmat, x, a, h0, boundaries=False)
 

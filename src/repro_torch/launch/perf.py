@@ -1,0 +1,97 @@
+"""The perf sweep of one (arch x shape) cell on one H100: each variant of
+the step's knobs counted on the ``meta`` device (``utils/op_cost``) and
+put on the card's roofline (``utils/roofline``), one JSONL row a variant.
+
+The port's counterpart of the reference's ``launch/perf.py``.  Its knobs
+here are ``micro`` (gradient accumulation) and ``remat``; the
+reference's ``fsdp`` and ``act`` shard over a mesh and wait for ROADMAP
+Queue 1 item 4.  No card is needed.
+
+  PYTHONPATH=src python -m repro_torch.launch.perf --arch stablelm-1.6b \\
+      [--shape train_4k] [--batch B] [--seq S] [--reduced] \\
+      [--micro 1,2,4] [--remat 0,1] [--out results/perf_torch_<arch>.jsonl]
+
+``--batch`` and ``--seq`` override the named shape's, ``--reduced``
+takes the arch's reduced config.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import itertools
+import json
+import os
+import sys
+
+from repro_torch import configs
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.launch.dryrun import count_case
+
+
+def run_variant(m, shape, *, micro: int, remat) -> dict:
+    """One variant's row: the reference's fields from the counted case
+    (``bytes_per_device`` the peak of live bytes), ``trace_s`` in place of
+    ``compile_s``."""
+    rec = dict(micro=micro, remat=remat)
+    try:
+        c = count_case(m, shape, microbatches=micro, remat=bool(remat))
+        rl = c["roofline"]
+        rec.update(
+            status="ok",
+            bytes_per_device=int(c["counted"]["peak_bytes"]),
+            t_compute_s=rl.t_compute, t_memory_s=rl.t_memory,
+            t_collective_s=rl.t_collective, t_bound=rl.t_bound,
+            bottleneck=rl.bottleneck, mfu_bound=rl.mfu_bound,
+            coll_bytes=rl.coll_bytes, flops=rl.flops, hbm_bytes=rl.hbm_bytes,
+            flops_by_unit=c["counted"]["flops_by_unit"],
+            trace_s=round(c["t_trace_s"], 1),
+        )
+    except Exception as e:
+        rec.update(status="fail", error=f"{type(e).__name__}: {str(e)[:300]}")
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--seq", type=int, default=None)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--micro", default="1")
+    ap.add_argument("--remat", default="1")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    m = (configs.get_reduced if args.reduced else configs.get_arch)(args.arch)
+    shape = SHAPES[args.shape]
+    if args.batch or args.seq:
+        b, s = args.batch or shape.global_batch, args.seq or shape.seq_len
+        shape = dataclasses.replace(shape, name=f"{shape.kind}_{b}x{s}",
+                                    global_batch=b, seq_len=s)
+    out = args.out or (f"results/perf_torch_{configs.canonical(args.arch)}_"
+                       f"{shape.name}.jsonl")
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+
+    grid = itertools.product([int(x) for x in args.micro.split(",")],
+                             [int(x) for x in args.remat.split(",")])
+    with open(out, "a") as f:
+        for micro, remat in grid:
+            rec = run_variant(m, shape, micro=micro, remat=remat)
+            rec.update(arch=args.arch, shape=shape.name)
+            f.write(json.dumps(rec) + "\n")
+            f.flush()
+            if rec["status"] == "ok":
+                print(f"[perf] micro={micro} remat={remat}: "
+                      f"t_bound={rec['t_bound']:.4f}s ({rec['bottleneck']}) "
+                      f"mfu<={rec['mfu_bound']:.3f} "
+                      f"mem={rec['bytes_per_device'] / 1e9:.1f}GB "
+                      f"coll={rec['coll_bytes'] / 1e9:.2f}GB", flush=True)
+            else:
+                print(f"[perf] micro={micro} remat={remat}: FAIL "
+                      f"{rec['error']}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

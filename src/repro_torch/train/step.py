@@ -1,20 +1,33 @@
 """Step factories of the LM substrate: ``make_train_step``,
 ``make_prefill_step`` and ``make_decode_step``, the counterparts of the
-reference's, and its loss ``next_token_loss``.
+reference's, and its loss ``next_token_loss``; then the shape structs and
+``build_case``, which packages one (arch x shape) cell's step with its
+inputs for the cost tools (``launch/dryrun``, ``launch/perf``).
+
+The structs are tensors on the ``meta`` device: shapes, dtypes and strides
+with no memory and no draws, as the reference's ``jax.eval_shape`` gives
+``ShapeDtypeStruct``s, so the 33B-param archs are built on any host, and
+calling a case's step on them runs every op and kernel wrapper's meta
+route, which ``utils/op_cost`` counts.
 
 No mesh: one card.  The reference's ``mesh`` and ``act_shard`` place the
 step's arrays on a device mesh (``train/shardings``, ROADMAP Queue 1's
 multi-device half); on one card they are the identity, so the port's
-factories do not take them.
+factories do not take them, and ``build_case`` has no ``batch_specs``,
+shardings, ``fsdp`` or ``act_shard`` yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.configs.shapes import Shape
+from repro_torch.configs.whisper_small import DECODER_TRAIN_LEN
+from repro_torch.core import prng
 from repro_torch.models import base as MB
-from repro_torch.optim import adamw, tree_leaves, tree_unflatten
+from repro_torch.optim import adamw, tree_leaves, tree_map, tree_unflatten
 
 
 # ---------------------------------------------------------------------------
@@ -161,3 +174,93 @@ def make_decode_step(m: MB.ModelCfg) -> Callable:
                                   enc_out=enc_out, start=start)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# shape-struct builders (no allocation: the meta device)
+# ---------------------------------------------------------------------------
+META = torch.device("meta")
+
+
+def _struct(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def batch_structs(m: MB.ModelCfg, shape: Shape,
+                  dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """One batch of `shape`: tokens and labels (B, S) int32, qwen2-vl's
+    (3, B, S) positions; an encoder-decoder's cell length is its encoder
+    frames (B, S, D) of `dtype`, and its tokens and labels take the
+    decoder's own length, at most ``DECODER_TRAIN_LEN``."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if m.enc_segments is not None:
+        sd = min(DECODER_TRAIN_LEN, s)
+        return {"frames": _struct((b, s, m.d_model), dtype),
+                "tokens": _struct((b, sd), i32),
+                "labels": _struct((b, sd), i32)}
+    out = {"tokens": _struct((b, s), i32), "labels": _struct((b, s), i32)}
+    if m.family == "vlm":
+        out["positions"] = _struct((3, b, s), i32)
+    return out
+
+
+def param_structs(m: MB.ModelCfg, dtype=torch.float32):
+    """``init_params``'s tree on the meta device: every leaf's shape, no
+    draw (``core/prng`` skips the draws on meta), in `dtype`."""
+    p = MB.init_params(prng.prng_key(torch.tensor(0)), m, META)
+    return p if dtype == torch.float32 else tree_map(
+        lambda t: t.to(dtype), p)
+
+
+def state_structs(params_struct, m: MB.ModelCfg, batch: int, cache_len: int,
+                  dtype=torch.float32):
+    """``init_decode_state``'s tree for `params_struct`'s model: the KV
+    caches in `dtype`, the recurrent states in float32."""
+    states = MB.init_decode_state(params_struct, m, batch, cache_len)
+    if dtype != torch.float32:
+        for seg in states:
+            for st in seg:
+                if isinstance(st, dict):
+                    st["kv"] = tuple(t.to(dtype) for t in st["kv"])
+    return states
+
+
+# ---------------------------------------------------------------------------
+# the packaged case: everything the cost tools need for one cell
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class Case:
+    name: str
+    fn: Callable                 # fn(*args) runs the step once
+    args: Tuple[Any, ...]        # meta structs
+
+
+def build_case(m: MB.ModelCfg, shape: Shape, *, dtype=torch.float32,
+               lr: float = 3e-4, remat: bool = True,
+               microbatches: int = 1) -> Case:
+    """One (arch x shape) cell: the train, prefill or decode step of
+    ``shape.kind`` and its meta inputs.  Any `Shape` is taken, not only
+    those of ``SHAPES``.  A train case's args are (params, optimizer
+    state, batch); a prefill's (params, batch without labels); a decode
+    step's (params, token (B, 1), its position, the states of a cache of
+    ``seq_len`` tokens[, an encoder-decoder's ``enc_out``]).  The keyword
+    knobs (microbatches, remat) are ``launch/perf``'s sweep."""
+    name = f"{m.name}:{shape.name}"
+    p_struct = param_structs(m, dtype)
+    if shape.kind == "train":
+        step, optim = make_train_step(m, lr=lr, remat=remat,
+                                      microbatches=microbatches)
+        return Case(name, step, (p_struct, optim.init(p_struct),
+                                 batch_structs(m, shape, dtype)))
+    if shape.kind == "prefill":
+        batch = batch_structs(m, shape, dtype)
+        del batch["labels"]
+        return Case(name, make_prefill_step(m), (p_struct, batch))
+    # decode: one new token against a cache of seq_len
+    b = shape.global_batch
+    args = [p_struct, _struct((b, 1), torch.int32), shape.seq_len - 1,
+            state_structs(p_struct, m, b, shape.seq_len, dtype)]
+    if m.enc_segments is not None:
+        args.append(_struct((b, m.max_enc_len, m.d_model), dtype))
+    return Case(name, make_decode_step(m), tuple(args))

@@ -1545,6 +1545,32 @@ def _slstm_inputs(rng, b, s, d, h, device):
 
 
 @pytest.mark.cuda
+def test_cuda_slstm_scan_takes_rows_in_groups(h100, rng):
+    """A batch of more than ``MAX_BATCH`` rows runs in groups of up to 8,
+    one launch a group each way: hs, the final state, the chunk states
+    and every gradient within 1e-4·max(1, max|plain|) of the plain loop's,
+    and each group's rows the bits of the group launched alone."""
+    from repro_torch.kernels import slstm_scan as SL
+    b, s, d, h = 11, 70, 64, 4
+    wx, rh, bias, state = _slstm_inputs(rng, b, s, d, h, h100)
+    dys = torch.randn(b, s, d, device=h100)
+    before = (SL.slstm_scan.launches, SL.slstm_scan_bwd.launches)
+    hs, fin, chunks = SL.slstm_scan_fwd(wx, rh, bias, state)
+    got = SL.slstm_scan_bwd(wx, rh, bias, state, hs, chunks, dys)
+    torch.cuda.synchronize()
+    assert (SL.slstm_scan.launches, SL.slstm_scan_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    tail = SL.slstm_scan_fwd(wx[8:], rh, bias, tuple(t[8:] for t in state))
+    assert torch.equal(hs[8:], tail[0])
+    plain = ref.slstm_scan(wx, rh, bias, state, boundaries=True)
+    want = ref.slstm_scan_bwd(wx, rh, bias, state, plain[0], plain[2], dys)
+    for g, w in zip((hs, *fin, *chunks, *got),
+                    (plain[0], *plain[1], *plain[2], *want)):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", CUDA_SLSTM_CASES)
 def test_cuda_slstm_scan_matches_plain(case, h100, rng):
     """hs and the final (c, n, m, h) within 1e-4·max(1, max|plain|) of the
@@ -1580,7 +1606,7 @@ def test_cuda_slstm_scan_rejects_what_it_does_not_take(h100, rng,
     wx, rh, bias, state = _slstm_inputs(rng, 2, 4, 64, 4, h100)
     before = SL.slstm_scan.launches
     with pytest.raises(ValueError, match="rows"):
-        SL.slstm_scan(*_slstm_inputs(rng, 9, 2, 64, 4, h100))
+        SL.slstm_scan(*_slstm_inputs(rng, 0, 2, 64, 4, h100))
     with pytest.raises(ValueError, match="multiple"):
         SL.slstm_scan(*_slstm_inputs(rng, 1, 2, 40, 4, h100))
     with pytest.raises(ValueError, match="dh one of"):

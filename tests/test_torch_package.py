@@ -19,7 +19,9 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = [ROOT / "examples" / f"{name}_torch.py"
+            for name in ("quickstart", "serve_lm", "mesh_dse")]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -54,9 +56,12 @@ def test_port_files_are_found():
                 "serve/online", "data/synthetic", "optim/schedule",
                 "optim/compress", "launch/train", "nn/xlstm",
                 "kernels/slstm_scan", "configs/xlstm_1_3b",
-                "configs/whisper_small", "configs/qwen2_vl_7b"):
+                "configs/whisper_small", "configs/qwen2_vl_7b",
+                "utils/roofline", "utils/op_cost", "launch/dryrun",
+                "launch/perf"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "chip_smoke.py" in names
+    assert all(p.relative_to(ROOT).as_posix() in names for p in EXAMPLES)
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -170,3 +175,26 @@ def test_kernel_module_import_builds_nothing():
         assert mod.SOURCE.exists() and mod.SOURCE.suffix == ".cu"
         assert mod.SOURCE.parent == build.CSRC
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def _example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_serve_lm_example_twin_runs_on_the_cpu(capsys, monkeypatch):
+    """``examples/serve_lm_torch.py`` at its reduced gemma3: all 12
+    requests served, each its own number of new tokens; without
+    ``--device`` it wants the card."""
+    example = _example("serve_lm_torch")
+    eng = example.main(["--device", "cpu"])
+    assert len(eng.finished) == 12
+    assert all(len(r.out) == r.max_new for r in eng.finished)
+    assert "served 12 requests" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.main([])
