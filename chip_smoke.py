@@ -330,6 +330,29 @@ Then the cost tools (phase s, phase r's state freed first):
   counted peak, and a flash launch with lse a layer and microbatch (two
   under remat) a step, as the meta count says.
 
+Then the multi-rank half (phase t, ~60 s):
+
+- t1. a world of one on NCCL, ``launch/mesh.make_host_mesh()`` = (data 1,
+  model 1): phase 3's 64-task ``explore_batch`` under ``task_mesh`` gives
+  phase 3's Selections; ``train_gan(mesh=)`` at batch 1024 on G/D 11 x
+  2048 (2048 rows, 2 epochs) takes the unsharded path and gives the
+  no-mesh bits, and one step at batch 32768 is kept for t2; mixtral's
+  layer at phase l's 8192 tokens under the mesh takes the ``e_par``
+  combine, with the no-mesh bits on finite input and, with token 0
+  non-finite, the NaN rows of the CPU port's pieces on the card's
+  routing; ``examples/train_lm_torch.py`` at its ~100M model runs
+  T_LM_STEPS steps with flash with lse launched and the loss falling;
+- t2. two ranks on the one card (gloo, both ``cuda:0``; ``--t2-rank``
+  starts each): task-sharded ``explore_batch`` of 64 and 63 tasks gives
+  t1's Selections bit for bit; data-parallel ``train_gan``'s first step
+  at batch 32768 gives t1's all-reduced gradients and losses within
+  T_GRAD_TOL, and 2 epochs at batch 1024 track t1's run (the same params
+  on both ranks, loss_g within 1e-3, at most 1% of the params outside
+  rtol 2e-4 / atol 1e-6), with the whole MLP and the three dense kernels
+  launched in each rank (``t2_failures``).  ms a task and ms a step of t1 and t2 beside the
+  card's name and power limit; two ranks time-slice one card, so t2
+  checks correctness, not speed.
+
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
 it are the kernel table (JSON) and the card's name and power limit.
@@ -402,6 +425,9 @@ from repro_torch.nn import xlstm as XL  # noqa: E402
 from repro_torch.optim import (adam, apply_updates, tree_leaves,  # noqa: E402
                                tree_map, tree_unflatten)
 from repro_torch.optim.adamw import global_norm  # noqa: E402
+from repro_torch.core import shard  # noqa: E402
+from repro_torch.launch import mesh as LM  # noqa: E402
+from repro_torch.train import shardings as SH  # noqa: E402
 from repro_torch.train import step as TS  # noqa: E402
 from repro_torch.utils import op_cost  # noqa: E402
 from repro_torch.utils import roofline as RL  # noqa: E402
@@ -4907,16 +4933,378 @@ def phase_s(counting: tuple, measured: dict, trained: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase t: the multi-rank half (launch/mesh, core/shard, train/shardings)
+# ---------------------------------------------------------------------------
+#: t2's ranks, both on the one card (gloo: NCCL takes one rank a device)
+T2_RANKS = 2
+#: explore_batch's task counts under the mesh: phase 3's and a ragged one
+T_TASKS = (N_TASKS, N_TASKS - 1)
+#: train_gan under the mesh: rows, epochs (batch 1024: 2 steps an epoch)
+T_TRAIN = (2048, 2)
+#: train_gan's first step alone: rows, epochs, batch.  The dense kernels
+#: split no reduction past 66 tiles of 128 rows (``gemm3::splits``, 132
+#: SMs), so at 16384 rows a rank and 32768 on one rank every row's
+#: forward, ReLU masks and backward signal have the same bits in both
+#: runs, and the gradients differ only by the order of the sums over the
+#: rows.  At batch 1024 a rank's 512 rows split the hidden layers' K in
+#: two (one rank's 1024 do not), and at 2048 the heads' K slices differ
+#: (16 against 8): rounding then flips ReLU masks, each moving the
+#: gradient by one sample's term (PERF.md, PR 28)
+T_FIRST = (32768, 1, 32768)
+#: that step's all-reduced gradients (Adam's first moment after one step,
+#: 0.1 g) against one rank's: the largest max |difference| / max |value|
+#: of a leaf; its losses' relative difference too
+T_GRAD_TOL = 1e-5
+#: examples/train_lm_torch.py's steps at its default ~100M model
+T_LM_STEPS = 40
+
+
+def _sel_row(s) -> list:
+    return [None if s.cfg_idx is None else s.cfg_idx.tolist(), s.latency,
+            s.power, s.satisfied, s.n_candidates]
+
+
+def t_engine(device) -> "dse.GANDSE":
+    """Phase 3's im2col engine: G 11 x 2048 from seed 0 on `device`, the
+    normalizers of 4096 rows."""
+    model = Im2colModel()
+    cfg = G.GANConfig(n_net=model.net_space.n_dims)
+    engine = dse.GANDSE(model, cfg, device=device)
+    engine.attach(gen_mod.generate_dataset(model, 4096, seed=0),
+                  G.init_generator(prng.prng_key(torch.tensor(0)), cfg,
+                                   model.space, device))
+    return engine
+
+
+def t_explore(engine, mesh) -> dict:
+    """explore_batch of each of T_TASKS under the task mesh (phase 3's
+    tasks and seed), warm: its Selections and ms a task; the launches of
+    the timed batches, counted from zero just before them."""
+    out = {}
+    with shard.task_mesh(mesh):
+        for n in T_TASKS:
+            tasks = gen_mod.generate_tasks(engine.model, n, seed=1)
+            engine.explore_batch(tasks, seed=0)
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = engine.explore_batch(tasks, seed=0)
+            torch.cuda.synchronize()
+            out[n] = dict(sels=[_sel_row(r.selection) for r in res],
+                          ms_per_task=1e3 * (time.perf_counter() - t0) / n,
+                          launches=counts())
+    return out
+
+
+def t_train(mesh, rows: int = T_TRAIN[0], epochs: int = T_TRAIN[1],
+            batch: int = 1024) -> tuple:
+    """train_gan on im2col at G/D 11 x 2048 on `rows` rows for `epochs`
+    epochs of `batch`, under `mesh`: the state, ms a step (set-up
+    included) and the launches, counted from zero just before it."""
+    model = Im2colModel()
+    cfg = dataclasses.replace(G.GANConfig(n_net=model.net_space.n_dims),
+                              batch_size=batch)
+    ds = gen_mod.generate_dataset(model, rows, seed=0)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    st = T.train_gan(model, ds, cfg, iters=epochs, seed=0, mesh=mesh,
+                     device="cuda")
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / len(st.history)
+    return st, ms, counts()
+
+
+def first_step(st) -> dict:
+    """A one-step run's all-reduced gradients, as Adam's first moments
+    (0.1 g: the first moment starts at 0) of G and of D on the CPU, and
+    its losses."""
+    return dict(g=[t.cpu() for t in tree_leaves(st.g_opt.mu)],
+                d=[t.cpu() for t in tree_leaves(st.d_opt.mu)],
+                loss_g=st.history[0]["loss_g"],
+                loss_d=st.history[0]["loss_d"])
+
+
+def first_step_gap(mine: dict, ref: dict) -> dict:
+    """G's and D's largest max |difference| / max |value| over the leaves
+    of the first step's gradients, and the losses' relative difference."""
+    def gap(a, b):
+        return max(float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+                   for x, y in zip(a, b))
+
+    return dict(g=gap(mine["g"], ref["g"]), d=gap(mine["d"], ref["d"]),
+                loss=max(abs(mine[k] - ref[k]) / abs(ref[k])
+                         for k in ("loss_g", "loss_d")))
+
+
+def check_moe_e_par(mesh) -> dict:
+    """Phase t1: mixtral's layer at phase l's 8192 tokens (its seed and
+    input) under the host mesh takes the e_par combine: on finite input
+    the bits of the no-mesh layer phase l holds; with token 0 non-finite
+    the NaN row count of the CPU port's pieces run on the card's routing
+    (at a width of 16: which rows turn NaN depends on the routing alone),
+    where the no-mesh layer has one."""
+    cfg = configs.get_arch("mixtral-8x7b").segments[0].pattern[0].cfg
+    e, k = cfg.n_experts, cfg.top_k
+    t = PREFILL[0] * PREFILL[1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = MOE.moe_init(prng.prng_key(torch.tensor(0)), e, cfg.d_model,
+                     cfg.d_ff, "cuda")
+    x = torch.randn((t, cfg.d_model), generator=gen, device="cuda")
+    kw = dict(reps=5, warmup=1)
+    with torch.no_grad():
+        plain = MOE.moe_apply(p, x, top_k=k)
+        plain_ms = cuda_ms(lambda: MOE.moe_apply(p, x, top_k=k), **kw)
+        with SH.use_mesh(mesh):
+            assert MOE._e_par(e), "the host mesh does not take e_par"
+            y = MOE.moe_apply(p, x, top_k=k)
+            ms = cuda_ms(lambda: MOE.moe_apply(p, x, top_k=k), **kw)
+        same = torch.equal(y, plain)
+        del y, plain
+        x[0] = float("inf")
+        with SH.use_mesh(mesh):
+            card_nan = int(torch.isnan(MOE.moe_apply(p, x, top_k=k))
+                           .any(1).sum())
+        plain_nan = int(torch.isnan(MOE.moe_apply(p, x, top_k=k))
+                        .any(1).sum())
+        idx, wts = MOE.route_topk(x @ p["router"], k)
+        cap = MOE.capacity(t, e, k, 1.25)
+        narrow = torch.Generator().manual_seed(1)
+        ps = {"w_gate": torch.randn((e, 16, 8), generator=narrow),
+              "w_up": torch.randn((e, 16, 8), generator=narrow),
+              "w_down": torch.randn((e, 8, 16), generator=narrow)}
+        xe, slot, keep = MOE.dispatch(x[:, :16].cpu(), idx.cpu()[None], e,
+                                      cap)
+        cpu_nan = int(torch.isnan(MOE.combine_e_par(
+            MOE.expert_ffn(ps, xe), slot, keep, wts.cpu(), 1)).any(1).sum())
+    del p, x
+    torch.cuda.empty_cache()
+    out = dict(tokens=t, same_bits_as_no_mesh=same, nan_rows=card_nan,
+               cpu_nan_rows=cpu_nan, no_mesh_nan_rows=plain_nan,
+               e_par_ms=ms, no_mesh_ms=plain_ms)
+    assert same, "e_par differs from the plain combine on finite input"
+    assert card_nan == cpu_nan > plain_nan == 1, out
+    return out
+
+
+def drive_train_lm_example() -> dict:
+    """Phase t1: ``examples/train_lm_torch.py`` at its default ~100M
+    model, T_LM_STEPS steps on the card under ``make_host_mesh()``: the
+    loss falls (the example asserts it) and flash with lse is launched."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "train_lm_torch.py")
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="train_lm_") as tmp:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            losses = example.main(["--steps", str(T_LM_STEPS),
+                                   "--ckpt-dir", tmp])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    out = dict(losses=losses, seconds=seconds,
+               ms_per_step=1e3 * seconds / T_LM_STEPS, launches=counts(),
+               model=log.getvalue().splitlines()[0])
+    assert losses[-1] < losses[0], losses
+    assert out["launches"]["flash_attention_f32 with lse"] > 0, out
+    return out
+
+
+def phase_t1(engine, warm) -> dict:
+    """Phase t1: a world of one on NCCL, ``make_host_mesh()`` = (1, 1).
+    `engine` and `warm` are phase 3's im2col engine and its Selections."""
+    import torch.distributed as dist
+
+    mesh = LM.make_host_mesh()
+    assert SH.mesh_sizes(mesh) == {"data": 1, "model": 1}, mesh
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    explore = t_explore(engine, mesh)
+    assert explore[N_TASKS]["sels"] == [_sel_row(r.selection) for r in warm]
+    st, ms, launches = t_train(mesh)
+    st_plain, _, _ = t_train(None)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((st.g_params, st.d_params)),
+        tree_leaves((st_plain.g_params, st_plain.d_params))))
+    assert same and st.history == st_plain.history,         "train_gan under the one-rank mesh is not the no-mesh run"
+    out = dict(
+        explore={n: {k: r[k] for k in ("ms_per_task", "launches")}
+                 for n, r in explore.items()},
+        train=dict(ms_per_step=ms, launches=launches,
+                   same_bits_as_no_mesh=same),
+        moe=check_moe_e_par(mesh), train_lm=drive_train_lm_example())
+    assert launches["dense_forward_f32"] > 0, launches
+    first, _, _ = t_train(mesh, *T_FIRST)
+    print("phase t1: " + json.dumps(out), flush=True)
+    return out, {"sels": {n: r["sels"] for n, r in explore.items()},
+                 "params": [t.cpu() for t in tree_leaves(
+                     (st.g_params, st.d_params))],
+                 "loss_g": [h["loss_g"] for h in st.history],
+                 "first": first_step(first)}
+
+
+def t2_rank(rank: int, tmp: str) -> int:
+    """One rank of phase t2 (``--t2-rank``): gloo over a FileStore in
+    `tmp`, ``cuda:0``, ``make_host_mesh()`` = (2, 1); task-sharded
+    explore_batch, data-parallel train_gan's first step and its T_TRAIN
+    run held to t1's, written to `tmp`/rank<r>.json."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    LM.init_process_group("gloo", dist.FileStore(os.path.join(tmp, "store"),
+                                                 T2_RANKS), rank, T2_RANKS)
+    mesh = LM.make_host_mesh(device="cuda:0")
+    assert SH.mesh_sizes(mesh) == {"data": T2_RANKS, "model": 1}
+    t1 = torch.load(os.path.join(tmp, "t1.pt"))
+    explore = t_explore(t_engine("cuda:0"), mesh)
+    first, _, _ = t_train(mesh, *T_FIRST)
+    st, ms, launches = t_train(mesh)
+    leaves = [a.cpu() for a in tree_leaves((st.g_params, st.d_params))]
+    digest = hashlib.sha256()
+    for a in leaves:
+        digest.update(a.numpy().tobytes())
+    loss_g = [h["loss_g"] for h in st.history]
+    out = dict(
+        rank=rank,
+        explore={n: dict(same_as_t1=r["sels"] == t1["sels"][n],
+                         ms_per_task=r["ms_per_task"],
+                         launches=r["launches"])
+                 for n, r in explore.items()},
+        train=dict(ms_per_step=ms, launches=launches, steps=len(loss_g),
+                   first_step_gap=first_step_gap(first_step(first),
+                                                 t1["first"]),
+                   params_sha256=digest.hexdigest(),
+                   n_params=sum(a.numel() for a in leaves),
+                   outside_ref_tol=sum(
+                       int((~torch.isclose(a, b, rtol=2e-4, atol=1e-6)).sum())
+                       for a, b in zip(leaves, t1["params"])),
+                   loss_g_max_diff=max(abs(a - b) for a, b in
+                                       zip(loss_g, t1["loss_g"]))))
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_t2_ranks(t1_state: dict, cmd=None) -> list:
+    """Starts T2_RANKS processes at once, each `cmd` (this script by
+    default) with ``--t2-rank r --t2-dir DIR``, on t1's state in DIR; the
+    records they write there, in rank order."""
+    cmd = cmd or [sys.executable, os.path.abspath(__file__)]
+    with tempfile.TemporaryDirectory(prefix="phase_t2_") as tmp:
+        torch.save(t1_state, os.path.join(tmp, "t1.pt"))
+        procs = [subprocess.Popen(
+            cmd + ["--t2-rank", str(r), "--t2-dir", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(T2_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, log in zip(procs, logs):
+            assert p.returncode == 0, log[-4000:]
+        ranks = []
+        for r in range(T2_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    return ranks
+
+
+def t2_failures(ranks: list) -> list:
+    """The gates of phase t2 that the ranks' records miss (none: held).
+
+    - each rank's Selections of 64 and 63 tasks are t1's, bit for bit,
+      with the whole MLP launched;
+    - at T_FIRST's batch, the first step's all-reduced G and D gradients
+      are t1's one-rank step's within T_GRAD_TOL of each leaf's largest
+      value, and its losses within T_GRAD_TOL: there each row's bits and
+      ReLU masks are one rank's and only the sums over the rows round
+      apart (PERF.md, PR 28);
+    - after T_TRAIN's 4 steps every rank holds the same params, bit for
+      bit, and loss_g is within 1e-3 of t1's at every step (the
+      reference's bound); at most 1% of the params lie outside the
+      reference's rtol 2e-4 / atol 1e-6 of t1's;
+    - the three dense kernels launched in each rank."""
+    bad = []
+    for r in ranks:
+        tag = f"rank {r['rank']}"
+        for n, ex in r["explore"].items():
+            if not ex["same_as_t1"]:
+                bad.append(f"{tag}: {n} tasks' Selections")
+            if not ex["launches"]["mlp_forward_f32"]:
+                bad.append(f"{tag}: mlp_forward_f32 not launched")
+        tr = r["train"]
+        gap = tr["first_step_gap"]
+        for k in ("g", "d"):
+            if not gap[k] <= T_GRAD_TOL:
+                bad.append(f"{tag}: first step's {k.upper()} gradients")
+        if not gap["loss"] <= T_GRAD_TOL:
+            bad.append(f"{tag}: first step's losses")
+        if tr["params_sha256"] != ranks[0]["train"]["params_sha256"]:
+            bad.append(f"{tag}: params differ from rank 0's")
+        if not tr["loss_g_max_diff"] < 1e-3:
+            bad.append(f"{tag}: loss_g")
+        if not tr["outside_ref_tol"] <= 0.01 * tr["n_params"]:
+            bad.append(f"{tag}: params outside the reference's tolerance")
+        for name in DENSE_KERNELS:
+            if not tr["launches"][name]:
+                bad.append(f"{tag}: {name} not launched")
+    return bad
+
+
+def phase_t2(t1_state: dict) -> dict:
+    """Phase t2: T2_RANKS ranks on the one card (gloo, both ``cuda:0``),
+    started once, held by ``t2_failures``."""
+    ranks = run_t2_ranks(t1_state)
+    out = {f"rank {r['rank']}": r for r in ranks}
+    print("phase t2: " + json.dumps(out), flush=True)
+    failed = t2_failures(ranks)
+    assert not failed, failed
+    return out
+
+
+def phase_t(engine, warm) -> dict:
+    """Phase t: t1 then t2, with the card's name and power limit; the
+    world of one is shut down at the end."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    t1, state = phase_t1(engine, warm)
+    t2 = phase_t2(state)
+    dist.destroy_process_group()
+    out = dict(card=smi(), t1=t1, t2=t2, seconds=time.perf_counter() - t0)
+    print(f"phase t: {out['seconds']:.1f} s on {out['card']}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements to this JSON")
     ap.add_argument("--count-paths", metavar="JSON",
                     help="only phase s2's counts on meta (the script starts "
                     "this itself)")
+    ap.add_argument("--t2-rank", type=int,
+                    help="one rank of phase t2 (the script starts them)")
+    ap.add_argument("--t2-dir", help="phase t2's store and results")
     args = ap.parse_args()
     if args.count_paths:
         count_paths(args.count_paths)
         return 0
+    if args.t2_rank is not None:
+        return t2_rank(args.t2_rank, args.t2_dir)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5214,6 +5602,13 @@ def run_phases(args, counting: tuple) -> int:
     cost = phase_s(counting, measured, trained)
     sweep_launches = {label: r["flash_attention_f32 with lse"]
                       for label, r in cost["perf"]["launches"].items()}
+
+    elapsed("phase t")
+    # phase t: the multi-rank half; each path's launches counted from zero
+    # just before it (inside t_explore, t_train and drive_train_lm_example)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_run = phase_t(runs["im2col"]["engine"], runs["im2col"]["warm"])
     print("init seconds on the card: " + json.dumps(INIT_S), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here",
           flush=True)
@@ -5244,7 +5639,11 @@ def run_phases(args, counting: tuple) -> int:
                 serve_conc["launches"]["mlp_forward_f32"],
             "dse_serve_faults":
                 serve_conc["faults"]["launches"]["mlp_forward_f32"],
-            "online": online_run["launches"]["mlp_forward_f32"]},
+            "online": online_run["launches"]["mlp_forward_f32"],
+            "task_mesh_t1": mesh_run["t1"]["explore"][N_TASKS]["launches"][
+                "mlp_forward_f32"],
+            "task_mesh_t2": {r: t["explore"][str(N_TASKS)]["launches"][
+                "mlp_forward_f32"] for r, t in mesh_run["t2"].items()}},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -5261,7 +5660,10 @@ def run_phases(args, counting: tuple) -> int:
             "baseline": baseline_launches[name],
             "drl_rollout": drl_sa["DRL"]["launches"][name],
             "whole_mlp_gradient": mlp_grad["launches"][name],
-            "online": online_run["launches"][name]},
+            "online": online_run["launches"][name],
+            "data_parallel_t1": mesh_run["t1"]["train"]["launches"][name],
+            "data_parallel_t2": {r: t["train"]["launches"][name]
+                                 for r, t in mesh_run["t2"].items()}},
         "shapes": {label: dense[name][label] for label in DENSE_SHAPES
                    if label != "hidden 2048->2048"},
     } for name, (_, replaces) in DENSE_KERNELS.items()] + [{
@@ -5327,7 +5729,9 @@ def run_phases(args, counting: tuple) -> int:
                 "launches"]["flash_attention_f32 with lse"],
             "perf_sweep": sweep_launches,
             "lm_launcher": {k: r["launches"]["flash_attention_f32 with lse"]
-                            for k, r in lm_launcher.items()}},
+                            for k, r in lm_launcher.items()},
+            "train_lm_example": mesh_run["t1"]["train_lm"]["launches"][
+                "flash_attention_f32 with lse"]},
         "lse": {label: {k: r[k] for k in (
             "fwd_ms", "fwd_lse_ms", "lse_max_rel_err", "out_same_bits_with_lse")}
             for label, r in flash_grad.items()},
@@ -5471,7 +5875,7 @@ def run_phases(args, counting: tuple) -> int:
                        "whisper_serve": whisper_serve,
                        "whisper_grad": whisper_grad,
                        "whisper_train": whisper_train, "qwen": qwen,
-                       "phase_s": cost,
+                       "phase_s": cost, "phase_t": mesh_run,
                        "init_s": INIT_S,
                        "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},

@@ -196,18 +196,20 @@ class LargeMLP:
         if not self.model.has_torch_oracle:
             return self._explore_seq(tasks, seed)
         t0 = time.time()
-        seeds = row_seeds(seed, n_tasks)
-        tasks_p, seeds, n_real = shard.pad_tasks(tasks, seeds)
-        probs = self.generator_probs_device(tasks_p.net_idx, tasks_p.lat_obj,
-                                            tasks_p.pow_obj, seeds)
-        sels = select_from_probs(self.model, tasks_p.net_idx, probs,
-                                 self.explorer_cfg, tasks_p.lat_obj,
-                                 tasks_p.pow_obj)
-        per_task = (time.time() - t0) / n_real
+
+        def rows(tasks_r, seeds_r):
+            probs = self.generator_probs_device(
+                tasks_r.net_idx, tasks_r.lat_obj, tasks_r.pow_obj, seeds_r)
+            return select_from_probs(self.model, tasks_r.net_idx, probs,
+                                     self.explorer_cfg, tasks_r.lat_obj,
+                                     tasks_r.pow_obj)
+
+        sels = shard.map_tasks(rows, tasks, row_seeds(seed, n_tasks))
+        per_task = (time.time() - t0) / n_tasks
         return [
             DSEResult(sel, float(tasks.lat_obj[i]), float(tasks.pow_obj[i]),
                       per_task)
-            for i, sel in enumerate(sels[:n_real])
+            for i, sel in enumerate(sels)
         ]
 
     def explore_tasks(self, tasks: DSETask, seed=0,

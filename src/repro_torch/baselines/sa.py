@@ -188,23 +188,28 @@ class SimulatedAnnealing:
     def _explore_device(self, tasks: DSETask, seed) -> List[DSEResult]:
         n_tasks = int(tasks.net_idx.shape[0])
         t0 = time.time()
-        seeds = row_seeds(seed, n_tasks)
-        tasks_p, seeds, n_tasks = shard.pad_tasks(tasks, seeds)
         dev = self.device
         f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-        best, _, n_eval = anneal(
-            self.model,
-            torch.as_tensor(np.asarray(tasks_p.net_idx), dtype=torch.int64,
-                            device=dev),
-            f32(tasks_p.lat_obj), f32(tasks_p.pow_obj),
-            task_keys(seeds, len(seeds)), self.t_init, self.cooling,
-            self.steps_per_temp, self.max_steps)
-        # every lane has a winner: one float64 host-oracle call re-scores
-        # them all
-        sels = selections_from_winners(
-            self.model, tasks.net_idx, np.zeros(n_tasks, np.int64),
-            best[:n_tasks].to(torch.int32).cpu().numpy(),
-            n_eval[:n_tasks].cpu().numpy(), tasks.lat_obj, tasks.pow_obj)
+
+        def rows(tasks_r, seeds_r):
+            best, _, n_eval = anneal(
+                self.model,
+                torch.as_tensor(np.asarray(tasks_r.net_idx),
+                                dtype=torch.int64, device=dev),
+                f32(tasks_r.lat_obj), f32(tasks_r.pow_obj),
+                task_keys(seeds_r, len(seeds_r)), self.t_init, self.cooling,
+                self.steps_per_temp, self.max_steps)
+            # every lane has a winner: one float64 host-oracle call
+            # re-scores them all
+            n = len(seeds_r)
+            return selections_from_winners(
+                self.model, tasks_r.net_idx, np.zeros(n, np.int64),
+                best.to(torch.int32).cpu().numpy(), n_eval.cpu().numpy(),
+                tasks_r.lat_obj, tasks_r.pow_obj)
+
+        # the anneal lanes shard over the active task mesh (pad, run a
+        # block a rank, gather, discard the padded lanes)
+        sels = shard.map_tasks(rows, tasks, row_seeds(seed, n_tasks))
         per_task = (time.time() - t0) / n_tasks
         return [DSEResult(sel, float(tasks.lat_obj[t]),
                           float(tasks.pow_obj[t]), per_task)

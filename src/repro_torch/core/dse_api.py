@@ -186,8 +186,12 @@ class GANDSE:
         float32 device chain split a near-tie.  dse_seconds is the
         amortized per-task wall-clock (total / n_tasks).  The batch is
         padded to its power-of-two bucket (``shard.pad_tasks``; padded rows
-        repeat the last row and are discarded).  Models without a torch
-        oracle fall back to the sequential host route.
+        repeat the last row and are discarded).  Under an active task mesh
+        (``shard.set_task_mesh``) the padded size is also a multiple of the
+        shard count, each rank runs the chain on its block of rows and the
+        Selections are gathered in task order (``shard.map_tasks``): the
+        same bits as one rank's.  Models without a torch oracle fall back
+        to the sequential host route.
         """
         assert self._explorer is not None, "call train() or attach() first"
         n_tasks = int(tasks.net_idx.shape[0])
@@ -196,18 +200,21 @@ class GANDSE:
         if not self.model.has_torch_oracle:
             return self._explore_seq(tasks, seed)
         t0 = time.time()
-        seeds = row_seeds(seed, n_tasks)
-        tasks_p, seeds, n_real = shard.pad_tasks(tasks, seeds)
-        probs = self._explorer.generator_probs_device(
-            tasks_p.net_idx, tasks_p.lat_obj, tasks_p.pow_obj, seed=seeds)
-        sels = select_from_probs(self.model, tasks_p.net_idx, probs,
-                                 self.explorer_cfg, tasks_p.lat_obj,
-                                 tasks_p.pow_obj)
-        per_task = (time.time() - t0) / n_real
+
+        def rows(tasks_r, seeds_r):
+            probs = self._explorer.generator_probs_device(
+                tasks_r.net_idx, tasks_r.lat_obj, tasks_r.pow_obj,
+                seed=seeds_r)
+            return select_from_probs(self.model, tasks_r.net_idx, probs,
+                                     self.explorer_cfg, tasks_r.lat_obj,
+                                     tasks_r.pow_obj)
+
+        sels = shard.map_tasks(rows, tasks, row_seeds(seed, n_tasks))
+        per_task = (time.time() - t0) / n_tasks
         return [
             DSEResult(sel, float(tasks.lat_obj[i]), float(tasks.pow_obj[i]),
                       per_task)
-            for i, sel in enumerate(sels[:n_real])
+            for i, sel in enumerate(sels)
         ]
 
     def explore_tasks(self, tasks: DSETask, seed: SeedLike = 0,

@@ -33,6 +33,7 @@ from typing import List
 import numpy as np
 import torch
 
+from repro_torch.core import shard
 from repro_torch.core.explorer import (_DENSE_LIM, _PROD_LIM, ExplorerConfig,
                                        _enum_core, enumerate_candidates_batch)
 from repro_torch.core.selector import (NOISE_TOL, Selection, fold_chain,
@@ -85,18 +86,29 @@ def fused_select_batch(
     objectives (T,).  Requires a torch oracle (``model.has_torch_oracle``).
     Task t's Selection equals the host route's (``enumerate_candidates`` +
     ``select``) wherever float32 and float64 scoring agree on the chain's
-    decisions, at any tile size.
+    decisions, at any tile size.  Under an active task mesh whose shard
+    count divides T, each rank streams its block of tasks and the
+    Selections are gathered in task order (``shard.map_rows``); only the
+    task axis splits, and each lane walks its own tiles, so the Selections
+    are one rank's.
     """
     if not model.has_torch_oracle:
         raise ValueError(f"{model.name} has no torch oracle")
     if not 1 <= max_candidates <= _PROD_LIM or tile < 1:
         raise ValueError(f"need 1 <= max_candidates <= 2**26 and tile >= 1, "
                          f"got {max_candidates} and {tile}")
+    return shard.map_rows(
+        lambda *rows: _fused_rows(model, *rows, thresh, max_candidates,
+                                  noise_tol, tile),
+        np.asarray(net_idx, np.int32), probs,
+        np.asarray(lat_obj, np.float64).reshape(-1),
+        np.asarray(pow_obj, np.float64).reshape(-1))
+
+
+def _fused_rows(model, net_idx, probs, lo, po, thresh, max_candidates,
+                noise_tol, tile) -> List[Selection]:
     dev = probs.device
     masks_core, radix_core = _enum_core(model.space)
-    net_idx = np.asarray(net_idx, np.int32)
-    lo = np.asarray(lat_obj, np.float64).reshape(-1)
-    po = np.asarray(pow_obj, np.float64).reshape(-1)
     t = probs.shape[0]
 
     keep, counts, total = masks_core(probs, thresh, max_candidates)

@@ -108,6 +108,15 @@ def discriminator_apply(params, net_enc: torch.Tensor,
     return L.mlp_apply(params, x, use_fused=use_fused)
 
 
+def replicate_params(params, mesh=None):
+    """Make a params tree the same on every rank of the task mesh (a
+    broadcast from its first rank, in place): the data-parallel layout
+    whose gradients are all-reduced.  The identity when no mesh is active,
+    so one-rank callers are untouched."""
+    from repro_torch.core import shard
+    return shard.replicate(params, mesh)
+
+
 def sample_noise_dim(key: torch.Tensor, batch: int,
                      noise_dim: int) -> torch.Tensor:
     """The canonical noise input ("small random numbers"), shared by G and

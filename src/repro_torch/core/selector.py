@@ -34,6 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import shard
 from repro_torch.core.explorer import resolve_device
 from repro_torch.design_models.base import DesignModel
 
@@ -268,13 +269,21 @@ def select_batch(
     whole block; candidates are scored in float32, and the winners'
     metrics come from one batched float64 host-oracle call.  Task t's
     Selection equals ``select(model, net_idx[t], cand_idx[t][:n[t]], ...,
-    use_torch=True)``."""
+    use_torch=True)``.  Under an active task mesh whose shard count
+    divides T, each rank selects its block of tasks and the Selections
+    are gathered in task order (``shard.map_rows``)."""
     if not model.has_torch_oracle:
         raise ValueError(f"{model.name} has no torch oracle")
+    return shard.map_rows(
+        lambda *rows: _select_rows(model, *rows, noise_tol),
+        np.asarray(net_idx, np.int32), cand_idx, valid,
+        np.asarray(n_candidates), np.asarray(lat_obj, np.float64).reshape(-1),
+        np.asarray(pow_obj, np.float64).reshape(-1))
+
+
+def _select_rows(model, net_idx, cand_idx, valid, n_candidates, lo, po,
+                 noise_tol) -> List[Selection]:
     dev = cand_idx.device
-    net_idx = np.asarray(net_idx, np.int32)
-    lo = np.asarray(lat_obj, np.float64).reshape(-1)
-    po = np.asarray(pow_obj, np.float64).reshape(-1)
     f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
     _, _, chosen = _algorithm2(
         model, torch.as_tensor(net_idx, dtype=torch.int64, device=dev),

@@ -28,6 +28,15 @@ reads the step metrics back once, at the epoch's end.  Every G and D layer
 of the step runs through the dense kernels and their backward on the card
 (``nn/layers.mlp_apply`` -> ``kernels/dispatch.dense``);
 ``GANConfig.use_fused=False`` opts out to the plain versions.
+
+Under a task mesh (``train_gan(mesh=...)``, or the active
+``shard.set_task_mesh``) each step is data parallel over the mesh's batch
+axes: every rank draws the global batch's noise from the one key and keeps
+its rows, runs G, the decode, the oracle and D on its block of the batch,
+takes the losses as global means (its local sum over the global count),
+and all-reduces the gradients before both Adam updates, so the replicated
+params stay the same on every rank.  A batch that the shard count does not
+divide falls back to the unsharded step on every rank.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import torch
 
 from repro_torch.core import gan as G
 from repro_torch.core import prng
+from repro_torch.core import shard
 from repro_torch.core.explorer import resolve_device
 from repro_torch.dataset.generator import Dataset
 from repro_torch.design_models.base import DesignModel
@@ -103,15 +113,63 @@ def value_and_grad(loss_fn: Callable, params, *args):
     return (loss.detach(), aux), tree_map(lambda _: next(grads), p)
 
 
+def _batch_constrainer(mesh):
+    """This rank's rows of each batch leaf's leading (sample) axis — the
+    data-parallel layout of Algorithm 1 (the reference pins the same
+    blocks with a sharding constraint).  The identity when the mesh has no
+    task axes (or is None)."""
+    if shard.n_task_shards(mesh) <= 1:
+        return lambda batch: batch
+    return lambda batch: {k: shard.put_sharded(v, mesh)
+                          for k, v in batch.items()}
+
+
+class _DataParallel:
+    """The collectives of one data-parallel step over `mesh`'s task axes
+    (k ranks): the global count, this rank's noise rows, and the
+    all-reduces.  With no mesh (k = 1) every method is the one-rank
+    computation, bit for bit."""
+
+    def __init__(self, mesh):
+        self.k = shard.n_task_shards(mesh)
+        self.mesh = mesh
+        if self.k > 1:
+            shard.require_no_model_axis(mesh)
+            self.r = shard.shard_index(mesh)
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the global batch mean."""
+        if self.k == 1:
+            return torch.mean(x)
+        return x.sum() / (x.shape[0] * self.k)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global-batch tensor."""
+        if self.k == 1:
+            return x
+        n = x.shape[0] // self.k
+        return x[self.r * n:(self.r + 1) * n]
+
+    def all_reduce(self, tree):
+        """Sum every leaf of `tree` over the ranks (one collective)."""
+        return tree if self.k == 1 else shard.all_reduce(tree, self.mesh)
+
+
 def _make_step_body(model: DesignModel, cfg: G.GANConfig,
-                    use_torch_oracle: Optional[bool] = None):
+                    use_torch_oracle: Optional[bool] = None, mesh=None):
     """One Algorithm 1 update as a function of (carry, batch).
 
     Returns (g_optim, d_optim, step_body) where step_body(carry, batch) ->
     (carry, metrics), carry = (g_params, d_params, g_opt, d_opt, rng) and
-    metrics are 0-d tensors on the device (nothing is read back here)."""
+    metrics are 0-d tensors on the device (nothing is read back here).
+
+    With a `mesh`, `batch` holds this rank's rows of the global batch and
+    the step is data parallel (module docstring); the metrics are this
+    rank's shares of the global means (their sum over the ranks is the
+    global value)."""
     space = model.space
     oracle, _ = make_oracle(model, use_torch_oracle)
+    dp = _DataParallel(mesh)
 
     def losses_g(g_params, d_frozen, batch, noise):
         probs = G.generator_apply(g_params, space, batch["net_enc"],
@@ -129,23 +187,23 @@ def _make_step_body(model: DesignModel, cfg: G.GANConfig,
         sat_logits = G.discriminator_apply(d_frozen, batch["net_enc"], probs,
                                            batch["obj_enc"],
                                            use_fused=cfg.use_fused)
-        loss_critic = torch.mean(G.satisfaction_ce(
+        loss_critic = dp.mean(G.satisfaction_ce(
             sat_logits, torch.ones_like(sat_actual)))
         ce_cfg = G.grouped_cross_entropy(space, batch["cfg_onehot"], probs)
-        loss_config = torch.mean((1.0 - sat_actual) * ce_cfg)  # lines 11/14
+        loss_config = dp.mean((1.0 - sat_actual) * ce_cfg)  # lines 11/14
         loss_g = loss_config + cfg.w_critic * loss_critic
         aux = dict(loss_config=loss_config.detach(),
                    loss_critic=loss_critic.detach(), probs=probs.detach(),
-                   sat_actual=sat_actual, sat_rate=torch.mean(sat_actual))
+                   sat_actual=sat_actual, sat_rate=dp.mean(sat_actual))
         return loss_g, aux
 
     def losses_d(d_params, batch, probs, sat_actual):
         sat_logits = G.discriminator_apply(d_params, batch["net_enc"], probs,
                                            batch["obj_enc"],
                                            use_fused=cfg.use_fused)
-        loss_dis = torch.mean(G.satisfaction_ce(sat_logits, sat_actual))
-        d_acc = torch.mean((torch.argmax(sat_logits, -1).float()
-                            == sat_actual).float())
+        loss_dis = dp.mean(G.satisfaction_ce(sat_logits, sat_actual))
+        d_acc = dp.mean((torch.argmax(sat_logits, -1).float()
+                         == sat_actual).float())
         return loss_dis, dict(d_acc=d_acc)
 
     g_optim = adam(cfg.g_lr)
@@ -154,17 +212,19 @@ def _make_step_body(model: DesignModel, cfg: G.GANConfig,
     def step_body(carry, batch):
         g_params, d_params, g_opt, d_opt, rng = carry
         rng, nrng = prng.split(rng)
-        noise = G.sample_train_noise(nrng, batch["net_enc"].shape[0], cfg)
+        # the global batch's noise from the one key; this rank's rows
+        noise = dp.rows(G.sample_train_noise(
+            nrng, batch["net_enc"].shape[0] * dp.k, cfg))
         d_frozen = tree_map(torch.Tensor.detach, d_params)
         (loss_g, aux), g_grads = value_and_grad(losses_g, g_params, d_frozen,
                                                  batch, noise)
-        g_upd, g_opt = g_optim.update(g_grads, g_opt)
+        g_upd, g_opt = g_optim.update(dp.all_reduce(g_grads), g_opt)
         g_params = apply_updates(g_params, g_upd)
 
         # the D loss sees the probs from before G's update (lines 12/15)
         (loss_d, daux), d_grads = value_and_grad(
             losses_d, d_params, batch, aux["probs"], aux["sat_actual"])
-        d_upd, d_opt = d_optim.update(d_grads, d_opt)
+        d_upd, d_opt = d_optim.update(dp.all_reduce(d_grads), d_opt)
         d_params = apply_updates(d_params, d_upd)
 
         metrics = dict(
@@ -178,20 +238,49 @@ def _make_step_body(model: DesignModel, cfg: G.GANConfig,
 
 
 def make_train_step(model: DesignModel, cfg: G.GANConfig,
-                    use_torch_oracle: Optional[bool] = None):
+                    use_torch_oracle: Optional[bool] = None, mesh=None):
     """The per-batch update of Algorithm 1 as one call:
     step(g_params, d_params, g_opt, d_opt, batch, rng) -> (g_params,
     d_params, g_opt, d_opt, rng, metrics).  ``train_gan`` loops the same
-    body."""
+    body.  With a `mesh` the step takes the global batch, runs data
+    parallel on this rank's rows (``_batch_constrainer``) and returns the
+    global metrics."""
     g_optim, d_optim, step_body = _make_step_body(model, cfg,
-                                                  use_torch_oracle)
+                                                  use_torch_oracle, mesh)
+    constrain = _batch_constrainer(mesh)
+    dp = _DataParallel(mesh)
 
     def step(g_params, d_params, g_opt, d_opt, batch, rng):
         carry, metrics = step_body((g_params, d_params, g_opt, d_opt, rng),
-                                   batch)
-        return (*carry, metrics)
+                                   constrain(batch))
+        return (*carry, dp.all_reduce(metrics))
 
     return g_optim, d_optim, step
+
+
+def make_epoch_fn(model: DesignModel, cfg: G.GANConfig,
+                  use_torch_oracle: Optional[bool] = None, mesh=None):
+    """One epoch as a function: epoch(carry, data, perm) -> (carry,
+    metrics), carry = (g_params, d_params, g_opt, d_opt, rng), data the
+    encoded dataset on the device (N, ...), perm (n_batches, rows) int64
+    row indices on the device — with a `mesh`, this rank's columns of the
+    epoch's (n_batches, batch_size) permutation.  Each batch is gathered
+    on the device and stepped; metrics are (n_batches,) tensors of the
+    global values (one all-reduce an epoch under a mesh)."""
+    g_optim, d_optim, step_body = _make_step_body(model, cfg,
+                                                  use_torch_oracle, mesh)
+    dp = _DataParallel(mesh)
+
+    def epoch(carry, data, perm):
+        steps = []
+        for b in range(perm.shape[0]):
+            carry, metrics = step_body(carry,
+                                       {k: v[perm[b]] for k, v in data.items()})
+            steps.append(metrics)
+        out = {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
+        return carry, dp.all_reduce(out)
+
+    return g_optim, d_optim, epoch
 
 
 def encode_batch(model: DesignModel, ds: Dataset,
@@ -250,6 +339,7 @@ def train_gan(
     seed: int = 0,
     log_every: int = 0,
     use_torch_oracle: Optional[bool] = None,
+    mesh=None,
     state: Optional[TrainState] = None,
     device=None,
 ) -> TrainState:
@@ -260,12 +350,25 @@ def train_gan(
     moments and rng all resume; ``seed`` then drives only the epoch
     permutations, which come from ``np.random.default_rng(seed)`` as in the
     reference).  The history holds one record per step; its metrics are
-    read from the device once per epoch."""
+    read from the device once per epoch.
+
+    ``mesh=None`` picks up the active task mesh (``shard.set_task_mesh``);
+    with one, each epoch runs data parallel over the mesh's batch axes
+    (module docstring): every rank draws the same permutation and gathers
+    its columns.  It falls back to the unsharded path, the same bits as no
+    mesh, when the shard count does not divide ``min(batch_size, n)``.  A
+    warm-start `state` is broadcast from the mesh's first rank; a fresh
+    one is drawn from `seed` on every rank alike."""
     device = resolve_device(device)
-    _, _, step_body = _make_step_body(model, cfg, use_torch_oracle)
+    mesh = shard.get_task_mesh() if mesh is None else mesh
+    k = shard.n_task_shards(mesh)
+    if k <= 1 or min(cfg.batch_size, ds.n) % k != 0:
+        mesh = None
+    _, _, epoch = make_epoch_fn(model, cfg, use_torch_oracle, mesh)
     if state is None:
-        state = init_state(model, cfg, seed, device)
-    carry = _to_device(state, device)
+        carry = _to_device(init_state(model, cfg, seed, device), device)
+    else:
+        carry = shard.replicate(_to_device(state, device), mesh)
 
     np_rng = np.random.default_rng(seed)
     n = ds.n
@@ -276,16 +379,12 @@ def train_gan(
     t0 = time.time()
     for it in range(iters):
         perm = np_rng.permutation(n)[: n_batches * bs].reshape(n_batches, bs)
-        perm = torch.from_numpy(perm).to(device)
-        epoch = []
-        for b in range(n_batches):
-            batch = {k: v[perm[b]] for k, v in data.items()}
-            carry, metrics = step_body(carry, batch)
-            epoch.append(metrics)
-        names = list(epoch[0])
+        perm = torch.from_numpy(shard.put_sharded(perm, mesh, axis=1)
+                                if mesh is not None else perm).to(device)
+        carry, metrics = epoch(carry, data, perm)
+        names = list(metrics)
         # the epoch's one read of the device
-        values = torch.stack([torch.stack([m[k] for k in names])
-                              for m in epoch]).cpu().numpy()
+        values = torch.stack([metrics[k] for k in names], 1).cpu().numpy()
         for row in values:
             rec = {k: float(v) for k, v in zip(names, row)}
             rec["iter"] = it

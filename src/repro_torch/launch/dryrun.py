@@ -5,7 +5,8 @@ peak of live bytes fits the card.
 
 The port's counterpart of the reference's ``launch/dryrun.py``, which
 lowers and compiles each cell on TPU meshes.  Here there is one card
-(``chips = 1``) and no ``--mesh`` (ROADMAP Queue 1 item 4).  No card is
+(``chips = 1``) and no ``--mesh`` yet: the per-device bytes of a
+sharded cell wait for ROADMAP Queue 1 item 7.  No card is
 needed: meta tensors carry shapes and no memory, so every cell runs on
 any host, the 33B-param archs included.
 

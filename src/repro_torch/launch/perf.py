@@ -4,8 +4,9 @@ put on the card's roofline (``utils/roofline``), one JSONL row a variant.
 
 The port's counterpart of the reference's ``launch/perf.py``.  Its knobs
 here are ``micro`` (gradient accumulation) and ``remat``; the
-reference's ``fsdp`` and ``act`` shard over a mesh and wait for ROADMAP
-Queue 1 item 4.  No card is needed.
+reference's ``fsdp`` and ``act`` shard over a mesh, and their per-device
+bytes from the specs (``train/shardings``) wait for ROADMAP Queue 1
+item 7.  No card is needed.
 
   PYTHONPATH=src python -m repro_torch.launch.perf --arch stablelm-1.6b \\
       [--shape train_4k] [--batch B] [--seq S] [--reduced] \\

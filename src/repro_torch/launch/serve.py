@@ -99,7 +99,7 @@ class Engine:
     """
 
     def __init__(self, m, params, batch_slots: int, cache_len: int,
-                 eos: Optional[int] = None, device=None):
+                 mesh=None, eos: Optional[int] = None, device=None):
         want = resolve_device(device)
         self.device = params["ln_f"]["scale"].device
         if self.device.type != want.type:
@@ -124,7 +124,7 @@ class Engine:
                                              or sp.cfg.window > cache_len)
             for seg in m.segments for sp in seg.pattern) else None
         self.start = np.zeros(batch_slots, np.int32)  # per-slot stream start
-        self._decode = TS.make_decode_step(m)
+        self._decode = TS.make_decode_step(m, mesh=mesh)
         self.queue: List[Request] = []
         self.finished: List[Request] = []
 

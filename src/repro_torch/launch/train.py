@@ -21,9 +21,10 @@ synthetic stream makes no audio frames, so the reference's launcher
 cannot train it either (it fails inside its step).
 
 ``--device`` defaults to the card and raises where there is none; the CPU
-runs only when named.  There is no mesh (one card): the reference's
-``make_host_mesh`` belongs to the multi-device half (ROADMAP Queue 1).
-The params come from ``models/base.init_params`` on ``prng_key(--seed)``,
+runs only when named.  The step runs under ``make_host_mesh()``, as the
+reference's does: (data=n, model=1) over the process group's ranks (a
+world of one when none is running), so an MoE arch takes the reference's
+``e_par`` combine and its groups.  The params come from ``models/base.init_params`` on ``prng_key(--seed)``,
 the reference's initial weights for the same seed, bit for bit.
 """
 from __future__ import annotations
@@ -43,6 +44,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import prng
 from repro_torch.core.explorer import resolve_device
 from repro_torch.data.synthetic import DataConfig, SyntheticStream
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import base as MB
 from repro_torch.train import step as TS
 
@@ -122,7 +124,9 @@ def main(argv=None) -> int:
             f"batch['frames'], which SyntheticStream does not make (the "
             f"reference's launcher cannot train it either)")
     device = resolve_device(args.device)
-    train_step_fn, optim = TS.make_train_step(m, lr=args.lr, remat=False)
+    mesh = make_host_mesh(device=device)
+    train_step_fn, optim = TS.make_train_step(m, lr=args.lr, remat=False,
+                                              mesh=mesh)
 
     def initial_state():
         params = MB.init_params(prng.prng_key(torch.tensor(args.seed)), m,

@@ -9,13 +9,17 @@ an O(T x E x cap) one-hot), the experts' SwiGLU FFNs run as three batched
 products, and each token sums its kept assignments' outputs weighted by
 their routing weights.
 
-What one card leaves out: the reference splits the tokens into groups
-along the mesh's batch axes (``_num_groups``), pins its buffers with
-sharding constraints (``_c``) and takes an expert-parallel combine
-(``e_par``) when E divides the 'model' axis.  With no mesh its group
-count is 1 and the constraints are the identity, so the port has one
-group and none of the three; they come back with the multi-device half
-(ROADMAP Queue 1).
+Under a mesh (``train/shardings.use_mesh``) the reference's groups come
+back: the tokens split into G groups along the mesh's batch axes
+(``_num_groups``: the ('pod', 'data') extent when it divides the global
+token count), each group routes its own tokens into its own buffers with
+its own capacity, and with a 'model' axis whose size divides E the combine
+is expert parallel (``e_par``: a gather by capacity position from every
+expert, then a one-hot contraction over E) — on one card, every mesh with
+a 'model' axis.  G comes from the global T: where the step split its batch
+k ways (``shardings.current_split``), this rank's T/k tokens are G/k whole
+groups.  The reference's sharding constraints (``_c``) wait for
+'model'-axis execution (ROADMAP Queue 1 item 6).
 
 Copied from the reference as written (ROADMAP Queue 3):
 
@@ -24,8 +28,10 @@ Copied from the reference as written (ROADMAP Queue 3):
   lanes, so at 4 lanes and 8 experts each expert takes one assignment a
   step, and decode is not prefill;
 * an unoccupied slot gathers token 0 and multiplies it by 0: a non-finite
-  token 0 makes those rows NaN, which the combine never reads but the
-  experts' weight gradients sum.
+  token 0 makes those rows NaN, which the plain combine never reads but
+  the experts' weight gradients sum.  The ``e_par`` combine multiplies
+  every expert's row at an assignment's capacity position by the one-hot,
+  so a NaN row of any expert spreads to every assignment at its position.
 
 The expert products are library batched matmuls, as they are XLA einsums
 in the reference.  The gathers into and out of the buffers are
@@ -41,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
+from repro_torch.train import shardings as SH
 
 
 def moe_init(key: torch.Tensor, n_experts: int, d_model: int, d_ff: int,
@@ -86,26 +93,35 @@ def capacity(t: int, e: int, top_k: int, capacity_factor: float) -> int:
 
 
 def _dispatch_group(idx: torch.Tensor, e: int, cap: int):
-    """idx (T, K) -> (buf_tok (E·cap,), occupied (E·cap,), slot (T·K,),
-    keep (T·K,)): the token each slot holds (0 where unoccupied), whether
-    it is occupied, each assignment's slot (its position clamped to the
-    last row where it is dropped) and whether it is kept.  Positions come
-    from an int64 cumulative count over the (T·K, E) one-hot, the same
-    integers as the reference's float32 count."""
-    t, k = idx.shape
-    flat = idx.reshape(t * k)
-    onehot = F.one_hot(flat, e)                                # (T·K, E)
-    pos = (onehot.cumsum(0) - onehot).gather(1, flat[:, None])[:, 0]
+    """idx (G, Tg, K) -> (buf_tok (G·E·cap,), occupied (G·E·cap,), slot
+    (G·Tg·K,), keep (G·Tg·K,)): the token each slot holds (its group's
+    first token where unoccupied), whether it is occupied, each
+    assignment's slot (its position clamped to the last row where it is
+    dropped) and whether it is kept.  Group g's slots and tokens follow
+    group g-1's, so the flat indices address the flat (T, D) tokens and
+    (G·E·cap, D) buffers.  Positions come from an int64 cumulative count
+    over each group's (Tg·K, E) one-hot, the same integers as the
+    reference's float32 count.  A (T, K) idx is one group."""
+    if idx.dim() == 2:
+        idx = idx[None]
+    g, t, k = idx.shape
+    flat = idx.reshape(g, t * k)
+    onehot = F.one_hot(flat, e)                                # (G, Tg·K, E)
+    pos = (onehot.cumsum(1) - onehot).gather(2, flat[..., None])[..., 0]
     keep = pos < cap
-    slot = flat * cap + pos.clamp(max=cap - 1)
-    token_of = torch.arange(t, device=idx.device).repeat_interleave(k)
-    slot_safe = torch.where(keep, slot, e * cap)               # dropped
-    buf_tok = torch.zeros(e * cap + 1, dtype=torch.long,
-                          device=idx.device).scatter_(0, slot_safe, token_of)
-    occupied = torch.zeros(e * cap + 1, dtype=torch.float32,
+    base = torch.arange(g, device=idx.device)[:, None]
+    slot = base * (e * cap) + flat * cap + pos.clamp(max=cap - 1)
+    token_of = (base * t + torch.arange(t, device=idx.device)
+                .repeat_interleave(k)[None, :])
+    n = g * e * cap
+    slot_safe = torch.where(keep, slot, n)                     # dropped
+    buf_tok = (base * t).expand(g, e * cap).reshape(n)
+    buf_tok = torch.cat([buf_tok, buf_tok.new_zeros(1)]).scatter_(
+        0, slot_safe.reshape(-1), token_of.reshape(-1))
+    occupied = torch.zeros(n + 1, dtype=torch.float32,
                            device=idx.device).scatter_(
-        0, slot_safe, keep.to(torch.float32))
-    return buf_tok[:-1], occupied[:-1], slot, keep
+        0, slot_safe.reshape(-1), keep.reshape(-1).to(torch.float32))
+    return buf_tok[:-1], occupied[:-1], slot.reshape(-1), keep.reshape(-1)
 
 
 class _Dispatch(torch.autograd.Function):
@@ -148,45 +164,104 @@ class _Combine(torch.autograd.Function):
 
 
 def dispatch(x: torch.Tensor, idx: torch.Tensor, e: int, cap: int):
-    """x (T, D) float32, idx (T, K) -> (xe (E, cap, D), slot, keep): the
-    tokens gathered into their experts' buffers, zero where a slot is
-    unoccupied."""
+    """x (T, D) float32, idx (T, K) or (G, Tg, K) -> (xe (G·E, cap, D),
+    slot, keep): the tokens gathered into their group's experts' buffers,
+    zero where a slot is unoccupied."""
     buf_tok, occupied, slot, keep = _dispatch_group(idx, e, cap)
     xe = _Dispatch.apply(x, buf_tok, occupied, slot, keep)
-    return xe.reshape(e, cap, x.shape[1]), slot, keep
+    return xe.reshape(-1, cap, x.shape[1]), slot, keep
 
 
 def expert_ffn(params, xe: torch.Tensor) -> torch.Tensor:
-    """The experts' SwiGLU on their buffers: xe (E, cap, D) -> (E, cap,
-    D), three batched products."""
+    """The experts' SwiGLU on their buffers: xe (G·E, cap, D) -> (G·E,
+    cap, D), three batched products (each expert's G buffers in one)."""
+    e, cap, d = params["w_gate"].shape[0], xe.shape[1], xe.shape[2]
+    g = xe.shape[0] // e
+    xe = xe.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
     h = F.silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(xe,
                                                             params["w_up"])
-    return torch.bmm(h, params["w_down"])
+    ye = torch.bmm(h, params["w_down"])
+    return ye.reshape(e, g, cap, -1).transpose(0, 1).reshape(g * e, cap, -1)
 
 
 def combine(ye: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
             wts: torch.Tensor) -> torch.Tensor:
-    """ye (E, cap, D), wts (T, K) -> (T, D): each token's kept
+    """ye (G·E, cap, D), wts (T, K) -> (T, D): each token's kept
     assignments' slot outputs weighted by their routing weights and summed
     in k order (a dropped assignment's weight is zeroed)."""
-    t, k = wts.shape
     per = _Combine.apply(ye.reshape(-1, ye.shape[-1]), slot, keep)
+    return _weighted_sum(per, keep, wts)
+
+
+def combine_e_par(ye: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+                  wts: torch.Tensor, g: int) -> torch.Tensor:
+    """The reference's expert-parallel combine: each assignment gathers
+    the row at its capacity position from every expert of its group, and
+    a one-hot over E picks its own expert's.  On finite rows the same bits
+    as `combine`; a NaN row of any expert spreads to every assignment at
+    its capacity position."""
+    ge, cap, d = ye.shape
+    e = ge // g
+    local = slot.reshape(g, -1) - torch.arange(
+        g, device=slot.device)[:, None] * (e * cap)            # (G, Tg·K)
+    pos = (local % cap).clamp(max=cap - 1)
+    ye4 = ye.reshape(g, e, cap, d)
+    gathered = torch.gather(
+        ye4, 2, pos[:, None, :, None].expand(g, e, pos.shape[1], d))
+    own = F.one_hot(local // cap, e).to(ye.dtype)              # (G, Tg·K, E)
+    per = (gathered * own.transpose(1, 2)[..., None]).sum(1)   # (G, Tg·K, D)
+    return _weighted_sum(per.reshape(-1, d), keep, wts)
+
+
+def _weighted_sum(per, keep, wts):
+    t, k = wts.shape
     w_keep = wts.reshape(t * k, 1) * keep[:, None].to(torch.float32)
     return (per * w_keep).reshape(t, k, -1).sum(1)
+
+
+def _num_groups(t: int) -> int:
+    """Groups = the ('pod', 'data') mesh extent when it divides the global
+    token count `t` (1 with no mesh)."""
+    mesh = SH.current_mesh()
+    if mesh is None:
+        return 1
+    g = SH.axis_size(mesh, SH.batch_axes(mesh))
+    return g if g > 1 and t % g == 0 else 1
+
+
+def _e_par(e: int) -> bool:
+    """Expert-parallel combine: a mesh with a 'model' axis whose size
+    divides E (the reference's rule; size 1 divides every E)."""
+    mesh = SH.current_mesh()
+    return (mesh is not None and "model" in SH.mesh_sizes(mesh)
+            and e % SH.axis_size(mesh, "model") == 0)
 
 
 def moe_apply(params, x: torch.Tensor, *, top_k: int = 2,
               capacity_factor: float = 1.25, aux_loss: bool = False):
     """x (T, D) flattened tokens -> (T, D) [and the Switch load-balancing
-    loss over all tokens if `aux_loss`]."""
+    loss over all tokens if `aux_loss`].  Under a mesh, the tokens route in
+    the reference's groups, each with the capacity of its Tg tokens, and
+    the combine is ``e_par``'s where the reference's is (module
+    docstring)."""
     t = x.shape[0]
     e = params["router"].shape[-1]
-    cap = capacity(t, e, top_k, capacity_factor)
+    split = SH.current_split()
+    g_all = _num_groups(t * split)
+    assert g_all % split == 0, (g_all, split)
+    g = g_all // split                        # the groups this rank holds
+    tg = t // g
+    cap = capacity(tg, e, top_k, capacity_factor)
     xf = x.to(torch.float32)
     logits = xf @ params["router"]
     idx, wts = route_topk(logits, top_k)
-    xe, slot, keep = dispatch(xf, idx, e, cap)
-    y = combine(expert_ffn(params, xe), slot, keep, wts).to(x.dtype)
+    xe, slot, keep = dispatch(xf, idx.reshape(g, tg, top_k), e, cap)
+    ye = expert_ffn(params, xe)
+    if _e_par(e):
+        y = combine_e_par(ye, slot, keep, wts, g)
+    else:
+        y = combine(ye, slot, keep, wts)
+    y = y.to(x.dtype)
     if not aux_loss:
         return y
     me = F.one_hot(idx[:, 0], e).to(torch.float32).mean(0)

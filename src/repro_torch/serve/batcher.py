@@ -12,8 +12,11 @@ Per-request seeds ride along as a (T,) array (`task_keys` array form), so
 a request's Selection never depends on which micro-batch it landed in or
 at which position.
 
-The reference also pads to a multiple of its task-mesh shard count; on
-one card there is no task mesh, so the plain pow2 bucket is the whole rule.
+Under an active task mesh the padded size is also a multiple of the
+shard count — ``n_shards * pow2_bucket(ceil(m / n_shards))`` — so one
+sharded dispatch serves the whole micro-batch with every rank's block full
+(the count is ``shard.active_n_shards()``, read when a batch forms; 1
+shard is the plain pow2 bucket).
 
 Thread safety: every queue operation holds one internal lock, so the
 concurrent front end can admit from submitter threads while the former
@@ -30,7 +33,7 @@ from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.shard import pad_rows, pow2_bucket
+from repro_torch.core import shard
 from repro_torch.dataset.generator import DSETask
 from repro_torch.serve.request import DSERequest
 
@@ -154,7 +157,11 @@ class MicroBatcher:
         m = len(reqs)
         tasks = DSETask.concat([r.as_task() for r in reqs])
         seeds = np.array([r.seed for r in reqs], np.int64)
-        rows = pad_rows(m, pow2_bucket(m, floor=1)) if self.pad_pow2 else None
+        k = shard.active_n_shards()
+        per_shard = -(-m // k)       # ceil(m / k)
+        if self.pad_pow2:
+            per_shard = shard.pow2_bucket(per_shard, floor=1)
+        rows = shard.pad_rows(m, per_shard * k)
         if rows is not None:
             tasks = tasks.take(rows)
             seeds = seeds[rows]

@@ -64,6 +64,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import shard
 from repro_torch.core.dse_api import DSEMethod, DSEResult, parse_network
 from repro_torch.kernels import dispatch as _dispatch
 from repro_torch.serve.batcher import MicroBatch, MicroBatcher
@@ -72,6 +73,7 @@ from repro_torch.serve.request import (SOURCE_CACHE, SOURCE_COALESCED,
                                        SOURCE_DISPATCH, SOURCE_FAILED,
                                        SOURCE_REJECTED, DSERequest,
                                        DSEResponse)
+from repro_torch.train.shardings import mesh_sizes
 
 
 def _now() -> float:
@@ -608,5 +610,10 @@ class DSEServer:
                         for name, e in engines},
             "fused": {name: engine_route(e) for name, e in engines},
         }
-        s["sharding"] = {"n_shards": 1, "mesh": None}   # one card, no mesh
+        mesh = shard.get_task_mesh()
+        s["sharding"] = {
+            "n_shards": shard.active_n_shards(),
+            "mesh": mesh_sizes(mesh) if mesh is not None else None,
+            "task_axes": shard.task_axes(mesh),
+        }
         return s

@@ -10,11 +10,18 @@ with no memory and no draws, as the reference's ``jax.eval_shape`` gives
 calling a case's step on them runs every op and kernel wrapper's meta
 route, which ``utils/op_cost`` counts.
 
-No mesh: one card.  The reference's ``mesh`` and ``act_shard`` place the
-step's arrays on a device mesh (``train/shardings``, ROADMAP Queue 1's
-multi-device half); on one card they are the identity, so the port's
-factories do not take them, and ``build_case`` has no ``batch_specs``,
-shardings, ``fsdp`` or ``act_shard`` yet.
+Under a mesh (``launch/mesh``) the train step is data parallel over the
+mesh's batch axes: every rank is handed the global batch and takes its
+rows of every microbatch where the shard count divides them (so every
+MoE token group is the reference's), computes its loss and gradients,
+and the losses and gradients are all-reduced to the global means before
+the replicated AdamW update.  Where they do not divide, every rank
+computes the whole batch (the reference replicates it too,
+``batch_specs``).  The prefill and decode steps install the mesh, so the
+MoE layers route in the reference's groups, and compute the whole batch
+on every rank.  A 'model' axis larger than 1 raises
+(``shardings.require_no_model_axis``).  ``build_case`` has no mesh,
+``fsdp`` or ``act_shard`` knob yet (ROADMAP Queue 1 items 6-7).
 """
 from __future__ import annotations
 
@@ -26,8 +33,10 @@ import torch
 from repro_torch.configs.shapes import Shape
 from repro_torch.configs.whisper_small import DECODER_TRAIN_LEN
 from repro_torch.core import prng
+from repro_torch.core import shard
 from repro_torch.models import base as MB
 from repro_torch.optim import adamw, tree_leaves, tree_map, tree_unflatten
+from repro_torch.train import shardings as SH
 
 
 # ---------------------------------------------------------------------------
@@ -85,8 +94,15 @@ def _split(x: torch.Tensor, microbatches: int) -> torch.Tensor:
     return x.reshape(microbatches, -1, *x.shape[1:])
 
 
+def _rows(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """This rank's rows of every value of a batch: axis 1 of (3, B, S)
+    positions, axis 0 of the rest."""
+    return {k: shard.put_sharded(v, mesh, axis=1 if k == "positions" else 0)
+            for k, v in batch.items()}
+
+
 def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
-                    microbatches: int = 1, grad_compress=None,
+                    mesh=None, microbatches: int = 1, grad_compress=None,
                     use_fused: Optional[bool] = None
                     ) -> Tuple[Callable, Any]:
     """Returns (train_step, optimizer).  train_step(params, opt_state,
@@ -107,12 +123,20 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
     calling convention).  Every attention layer runs the flash kernel on
     the card, differentiated by ``nn/attention.FlashAttentionFn``;
     ``use_fused=False`` takes the plain attention under torch's autograd.
+
+    ``mesh`` makes the step data parallel over its batch axes (module
+    docstring); every rank passes the same global batch and params.  The
+    reference's ``act_shard`` layout policy waits for 'model'-axis
+    execution (ROADMAP Queue 1 item 6).
     """
+    SH.require_no_model_axis(mesh)
+    k = shard.n_task_shards(mesh)
     optim = adamw(lr, weight_decay=0.1, clip_norm=1.0)
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, split: int):
+        mine = (lambda b: _rows(b, mesh)) if split > 1 else (lambda b: b)
         if microbatches <= 1:
-            return loss_and_grads(m, params, batch, remat=remat,
+            return loss_and_grads(m, params, mine(batch), remat=remat,
                                   use_fused=use_fused)
         micro = {k: _split(v, microbatches) for k, v in batch.items()}
         loss_sum = torch.zeros((), dtype=torch.float32,
@@ -120,9 +144,9 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
         g_sum = [torch.zeros_like(p, dtype=torch.float32)
                  for p in tree_leaves(params)]
         for i in range(microbatches):
-            loss, g = loss_and_grads(m, params,
-                                     {k: v[i] for k, v in micro.items()},
-                                     remat=remat, use_fused=use_fused)
+            loss, g = loss_and_grads(
+                m, params, mine({k: v[i] for k, v in micro.items()}),
+                remat=remat, use_fused=use_fused)
             loss_sum = loss_sum + loss
             for acc, gi in zip(g_sum, tree_leaves(g)):
                 acc.add_(gi)
@@ -132,7 +156,14 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
                                               [g.mul_(inv) for g in g_sum])
 
     def train_step(params, opt_state, batch):
-        loss, grads = grads_of(params, batch)
+        # split where every microbatch's rows divide over the ranks
+        rows = batch["tokens"].shape[0] // max(microbatches, 1)
+        split = k if k > 1 and rows % k == 0 else 1
+        with SH.use_mesh(mesh, split=split):
+            loss, grads = grads_of(params, batch, split)
+        if split > 1:       # the global means: a sum over the ranks, 1/k
+            loss, grads = tree_map(lambda t: t.mul_(1.0 / split),
+                                   shard.all_reduce((loss, grads), mesh))
         if grad_compress is not None:
             grads = grad_compress(grads)
         opt_state = optim.update_in_place(grads, opt_state, params)
@@ -141,16 +172,20 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
     return train_step, optim
 
 
-def make_prefill_step(m: MB.ModelCfg, *,
+def make_prefill_step(m: MB.ModelCfg, *, mesh=None,
                       use_fused: Optional[bool] = None) -> Callable:
     """prefill_step(params, batch) -> last-position logits (B, V).
 
     ``batch["tokens"]`` (B, S); ``batch["positions"]`` optional; an
     encoder-decoder's ``batch["frames"]`` (B, S_enc, D), encoded first.
     Every attention layer runs the flash-attention kernel on the card;
-    ``use_fused=False`` takes the plain attention instead."""
+    ``use_fused=False`` takes the plain attention instead.  ``mesh`` is
+    installed for the step (the MoE layers' groups follow it); every rank
+    computes the whole batch."""
+    SH.require_no_model_axis(mesh)
+
     def prefill_step(params, batch):
-        with torch.no_grad():
+        with torch.no_grad(), SH.use_mesh(mesh):
             enc_out = None
             if m.enc_segments is not None:
                 enc_out = MB.encode(params, m, batch["frames"],
@@ -164,12 +199,15 @@ def make_prefill_step(m: MB.ModelCfg, *,
     return prefill_step
 
 
-def make_decode_step(m: MB.ModelCfg) -> Callable:
+def make_decode_step(m: MB.ModelCfg, *, mesh=None) -> Callable:
     """decode_step(params, token, pos, states, enc_out=None, start=None)
     -> (logits (B, 1, V), states), the reference's argument order; see
-    ``models/base.decode_step``."""
+    ``models/base.decode_step``.  ``mesh`` is installed for the step, as
+    in ``make_prefill_step``."""
+    SH.require_no_model_axis(mesh)
+
     def decode_step(params, token, pos, states, enc_out=None, start=None):
-        with torch.no_grad():
+        with torch.no_grad(), SH.use_mesh(mesh):
             return MB.decode_step(params, m, token, pos, states,
                                   enc_out=enc_out, start=start)
 
@@ -202,6 +240,23 @@ def batch_structs(m: MB.ModelCfg, shape: Shape,
     out = {"tokens": _struct((b, s), i32), "labels": _struct((b, s), i32)}
     if m.family == "vlm":
         out["positions"] = _struct((3, b, s), i32)
+    return out
+
+
+def batch_specs(m: MB.ModelCfg, shape: Shape, mesh) -> Dict[str, SH.P]:
+    """The reference's specs of a batch: B over the batch axes where it
+    divides their product, else over 'data' where that divides, else
+    replicated."""
+    ba = SH.batch_axes(mesh)
+    b = shape.global_batch
+    b_ax = ba if b % SH.axis_size(mesh, ba) == 0 else (
+        "data" if b % SH.axis_size(mesh, "data") == 0 else None)
+    if m.enc_segments is not None:
+        return {"frames": SH.P(b_ax, None, None), "tokens": SH.P(b_ax, None),
+                "labels": SH.P(b_ax, None)}
+    out = {"tokens": SH.P(b_ax, None), "labels": SH.P(b_ax, None)}
+    if m.family == "vlm":
+        out["positions"] = SH.P(None, b_ax, None)
     return out
 
 

@@ -1,0 +1,240 @@
+"""One rank of the gloo world that ``tests/test_torch_mesh_ranks.py``
+starts on the CPU: joins the process group from a ``FileStore``, builds
+``make_host_mesh()`` and runs every scenario of the port over it, each
+beside its one-rank run, then pickles what it saw for the test to hold.
+
+    python tests/_torch_ranks.py RANK WORLD STORE_PATH OUT_DIR
+
+Imports only ``torch`` and ``repro_torch``.
+"""
+import pickle
+import sys
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import configs
+from repro_torch.baselines.drl import PolicyGradientDRL
+from repro_torch.baselines.mlp import LargeMLP
+from repro_torch.baselines.sa import SimulatedAnnealing
+from repro_torch.core import gan as G
+from repro_torch.core import prng
+from repro_torch.core import shard
+from repro_torch.core.dse_api import GANDSE
+from repro_torch.core.explorer import (ExplorerConfig,
+                                       enumerate_candidates_batch)
+from repro_torch.core.fused_select import fused_select_batch
+from repro_torch.core.selector import select_batch
+from repro_torch.core.train import train_gan
+from repro_torch.dataset.generator import generate_dataset, generate_tasks
+from repro_torch.design_models.im2col import Im2colModel
+from repro_torch.launch.mesh import init_process_group, make_host_mesh
+from repro_torch.models import base as MB
+from repro_torch.optim import tree_leaves
+from repro_torch.serve import DSEServer, ServeConfig
+from repro_torch.train import step as TS
+
+#: the MoE batches: B = 4 splits over 4 ranks, B = 2 does not (every rank
+#: then computes the whole batch in the reference's 4 token groups)
+MOE_BATCHES = (4, 2)
+SEQ = 32
+#: explore_batch's task counts: aligned and ragged on 4 ranks
+DSE_TASKS = (8, 6)
+#: train_gan's (batch, epochs): 30 % 4 != 0 is the fallback
+TRAIN_RUNS = ((32, 2), (30, 1))
+
+
+def dse_cfg(gan, model, batch_size: int = 64):
+    """The tiny GAN config of the DSE and train scenarios, from either
+    package's ``core/gan`` module."""
+    return gan.GANConfig(n_net=model.net_space.n_dims).scaled(
+        layers=1, neurons=32, batch_size=batch_size, lr=1e-3)
+
+
+def moe_batch(b: int, vocab: int):
+    toks = np.random.default_rng(b).integers(0, vocab, (b, SEQ))
+    return toks, np.roll(toks, -1, 1)
+
+
+def flat(tree, path=()) -> dict:
+    """{"a/b/0/c": numpy} of a params tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree
+                for k, v in flat(tree[key], path + (str(key),)).items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, t in enumerate(tree)
+                for k, v in flat(t, path + (str(i),)).items()}
+    if isinstance(tree, torch.Tensor):
+        tree = tree.detach().numpy().copy()
+    return {"/".join(path): np.asarray(tree)}
+
+
+def sel(s):
+    """A Selection of either package as plain values."""
+    return (None if s.cfg_idx is None else np.asarray(s.cfg_idx).tolist(),
+            float(s.latency), float(s.power), bool(s.satisfied),
+            int(s.n_candidates))
+
+
+def _sels(results):
+    return [sel(r.selection) for r in results]
+
+
+GATHERS = [0]
+_gather = shard.gather_objects
+
+
+def _counted_gather(items, mesh=None):
+    GATHERS[0] += 1
+    return _gather(items, mesh)
+
+
+shard.gather_objects = _counted_gather
+
+
+def _both(mesh, fn):
+    """(fn() with no mesh, fn() under the task mesh, the gathers the
+    latter made)."""
+    base = fn()
+    before = GATHERS[0]
+    with shard.task_mesh(mesh):
+        sharded = fn()
+    return base, sharded, GATHERS[0] - before
+
+
+def dse(mesh):
+    model = Im2colModel()
+    cfg = dse_cfg(G, model)
+    xcfg = ExplorerConfig(prob_threshold=0.1, max_candidates=128)
+    ds = generate_dataset(model, 256, seed=0)
+    eng = GANDSE(model, cfg, xcfg, device="cpu")
+    eng.attach(ds, G.init_generator(prng.prng_key(torch.tensor(3)), cfg,
+                                    model.space, "cpu"))
+    out = {}
+    for n in DSE_TASKS:
+        tasks = generate_tasks(model, n, seed=2)
+        out[f"explore {n}"] = _both(
+            mesh, lambda: _sels(eng.explore_batch(tasks, seed=7)))
+    tasks = generate_tasks(model, 8, seed=4)
+    probs = eng._explorer.generator_probs_device(
+        tasks.net_idx, tasks.lat_obj, tasks.pow_obj,
+        seed=np.arange(8) + 11)
+    cand, valid, counts = enumerate_candidates_batch(
+        model.space, probs, xcfg.prob_threshold, xcfg.max_candidates)
+    out["select_batch"] = _both(mesh, lambda: [sel(s) for s in select_batch(
+        model, tasks.net_idx, cand, valid, counts, tasks.lat_obj,
+        tasks.pow_obj)])
+    out["fused_select"] = _both(mesh, lambda: [sel(s) for s in
+                                               fused_select_batch(
+        model, tasks.net_idx, probs, 0.05, 512, tasks.lat_obj,
+        tasks.pow_obj, tile=16)])
+
+    tasks = generate_tasks(model, 6, seed=3)
+    sa = SimulatedAnnealing(model, cooling=0.6, device="cpu")
+    drl = PolicyGradientDRL(model, hidden_layers=2, neurons=16,
+                            rollout_len=4, device="cpu")
+    drl.attach(ds, drl.init_params(0))
+    lm = LargeMLP(model, hidden_layers=2, neurons=32, device="cpu")
+    lm.attach(ds, lm.init_params(0))
+    for e in (sa, drl, lm):
+        out[e.method_name] = _both(
+            mesh, lambda: _sels(e.explore_tasks(tasks, seed=5)))
+
+    # single submissions through the serving stack
+    tasks = generate_tasks(model, 5, seed=6)
+
+    def serve(active):
+        srv = DSEServer(ServeConfig(max_batch=64, cache_capacity=0))
+        srv.register(eng)
+        with shard.task_mesh(active):
+            rids = [srv.submit(model.name, tasks.net_idx[i],
+                               tasks.lat_obj[i], tasks.pow_obj[i],
+                               seed=100 + i) for i in range(5)]
+            srv.drain()
+            in_mesh = srv.summary()["sharding"]
+        return ([sel(srv.response(r).result.selection) for r in rids],
+                srv.stats["padded_rows"], in_mesh,
+                srv.summary()["sharding"])
+
+    out["serve"] = (serve(None), serve(mesh))
+    return out
+
+
+def train(mesh):
+    model = Im2colModel()
+    out = {}
+    for bs, iters in TRAIN_RUNS:
+        cfg = dse_cfg(G, model, bs)
+        ds = generate_dataset(model, 128, seed=0)
+        out[f"train {bs}"] = _both(mesh, lambda: _state(
+            train_gan(model, ds, cfg, iters=iters, seed=0,
+                      device="cpu")))[:2]
+    return out
+
+
+def _state(st):
+    """({"g/...": numpy} of G's and D's params, the loss_g history)."""
+    return (flat({"g": st.g_params, "d": st.d_params}),
+            [h["loss_g"] for h in st.history])
+
+
+def lm(mesh):
+    """Reduced stablelm's train step at B 4 (and 8 in 2 microbatches) on
+    the mesh beside the one-rank step; reduced mixtral's prefill and one
+    train step under the mesh at each of ``MOE_BATCHES``."""
+    out = {}
+    m = configs.get_reduced("stablelm-1.6b")
+    for b, micro in ((4, 1), (8, 2)):
+        toks = np.random.default_rng(b).integers(0, m.vocab, (b, SEQ))
+        batch = {"tokens": torch.from_numpy(toks),
+                 "labels": torch.from_numpy(np.roll(toks, -1, 1))}
+
+        def run(active):
+            params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
+            step, optim = TS.make_train_step(m, lr=1e-3, remat=False,
+                                             mesh=active, microbatches=micro)
+            opt = optim.init(params)
+            losses = []
+            for _ in range(2):
+                params, opt, met = step(params, opt, batch)
+                losses.append(float(met["loss"]))
+            return [t.numpy().copy() for t in tree_leaves(params)], losses
+
+        out[f"stablelm {b}x{micro}"] = (run(None), run(mesh))
+
+    m = configs.get_reduced("mixtral-8x7b")
+    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
+    for b in MOE_BATCHES:
+        toks, labels = moe_batch(b, m.vocab)
+        tok = torch.from_numpy(toks)
+        logits = TS.make_prefill_step(m, mesh=mesh)(params, {"tokens": tok})
+        step, optim = TS.make_train_step(m, lr=1e-3, remat=False, mesh=mesh)
+        p = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
+        p, _, met = step(p, optim.init(p), {"tokens": tok,
+                                            "labels": torch.from_numpy(labels)})
+        out[f"mixtral {b}"] = (logits.numpy(), float(met["loss"]),
+                               flat(p))
+    return out
+
+
+def main(rank: int, world: int, store_path: str, out_dir: str) -> None:
+    torch.set_num_threads(1)
+    init_process_group("gloo", dist.FileStore(store_path, world), rank,
+                       world, timeout_s=120)
+    mesh = make_host_mesh(device="cpu")
+    out = {"mesh": (tuple(mesh.shape), mesh.mesh_dim_names),
+           "n_shards": shard.n_task_shards(mesh)}
+    try:
+        for part in (dse, train, lm):
+            out.update(part(mesh))
+    except Exception:
+        out["error"] = traceback.format_exc()
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

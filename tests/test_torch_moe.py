@@ -379,6 +379,94 @@ def test_decode_is_not_prefill_with_the_reference_capacity(models,
         **MODEL_TOL)
 
 
+class _HostMesh:
+    """The port's view of a one-device host mesh, (data=1, model=1)."""
+    shape = {"data": 1, "model": 1}
+
+
+def test_e_par_combine_under_the_host_mesh_spreads_nan_as_the_reference():
+    """Under the one-device host mesh both packages take the
+    expert-parallel combine (a size-1 'model' axis divides E): on finite
+    tokens the port's is the plain combine's bits, forward and gradient,
+    and with token 0 non-finite 1 row is NaN without the mesh and 52 of
+    256 under it, in both packages (moe_init(key 0, 8, 64, 128), x from
+    key 1, top 2)."""
+    from repro.launch.mesh import make_host_mesh as j_host_mesh
+    from repro.train import shardings as JSH
+    from repro_torch.train import shardings as TSH
+
+    jp = JM.moe_init(jax.random.PRNGKey(0), 8, 64, 128)
+    tp = {k: _t(v) for k, v in jp.items()}
+    x0 = np.asarray(jax.random.normal(jax.random.PRNGKey(1), (256, 64)))
+    # one jit a context: the mesh is read at trace time
+    j_apply = jax.jit(lambda p, a: JM.moe_apply(p, a, top_k=2))
+    j_apply_mesh = jax.jit(lambda p, a: JM.moe_apply(p, a, top_k=2))
+
+    def port(x, mesh, grad=False):
+        live = {k: v.clone().requires_grad_(grad) for k, v in tp.items()}
+        with TSH.use_mesh(mesh):
+            y = TM.moe_apply(live, _t(x), top_k=2)
+        if not grad:
+            return y.detach().numpy()
+        g = torch.autograd.grad((y * y).sum(), list(live.values()))
+        return [t.numpy() for t in g]
+
+    assert TM._e_par(8) is False
+    with TSH.use_mesh(_HostMesh()):
+        assert TM._e_par(8) and TM._num_groups(256) == 1
+    np.testing.assert_array_equal(port(x0, _HostMesh()), port(x0, None))
+    for a, b in zip(port(x0, _HostMesh(), True), port(x0, None, True)):
+        np.testing.assert_array_equal(a, b)
+    bad = x0.copy()
+    bad[0] = np.inf
+    j_plain = np.asarray(j_apply(jp, jnp.asarray(bad)))
+    with JSH.use_mesh(j_host_mesh()):
+        j_mesh = np.asarray(j_apply_mesh(jp, jnp.asarray(bad)))
+    nan_rows = lambda y: int(np.isnan(y).any(axis=1).sum())
+    assert nan_rows(j_plain) == nan_rows(port(bad, None)) == 1
+    assert nan_rows(j_mesh) == nan_rows(port(bad, _HostMesh())) == 52
+    np.testing.assert_array_equal(np.isnan(port(bad, _HostMesh())),
+                                  np.isnan(j_mesh))
+    np.testing.assert_allclose(np.nan_to_num(port(bad, _HostMesh())),
+                               np.nan_to_num(j_mesh), **MODEL_TOL)
+
+
+def test_train_launcher_runs_under_the_host_mesh_as_the_reference(tmp_path):
+    """``launch/train --arch mixtral-8x7b`` builds ``make_host_mesh()`` in
+    both packages, so both take the e_par combine: the port's losses are
+    the reference's over 4 steps on the reduced config."""
+    import json
+
+    from repro.launch import train as JLT
+    from repro_torch.launch import train as TLT
+
+    base = ["--arch", "mixtral-8x7b", "--batch", "4", "--seq", "32",
+            "--steps", "4", "--log-every", "1"]
+    h_ref, h_port = str(tmp_path / "r.json"), str(tmp_path / "p.json")
+    calls = []
+    e_par = TM._e_par
+
+    def spy(e):
+        calls.append(e_par(e))
+        return calls[-1]
+
+    JLT.main(base + ["--ckpt-dir", str(tmp_path / "r"),
+                     "--history-out", h_ref])
+    TM._e_par, saved = spy, TM._e_par
+    try:
+        TLT.main(base + ["--ckpt-dir", str(tmp_path / "p"), "--history-out",
+                         h_port, "--device", "cpu"])
+    finally:
+        TM._e_par = saved
+    assert calls and all(calls)
+    with open(h_ref) as f:
+        want = [r["loss"] for r in json.load(f)]
+    with open(h_port) as f:
+        got = [r["loss"] for r in json.load(f)]
+    assert len(got) == len(want) == 4
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------

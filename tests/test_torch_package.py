@@ -20,7 +20,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 EXAMPLES = [ROOT / "examples" / f"{name}_torch.py"
-            for name in ("quickstart", "serve_lm", "mesh_dse")]
+            for name in ("quickstart", "serve_lm", "mesh_dse", "train_lm")]
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
@@ -58,7 +58,8 @@ def test_port_files_are_found():
                 "kernels/slstm_scan", "configs/xlstm_1_3b",
                 "configs/whisper_small", "configs/qwen2_vl_7b",
                 "utils/roofline", "utils/op_cost", "launch/dryrun",
-                "launch/perf"):
+                "launch/perf", "launch/mesh", "train/shardings",
+                "core/shard"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "chip_smoke.py" in names
     assert all(p.relative_to(ROOT).as_posix() in names for p in EXAMPLES)
@@ -198,3 +199,17 @@ def test_serve_lm_example_twin_runs_on_the_cpu(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         example.main([])
+
+
+def test_train_lm_example_twin_runs_on_the_cpu(capsys, monkeypatch, tmp_path):
+    """``examples/train_lm_torch.py --small --device cpu``: a few steps
+    under ``make_host_mesh()``, the loss falling (the reference's check);
+    without ``--device`` it wants the card."""
+    example = _example("train_lm_torch")
+    losses = example.main(["--small", "--device", "cpu", "--steps", "21",
+                           "--ckpt-dir", str(tmp_path)])
+    assert len(losses) == 2 and losses[-1] < losses[0]
+    assert "done: loss" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.main(["--small"])

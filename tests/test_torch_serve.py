@@ -601,7 +601,8 @@ def test_kernel_route_report_never_claims_the_cpu():
         assert e.gan_cfg.use_fused is use_fused
         assert srv.summary()["kernels"] == {
             "backend": {"dnnweaver": "cpu"}, "fused": {"dnnweaver": False}}
-    assert srv.summary()["sharding"] == {"n_shards": 1, "mesh": None}
+    assert srv.summary()["sharding"] == {"n_shards": 1, "mesh": None,
+                                         "task_axes": None}
 
 
 def test_set_use_fused_rebuilds_on_the_same_params(engine):
