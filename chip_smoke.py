@@ -353,6 +353,25 @@ Then the multi-rank half (phase t, ~60 s):
   card's name and power limit; two ranks time-slice one card, so t2
   checks correctness, not speed.
 
+Then serving across a 'model' axis (phase u, ~80 s): two ranks on the
+one card (``--u-rank`` starts each; gloo, both ``cuda:0``, a (1, 2)
+('data', 'model') mesh), each building the full params from seed 0 of
+stablelm-1.6b at full width and depth and of mixtral-8x7b at full width
+cut to phase l4's 2 layers.  Rank 0 first runs the world of one with
+them (no mesh: stablelm's 2 x 2048 prefill and 8 ``Engine`` steps,
+mixtral's 1 x 2048 prefill, ``train_gan``'s first step at batch 1024).
+Then each rank keeps its blocks under ``param_specs(fsdp=True)`` (the
+``Engine`` shards them and its decode states, ``state_specs``) and drops
+the rest: its param bytes equal its spec blocks' and its card memory
+little more; stablelm's prefill launches flash once a layer on 16 of 32
+heads, mixtral's on 16 with 4 experts a rank, each within TOL·scale of
+the world of one's logits with its argmax; the ``Engine``'s tokens are
+the world of one's; on the (1, 2) task mesh ``explore_batch``'s
+Selections are t1's and ``train_gan``'s first step the world of one's
+within T_GRAD_TOL, with the whole MLP and the dense kernels launched in
+each rank (``u_failures``).  Each path's ms and its collectives' share,
+beside the card's name and power limit.
+
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
 it are the kernel table (JSON) and the card's name and power limit.
@@ -5276,7 +5295,7 @@ def phase_t2(t1_state: dict) -> dict:
     return out
 
 
-def phase_t(engine, warm) -> dict:
+def phase_t(engine, warm) -> tuple:
     """Phase t: t1 then t2, with the card's name and power limit; the
     world of one is shut down at the end."""
     import torch.distributed as dist
@@ -5287,6 +5306,435 @@ def phase_t(engine, warm) -> dict:
     dist.destroy_process_group()
     out = dict(card=smi(), t1=t1, t2=t2, seconds=time.perf_counter() - t0)
     print(f"phase t: {out['seconds']:.1f} s on {out['card']}", flush=True)
+    return out, state
+
+
+# ---------------------------------------------------------------------------
+# phase u: serving across a 'model' axis (train/parallel), two ranks on the
+# one card
+# ---------------------------------------------------------------------------
+#: u's ranks, both on the one card (gloo), on a (1, 2) ('data', 'model')
+#: mesh
+U_RANKS = 2
+U_ARCH = "stablelm-1.6b"
+#: stablelm's prefill, full width and depth
+U_PREFILL = (2, 2048)
+#: the Engine: 2 slots, 2 requests of 4 prompt tokens + 5 new (8 steps);
+#: a cache of 64 (its S, 64, ties dh and goes to 'model' first)
+U_ENGINE = dict(slots=2, cache_len=64, requests=2, prompt=4, max_new=5)
+#: mixtral at full width, cut to MOE_TRAIN_LAYERS layers as phase l4's
+U_MOE_PREFILL = (1, 2048)
+#: train_gan's one step on the task mesh: rows, epochs, batch
+U_TRAIN = (1024, 1, 1024)
+
+
+@contextlib.contextmanager
+def recorded_heads():
+    """The q heads of each flash launch through ``kernels/ops``."""
+    seen = []
+
+    def rec(q, k, v, **kw):
+        seen.append(q.shape[1])
+        return fa.flash_attention(q, k, v, **kw)
+
+    ops._fa = types.SimpleNamespace(flash_attention=rec)
+    try:
+        yield seen
+    finally:
+        ops._fa = fa
+
+
+def u_requests(m) -> list:
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, m.vocab, U_ENGINE["prompt"]).tolist()
+            for _ in range(U_ENGINE["requests"])]
+
+
+def u_engine(m, params, mesh=None) -> dict:
+    """The Engine serving u_requests: its tokens, iterations, the first
+    step's ms and the median of the others', and the launches, counted
+    from zero just before it."""
+    eng = serve.Engine(m, params, U_ENGINE["slots"], U_ENGINE["cache_len"],
+                       mesh=mesh)
+    for i, p in enumerate(u_requests(m)):
+        eng.submit(serve.Request(rid=i, prompt=p, max_new=U_ENGINE["max_new"]))
+    torch.cuda.synchronize()
+    zero_counts()
+    steps = []
+    while eng.queue or any(s is not None for s in eng.slots):
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        steps.append(1e3 * (time.perf_counter() - t0))
+    return dict(tokens={r.rid: r.out for r in eng.finished},
+                iters=len(steps), first_step_ms=steps[0],
+                ms_per_step=statistics.median(steps[1:]),
+                launches=counts(), engine=eng)
+
+
+def u_prefill(m, params, shape, mesh=None) -> dict:
+    """make_prefill_step(mesh=) on the prompts of prefill_tokens(shape):
+    the logits (on the CPU), the flash launches (counted from zero just
+    before it) and their heads of a prefill whose collectives are timed
+    (``u_timed_split``, its ms under a mesh); with no mesh, the ms of a
+    second one."""
+    step = TS.make_prefill_step(m, mesh=mesh)
+    batch = {"tokens": prefill_tokens(m, shape)}
+    zero_counts()
+    got = []
+    with recorded_heads() as heads:
+        split = u_timed_split(lambda: got.append(step(params, batch)))
+    out = dict(logits=got[0].cpu(), heads=heads, launches=counts())
+    if mesh is not None:
+        return dict(out, split=split, ms=split["ms"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, batch)
+    torch.cuda.synchronize()
+    return dict(out, ms=1e3 * (time.perf_counter() - t0))
+
+
+def u_collectives():
+    """``train/parallel``'s three collectives wrapped to add their host
+    time (synchronised before and after: the ranks share one card, so a
+    collective's time includes the wait for the other rank) to a total;
+    returns (the total dict, an undo)."""
+    from repro_torch.train import parallel as PAR
+
+    spent = {"ms": 0.0, "calls": 0, "bytes": 0}
+    saved = {n: getattr(PAR, n) for n in ("gather_dim", "sum_over",
+                                          "max_over")}
+
+    def timed(fn):
+        def run(t, *a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, *a)
+            torch.cuda.synchronize()
+            spent["ms"] += 1e3 * (time.perf_counter() - t0)
+            spent["calls"] += 1
+            spent["bytes"] += out.numel() * out.element_size()
+            return out
+        return run
+
+    for n, fn in saved.items():
+        setattr(PAR, n, timed(fn))
+    return spent, lambda: [setattr(PAR, n, fn) for n, fn in saved.items()]
+
+
+def u_timed_split(fn) -> dict:
+    """One more run of `fn` with the collectives timed: its ms and the
+    collectives' ms, calls and bytes received."""
+    spent, undo = u_collectives()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = 1e3 * (time.perf_counter() - t0)
+    finally:
+        undo()
+    return dict(ms=total, collective_ms=spent["ms"],
+                collective_share=spent["ms"] / total,
+                collective_calls=spent["calls"],
+                collective_bytes=spent["bytes"])
+
+
+def u_blocks_bytes(mesh, tree, specs) -> int:
+    """The bytes of this rank's blocks of every tensor leaf of the full
+    `tree` under `specs`, from the leaves' shapes and the mesh's axis
+    sizes."""
+    leaves = [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    specs = _spec_leaves(specs)
+    assert len(leaves) == len(specs), (len(leaves), len(specs))
+    total = 0
+    for t, spec in zip(leaves, specs):
+        n = t.element_size()
+        for dim, entry in zip(t.shape, spec):
+            n *= dim // SH.axis_size(mesh, SH.norm_axes(entry, mesh) or ())
+        total += n
+    return total
+
+
+def _spec_leaves(specs) -> list:
+    if isinstance(specs, SH.P):
+        return [specs]
+    if isinstance(specs, dict):
+        return [p for v in specs.values() for p in _spec_leaves(v)]
+    if isinstance(specs, (list, tuple)):
+        return [p for v in specs for p in _spec_leaves(v)]
+    return []
+
+
+def _tensors_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def u_init(m) -> tuple:
+    """`m`'s full params from seed 0 on the card, and the seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cuda")
+    torch.cuda.synchronize()
+    return full, time.perf_counter() - t0
+
+
+def u_model(m, mesh, rank: int, prefill_shape, engine: bool) -> dict:
+    """One rank's run of `m`: its full params from seed 0; on rank 0 the
+    world of one first (no mesh: the prefill, with `engine` the Engine);
+    then the Engine built from the full params (it shards them and its
+    decode states) or the params sharded here, the full tree dropped; the
+    bytes kept beside the spec blocks' (counted on the full tree) and the
+    card's ``memory_allocated``; the Engine's 8 steps and one more with
+    the collectives timed; the prefill on the blocks (its logits and
+    routes go back to the script)."""
+    full, init_s = u_init(m)
+    out = dict(init_s=init_s, full_param_bytes=_tensors_bytes(full),
+               spec_block_bytes=u_blocks_bytes(
+                   mesh, full, SH.param_specs(full, mesh)))
+    if rank == 0:
+        with recorded_routes() as routes:
+            one = u_prefill(m, full, prefill_shape)
+        one["routes"] = [r.cpu() for r in routes]
+        if engine:
+            one["engine"] = u_engine(m, full)
+            del one["engine"]["engine"]
+        out["world_of_one"] = one
+    if engine:
+        run = u_engine(m, full, mesh)
+        eng = run.pop("engine")
+        local = eng.params
+        full_states = MB.init_decode_state(full, m, U_ENGINE["slots"],
+                                           U_ENGINE["cache_len"])
+        out.update(state_bytes=_tensors_bytes(eng.states),
+                   state_spec_block_bytes=u_blocks_bytes(
+                       mesh, full_states, SH.state_specs(
+                           full_states, mesh, U_ENGINE["slots"])))
+        del full_states
+    else:
+        local = SH.shard_params(full, mesh)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(param_bytes=_tensors_bytes(local),
+               memory_allocated=torch.cuda.memory_allocated())
+    if engine:
+        toks = torch.zeros((U_ENGINE["slots"], 1), dtype=torch.long,
+                           device="cuda")
+        start = torch.from_numpy(eng.start).to("cuda")
+        out["engine"] = dict(run, split=u_timed_split(lambda: eng._decode(
+            eng.params, toks, eng.clock, eng.states, start=start)))
+    with recorded_routes() as routes:
+        out["prefill"] = u_prefill(m, local, prefill_shape, mesh)
+    out["prefill"]["routes"] = [r.cpu() for r in routes]
+    return out
+
+
+def u_dse(mesh, rank: int, sels: list) -> dict:
+    """On the (1, 2) task mesh (no batch axis: both ranks compute every
+    row): explore_batch of N_TASKS tasks against t1's Selections, and
+    train_gan's first step at U_TRAIN; on rank 0 that step with no mesh
+    first, the world of one's."""
+    engine = t_engine("cuda:0")
+    tasks = gen_mod.generate_tasks(engine.model, N_TASKS, seed=1)
+    with shard.task_mesh(mesh):
+        engine.explore_batch(tasks, seed=0)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = engine.explore_batch(tasks, seed=0)
+        torch.cuda.synchronize()
+        explore = dict(ms_per_task=1e3 * (time.perf_counter() - t0) / N_TASKS,
+                       launches=counts(),
+                       same_as_t1=[_sel_row(r.selection) for r in res] == sels)
+    out = dict(explore=explore)
+    if rank == 0:
+        st, ms, _ = t_train(None, *U_TRAIN)
+        out["world_of_one"] = dict(first=first_step(st), ms_per_step=ms)
+    st, ms, launches = t_train(mesh, *U_TRAIN)
+    out["train"] = dict(first=first_step(st), ms_per_step=ms,
+                        launches=launches)
+    return out
+
+
+def u_rank(rank: int, tmp: str) -> int:
+    """One rank of phase u (``--u-rank``): gloo over a FileStore in `tmp`,
+    ``cuda:0``, a (1, 2) ('data', 'model') mesh; its record to
+    `tmp`/rank<r>.pt."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    LM.init_process_group("gloo", dist.FileStore(os.path.join(tmp, "store"),
+                                                 U_RANKS), rank, U_RANKS)
+    mesh = LM.make_host_mesh((1, U_RANKS), device="cuda:0")
+    assert SH.mesh_sizes(mesh) == {"data": 1, "model": U_RANKS}
+    t1 = torch.load(os.path.join(tmp, "t1.pt"))
+    out = dict(rank=rank, coordinate=tuple(mesh.get_coordinate()))
+    out["lm"] = u_model(configs.get_arch(U_ARCH), mesh, rank, U_PREFILL,
+                        engine=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe"] = u_model(cut_config(configs.get_arch(MOE_ARCH),
+                                    MOE_TRAIN_LAYERS),
+                         mesh, rank, U_MOE_PREFILL, engine=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dse"] = u_dse(mesh, rank, t1["sels"])
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_u_ranks(sels: list, cmd=None) -> list:
+    """Starts U_RANKS processes at once, each `cmd` (this script by
+    default) with ``--u-rank r --u-dir DIR``, t1's Selections in DIR; the
+    records they write there, in rank order."""
+    cmd = cmd or [sys.executable, os.path.abspath(__file__)]
+    with tempfile.TemporaryDirectory(prefix="phase_u_") as tmp:
+        torch.save({"sels": sels}, os.path.join(tmp, "t1.pt"))
+        procs = [subprocess.Popen(
+            cmd + ["--u-rank", str(r), "--u-dir", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(U_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=400)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, log in zip(procs, logs):
+            assert p.returncode == 0, log[-4000:]
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(U_RANKS)]
+
+
+def u_agree(got, want) -> dict:
+    """max |got - want| beside TOL·max(1, max|want|), and whether the
+    rows' argmax agree."""
+    return dict(max_abs_err=_err(got, want),
+                tol=TOL * max(1.0, float(want.abs().max())),
+                same_argmax=bool(torch.equal(got.argmax(-1),
+                                             want.argmax(-1))),
+                finite=bool(torch.isfinite(got).all()))
+
+
+def u_summary(ranks: list) -> dict:
+    """Each rank's record held to rank 0's world of one: the logits'
+    agreement, the routing flips, the tokens, the first step's gradient
+    gap; the tensors dropped (a JSON-able record)."""
+    one = {name: ranks[0][name].pop("world_of_one") for name in ("lm", "moe")}
+    dse_one = ranks[0]["dse"].pop("world_of_one")
+    out = {}
+    for r in ranks:
+        rec = dict(rank=r["rank"], coordinate=r["coordinate"])
+        for name in ("lm", "moe"):
+            run, pre = dict(r[name]), r[name]["prefill"]
+            run["prefill"] = dict(
+                ms=pre["ms"], split=pre["split"], launches=pre["launches"],
+                heads=sorted(set(pre["heads"])),
+                flash_launches=len(pre["heads"]),
+                routing_flips=routing_flips(pre["routes"], one[name][
+                    "routes"][:len(pre["routes"])]),
+                **u_agree(pre["logits"], one[name]["logits"]))
+            if "engine" in run:
+                run["engine"] = dict(run["engine"], same_tokens=(
+                    run["engine"]["tokens"] == one[name]["engine"]["tokens"]))
+                run["engine"]["tokens"] = {
+                    str(k): v for k, v in run["engine"]["tokens"].items()}
+            rec[name] = run
+        dse = r["dse"]
+        rec["dse"] = dict(explore=dse["explore"], train=dict(
+            ms_per_step=dse["train"]["ms_per_step"],
+            launches=dse["train"]["launches"],
+            first_step_gap=first_step_gap(dse["train"]["first"],
+                                          dse_one["first"])))
+        out[f"rank {r['rank']}"] = rec
+    world = dict(prefill_ms=one["lm"]["ms"],
+                 engine_ms_per_step=one["lm"]["engine"]["ms_per_step"],
+                 engine_first_step_ms=one["lm"]["engine"]["first_step_ms"],
+                 moe_prefill_ms=one["moe"]["ms"],
+                 train_ms_per_step=dse_one["ms_per_step"])
+    return dict(world_of_one=world, ranks=out)
+
+
+def u_failures(ranks: dict) -> list:
+    """The gates of phase u that the ranks' records (``u_summary``'s) miss
+    (none: held).
+
+    - the ranks sit at 'model' coordinates 0 and 1;
+    - each rank keeps exactly its spec blocks' bytes of the params (and
+      of the Engine's decode states), under 0.55 of the full params', and
+      the card holds little more for it once the full tree is dropped;
+    - stablelm's prefill runs flash once a layer on H/2 heads a launch,
+      the cut mixtral's once a layer too; their logits are finite, within
+      TOL·max(1, max|logit|) of rank 0's world of one, with the same
+      argmax;
+    - the Engine's 8 steps give the world of one's tokens;
+    - explore_batch's Selections are t1's, bit for bit, with the whole MLP
+      launched; train_gan's first step's gradients and losses are the
+      world of one's within T_GRAD_TOL, with the three dense kernels
+      launched."""
+    bad = []
+    for tag, r in ranks.items():
+        if r["coordinate"] != (0, r["rank"]):
+            bad.append(f"{tag}: coordinate {r['coordinate']}")
+        for name, arch, layers in (("lm", U_ARCH, None),
+                                   ("moe", MOE_ARCH, MOE_TRAIN_LAYERS)):
+            run, cfg = r[name], configs.get_arch(arch)
+            if run["param_bytes"] != run["spec_block_bytes"]:
+                bad.append(f"{tag}: {name} param bytes")
+            if not run["param_bytes"] < 0.55 * run["full_param_bytes"]:
+                bad.append(f"{tag}: {name} keeps more than its blocks")
+            held = run["param_bytes"] + run.get("state_bytes", 0)
+            if not run["memory_allocated"] < held + (256 << 20):
+                bad.append(f"{tag}: {name} memory_allocated")
+            pre = run["prefill"]
+            heads = cfg.segments[0].pattern[0].cfg.n_heads // U_RANKS
+            if pre["heads"] != [heads] or pre["flash_launches"] != (
+                    layers or cfg.n_layers):
+                bad.append(f"{tag}: {name} flash heads {pre['heads']} x "
+                           f"{pre['flash_launches']}")
+            if not (pre["finite"] and pre["same_argmax"]
+                    and pre["max_abs_err"] <= pre["tol"]):
+                bad.append(f"{tag}: {name} logits")
+        lm = r["lm"]
+        if lm["state_bytes"] != lm["state_spec_block_bytes"]:
+            bad.append(f"{tag}: decode state bytes")
+        if not lm["engine"]["same_tokens"] or lm["engine"]["iters"] != 8:
+            bad.append(f"{tag}: Engine tokens")
+        ex, tr = r["dse"]["explore"], r["dse"]["train"]
+        if not ex["same_as_t1"]:
+            bad.append(f"{tag}: Selections")
+        if not ex["launches"]["mlp_forward_f32"]:
+            bad.append(f"{tag}: mlp_forward_f32 not launched")
+        gap = tr["first_step_gap"]
+        if not max(gap.values()) <= T_GRAD_TOL:
+            bad.append(f"{tag}: train_gan's first step {gap}")
+        for name in DENSE_KERNELS:
+            if not tr["launches"][name]:
+                bad.append(f"{tag}: {name} not launched")
+    return bad
+
+
+def phase_u(t1_state: dict) -> dict:
+    """Phase u: U_RANKS ranks on the one card (gloo, both ``cuda:0``),
+    rank 0 also running the world of one, held by ``u_failures``; times
+    beside the card's name and power limit."""
+    t0 = time.perf_counter()
+    out = u_summary(run_u_ranks(t1_state["sels"][N_TASKS]))
+    out.update(card=smi(), seconds=time.perf_counter() - t0,
+               moe_reduced=dict(n_layers=MOE_TRAIN_LAYERS,
+                                of=configs.get_arch(MOE_ARCH).n_layers))
+    print("phase u: " + json.dumps(out), flush=True)
+    failed = u_failures(out["ranks"])
+    assert not failed, failed
+    print(f"phase u: {out['seconds']:.1f} s on {out['card']}", flush=True)
     return out
 
 
@@ -5299,12 +5747,17 @@ def main() -> int:
     ap.add_argument("--t2-rank", type=int,
                     help="one rank of phase t2 (the script starts them)")
     ap.add_argument("--t2-dir", help="phase t2's store and results")
+    ap.add_argument("--u-rank", type=int,
+                    help="one rank of phase u (the script starts them)")
+    ap.add_argument("--u-dir", help="phase u's store and results")
     args = ap.parse_args()
     if args.count_paths:
         count_paths(args.count_paths)
         return 0
     if args.t2_rank is not None:
         return t2_rank(args.t2_rank, args.t2_dir)
+    if args.u_rank is not None:
+        return u_rank(args.u_rank, args.u_dir)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5608,7 +6061,17 @@ def run_phases(args, counting: tuple) -> int:
     # just before it (inside t_explore, t_train and drive_train_lm_example)
     gc.collect()
     torch.cuda.empty_cache()
-    mesh_run = phase_t(runs["im2col"]["engine"], runs["im2col"]["warm"])
+    mesh_run, t1_state = phase_t(runs["im2col"]["engine"],
+                                 runs["im2col"]["warm"])
+
+    elapsed("phase u")
+    # phase u: serving across a 'model' axis, two ranks on the card; each
+    # rank's launches counted from zero just before each path (inside
+    # u_engine, u_prefill, u_dse and t_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model_run = phase_u(t1_state)
+    u_ranks = list(model_run["ranks"].values())
     print("init seconds on the card: " + json.dumps(INIT_S), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here",
           flush=True)
@@ -5644,6 +6107,10 @@ def run_phases(args, counting: tuple) -> int:
                 "mlp_forward_f32"],
             "task_mesh_t2": {r: t["explore"][str(N_TASKS)]["launches"][
                 "mlp_forward_f32"] for r, t in mesh_run["t2"].items()}},
+        "model_axis": {f"rank {r['rank']}": dict(
+            launches=r["dse"]["explore"]["launches"]["mlp_forward_f32"],
+            ms_per_task=r["dse"]["explore"]["ms_per_task"])
+            for r in u_ranks},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -5664,6 +6131,9 @@ def run_phases(args, counting: tuple) -> int:
             "data_parallel_t1": mesh_run["t1"]["train"]["launches"][name],
             "data_parallel_t2": {r: t["train"]["launches"][name]
                                  for r, t in mesh_run["t2"].items()}},
+        "model_axis": {f"rank {r['rank']}": dict(
+            launches=r["dse"]["train"]["launches"][name],
+            ms_per_step=r["dse"]["train"]["ms_per_step"]) for r in u_ranks},
         "shapes": {label: dense[name][label] for label in DENSE_SHAPES
                    if label != "hidden 2048->2048"},
     } for name, (_, replaces) in DENSE_KERNELS.items()] + [{
@@ -5680,6 +6150,10 @@ def run_phases(args, counting: tuple) -> int:
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                      "bound_4d_ms")},
         "per_prefill": per_prefill,
+        "model_axis": {f"rank {r['rank']}": {
+            name: {k: r[name]["prefill"][k] for k in (
+                "flash_launches", "heads", "ms", "max_abs_err", "tol")}
+            for name in ("lm", "moe")} for r in u_ranks},
         "launches_by_path": {
             "prefill": prefill["launches"]["flash_attention_f32"],
             "lm_train_steps": lm_train["launches"]["flash_attention_f32"],
@@ -5876,6 +6350,7 @@ def run_phases(args, counting: tuple) -> int:
                        "whisper_grad": whisper_grad,
                        "whisper_train": whisper_train, "qwen": qwen,
                        "phase_s": cost, "phase_t": mesh_run,
+                       "phase_u": model_run,
                        "init_s": INIT_S,
                        "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},

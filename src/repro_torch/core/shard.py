@@ -27,8 +27,14 @@ Mechanics, shared by every route (``map_rows``):
 
 Training rides the same mesh through ``train_gan(..., mesh=...)``: the
 params are replicated (``replicate``), each rank computes its rows of the
-batch, and the gradients are all-reduced.  A mesh with a 'model' axis
-larger than 1 is not executed (``train/shardings.require_no_model_axis``).
+batch, and the gradients are all-reduced.
+
+On a mesh with a 'model' axis larger than 1 the task axis still splits
+over the batch axes alone, as the reference's specs split it (the DSE
+models are replicated over 'model'): the ranks of one 'model' group
+compute the same rows, the rows and the gradients are gathered and summed
+over this rank's batch-axes group (``task_group``), and ``replicate``
+broadcasts over the whole mesh.
 """
 from __future__ import annotations
 
@@ -39,8 +45,8 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.train.shardings import (axis_size, batch_axes, norm_axes,
-                                         require_no_model_axis)
+from repro_torch.train.shardings import (axis_size, batch_axes, model_axis,
+                                         norm_axes)
 
 _STATE = {"mesh": None}
 #: set while a thread runs one rank's rows, so inner routes do not shard
@@ -126,15 +132,18 @@ def pad_tasks(tasks, seeds: np.ndarray, mesh=None):
 # this rank's rows, and the gathers back
 # ---------------------------------------------------------------------------
 def task_group(mesh):
-    """The process group over the ranks of `mesh` (its task axes: a mesh
-    with a 'model' axis larger than 1 is not executed)."""
-    from repro_torch.launch.mesh import flat_group
+    """The process group the task axis splits over: every rank of `mesh`
+    where its 'model' axis is 1, else this rank's group along the batch
+    axes (``launch/mesh.axis_group``)."""
+    from repro_torch.launch.mesh import axis_group, flat_group
 
-    return flat_group(mesh)
+    if model_axis(mesh) <= 1:
+        return flat_group(mesh)
+    return axis_group(mesh, task_axes(mesh))[0]
 
 
 def shard_index(mesh) -> int:
-    """This rank's block of the task axis (its rank in the mesh's group)."""
+    """This rank's block of the task axis (its rank in ``task_group``)."""
     import torch.distributed as dist
 
     return dist.get_rank(task_group(mesh))
@@ -144,10 +153,7 @@ def _sharded(mesh, n: int) -> bool:
     """Whether `n` rows split over `mesh`: a mesh with task axes whose
     shard count divides n, outside another rank-local call."""
     k = n_task_shards(mesh)
-    if k <= 1 or n % k != 0 or getattr(_LOCAL, "inner", False):
-        return False
-    require_no_model_axis(mesh)
-    return True
+    return k > 1 and n % k == 0 and not getattr(_LOCAL, "inner", False)
 
 
 def _take(x, rows: slice, axis: int = 0):
@@ -237,17 +243,18 @@ def map_tasks(fn: Callable[[object, np.ndarray], list], tasks,
 
 def replicate(tree, mesh=None):
     """Broadcast every tensor of `tree` (params, optimizer state) from the
-    mesh's first rank, in place, so every rank holds the same values.
-    The identity when no mesh is active or the mesh has one shard."""
+    mesh's first rank to all of its ranks, in place, so every rank holds
+    the same values.  The identity when no mesh is active or the mesh has
+    one shard."""
     import torch.distributed as dist
+
+    from repro_torch.launch.mesh import flat_group
+    from repro_torch.optim import tree_leaves
 
     mesh = get_task_mesh() if mesh is None else mesh
     if n_task_shards(mesh) <= 1:
         return tree
-    require_no_model_axis(mesh)
-    from repro_torch.optim import tree_leaves
-
-    group = task_group(mesh)
+    group = flat_group(mesh)
     src = dist.get_global_rank(group, 0) if group is not dist.group.WORLD \
         else 0
     for t in tree_leaves(tree):

@@ -134,7 +134,6 @@ class _DataParallel:
         self.k = shard.n_task_shards(mesh)
         self.mesh = mesh
         if self.k > 1:
-            shard.require_no_model_axis(mesh)
             self.r = shard.shard_index(mesh)
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:

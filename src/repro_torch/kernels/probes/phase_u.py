@@ -1,0 +1,63 @@
+"""Phase u of ``chip_smoke.py`` alone, on one H100.  A probe, not part of
+the package:
+
+    python3 src/repro_torch/kernels/probes/phase_u.py [--out JSON]
+
+Builds the whole-MLP, dense and flash kernels (one nvcc a source, in
+parallel), takes phase 3's 64-task Selections on im2col (t1's, which
+phase u holds its ranks to) with no mesh, then runs ``chip_smoke.phase_u``:
+two ranks on the one card over a (1, 2) ('data', 'model') mesh, rank 0
+first running the world of one (stablelm-1.6b's and the cut
+mixtral-8x7b's prefills, the Engine, train_gan's step) that both are
+held to.  Prints phase u's JSON and writes it to ``--out`` where it is
+given.  Needs the card.
+"""
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import json
+import os
+import pathlib
+import sys
+import time
+
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[4]
+sys.path.insert(0, str(ROOT))
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write the JSON to this file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("phase_u: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    loads = (cs.fm.load_library, cs.fd.load_library, cs.fa.load_library)
+    with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
+        for f in [pool.submit(load) for load in loads]:
+            f.result()
+    print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    engine = cs.t_engine("cuda")
+    tasks = cs.gen_mod.generate_tasks(engine.model, cs.N_TASKS, seed=1)
+    sels = [cs._sel_row(r.selection)
+            for r in engine.explore_batch(tasks, seed=0)]
+    del engine
+    out = cs.phase_u({"sels": {cs.N_TASKS: sels}})
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(out, fh, indent=1)
+    print(f"phase_u probe: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(out["card"])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,6 +12,11 @@ environment), and a mesh built with none running starts a world of one
   make_host_mesh()            # every rank of the world as (data=n, model=1)
   make_host_mesh((2, 1))      # a submesh over ranks 0 and 1
   make_production_mesh()      # (data=16, model=16): needs 256 ranks
+
+``axis_group(mesh, name)`` is this rank's process group along one mesh
+axis ('model', 'data') or a tuple of them (the batch axes ('pod',
+'data')), with its coordinate there: the groups the layers' collectives
+run over (``train/parallel``).  The rules read only the mesh.
 """
 from __future__ import annotations
 
@@ -53,6 +58,10 @@ def _world(device_type: str) -> int:
 #: the process group over each submesh's ranks, keyed by its rank tuple
 #: (made once, by every rank, when the submesh is built)
 _FLAT_GROUPS: dict = {}
+#: the process group over each plane of several axes (('pod', 'data') at
+#: every 'model' coordinate), keyed by its rank tuple in row-major order;
+#: made by every rank when the mesh is built
+_PLANE_GROUPS: dict = {}
 
 
 def _build(shape: Tuple[int, ...], axes: Tuple[str, ...], device_type: str):
@@ -66,7 +75,40 @@ def _build(shape: Tuple[int, ...], axes: Tuple[str, ...], device_type: str):
         key = tuple(range(want))
         if key not in _FLAT_GROUPS:
             _FLAT_GROUPS[key] = dist.new_group(list(key))
+    plane = [i for i, a in enumerate(axes) if a in ("pod", "data")
+             and shape[i] > 1]
+    if len(plane) > 1:
+        rest = [i for i in range(len(shape)) if i not in plane]
+        planes = ranks.permute(rest + plane).reshape(-1, int(np.prod(
+            [shape[i] for i in plane])))
+        for row in planes.tolist():
+            if tuple(row) not in _PLANE_GROUPS:
+                _PLANE_GROUPS[tuple(row)] = dist.new_group(row)
     return mesh
+
+
+def axis_group(mesh, name):
+    """(group, coordinate): this rank's process group along the mesh axis
+    `name` ('model', 'data', 'pod') or a tuple of axes (the batch axes),
+    and its coordinate along them (row-major over a tuple's axes in mesh
+    order, as a spec's tuple entry splits a dim).  Axes the mesh lacks or holds at size 1
+    are dropped; where none is left the group is None and the coordinate
+    0 (a collective over it is the identity)."""
+    names = list(mesh.mesh_dim_names)
+    axes = (name,) if isinstance(name, str) else tuple(name or ())
+    axes = tuple(a for a in axes if a in names
+                 and mesh.shape[names.index(a)] > 1)
+    if not axes:
+        return None, 0
+    coord = mesh.get_coordinate()
+    if len(axes) == 1:
+        return mesh.get_group(axes[0]), coord[names.index(axes[0])]
+    dims = sorted(names.index(a) for a in axes)
+    idx = 0
+    for d in dims:
+        idx = idx * mesh.shape[d] + coord[d]
+    sel = tuple(slice(None) if d in dims else c for d, c in enumerate(coord))
+    return _PLANE_GROUPS[tuple(mesh.mesh[sel].reshape(-1).tolist())], idx
 
 
 def flat_group(mesh):

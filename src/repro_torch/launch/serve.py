@@ -38,6 +38,7 @@ from repro_torch.core import prng
 from repro_torch.core.explorer import resolve_device
 from repro_torch.models import base as MB
 from repro_torch.optim import tree_map
+from repro_torch.train import shardings as SH
 from repro_torch.train import step as TS
 
 
@@ -96,6 +97,14 @@ class Engine:
 
     ``device=None`` means the card and raises where there is none; the
     params must lie on the engine's device.
+
+    ``mesh`` with a 'model' axis larger than 1: every rank builds the
+    engine from the same full params, which it shards
+    (``shardings.shard_params``: each rank keeps its blocks, the caller
+    may drop the full tree), and its decode states, sharded likewise
+    (``shard_states``).  Every rank runs the same schedule; the greedy
+    token is the argmax of the gathered logits, which every rank holds
+    whole, so every rank admits and retires the same requests.
     """
 
     def __init__(self, m, params, batch_slots: int, cache_len: int,
@@ -106,11 +115,15 @@ class Engine:
             raise ValueError(f"params are on {self.device}, the engine on "
                              f"{want}")
         self.m = m
-        self.params = params
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.cache_len = cache_len
         self.eos = eos
+        SH.require_model_axis_arch(m, mesh)
         self.states = MB.init_decode_state(params, m, batch_slots, cache_len)
+        if SH.model_axis(mesh) > 1:
+            params = SH.shard_params(params, mesh)
+            self.states = SH.shard_states(self.states, mesh, batch_slots)
+        self.params = params
         self._fresh_recurrent = _recurrent_template(self.states, m)
         self.pos = np.zeros(batch_slots, np.int32)  # per-slot prompt cursor
         self.clock = 0                 # == every layer state's `len`
@@ -124,7 +137,9 @@ class Engine:
                                              or sp.cfg.window > cache_len)
             for seg in m.segments for sp in seg.pattern) else None
         self.start = np.zeros(batch_slots, np.int32)  # per-slot stream start
-        self._decode = TS.make_decode_step(m, mesh=mesh)
+        self._decode = TS.make_decode_step(
+            m, mesh=mesh, cache_len=cache_len if SH.model_axis(mesh) > 1
+            else None)
         self.queue: List[Request] = []
         self.finished: List[Request] = []
 

@@ -53,6 +53,8 @@ from repro_torch.nn import layers as L
 from repro_torch.nn import ssm as S
 from repro_torch.nn import xlstm as X
 from repro_torch.optim import tree_leaves, tree_map, tree_unflatten
+from repro_torch.train import parallel as PAR
+from repro_torch.train import shardings as SH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,19 +300,125 @@ def forward(params, m: ModelCfg, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             use_fused: Optional[bool] = None,
             remat: bool = False,
-            enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+            enc_out: Optional[torch.Tensor] = None,
+            last_only: bool = False) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V).  positions defaults to arange.
     ``use_fused=False`` takes the plain attention instead of the kernel;
     ``remat=True`` recomputes each repeat of a segment's pattern in the
     backward instead of keeping its activations.  An encoder-decoder's
-    decoder layers attend to `enc_out` (``encode``'s output)."""
-    x = L.embed_apply(params["embed"], tokens)
+    decoder layers attend to `enc_out` (``encode``'s output).
+
+    ``last_only`` takes the last position alone through the head: (B, 1,
+    V).  Under a mesh with a 'model' axis larger than 1
+    (``shardings.use_mesh``) `params` are this rank's blocks
+    (``shardings.shard_params``) and the forward is
+    ``_forward_sharded``'s."""
+    ax = PAR.model_axis()
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)[
             None].expand(tokens.shape)
+    if ax is not None:
+        return _forward_sharded(params, m, tokens, positions, use_fused, ax,
+                                last_only)
+    x = L.embed_apply(params["embed"], tokens)
     x = _run_segments(params["segments"], m.segments, x, positions,
                       use_fused=use_fused, remat=remat, enc_out=enc_out)
-    return _head(params, m, x)
+    return _head(params, m, x[:, -1:] if last_only else x)
+
+
+# ---------------------------------------------------------------------------
+# across a 'model' axis (serving): this rank's blocks, explicit collectives
+# ---------------------------------------------------------------------------
+def _sharded_layer(seg_p, seg_specs, r: int, ax) -> list:
+    """Layer r of a segment from this rank's stacks, one tree a pattern
+    spec, its FSDP dims gathered (``PAR.unshard_data``).  A dense FFN
+    whose stacks put the layer axis on 'model' comes as ``PAR.Owned``:
+    layer r lies on the rank r // (L/m)."""
+    mesh = SH.current_mesh()
+    out = []
+    for sp, spec in zip(seg_p, seg_specs):
+        layer = {}
+        for k, v in sp.items():
+            on_model = (k == "ffn" and SH.norm_axes(
+                spec["ffn"]["w_gate"][0], mesh) is not None)
+            if on_model:
+                n = v["w_gate"].shape[0]
+                mine = r // n == ax.rank
+                layer[k] = PAR.Owned(_layer(v, r % n) if mine else None,
+                                     mine)
+            else:
+                layer[k] = _layer(v, r)
+        out.append(PAR.unshard_data(layer, PAR.drop_layer_axis(spec)))
+    return out
+
+
+def _embed_sharded(emb, m: ModelCfg, tokens, ax):
+    if emb["table"].shape[0] != m.vocab:
+        return L.embed_apply_vocab_parallel(emb, tokens, ax)
+    return L.embed_apply(emb, tokens)
+
+
+def _head_sharded(params, specs, emb, m: ModelCfg, x, ax):
+    """The logits from this rank's vocab block (the tied table's rows or
+    ``lm_head``'s columns), gathered over 'model': (.., V) on every
+    rank."""
+    x = L.rmsnorm_apply(params["ln_f"], x)
+    if m.tied_embeddings:
+        logits = L.embed_logits(emb, x)
+    else:
+        logits = x @ PAR.unshard_data(params["lm_head"], specs["lm_head"])
+    if logits.shape[-1] != m.vocab:
+        logits = PAR.gather_dim(logits, -1, ax.group)
+    return logits
+
+
+def _forward_sharded(params, m: ModelCfg, tokens, positions, use_fused, ax,
+                     last_only: bool):
+    """``forward`` across a 'model' axis: the vocab-parallel embedding,
+    each layer on this rank's blocks (``nn/blocks``' sharded attention,
+    FFN and MoE), the head's logits gathered over 'model'.  The residual
+    stream is replicated over 'model' at every layer boundary (in serving
+    there is no remat save point to shard)."""
+    SH.require_model_axis_arch(m, SH.current_mesh())
+    specs = PAR.param_layout(m, SH.current_mesh())
+    emb = PAR.unshard_data(params["embed"], specs["embed"])
+    x = _embed_sharded(emb, m, tokens, ax)
+    for seg_p, seg_s, seg in zip(params["segments"], specs["segments"],
+                                 m.segments):
+        for r in range(seg.repeats):
+            for spec, lp in zip(seg.pattern,
+                                _sharded_layer(seg_p, seg_s, r, ax)):
+                x = spec_apply(lp, x, spec, positions, use_fused=use_fused)
+    if last_only:
+        x = x[:, -1:]
+    return _head_sharded(params, specs, emb, m, x, ax)
+
+
+def _decode_sharded(params, m: ModelCfg, token, pos_b, states, start,
+                    state_specs, ax):
+    """``decode_step`` across a 'model' axis on this rank's lanes and
+    blocks: each layer's cache block under its ``state_spec`` (S over
+    'model': the ranks combine their partial softmaxes)."""
+    SH.require_model_axis_arch(m, SH.current_mesh())
+    if state_specs is None:
+        raise ValueError("decode across a 'model' axis needs the states' "
+                         "specs (train/step.make_decode_step's cache_len)")
+    specs = PAR.param_layout(m, SH.current_mesh())
+    emb = PAR.unshard_data(params["embed"], specs["embed"])
+    x = _embed_sharded(emb, m, token, ax)
+    new_states = []
+    for seg_p, seg_s, seg, seg_st, seg_ss in zip(
+            params["segments"], specs["segments"], m.segments, states,
+            state_specs):
+        for r in range(seg.repeats):
+            layers = _sharded_layer(seg_p, seg_s, r, ax)
+            for spec, lp, st, ss in zip(seg.pattern, layers, seg_st, seg_ss):
+                x, _ = B.block_decode(
+                    lp, x, spec.cfg, pos_b, dict(st, kv=_layer(st["kv"], r)),
+                    ring=spec.cfg.window is not None, start=start,
+                    kv_spec=SH.P(*ss["kv"][0][1:]))
+        new_states.append([dict(st, len=st["len"] + 1) for st in seg_st])
+    return _head_sharded(params, specs, emb, m, x, ax), new_states
 
 
 def init_decode_state(params, m: ModelCfg, batch: int, cache_len: int):
@@ -347,7 +455,7 @@ def _ssm_params_proto(params, m: ModelCfg):
 
 def decode_step(params, m: ModelCfg, token: torch.Tensor, pos: int, states,
                 enc_out: Optional[torch.Tensor] = None,
-                start: Optional[torch.Tensor] = None):
+                start: Optional[torch.Tensor] = None, state_specs=None):
     """One-token decode.  token (B, 1) int; pos the absolute position (an
     int).  enc_out: an encoder-decoder's ``encode`` output, which every
     decoder layer attends to (through the flash kernel on the card).
@@ -358,9 +466,18 @@ def decode_step(params, m: ModelCfg, token: torch.Tensor, pos: int, states,
     new states); the caches and the SSM states are updated in place (a
     layer's new (h, tail) is copied into its view of the stacks: the
     decode of the block returns it, as the reference's does; an xLSTM
-    layer's new tuple likewise)."""
-    x = L.embed_apply(params["embed"], token)
+    layer's new tuple likewise).
+
+    Under a mesh with a 'model' axis larger than 1, `params` and `states`
+    are this rank's blocks and `state_specs` the states' specs
+    (``shardings.state_specs`` of the full states), and the step is
+    ``_decode_sharded``'s."""
     pos_b = torch.full((token.shape[0], 1), pos, device=token.device)
+    ax = PAR.model_axis()
+    if ax is not None:
+        return _decode_sharded(params, m, token, pos_b, states, start,
+                               state_specs, ax)
+    x = L.embed_apply(params["embed"], token)
     new_states = []
     for seg_p, seg, seg_st in zip(params["segments"], m.segments, states):
         for r in range(seg.repeats):

@@ -173,27 +173,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return o.transpose(1, 2)
 
 
-def decode_attention(q1, k_cache, v_cache, cache_len: int, *,
-                     window: Optional[int] = None, ring: bool = False,
-                     start: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One-token decode: q1 (B, 1, H, D) vs cache (B, Sc, Hkv, D).
-
-    cache_len: number of valid cached tokens (new token already written).
-    ring=True: the cache is a ring buffer of Sc <= window slots; slot i
-    holds the newest absolute position p <= cache_len - 1 with
-    p % Sc == i.  (The reference asserts Sc == window; with Sc < window
-    the ring holds the last Sc positions only, and the serving engine
-    stops before it would wrap, see ``launch/serve.Engine``.)
-    start: optional (B,) per-lane first valid absolute position — cache
-    entries before it were written by a lane's previous occupant and are
-    masked out (``launch/serve.Engine`` reuses lanes).
-    """
-    b, _, h, d = q1.shape
-    sc, hkv = k_cache.shape[1], k_cache.shape[2]
-    qg = _split_heads(q1, hkv)[:, 0]                        # (B,Hkv,G,D)
-    scores = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32),
-                          k_cache.to(torch.float32)) / d ** 0.5
-    slot = torch.arange(sc, device=q1.device)
+def _slot_valid(slot: torch.Tensor, sc: int, cache_len: int,
+                window: Optional[int], ring: bool,
+                start: Optional[torch.Tensor]) -> torch.Tensor:
+    """Which cache slots (global indices `slot` of a cache of `sc` slots)
+    a decode step reads: (S,), or (B, S) with `start` (see
+    ``decode_attention``)."""
     if ring:
         if window is None or sc > window:
             raise ValueError(f"a ring cache needs Sc <= window, got Sc {sc} "
@@ -212,9 +197,76 @@ def decode_attention(q1, k_cache, v_cache, cache_len: int, *,
         # a slot whose (attributed) absolute position precedes the lane's
         # stream start belongs to a previous occupant
         valid = valid[None, :] & (pos[None, :] >= start.reshape(-1, 1))
-        scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
-    else:
-        scores = torch.where(valid, scores, NEG_INF)
+    return valid
+
+
+def _masked_scores(q1, k_cache, valid):
+    """(B, Hkv, G, S) float32 scores of one query against a cache, NEG_INF
+    where `valid` ((S,) or (B, S)) is False."""
+    d = q1.shape[-1]
+    qg = _split_heads(q1, k_cache.shape[2])[:, 0]          # (B,Hkv,G,D)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32),
+                          k_cache.to(torch.float32)) / d ** 0.5
+    mask = valid[:, None, None, :] if valid.dim() == 2 else valid
+    return torch.where(mask, scores, NEG_INF), mask
+
+
+def decode_attention(q1, k_cache, v_cache, cache_len: int, *,
+                     window: Optional[int] = None, ring: bool = False,
+                     start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-token decode: q1 (B, 1, H, D) vs cache (B, Sc, Hkv, D).
+
+    cache_len: number of valid cached tokens (new token already written).
+    ring=True: the cache is a ring buffer of Sc <= window slots; slot i
+    holds the newest absolute position p <= cache_len - 1 with
+    p % Sc == i.  (The reference asserts Sc == window; with Sc < window
+    the ring holds the last Sc positions only, and the serving engine
+    stops before it would wrap, see ``launch/serve.Engine``.)
+    start: optional (B,) per-lane first valid absolute position — cache
+    entries before it were written by a lane's previous occupant and are
+    masked out (``launch/serve.Engine`` reuses lanes).
+    """
+    b, _, h, d = q1.shape
+    sc = k_cache.shape[1]
+    valid = _slot_valid(torch.arange(sc, device=q1.device), sc, cache_len,
+                        window, ring, start)
+    scores, _ = _masked_scores(q1, k_cache, valid)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
     return out.reshape(b, 1, h, d).to(q1.dtype)
+
+
+def decode_attention_block(q1, k_blk, v_blk, cache_len: int, *, sc: int,
+                           slot0: int, window: Optional[int] = None,
+                           ring: bool = False,
+                           start: Optional[torch.Tensor] = None):
+    """``decode_attention`` over one block of a cache of `sc` slots (slots
+    ``slot0 .. slot0 + Sb - 1``, k_blk and v_blk (B, Sb, Hkv, D)), left
+    unnormalized for ``combine_blocks``: (m (B, Hkv, G), the block's row
+    max of the scores, NEG_INF where it reads no slot; l, the sum of
+    exp(s - m) over its slots; o (B, Hkv, G, D), their exp(s - m)-weighted
+    sum of v), float32."""
+    sb = k_blk.shape[1]
+    slot = torch.arange(slot0, slot0 + sb, device=q1.device)
+    valid = _slot_valid(slot, sc, cache_len, window, ring, start)
+    scores, mask = _masked_scores(q1, k_blk, valid)
+    m = scores.amax(-1)
+    p = torch.where(mask, torch.exp(scores - m[..., None]), 0.0)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_blk.to(torch.float32))
+    return m, p.sum(-1), o
+
+
+def combine_blocks(m, l, o, group, dtype) -> torch.Tensor:
+    """The blocks' (m, l, o) of ``decode_attention_block`` over a cache
+    split along S between the ranks of `group`, combined by the online
+    softmax rule: M = max m, out = Σ o·exp(m - M) / Σ l·exp(m - M) (one
+    all-reduce for the max, one for both sums).  -> (B, 1, H, D)."""
+    from repro_torch.train import parallel as PAR
+
+    big = PAR.max_over(m.clone(), group)
+    scale = torch.exp(m - big)
+    both = torch.cat([o * scale[..., None], (l * scale)[..., None]], -1)
+    both = PAR.sum_over(both, group)
+    out = both[..., :-1] / both[..., -1:]
+    b, hkv, g, d = out.shape
+    return out.reshape(b, 1, hkv * g, d).to(dtype)

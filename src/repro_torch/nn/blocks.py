@@ -40,6 +40,8 @@ from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as M
 from repro_torch.nn import ssm as S
+from repro_torch.train import parallel as PAR
+from repro_torch.train import shardings as SH
 
 @dataclasses.dataclass(frozen=True)
 class BlockCfg:
@@ -91,6 +93,13 @@ def _qkv(params, x, cfg: BlockCfg, positions):
     q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, dh)
     kv = (x @ params["wkv"]).reshape(b, s, 2 * cfg.n_kv, dh)
     k, v = kv[:, :, : cfg.n_kv], kv[:, :, cfg.n_kv:]
+    q, k = _norm_rope(params, q, k, cfg, positions)
+    return q, k, v
+
+
+def _norm_rope(params, q, k, cfg: BlockCfg, positions):
+    """qk-norm (where the config has it), then RoPE or M-RoPE, on q and k
+    (B, S, heads, dh)."""
     if cfg.qk_norm:
         q = L.rmsnorm_apply(params["q_norm"], q)
         k = L.rmsnorm_apply(params["k_norm"], k)
@@ -102,12 +111,16 @@ def _qkv(params, x, cfg: BlockCfg, positions):
     else:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k
 
 
 def attn_apply(params, x, cfg: BlockCfg, positions, *, causal: bool = True,
                use_fused: Optional[bool] = None):
     """Full-sequence attention: x (B, S, D) -> (B, S, D)."""
+    ax = PAR.model_axis()
+    if ax is not None:
+        return _attn_apply_sharded(params, x, cfg, positions, causal,
+                                   use_fused, ax)
     q, k, v = _qkv(params, x, cfg, positions)
     o = A.flash_attention(q, k, v, causal=causal, window=cfg.window,
                           use_fused=use_fused)
@@ -116,12 +129,18 @@ def attn_apply(params, x, cfg: BlockCfg, positions, *, causal: bool = True,
 
 
 def attn_decode(params, x1, cfg: BlockCfg, pos, kv_cache, cache_len: int, *,
-                ring: bool = False, start=None):
+                ring: bool = False, start=None, kv_spec=None):
     """One-token decode.  kv_cache: (k (B, Sc, Hkv, dh), v), written in
     place at slot ``cache_len`` (mod Sc on a ring); returns (y1, cache).
     `pos` is the absolute position, (B, 1) (under M-RoPE broadcast to
     its three rows); `start` the optional (B,)
-    per-lane stale-KV mask (see ``decode_attention``)."""
+    per-lane stale-KV mask (see ``decode_attention``).  Across a 'model'
+    axis the cache is this rank's block under `kv_spec`, its
+    ``state_spec`` without the layer axis (``_attn_decode_sharded``)."""
+    ax = PAR.model_axis()
+    if ax is not None:
+        return _attn_decode_sharded(params, x1, cfg, pos, kv_cache,
+                                    cache_len, ring, start, kv_spec, ax)
     q, k, v = _qkv(params, x1, cfg, pos)
     kc, vc = kv_cache
     slot = cache_len % kc.shape[1] if ring else cache_len
@@ -155,12 +174,161 @@ def ffn_init(key: torch.Tensor, cfg: BlockCfg, device):
 
 
 def ffn_apply(params, x, cfg: BlockCfg):
+    ax = PAR.model_axis()
+    if ax is not None:
+        return _ffn_apply_sharded(params, x, cfg, ax)
     if cfg.n_experts:
         b, s, d = x.shape
         y = M.moe_apply(params, x.reshape(b * s, d), top_k=cfg.top_k)
         return y.reshape(b, s, d)
+    return _swiglu(params, x)
+
+
+def _swiglu(params, x):
     g = torch.nn.functional.silu(x @ params["w_gate"])
     return (g * (x @ params["w_up"])) @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# across a 'model' axis (serving; ``train/parallel``): each rank computes
+# on its blocks of the leaves, the FSDP dims already gathered, and every
+# rank returns the whole (B, S, D) output
+# ---------------------------------------------------------------------------
+def _project(x, w, cols: int, ax):
+    """``x @ w`` with all `cols` output columns where `w` holds this rank's
+    column block: the weight gathered where x has more rows than w (a
+    prefill), else the product's columns (a decode step)."""
+    if w.shape[-1] == cols:
+        return x @ w
+    if x.numel() // x.shape[-1] > w.shape[0]:
+        return x @ PAR.gather_dim(w, -1, ax.group)
+    return PAR.gather_dim(x @ w, -1, ax.group)
+
+
+def _qkv_sharded(params, x, cfg: BlockCfg, positions, ax, local: bool):
+    """(q, k, v, h0): with `local`, q holds this rank's H/m heads h0, h0 + 1,
+    ... (wq's column block, where 'model' divides H; else every head, h0
+    = 0), and k, v the KV heads those read.  ``wkv`` stores all K heads,
+    then all V heads, so its column block is not the rank's heads: its
+    columns are gathered first.  Where the heads a rank reads form whole
+    GQA groups of one size the KV heads are taken once (``n_kv < m``
+    included: every q head of the rank in one group), else one a q head."""
+    b, s, _ = x.shape
+    dh, h, kv = cfg.dh, cfg.n_heads, cfg.n_kv
+    wq = params["wq"]
+    if local and wq.shape[-1] != h * dh and h % ax.size == 0:
+        hl = h // ax.size
+        h0 = ax.rank * hl
+        q = (x @ wq).reshape(b, s, hl, dh)
+    else:
+        h0, hl = 0, h
+        q = _project(x, wq, h * dh, ax).reshape(b, s, h, dh)
+    kvf = _project(x, params["wkv"], 2 * kv * dh, ax).reshape(
+        b, s, 2 * kv, dh)
+    idx = [(h0 + i) // (h // kv) for i in range(hl)]
+    lo, hi = idx[0], idx[-1] + 1
+    per = hl // (hi - lo)
+    if hl % (hi - lo) == 0 and idx == [lo + i // per for i in range(hl)]:
+        k, v = kvf[:, :, lo:hi], kvf[:, :, kv + lo:kv + hi]
+    else:
+        k, v = kvf[:, :, idx], kvf[:, :, [kv + i for i in idx]]
+    q, k = _norm_rope(params, q, k, cfg, positions)
+    return q, k, v, h0
+
+
+def _out_sharded(wo, o, cfg: BlockCfg, ax):
+    """``o @ wo`` for o (B, S, width) holding heads from h0 = 0 (all of
+    them) or this rank's heads: wo's row block is row parallel, its
+    partial products summed over 'model'."""
+    full = cfg.n_heads * cfg.dh
+    if wo.shape[0] == full:
+        if o.shape[-1] != full:
+            o = PAR.gather_dim(o, -1, ax.group)
+        return o @ wo
+    rows = wo.shape[0]
+    if o.shape[-1] == full:
+        o = o[..., ax.rank * rows:(ax.rank + 1) * rows]
+    return PAR.sum_over(o @ wo, ax.group)
+
+
+def _attn_apply_sharded(params, x, cfg: BlockCfg, positions, causal,
+                        use_fused, ax):
+    """Full-sequence attention on this rank's q heads (flash on H/m
+    heads), then the row-parallel ``wo``."""
+    b, s, _ = x.shape
+    q, k, v, _ = _qkv_sharded(params, x, cfg, positions, ax, local=True)
+    o = A.flash_attention(q, k, v, causal=causal, window=cfg.window,
+                          use_fused=use_fused)
+    return _out_sharded(params["wo"], o.reshape(b, s, -1), cfg, ax)
+
+
+def _attn_decode_sharded(params, x1, cfg: BlockCfg, pos, kv_cache,
+                         cache_len: int, ring: bool, start, kv_spec, ax):
+    """One token against this rank's block of the cache (B, S, Hkv, dh)
+    under `kv_spec`.  Every rank forms all q heads and the new token's K
+    and V; the rank whose S block holds the slot writes them (its block of
+    the heads and dh).  Each rank attends its S block with every q head
+    (a block's KV heads or dh split over ranks are gathered first) and the
+    ranks' partial softmaxes combine over the S axes (``combine_blocks``);
+    then the row-parallel ``wo``."""
+    mesh = SH.current_mesh()
+    if kv_spec is None:
+        raise ValueError("decode across a 'model' axis needs the cache's "
+                         "spec (train/step.make_decode_step's cache_len)")
+    q, k, v, _ = _qkv_sharded(params, x1, cfg, pos, ax, local=False)
+    kc, vc = kv_cache
+    coord = SH.coordinate(mesh)
+    si, sn = SH.block_of(kv_spec[1], mesh, coord)
+    sb = kc.shape[1]
+    sc = sb * sn
+    slot = cache_len % sc if ring else cache_len
+    if slot >= sc:
+        raise IndexError(f"decode slot {slot} past a cache of {sc} slots")
+    if slot // sb == si:
+        row = SH.P(None, kv_spec[2], kv_spec[3])
+        kc[:, slot - si * sb] = SH.local_block(k[:, 0], row, mesh,
+                                               coord).to(kc.dtype)
+        vc[:, slot - si * sb] = SH.local_block(v[:, 0], row, mesh,
+                                               coord).to(vc.dtype)
+    kb, vb = kc, vc
+    for d in (2, 3):
+        axes = SH.norm_axes(kv_spec[d], mesh)
+        if axes is not None:
+            g = PAR.axis(mesh, axes).group
+            kb, vb = PAR.gather_dim(kb, d, g), PAR.gather_dim(vb, d, g)
+    s_axes = SH.norm_axes(kv_spec[1], mesh)
+    if s_axes is None:
+        o = A.decode_attention(q, kb, vb, cache_len + 1, window=cfg.window,
+                               ring=ring, start=start)
+    else:
+        m, l, o = A.decode_attention_block(
+            q, kb, vb, cache_len + 1, sc=sc, slot0=si * sb,
+            window=cfg.window, ring=ring, start=start)
+        o = A.combine_blocks(m, l, o, PAR.axis(mesh, s_axes).group, q.dtype)
+    y = _out_sharded(params["wo"], o.reshape(x1.shape[0], 1, -1), cfg, ax)
+    return y, (kc, vc)
+
+
+def _ffn_apply_sharded(params, x, cfg: BlockCfg, ax):
+    """The FFN on this rank's blocks.  A dense FFN stacked with its layer
+    axis over 'model' (``param_specs`` reads a stacked (L, D, F) w_gate as
+    an expert tensor) comes as ``PAR.Owned``: the layer's owner computes
+    it whole, the others add zeros.  Column-parallel w_gate / w_up and
+    row-parallel w_down sum their partial outputs over 'model'; the MoE
+    FFN is ``moe_apply_sharded``'s."""
+    if isinstance(params, PAR.Owned):
+        y = _swiglu(params.tree, x) if params.mine else torch.zeros_like(x)
+        return PAR.sum_over(y, ax.group)
+    if cfg.n_experts:
+        b, s, d = x.shape
+        y = M.moe_apply_sharded(params, x.reshape(b * s, d), ax,
+                                n_experts=cfg.n_experts, d_ff=cfg.d_ff,
+                                top_k=cfg.top_k)
+        return y.reshape(b, s, d)
+    y = _swiglu(params, x)
+    if params["w_down"].shape[0] != cfg.d_ff:
+        return PAR.sum_over(y, ax.group)
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -197,13 +365,15 @@ def block_apply(params, x, cfg: BlockCfg, positions,
 
 
 def block_decode(params, x1, cfg: BlockCfg, pos, state, *, ring: bool = False,
-                 start=None):
+                 start=None, kv_spec=None):
     """state: {'kv': (k, v), 'len': int[, 'ssm': (h, tail)]}; returns (y1,
     new state), whose 'ssm' is the new (h, tail) (the caller writes it
-    back; the KV cache is written in place)."""
+    back; the KV cache is written in place).  `kv_spec`: the cache's spec
+    across a 'model' axis (``attn_decode``)."""
     h = L.rmsnorm_apply(params["ln1"], x1)
     mix, kv = attn_decode(params["attn"], h, cfg, pos, state["kv"],
-                          state["len"], ring=ring, start=start)
+                          state["len"], ring=ring, start=start,
+                          kv_spec=kv_spec)
     new_state = dict(state, kv=kv, len=state["len"] + 1)
     if cfg.ssm_state:
         sm, new_state["ssm"] = S.ssm_decode_step(params["ssm"], h,

@@ -4,7 +4,8 @@ substrate's RMSNorm, LayerNorm (whisper's), embedding and RoPE.
 Params keep the reference package's layout — ``{"layers": [{"w": (in,
 out), "b": (out,)}, ...]}``, ``{"scale"}``, ``{"table": (vocab, dim)}`` —
 so the kernels read ``x @ w`` directly and converted params compare like
-with like.  M-RoPE (qwen2-vl's multimodal RoPE) rotates sections of the
+with like.  Across a 'model' axis the embedding is vocab parallel
+(``embed_apply_vocab_parallel``).  M-RoPE (qwen2-vl's multimodal RoPE) rotates sections of the
 rotary dims by the temporal, height and width rows of its positions.
 """
 from __future__ import annotations
@@ -117,6 +118,22 @@ def embed_apply(params, ids: torch.Tensor) -> torch.Tensor:
 def embed_logits(params, x: torch.Tensor) -> torch.Tensor:
     """Tied-embedding output head."""
     return x @ params["table"].t()
+
+
+def embed_apply_vocab_parallel(params, ids: torch.Tensor, ax) -> torch.Tensor:
+    """The embedding across a 'model' axis `ax` (``train/parallel``) whose
+    rank r holds the table's vocab rows [r·Vr, (r+1)·Vr): each rank looks
+    up the ids in its range, zeroes the others, and the ranks' rows are
+    summed.  A sum of one row and zeros is that row: the result is the
+    whole table's lookup, bit for bit."""
+    from repro_torch.train import parallel as PAR
+
+    table = params["table"]
+    vr = table.shape[0]
+    local = ids - ax.rank * vr
+    mine = (local >= 0) & (local < vr)
+    x = torch.nn.functional.embedding(local.clamp(0, vr - 1), table)
+    return PAR.sum_over(torch.where(mine[..., None], x, 0.0), ax.group)
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None):

@@ -18,8 +18,9 @@ is expert parallel (``e_par``: a gather by capacity position from every
 expert, then a one-hot contraction over E) — on one card, every mesh with
 a 'model' axis.  G comes from the global T: where the step split its batch
 k ways (``shardings.current_split``), this rank's T/k tokens are G/k whole
-groups.  The reference's sharding constraints (``_c``) wait for
-'model'-axis execution (ROADMAP Queue 1 item 6).
+groups.  Across a 'model' axis (serving, ``moe_apply_sharded``) each rank
+stores and runs its E/m experts where m divides E, and its F/m block of
+every expert otherwise, and the ranks' outputs are summed.
 
 Copied from the reference as written (ROADMAP Queue 3):
 
@@ -47,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
+from repro_torch.train import parallel as PAR
 from repro_torch.train import shardings as SH
 
 
@@ -267,3 +269,57 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int = 2,
     me = F.one_hot(idx[:, 0], e).to(torch.float32).mean(0)
     pe = torch.softmax(logits, dim=-1).mean(0)
     return y, e * torch.sum(me * pe)
+
+
+def moe_apply_sharded(params, x: torch.Tensor, ax, *, n_experts: int,
+                      d_ff: int, top_k: int = 2,
+                      capacity_factor: float = 1.25) -> torch.Tensor:
+    """``moe_apply`` across a 'model' axis `ax` (serving, no autograd), on
+    this rank's blocks of the leaves (their FSDP dims gathered).  Every
+    rank routes every token the same way (the router's (D, E), tiny, is
+    gathered where its E is split), in ``_num_groups``'s groups with their
+    capacity.  Where m divides E (the reference's ``e_par``) rank r runs
+    experts [r·E/m, (r+1)·E/m) on their buffers and its share of the
+    expert-parallel combine, the sum over its experts; else each expert's
+    F is split m ways where m divides it, and each rank combines its
+    partial outputs.  Either way the ranks' (T, D) parts are summed over
+    'model'."""
+    t = x.shape[0]
+    e = n_experts
+    router = params["router"]
+    if router.shape[-1] != e:
+        router = PAR.gather_dim(router, -1, ax.group)
+    split = SH.current_split()
+    g_all = _num_groups(t * split)
+    assert g_all % split == 0, (g_all, split)
+    g = g_all // split
+    tg = t // g
+    cap = capacity(tg, e, top_k, capacity_factor)
+    xf = x.to(torch.float32)
+    idx, wts = route_topk(xf @ router, top_k)
+    buf_tok, occupied, slot, keep = _dispatch_group(
+        idx.reshape(g, tg, top_k), e, cap)
+    el = params["w_gate"].shape[0]
+    if el != e:                                   # e_par: this rank's experts
+        lo = ax.rank * el
+        mine = lambda a: a.reshape(g, e, cap)[:, lo:lo + el].reshape(-1)  # noqa: E731
+        xe = xf.index_select(0, mine(buf_tok)) * mine(occupied)[:, None]
+        ye = expert_ffn(params, xe.reshape(g * el, cap, -1))
+        local = slot.reshape(g, -1) - torch.arange(
+            g, device=slot.device)[:, None] * (e * cap)
+        pos = (local % cap).clamp(max=cap - 1)
+        d = ye.shape[-1]
+        gathered = torch.gather(ye.reshape(g, el, cap, d), 2,
+                                pos[:, None, :, None].expand(g, el,
+                                                             pos.shape[1], d))
+        own = F.one_hot(local // cap, e)[..., lo:lo + el].to(ye.dtype)
+        per = (gathered * own.transpose(1, 2)[..., None]).sum(1)
+        per = PAR.sum_over(per.reshape(-1, d), ax.group)
+        return _weighted_sum(per, keep, wts).to(x.dtype)
+    xe = xf.index_select(0, buf_tok) * occupied[:, None]
+    ye = expert_ffn(params, xe.reshape(g * e, cap, -1))
+    per = ye.reshape(-1, ye.shape[-1]).index_select(0, slot)
+    y = _weighted_sum(per, keep, wts)
+    if params["w_down"].shape[-2] != d_ff:        # F split: partial outputs
+        y = PAR.sum_over(y, ax.group)
+    return y.to(x.dtype)

@@ -20,11 +20,18 @@ sizes (``mesh_sizes``): a ``torch.distributed`` ``DeviceMesh``
 mapping of name to size (the reference's ``AbstractMesh``, a test's fake).
 
 What the port executes of these rules: the batch axes ('pod', 'data') are
-data parallel (``core/shard``, ``core/train``, ``train/step``); a 'model'
-axis larger than 1 is not executed (``require_no_model_axis``, ROADMAP
-Queue 1 item 6, where the reference's ``with_sharding_constraint`` sites
-come back).  ``placements`` turns a spec into ``Shard``/``Replicate`` placements for
-state that is placed with DTensor.
+data parallel (``core/shard``, ``core/train``, ``train/step``).  Across a
+'model' axis larger than 1 the port serves (``train/step``'s prefill and
+decode steps, ``launch/serve.Engine``): each rank stores exactly its
+block of every leaf, ``shard_params`` under ``param_specs(fsdp=True)``
+and ``shard_states`` under ``state_specs`` (``local_block`` cuts one
+leaf, ``gather_leaf`` puts one back together), and the layers compute on
+those blocks with explicit collectives (``train/parallel``).  Training
+there (ROADMAP Queue 1 item 6b) and hymba's, xlstm's and whisper's
+blocks there (item 6c) raise (``require_no_model_axis``,
+``require_model_axis_arch``).  ``placements`` turns a spec into
+``Shard``/``Replicate`` placements for state that is placed with
+DTensor.
 """
 from __future__ import annotations
 
@@ -124,14 +131,36 @@ def batch_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in names)
 
 
-def require_no_model_axis(mesh) -> None:
-    """Executing across a 'model' axis larger than 1 (tensor, expert or
-    FSDP parallel) is not ported."""
-    if mesh is not None and axis_size(mesh, "model") > 1:
+def model_axis(mesh) -> int:
+    """The size of `mesh`'s 'model' axis (1 with no mesh)."""
+    return 1 if mesh is None else axis_size(mesh, "model")
+
+
+def require_no_model_axis(mesh, what: str = "training") -> None:
+    """Training across a 'model' axis larger than 1 (the backward of every
+    collective, FSDP's gradient reduce-scatter, ``act_shard`` at the remat
+    save points, a vocab-parallel loss) is not ported."""
+    if model_axis(mesh) > 1:
         raise NotImplementedError(
-            f"mesh {mesh_sizes(mesh)}: execution across a 'model' axis "
-            f"larger than 1 (tensor, expert and FSDP parallel) waits for "
-            f"ROADMAP Queue 1 item 6")
+            f"mesh {mesh_sizes(mesh)}: {what} across a 'model' axis larger "
+            f"than 1 waits for ROADMAP Queue 1 item 6b (serving there is "
+            f"item 6a)")
+
+
+def require_model_axis_arch(m, mesh) -> None:
+    """Serving across a 'model' axis larger than 1 covers the dense and
+    MoE decoders; hymba's SSM leaves, xlstm's mLSTM and sLSTM leaves and
+    whisper's encoder and cross-attention there raise."""
+    if model_axis(mesh) <= 1:
+        return
+    kinds = {(sp.kind, bool(sp.cfg.ssm_state)) for seg in m.segments
+             for sp in seg.pattern}
+    if m.enc_segments is not None or kinds - {("dense", False)}:
+        raise NotImplementedError(
+            f"{m.name} on mesh {mesh_sizes(mesh)}: hymba's SSM branch, "
+            f"xlstm's mLSTM/sLSTM blocks and whisper's encoder-decoder "
+            f"across a 'model' axis larger than 1 wait for ROADMAP Queue 1 "
+            f"item 6c")
 
 
 def activation_spec(mesh, batch: int, d_model: int,
@@ -279,3 +308,81 @@ def placements(spec: P, mesh) -> tuple:
         for ax in norm_axes(entry) or ():
             out[names.index(ax)] = Shard(d)
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# a rank's blocks: storage under the specs
+# ---------------------------------------------------------------------------
+def coordinate(mesh) -> Dict[str, int]:
+    """{axis name: this rank's coordinate} on the ``DeviceMesh`` `mesh`."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def block_of(entry, mesh, coord: Dict[str, int]) -> Tuple[int, int]:
+    """(index, count) of the block a spec entry gives the rank at `coord`:
+    row-major over a tuple of axes, (0, 1) where the entry shards
+    nothing."""
+    axes = norm_axes(entry, mesh)
+    idx, n = 0, 1
+    for a in axes or ():
+        size = axis_size(mesh, a)
+        idx, n = idx * size + coord[a], n * size
+    return idx, n
+
+
+def local_block(t, spec: P, mesh, coord: Optional[Dict[str, int]] = None):
+    """A rank's block of the full leaf `t` under `spec`: its slice along
+    every sharded dim (a view).  `coord` defaults to this rank's
+    (``coordinate``)."""
+    coord = coordinate(mesh) if coord is None else coord
+    for d, entry in enumerate(spec):
+        i, n = block_of(entry, mesh, coord)
+        if n > 1:
+            size = t.shape[d] // n
+            t = t.narrow(d, i * size, size)
+    return t
+
+
+def gather_leaf(t, spec: P, mesh):
+    """The full leaf from every rank's block `t` under `spec`: an
+    all-gather along each sharded dim (collective over those axes; for
+    tests and checkpoints)."""
+    from repro_torch.launch.mesh import axis_group
+    from repro_torch.train import parallel as PAR
+
+    for d, entry in enumerate(spec):
+        axes = norm_axes(entry, mesh)
+        if axes is not None:
+            t = PAR.gather_dim(t, d, axis_group(mesh, axes)[0])
+    return t
+
+
+def _blocks(tree, specs, mesh):
+    coord = coordinate(mesh)
+
+    def cut(t, spec):
+        if not hasattr(t, "shape"):
+            return t
+        return local_block(t, spec, mesh, coord).contiguous().clone()
+
+    def walk(x, s):
+        if isinstance(x, dict):
+            return {k: walk(x[k], s[k]) for k in x}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(a, b) for a, b in zip(x, s))
+        return cut(x, s)
+
+    return walk(tree, specs)
+
+
+def shard_params(params, mesh, fsdp: bool = True):
+    """This rank's block of every param leaf under ``param_specs(params,
+    mesh, fsdp)``: new contiguous tensors, so the full tree can be
+    dropped."""
+    return _blocks(params, param_specs(params, mesh, fsdp=fsdp), mesh)
+
+
+def shard_states(states, mesh, batch: int):
+    """This rank's block of every decode-state leaf under
+    ``state_specs(states, mesh, batch)`` (ints kept)."""
+    return _blocks(states, state_specs(states, mesh, batch), mesh)

@@ -19,9 +19,17 @@ the replicated AdamW update.  Where they do not divide, every rank
 computes the whole batch (the reference replicates it too,
 ``batch_specs``).  The prefill and decode steps install the mesh, so the
 MoE layers route in the reference's groups, and compute the whole batch
-on every rank.  A 'model' axis larger than 1 raises
-(``shardings.require_no_model_axis``).  ``build_case`` has no mesh,
-``fsdp`` or ``act_shard`` knob yet (ROADMAP Queue 1 items 6-7).
+on every rank.  Training across a 'model' axis larger than 1 raises
+(``shardings.require_no_model_axis``, ROADMAP Queue 1 item 6b).
+
+Serving across a 'model' axis larger than 1 (the dense and MoE
+decoders): the prefill and decode steps take params and decode states
+already sharded (``shardings.shard_params``, ``shard_states``), split the
+batch's rows over the batch axes where ``batch_specs``' rule splits them,
+run the layers on this rank's blocks (``models/base._forward_sharded``,
+``_decode_sharded``) and gather the logits, so every rank returns the
+whole batch's.  ``build_case`` has no mesh, ``fsdp`` or ``act_shard``
+knob yet (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from repro_torch.core import prng
 from repro_torch.core import shard
 from repro_torch.models import base as MB
 from repro_torch.optim import adamw, tree_leaves, tree_map, tree_unflatten
+from repro_torch.train import parallel as PAR
 from repro_torch.train import shardings as SH
 
 
@@ -126,10 +135,10 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
 
     ``mesh`` makes the step data parallel over its batch axes (module
     docstring); every rank passes the same global batch and params.  The
-    reference's ``act_shard`` layout policy waits for 'model'-axis
-    execution (ROADMAP Queue 1 item 6).
+    reference's ``act_shard`` layout policy waits for training across a
+    'model' axis (ROADMAP Queue 1 item 6b).
     """
-    SH.require_no_model_axis(mesh)
+    SH.require_no_model_axis(mesh, "make_train_step")
     k = shard.n_task_shards(mesh)
     optim = adamw(lr, weight_decay=0.1, clip_norm=1.0)
 
@@ -181,8 +190,26 @@ def make_prefill_step(m: MB.ModelCfg, *, mesh=None,
     Every attention layer runs the flash-attention kernel on the card;
     ``use_fused=False`` takes the plain attention instead.  ``mesh`` is
     installed for the step (the MoE layers' groups follow it); every rank
-    computes the whole batch."""
-    SH.require_no_model_axis(mesh)
+    computes the whole batch.  Across a 'model' axis larger than 1 the
+    params are this rank's blocks and the rows split (module docstring);
+    the head runs on the last position alone."""
+    SH.require_model_axis_arch(m, mesh)
+
+    def prefill_sharded(params, batch):
+        tokens = batch["tokens"]
+        ax = _row_axis(mesh, tokens.shape[0])
+        pos = batch.get("positions")
+        if pos is not None:
+            pos = PAR.rows(pos, ax, dim=1 if pos.dim() == 3 else 0)
+        with torch.no_grad(), SH.use_mesh(mesh, split=ax.size):
+            logits = MB.forward(params, m, PAR.rows(tokens, ax),
+                                positions=pos, use_fused=use_fused,
+                                last_only=True)[:, -1]
+        return PAR.gather_dim(logits, 0, ax.group)
+
+    if SH.model_axis(mesh) > 1:
+        PAR.param_layout(m, mesh)           # the specs, once, at set-up
+        return prefill_sharded
 
     def prefill_step(params, batch):
         with torch.no_grad(), SH.use_mesh(mesh):
@@ -199,17 +226,55 @@ def make_prefill_step(m: MB.ModelCfg, *, mesh=None,
     return prefill_step
 
 
-def make_decode_step(m: MB.ModelCfg, *, mesh=None) -> Callable:
+def _row_axis(mesh, batch: int) -> PAR.ModelAxis:
+    """The batch axes a batch of `batch` rows splits over on `mesh`
+    (``batch_specs``' rule), as this rank's (group, coordinate, size)."""
+    axes = PAR.batch_axes_for(mesh, batch)
+    return PAR.ModelAxis(None, 0, 1) if axes is None else PAR.axis(mesh, axes)
+
+
+def make_decode_step(m: MB.ModelCfg, *, mesh=None,
+                     cache_len: Optional[int] = None) -> Callable:
     """decode_step(params, token, pos, states, enc_out=None, start=None)
     -> (logits (B, 1, V), states), the reference's argument order; see
     ``models/base.decode_step``.  ``mesh`` is installed for the step, as
-    in ``make_prefill_step``."""
-    SH.require_no_model_axis(mesh)
+    in ``make_prefill_step``.  Across a 'model' axis larger than 1 the
+    params and states are this rank's blocks, `cache_len` (the cache the
+    states were made for) gives the states' specs, each rank decodes its
+    lanes (the states' batch dim) and the logits are gathered."""
+    SH.require_model_axis_arch(m, mesh)
+    if SH.model_axis(mesh) > 1:
+        if cache_len is None:
+            raise ValueError("make_decode_step across a 'model' axis needs "
+                             "the states' cache_len")
+        return _decode_sharded(m, mesh, cache_len)
 
     def decode_step(params, token, pos, states, enc_out=None, start=None):
         with torch.no_grad(), SH.use_mesh(mesh):
             return MB.decode_step(params, m, token, pos, states,
                                   enc_out=enc_out, start=start)
+
+    return decode_step
+
+
+def _decode_sharded(m: MB.ModelCfg, mesh, cache_len: int) -> Callable:
+    PAR.param_layout(m, mesh)               # the specs, once, at set-up
+    specs: Dict[int, Any] = {}
+
+    def decode_step(params, token, pos, states, enc_out=None, start=None):
+        b = token.shape[0]
+        if b not in specs:      # the specs of the full states, from meta
+            specs[b] = SH.state_specs(MB.init_decode_state(
+                {"ln_f": {"scale": _struct((m.d_model,), torch.float32)}},
+                m, b, cache_len), mesh, b)
+        ax = _row_axis(mesh, b)
+        if start is not None:
+            start = PAR.rows(start, ax)
+        with torch.no_grad(), SH.use_mesh(mesh, split=ax.size):
+            logits, states = MB.decode_step(params, m, PAR.rows(token, ax),
+                                            pos, states, start=start,
+                                            state_specs=specs[b])
+        return PAR.gather_dim(logits, 0, ax.group), states
 
     return decode_step
 

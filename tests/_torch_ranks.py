@@ -2,8 +2,11 @@
 starts on the CPU: joins the process group from a ``FileStore``, builds
 ``make_host_mesh()`` and runs every scenario of the port over it, each
 beside its one-rank run, then pickles what it saw for the test to hold.
+With ``model`` last, the scenarios of ``tests/test_torch_model_axis.py``
+instead: serving and the DSE task mesh on the (1, 4) and (2, 2)
+('data', 'model') meshes (``model_axis_main``).
 
-    python tests/_torch_ranks.py RANK WORLD STORE_PATH OUT_DIR
+    python tests/_torch_ranks.py RANK WORLD STORE_PATH OUT_DIR [model]
 
 Imports only ``torch`` and ``repro_torch``.
 """
@@ -219,6 +222,231 @@ def lm(mesh):
     return out
 
 
+# ---------------------------------------------------------------------------
+# serving and the DSE task mesh across a 'model' axis
+# ---------------------------------------------------------------------------
+#: the model-axis meshes on 4 ranks
+MODEL_MESHES = ((1, 4), (2, 2))
+#: the reduced archs served there: MHA, GQA, the ring (n_kv = 1 < m), MoE
+MODEL_ARCHS = ("stablelm-1.6b", "qwen3-14b", "gemma3-1b", "mixtral-8x7b")
+MODEL_BATCH, MODEL_SEQ = 4, 24
+#: the Engine's run: 4 slots, 4 requests of 4 prompt tokens + 5 new (8
+#: engine steps)
+ENGINE = dict(slots=4, cache_len=32, requests=4, prompt=4, max_new=5)
+#: gemma3's windowed tail layer alone, decoded past a ring of 16 slots
+#: (S over 'model') and of 8 (dh over 'model', the larger dim there)
+RING_CACHES, RING_STEPS = (16, 8), 24
+
+
+class Sizes:
+    """A mesh that the rules read and no collective runs on: the groups
+    of a 'model'-1 mesh of the same batch axes (the one-rank runs)."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+
+
+def model_tokens(vocab: int, b: int = MODEL_BATCH, s: int = MODEL_SEQ):
+    return np.random.default_rng(5).integers(0, vocab, (b, s))
+
+
+def engine_prompts(vocab: int):
+    rng = np.random.default_rng(6)
+    return [rng.integers(0, vocab, ENGINE["prompt"]).tolist()
+            for _ in range(ENGINE["requests"])]
+
+
+def _engine_tokens(m, params, mesh):
+    from repro_torch.launch.serve import Engine, Request
+
+    eng = Engine(m, params, ENGINE["slots"], ENGINE["cache_len"], mesh=mesh,
+                 device="cpu")
+    for i, p in enumerate(engine_prompts(m.vocab)):
+        eng.submit(Request(rid=i, prompt=p, max_new=ENGINE["max_new"]))
+    iters = eng.run()
+    return ({r.rid: r.out for r in eng.finished}, iters,
+            _nbytes(eng.params), _nbytes(eng.states))
+
+
+def _spec_list(specs) -> list:
+    """A spec tree's leaves (``P``s) in ``tree_leaves``' order."""
+    if isinstance(specs, dict):
+        return [p for v in specs.values() for p in _spec_list(v)]
+    if isinstance(specs, list):
+        return [p for v in specs for p in _spec_list(v)]
+    return [specs]
+
+
+def _nbytes(tree) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor)))
+
+
+def _ring(mesh, one):
+    """The logits of RING_STEPS decode steps of gemma3's windowed tail
+    layer from empty caches of each of RING_CACHES slots (rings narrower
+    than the window, so they wrap), sharded and on one rank."""
+    import dataclasses
+
+    from repro_torch.train import shardings as SH
+
+    m = configs.get_reduced("gemma3-1b")
+    m = dataclasses.replace(m, segments=m.segments[1:])
+    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
+    toks = np.random.default_rng(7).integers(0, m.vocab, (2, RING_STEPS))
+    out = {}
+    for cache in RING_CACHES:
+        for active, p in ((mesh, SH.shard_params(params, mesh)),
+                          (one, params)):
+            states = MB.init_decode_state(params, m, 2, cache)
+            if active is mesh:
+                states = SH.shard_states(states, mesh, 2)
+            dec = TS.make_decode_step(m, mesh=active, cache_len=cache)
+            seen = []
+            for t in range(RING_STEPS):
+                logits, states = dec(p, torch.from_numpy(toks[:, t:t + 1]),
+                                     t, states)
+                seen.append(logits[:, 0].numpy().copy())
+            out[cache, active is mesh] = np.stack(seen, 1)
+            if active is mesh:
+                out[cache, "kv_shape"] = tuple(states[0][0]["kv"][0].shape)
+    return out
+
+
+def serving(mesh, shape):
+    """Each arch: this rank's param and state bytes (and their blocks'
+    shapes), the prefill logits and the Engine's tokens, sharded and on
+    one rank holding the same MoE token groups."""
+    from repro_torch.train import shardings as SH
+
+    one = Sizes(data=shape[0], model=1)
+    out = {}
+    for arch in MODEL_ARCHS:
+        m = configs.get_reduced(arch)
+        params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
+        tok = torch.from_numpy(model_tokens(m.vocab))
+        local = SH.shard_params(params, mesh)
+        specs = SH.param_specs(params, mesh)
+        whole = [bool(torch.equal(SH.gather_leaf(t, s, mesh), full))
+                 for t, s, full in zip(tree_leaves(local),
+                                       _spec_list(specs),
+                                       tree_leaves(params))]
+        got = TS.make_prefill_step(m, mesh=mesh)(local, {"tokens": tok})
+        want = TS.make_prefill_step(m, mesh=one)(params, {"tokens": tok})
+        toks, iters, pbytes, sbytes = _engine_tokens(m, params, mesh)
+        out[arch] = dict(
+            param_bytes=_nbytes(local), engine_param_bytes=pbytes,
+            state_bytes=sbytes, shapes=[tuple(t.shape)
+                                        for t in tree_leaves(local)],
+            gathered_whole=whole,
+            logits=got.numpy(), one_logits=want.numpy(),
+            tokens=toks, one_tokens=_engine_tokens(m, params, one)[0],
+            iters=iters)
+    out["ring"] = _ring(mesh, one)
+    return out
+
+
+def moe_layer(mesh, shape, e: int = 4):
+    """The reference's expert-parallel test's layer (capacity factor 8)
+    with `e` experts through ``moe_apply_sharded`` on this rank's blocks,
+    and ``moe_apply`` on one rank in the same token groups.  E = 4 is
+    expert parallel on both meshes; E = 6 on (1, 4) splits each expert's
+    F instead."""
+    from repro_torch.nn import moe as M
+    from repro_torch.train import parallel as PAR
+    from repro_torch.train import shardings as SH
+
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(32, 16)).astype(np.float32))
+    p = M.moe_init(prng.prng_key(torch.tensor(0)), e, 16, 32, "cpu")
+    specs = SH.param_specs(p, mesh)
+    local = SH.shard_params(p, mesh)
+    with SH.use_mesh(mesh):
+        y = M.moe_apply_sharded(PAR.unshard_data(local, specs), x,
+                                PAR.model_axis(), n_experts=e, d_ff=32,
+                                top_k=2, capacity_factor=8.0)
+    with SH.use_mesh(Sizes(data=shape[0], model=1)):
+        one = M.moe_apply(p, x, top_k=2, capacity_factor=8.0)
+    return y.numpy(), one.numpy(), tuple(local["w_gate"].shape)
+
+
+def heads_not_split(mesh, shape):
+    """Reduced stablelm with 6 heads of 16: 'model' divides wq's 96
+    columns but not its heads on (1, 4), so every rank forms every head
+    and takes wo's row block; its prefill, sharded and on one rank."""
+    import dataclasses
+
+    from repro_torch.train import shardings as SH
+
+    m = configs.get_reduced("stablelm-1.6b")
+    seg = m.segments[0]
+    spec = seg.pattern[0]
+    cfg = dataclasses.replace(spec.cfg, n_heads=6, n_kv=6, head_dim=16)
+    m = dataclasses.replace(m, segments=(dataclasses.replace(
+        seg, pattern=(dataclasses.replace(spec, cfg=cfg),)),))
+    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
+    tok = {"tokens": torch.from_numpy(model_tokens(m.vocab))}
+    got = TS.make_prefill_step(m, mesh=mesh)(SH.shard_params(params, mesh),
+                                             tok)
+    want = TS.make_prefill_step(m, mesh=Sizes(data=shape[0], model=1))(
+        params, tok)
+    return got.numpy(), want.numpy()
+
+
+def task_mesh_dse(mesh):
+    model = Im2colModel()
+    eng = GANDSE(model, dse_cfg(G, model), ExplorerConfig(
+        prob_threshold=0.1, max_candidates=128), device="cpu")
+    eng.attach(generate_dataset(model, 256, seed=0), G.init_generator(
+        prng.prng_key(torch.tensor(3)), dse_cfg(G, model), model.space,
+        "cpu"))
+    tasks = generate_tasks(model, 8, seed=2)
+    out = {"explore": _both(mesh, lambda: _sels(eng.explore_batch(
+        tasks, seed=7)))}
+    ds = generate_dataset(model, 128, seed=0)
+    out["train"] = _both(mesh, lambda: _state(train_gan(
+        model, ds, dse_cfg(G, model, 32), iters=2, seed=0,
+        device="cpu")))[:2]
+    return out
+
+
+def plane_group():
+    """``axis_group`` over the batch axes of a (pod 2, data 2, model 1)
+    mesh: this rank's coordinate on the plane, and the ranks gathered
+    over its group in order."""
+    from repro_torch.launch.mesh import axis_group
+    from repro_torch.train import parallel as PAR
+
+    mesh = make_host_mesh((2, 2, 1), device="cpu")
+    group, coord = axis_group(mesh, ("pod", "data"))
+    got = PAR.gather_dim(torch.tensor([dist.get_rank()]), 0, group)
+    return coord, got.tolist(), axis_group(mesh, "model")
+
+
+def model_axis_main(rank: int, world: int, store_path: str,
+                    out_dir: str) -> None:
+    torch.set_num_threads(1)
+    init_process_group("gloo", dist.FileStore(store_path, world), rank,
+                       world, timeout_s=120)
+    out = {}
+    try:
+        meshes = {shape: make_host_mesh(shape, device="cpu")
+                  for shape in MODEL_MESHES}
+        for shape, mesh in meshes.items():
+            out[shape] = dict(coord=tuple(mesh.get_coordinate()),
+                              serving=serving(mesh, shape),
+                              moe_layer=moe_layer(mesh, shape),
+                              moe_layer_6=moe_layer(mesh, shape, e=6),
+                              heads_6=heads_not_split(mesh, shape))
+        out["dse"] = task_mesh_dse(meshes[2, 2])
+        out["plane"] = plane_group()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
 def main(rank: int, world: int, store_path: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     init_process_group("gloo", dist.FileStore(store_path, world), rank,
@@ -237,4 +465,5 @@ def main(rank: int, world: int, store_path: str, out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    (model_axis_main if sys.argv[5:] == ["model"] else main)(
+        int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

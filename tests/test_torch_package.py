@@ -59,7 +59,7 @@ def test_port_files_are_found():
                 "configs/whisper_small", "configs/qwen2_vl_7b",
                 "utils/roofline", "utils/op_cost", "launch/dryrun",
                 "launch/perf", "launch/mesh", "train/shardings",
-                "core/shard"):
+                "core/shard", "train/parallel"):
         assert f"src/repro_torch/{mod}.py" in names
     assert "chip_smoke.py" in names
     assert all(p.relative_to(ROOT).as_posix() in names for p in EXAMPLES)

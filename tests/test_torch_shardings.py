@@ -253,16 +253,22 @@ def test_make_host_mesh_rejects_oversized_shape():
 
 
 def test_model_axis_execution_raises():
-    """A 'model' axis larger than 1 has its specs, but executing across
-    it (the train, prefill and decode steps, task sharding) raises."""
+    """A 'model' axis larger than 1 serves the dense and MoE decoders
+    (``tests/test_torch_model_axis.py``); training there raises (ROADMAP
+    Queue 1 item 6b), and so do hymba's, xlstm's and whisper's steps
+    (item 6c)."""
     mesh = AbstractMesh((2, 2), ("data", "model"))
     m = TC.get_reduced("stablelm-1.6b")
-    for make in (TTS.make_train_step, TTS.make_prefill_step,
-                 TTS.make_decode_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            make(m, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="'model' axis"):
-        shard.put_sharded(np.zeros(8), mesh)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
+        TTS.make_train_step(m, mesh=mesh)
+    for arch in ("hymba-1.5b", "xlstm-1.3b", "whisper-small"):
+        for make in (TTS.make_prefill_step, TTS.make_decode_step):
+            with pytest.raises(NotImplementedError,
+                               match="Queue 1 item 6c"):
+                make(TC.get_reduced(arch), mesh=mesh)
+    # the decode step needs the states' cache length there
+    with pytest.raises(ValueError, match="cache_len"):
+        TTS.make_decode_step(m, mesh=mesh)
     # 'model' of size 1 executes
     TTS.make_train_step(m, mesh=OneDeviceMesh())
 
