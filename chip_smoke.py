@@ -128,8 +128,9 @@ freed first):
   dispatch integers the CPU port's on the same router logits; the same
   bits twice; the layer, the oracle and the parts timed;
 - l2. mixtral-8x7b at full width (d 4096, 32 heads / 8 kv of 128, window
-  4096, vocab 32000, untied), its depth cut to 4 layers:
-  ``make_prefill_step`` on 2 x 4096 tokens through the kernel (4 flash
+  4096, vocab 32000, untied), its depth cut to MOE_LAYERS (2) layers
+  (the script's time limit: one init serves l2-l4):
+  ``make_prefill_step`` on 2 x 4096 tokens through the kernel (2 flash
   launches at head dim 128, window 4096, asserted) and through the plain
   attention, their last-token logits compared and the routing flips
   between the two routes counted layer by layer; timed, profiled;
@@ -138,7 +139,8 @@ freed first):
   step from the plain pieces (each MoE layer the oracle over the step's
   kept assignments; the reference's capacity at decode makes decode
   differ from prefill); ms a step beside the weights-read bound;
-- l4. mixtral at 2 layers, batch 1 x 2048 of ``SyntheticStream``: the
+- l4. the same model and params (trained last: the step updates them in
+  place), batch 1 x 2048 of ``SyntheticStream``: the
   kernel route's loss and gradients the same bits twice and against the
   plain route's (loss within 1e-5, each leaf within 1e-3 of its norm);
   ``make_train_step``: one warm step and 3 timed (2 flash launches with
@@ -204,18 +206,20 @@ first):
   none);
 - o2. one mLSTM layer (chunkwise) and one sLSTM layer (kernel and plain
   loop) at 2 x 4096 against the same layers in float64;
-- o3. ``make_prefill_step`` at 2 x 4096 through the kernel (6 sLSTM
-  launches, no flash launch, asserted) and through the plain loop,
-  timed, profiled (groups ``gemm``, the sLSTM kernel, other).  At seed
-  0's random weights the residual stream grows ~4x a repeat and the
-  float32 model's full-depth logits move by O(1) under a one-ulp nudge
-  of the embedding, so the two routes' logits (and each one's distance
-  from the float64 forward) are reported, not held.  Held: each of the
-  6 sLSTM launches again on its recorded input against the plain loop
-  (the last also against float64), and the model cut to one repeat (8
-  layers) through both routes, logits within TOL·scale;
-- o4. the ``Engine`` at SERVE at full depth: every request served, 6
-  sLSTM launches a decode step (asserted), those of the step at the
+- o3. ``make_prefill_step`` at 2 x 4096 on the first XLSTM_SERVE_REPEATS
+  (3) of the 6 repeats (the script's time limit; ``reduced`` says so)
+  through the kernel (3 sLSTM launches, no flash launch, asserted) and
+  through the plain loop, timed, profiled (groups ``gemm``, the sLSTM
+  kernel, other).  At seed 0's random weights the residual stream grows
+  ~4x a repeat and the float32 model's logits at that depth move by
+  O(1) under a one-ulp nudge of the embedding, so the two routes' logits
+  (and each one's distance from the float64 forward) are reported, not
+  held.  Held: each of the 3 sLSTM launches again on its recorded input
+  against the plain loop (the last also against float64), and the model
+  cut to one repeat (8 layers) through both routes, logits within
+  TOL·scale;
+- o4. the ``Engine`` at SERVE on the same 3 repeats: every request
+  served, 3 sLSTM launches a decode step (asserted), those of the step at the
   prompts' last token held to the plain loop on their recorded inputs
   and states; ms and launches a step; its logits against the stepwise forward and prefill reported;
   a second Engine on the model cut to one repeat, each decode step of
@@ -353,7 +357,7 @@ Then the multi-rank half (phase t, ~60 s):
   card's name and power limit; two ranks time-slice one card, so t2
   checks correctness, not speed.
 
-Then serving across a 'model' axis (phase u, ~80 s): two ranks on the
+Then serving and training across a 'model' axis (phase u): two ranks on the
 one card (``--u-rank`` starts each; gloo, both ``cuda:0``, a (1, 2)
 ('data', 'model') mesh), each building the full params from seed 0 of
 stablelm-1.6b at full width and depth and of mixtral-8x7b at full width
@@ -369,8 +373,20 @@ the world of one's logits with its argmax; the ``Engine``'s tokens are
 the world of one's; on the (1, 2) task mesh ``explore_batch``'s
 Selections are t1's and ``train_gan``'s first step the world of one's
 within T_GRAD_TOL, with the whole MLP and the dense kernels launched in
-each rank (``u_failures``).  Each path's ms and its collectives' share,
-beside the card's name and power limit.
+each rank.  Each model is trained last, after its serving checks (the
+step updates the params in place): from the full params every rank
+takes the world of one's gradient (remat on) and keeps its blocks of it,
+then rank 0 alone times it again (with stablelm's AdamW update); then
+each rank trains its blocks with ``make_train_step(mesh=)`` at 2 x 2048
+and 1 x 2048 (remat, act_shard 'model'), its collectives timed forward
+and backward apart: the loss within 1e-5 of the world of one's, every
+gradient block within U_GRAD_TOL of its leaf's norm, flash with lse on
+16 of 32 heads twice a layer (forward and recompute), params, mu and nu
+the spec blocks' bytes, mixtral's 4 experts a rank with no routing flip
+between the ranks, and after the step every replicated leaf the same
+bits on both ranks (``u_failures``).  Each path's ms and its
+collectives' share, and each rank's peak memory, beside the card's name
+and power limit.
 
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
@@ -524,12 +540,11 @@ LAUNCHER_ARGV = ["--arch", LM_TRAIN_ARCH, "--steps", "12", "--batch", "8",
                  "--seq", "128", "--ckpt-every", "4", "--log-every", "1"]
 #: phase l: the MoE decoders at full width, float32 from seed 0.  The MoE
 #: layer of both archs at the prefill's tokens; mixtral with its depth
-#: cut (its 32 layers are 187 GB in float32): 4 layers to serve, 2 to
-#: train at MOE_TRAIN (batch x seq)
+#: cut (its 32 layers are 187 GB in float32) to MOE_LAYERS, one init to
+#: serve and then train at MOE_TRAIN (batch x seq)
 MOE_ARCH = "mixtral-8x7b"
 MOE_LAYER_ARCHS = ("mixtral-8x7b", "phi3.5-moe-42b-a6.6b")
-MOE_SERVE_LAYERS = 4
-MOE_TRAIN_LAYERS = 2
+MOE_LAYERS = 2
 MOE_TRAIN = (1, 2048)
 MOE_TRAIN_STEPS = 3          # timed, after one warm step
 #: phase m: hymba-1.5b at full width (32 layers, d 1600, 25 heads / 5 kv
@@ -544,9 +559,12 @@ HYMBA_ARCH = "hymba-1.5b"
 SSM_BWD_SHAPES = {"train step": LM_TRAIN, "prefill": PREFILL}
 HYMBA_LAUNCHER_ARGV = ["--arch", HYMBA_ARCH] + LAUNCHER_ARGV[2:]
 #: phase o: xlstm-1.3b at full width (6 repeats of [mLSTM x 7, sLSTM], d
-#: 2048, 4 heads of 512), float32 from seed 0: prefill at PREFILL, the
-#: Engine at SERVE; the sLSTM kernel alone at both paths' layer shapes
+#: 2048, 4 heads of 512), float32 from seed 0: prefill at PREFILL and the
+#: Engine at SERVE on the first XLSTM_SERVE_REPEATS repeats (24 of 48
+#: layers: the script's time limit); the sLSTM kernel alone at both
+#: paths' layer shapes
 XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_SERVE_REPEATS = 3
 SLSTM_SHAPES = {"prefill": PREFILL, "engine": (SERVE["slots"], 1)}
 #: phase p: xlstm-1.3b training on phase o's params at LM_TRAIN: the
 #: sLSTM backward alone at the train step's and the prefill's layer
@@ -559,7 +577,7 @@ SLSTM_SHAPES = {"prefill": PREFILL, "engine": (SERVE["slots"], 1)}
 SLSTM_BWD_SHAPES = {"train step": LM_TRAIN, "prefill": PREFILL}
 XLSTM_TRAIN_REMAT = False
 XLSTM_TRAIN_REPEATS = 3
-XLSTM_TRAIN_STEPS = 2
+XLSTM_TRAIN_STEPS = 1
 XLSTM_LAUNCHER_ARGV = ["--arch", XLSTM_ARCH] + LAUNCHER_ARGV[2:]
 #: phase q: whisper-small at full width (12 encoder + 12 decoder layers,
 #: d 768, 12 heads of 64, d_ff 3072, vocab 51865, tied; 295,882,752
@@ -626,7 +644,7 @@ MODELS: dict = {}
 #: after one warm step each
 PERF_SWEEP = tuple((micro, remat) for micro in (1, 2)
                    for remat in (False, True))
-PERF_SWEEP_STEPS = 2
+PERF_SWEEP_STEPS = 1
 
 
 def smi() -> str:
@@ -716,19 +734,19 @@ def print_builds(names) -> None:
         print(str(info["log"]).strip(), flush=True)
 
 
-def build_all() -> concurrent.futures.Future:
+def build_all() -> tuple:
     """Phase 1: one nvcc per source, started together.  Waits for every
-    source but the sLSTM's, the longest build (its 96 instantiations),
-    which no phase before o launches: that nvcc runs on beside phases 2-n,
-    and the Future it returns is waited for before phase o."""
-    loads = (fm.load_library, fd.load_library, fa.load_library,
-             ss.load_library)
-    pool = concurrent.futures.ThreadPoolExecutor(len(loads) + 1)
-    late = pool.submit(sl.load_library)
+    source but flash's and the sLSTM's, the longest builds, which no phase
+    before 6 and o launches: those nvccs run on beside phases 2-h and 2-n,
+    and the Futures it returns, (flash's, the sLSTM's), are waited for
+    before phases 6 and o."""
+    loads = (fm.load_library, fd.load_library, ss.load_library)
+    pool = concurrent.futures.ThreadPoolExecutor(len(loads) + 2)
+    late = (pool.submit(fa.load_library), pool.submit(sl.load_library))
     for f in [pool.submit(load) for load in loads]:
         f.result()
     pool.shutdown(wait=False)
-    print_builds(list(build.build_info))
+    print_builds(["mlp_forward.cu", "dense_train.cu", "ssm_scan.cu"])
     return late
 
 
@@ -3058,8 +3076,9 @@ def drive_moe_serve(m, params) -> dict:
     return out
 
 
-def check_moe_train() -> dict:
-    """Phase l4: MOE_ARCH at MOE_TRAIN_LAYERS layers, batch MOE_TRAIN of
+def check_moe_train(m, params, reduced: dict) -> dict:
+    """Phase l4: MOE_ARCH cut to MOE_LAYERS (`m`, `params`: phase l2's
+    and l3's, updated in place here), batch MOE_TRAIN of
     ``SyntheticStream``: the kernel route's loss and gradients
     (``remat=False``) twice, the same bits (the MoE layer's backward has
     no atomic adds), and against the plain route's (``use_fused=False``)
@@ -3068,7 +3087,6 @@ def check_moe_train() -> dict:
     timed (host clock ended by a synchronize), their launches counted
     from zero (one flash launch with lse a layer and step), the peak
     memory, one more step profiled."""
-    m, params, reduced = moe_model(MOE_TRAIN_LAYERS)
     n_params = MB.param_count(params)
     batch0 = lm_train_batch(m, 0, MOE_TRAIN)
     with recorded_routes() as route_k:
@@ -3582,7 +3600,8 @@ def check_slstm_scan(m, params) -> dict:
     the final state within TOL·scale, the same bits twice, no further
     from the float64 loop than 4x the plain float32 loop plus
     1e-6·scale; CUDA-event times of the kernel and the plain loop beside
-    the bound.  No PyTorch call computes an sLSTM (library: none)."""
+    the bound (the plain loop's one call after the held one, which warms
+    it).  No PyTorch call computes an sLSTM (library: none)."""
     h = m.segments[0].pattern[0].cfg.n_heads
     out = {}
     for label, (b, s) in SLSTM_SHAPES.items():
@@ -3608,8 +3627,8 @@ def check_slstm_scan(m, params) -> dict:
         bnd, by = slstm_bound_ms(b, s, m.d_model, h)
         n_bytes, ops_ = slstm_work(b, s, m.d_model, h)
         row.update(ms=cuda_ms(lambda: sl.slstm_scan(*args)),
-                   plain_ms=cuda_ms(lambda: ref.slstm_scan(*args), reps=3,
-                                    warmup=1),
+                   plain_ms=cuda_ms(lambda: ref.slstm_scan(*args), reps=1,
+                                    warmup=0),
                    bound_ms=bnd, bound_by=by, library_ms=None,
                    bytes=n_bytes, operations=ops_)
         row["us_per_step"] = 1e3 * row["ms"] / s
@@ -3725,15 +3744,15 @@ def cut_repeats(m, params, repeats: int = 1):
 
 
 def drive_xlstm_prefill(m, params) -> dict:
-    """Phase o3: ``drive_prefill`` at full depth (6 sLSTM launches and no
-    flash launch asserted, timed, profiled).  Its last-token logits
+    """Phase o3: ``drive_prefill`` at `m`'s depth (an sLSTM launch a
+    repeat and no flash launch asserted, timed, profiled).  Its last-token logits
     through the kernel and through the plain loop are reported, not
     held: at seed 0's random weights the residual stream grows ~4x a
     repeat of the pattern (0.02 to ~840 rms before the last sLSTM layer)
     and the float32 model's logits move by O(1) when its embedding moves
     by one ulp (`sensitivity`), so no two float32 routes agree there;
     both routes' distance from the float64 forward is reported beside
-    it.  What is held: each of the prefill's 6 sLSTM launches, again on
+    it.  What is held: each of the prefill's sLSTM launches, again on
     its own recorded input, within TOL·scale of the plain loop (the last
     also against float64), and the prefill of the model cut to one
     repeat of the pattern (8 layers, where one ulp moves nothing) through
@@ -3760,7 +3779,7 @@ def drive_xlstm_prefill(m, params) -> dict:
         exact = MB.forward(p64, m, toks, use_fused=False)[:, -1]
         del p64
     torch.cuda.empty_cache()
-    out["full_depth_logits"] = dict(
+    out["depth_logits"] = dict(
         max_abs_f64=float(exact.abs().max()),
         kernel_vs_f64=_err(got, exact), plain_vs_f64=_err(want, exact),
         kernel_vs_plain=_err(got, want),
@@ -3775,7 +3794,7 @@ def drive_xlstm_prefill(m, params) -> dict:
                                       got, want)
     print("xlstm prefill checks: " + json.dumps(
         {k: out[k] for k in ("logits_vs_plain", "slstm_calls_vs_plain",
-                             "full_depth_logits", "one_repeat")}),
+                             "depth_logits", "one_repeat")}),
           flush=True)
     return out
 
@@ -3813,14 +3832,14 @@ def engine_vs_prefill(m, params, run: dict, label: str, hold: bool
 
 
 def drive_xlstm_serve(m, params) -> dict:
-    """Phase o4: the Engine serving SERVE's requests on xlstm-1.3b at full
-    depth, its launches counted from zero (one sLSTM launch an sLSTM
+    """Phase o4: the Engine serving SERVE's requests on xlstm-1.3b at
+    `m`'s depth, its launches counted from zero (one sLSTM launch an sLSTM
     layer a decode step: the engine's steps and one more profiled; the
     mLSTM's one-token cell is eager torch), ms and launches a step.  Its
     decode logits are held to the stepwise forward and prefill step where
     the float32 model is well conditioned: on the model cut to one repeat
-    of the pattern, served by a second Engine; at full depth they are
-    reported (see `drive_xlstm_prefill`), and the 6 sLSTM launches of the
+    of the pattern, served by a second Engine; at `m`'s depth they are
+    reported (see `drive_xlstm_prefill`), and the sLSTM launches of the
     step at the prompts' last token are held, on their own recorded
     inputs and states, to the plain loop.  A step reads every weight (the tied head the whole
     table): the bound is the params' bytes over HBM."""
@@ -3848,7 +3867,7 @@ def drive_xlstm_serve(m, params) -> dict:
                    "device_launches"],
                weights_read_gb=weight_bytes / 1e9,
                weights_read_ms=1e3 * weight_bytes / PEAK_HBM_BYTES,
-               slstm_calls_vs_plain=calls, full_depth=full,
+               slstm_calls_vs_plain=calls, at_depth=full,
                one_repeat=dict(one, ms_per_decode_step=cut_run["stats"][
                    "ms_per_decode_step"]))
     print("xlstm serve: " + json.dumps(out), flush=True)
@@ -3898,8 +3917,9 @@ def check_slstm_bwd(m, params) -> dict:
     than 4x the plain float32 autograd's error plus 1e-6·scale.
     CUDA-event medians of the backward (the kernel and its d_rh / d_bias
     products), of the products alone (the kernel's time is the
-    difference), of the forward with and without its chunk states, and one
-    call of the plain adjoint loop, beside the bound.  No PyTorch call
+    difference), of the forward with and without its chunk states, and
+    the host time of the plain adjoint loop's one call (the held one),
+    beside the bound.  No PyTorch call
     computes an sLSTM's backward (library: none)."""
     rows = {}
     heads = m.segments[0].pattern[-1].cfg.n_heads
@@ -3920,7 +3940,11 @@ def check_slstm_bwd(m, params) -> dict:
         same = all(torch.equal(x, y) for x, y in zip(got, again))
         assert same, f"slstm_scan_bwd {label}: two calls differ"
         del again
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         plain = ref.slstm_scan_bwd(wx, rh, bias, state, p_hs, p_chunks, dys)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
         err = max(_hold(f"slstm_scan_bwd {label} {n} vs its plain version",
                         x, y) for n, x, y in zip(names, got, plain))
         del plain, p_hs, p_chunks
@@ -3957,8 +3981,7 @@ def check_slstm_bwd(m, params) -> dict:
                 wx, rh, bias, state), reps=10),
             fwd_ms=cuda_ms(lambda: sl.slstm_scan_fwd(
                 wx, rh, bias, state, boundaries=False), reps=10),
-            plain_ms=cuda_ms(lambda: ref.slstm_scan_bwd(
-                wx, rh, bias, state, hs, chunks, dys), reps=1, warmup=0),
+            plain_ms=plain_ms,
             bound_ms=bnd, bound_by=by, library_ms=None, bytes=n_bytes,
             operations=ops_,
             kernel_bound_ms=bound(n_bytes, ops_ - b * s * d * 8 * (
@@ -4672,15 +4695,16 @@ def path_cases() -> dict:
         "prefill": build(gemma, prefill),
         "serve": build(gemma, engine),
         "lm train": build(get(LM_TRAIN_ARCH), train, remat=False),
-        "moe prefill": build(cut_config(mixtral, MOE_SERVE_LAYERS), prefill),
-        "moe serve": build(cut_config(mixtral, MOE_SERVE_LAYERS), engine),
-        "moe train": build(cut_config(mixtral, MOE_TRAIN_LAYERS),
+        "moe prefill": build(cut_config(mixtral, MOE_LAYERS), prefill),
+        "moe serve": build(cut_config(mixtral, MOE_LAYERS), engine),
+        "moe train": build(cut_config(mixtral, MOE_LAYERS),
                            shape_of("train", *MOE_TRAIN), remat=False),
         "hymba prefill": build(hymba, prefill),
         "hymba serve": build(hymba, engine),
         "hymba train": build(hymba, train, remat=False),
-        "xlstm prefill": build(xlstm, prefill),
-        "xlstm serve": build(xlstm, engine),
+        "xlstm prefill": build(cut_config(xlstm, XLSTM_SERVE_REPEATS),
+                               prefill),
+        "xlstm serve": build(cut_config(xlstm, XLSTM_SERVE_REPEATS), engine),
         "xlstm train": build(cut_config(xlstm, XLSTM_TRAIN_REPEATS), train,
                              remat=XLSTM_TRAIN_REMAT),
         "whisper decode": build(whisper, shape_of(
@@ -5310,7 +5334,8 @@ def phase_t(engine, warm) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# phase u: serving across a 'model' axis (train/parallel), two ranks on the
+# phase u: serving and training across a 'model' axis (train/parallel), two
+# ranks on the
 # one card
 # ---------------------------------------------------------------------------
 #: u's ranks, both on the one card (gloo), on a (1, 2) ('data', 'model')
@@ -5322,10 +5347,20 @@ U_PREFILL = (2, 2048)
 #: the Engine: 2 slots, 2 requests of 4 prompt tokens + 5 new (8 steps);
 #: a cache of 64 (its S, 64, ties dh and goes to 'model' first)
 U_ENGINE = dict(slots=2, cache_len=64, requests=2, prompt=4, max_new=5)
-#: mixtral at full width, cut to MOE_TRAIN_LAYERS layers as phase l4's
+#: mixtral at full width, cut to MOE_LAYERS layers as phase l4's
 U_MOE_PREFILL = (1, 2048)
 #: train_gan's one step on the task mesh: rows, epochs, batch
 U_TRAIN = (1024, 1, 1024)
+#: the LM train steps on the mesh (remat on, act_shard 'model', the
+#: reference's defaults): stablelm at full width and depth, the cut
+#: mixtral at full width
+U_LM_TRAIN = (2, 2048)
+U_MOE_TRAIN = (1, 2048)
+#: a gradient block's distance from the world of one's over its leaf's
+#: norm (the LM gradient gate of phase j)
+U_GRAD_TOL = 1e-3
+#: phase u's records that hold a "train" record, and their archs
+U_TRAINED = {"lm": U_ARCH, "moe": MOE_ARCH}
 
 
 @contextlib.contextmanager
@@ -5395,25 +5430,32 @@ def u_prefill(m, params, shape, mesh=None) -> dict:
 
 
 def u_collectives():
-    """``train/parallel``'s three collectives wrapped to add their host
-    time (synchronised before and after: the ranks share one card, so a
-    collective's time includes the wait for the other rank) to a total;
-    returns (the total dict, an undo)."""
+    """``train/parallel``'s two primitives (every collective's forward and
+    backward passes through ``_all_gather`` or ``_all_reduce``) wrapped to
+    add their host time (synchronised before and after: the ranks share
+    one card, so a collective's time includes the wait for the other
+    rank) to a total, forward and backward apart: a collective issued
+    while autograd's engine runs a backward (its own, or a remat
+    recompute's forward) counts as backward.  Returns (the totals, an
+    undo)."""
     from repro_torch.train import parallel as PAR
 
-    spent = {"ms": 0.0, "calls": 0, "bytes": 0}
-    saved = {n: getattr(PAR, n) for n in ("gather_dim", "sum_over",
-                                          "max_over")}
+    spent = {side: {"ms": 0.0, "calls": 0, "bytes": 0}
+             for side in ("forward", "backward")}
+    saved = {n: getattr(PAR, n) for n in ("_all_gather", "_all_reduce")}
+    task = getattr(torch._C, "_current_graph_task_id", lambda: -1)
 
     def timed(fn):
-        def run(t, *a):
+        def run(t, *a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(t, *a)
+            out = fn(t, *a, **kw)
             torch.cuda.synchronize()
-            spent["ms"] += 1e3 * (time.perf_counter() - t0)
-            spent["calls"] += 1
-            spent["bytes"] += out.numel() * out.element_size()
+            rec = spent["backward" if task() != -1 else "forward"]
+            rec["ms"] += 1e3 * (time.perf_counter() - t0)
+            rec["calls"] += 1
+            rec["bytes"] += sum(x.numel() * x.element_size() for x in (
+                out if isinstance(out, list) else [out]))
             return out
         return run
 
@@ -5423,8 +5465,9 @@ def u_collectives():
 
 
 def u_timed_split(fn) -> dict:
-    """One more run of `fn` with the collectives timed: its ms and the
-    collectives' ms, calls and bytes received."""
+    """One more run of `fn` with the collectives timed: its ms, the
+    collectives' ms, calls and bytes received, and each of those of the
+    forward's and the backward's collectives apart."""
     spent, undo = u_collectives()
     try:
         torch.cuda.synchronize()
@@ -5434,10 +5477,16 @@ def u_timed_split(fn) -> dict:
         total = 1e3 * (time.perf_counter() - t0)
     finally:
         undo()
-    return dict(ms=total, collective_ms=spent["ms"],
-                collective_share=spent["ms"] / total,
-                collective_calls=spent["calls"],
-                collective_bytes=spent["bytes"])
+    both = {k: spent["forward"][k] + spent["backward"][k]
+            for k in ("ms", "calls", "bytes")}
+    out = dict(ms=total, collective_ms=both["ms"],
+               collective_share=both["ms"] / total,
+               collective_calls=both["calls"],
+               collective_bytes=both["bytes"])
+    if spent["backward"]["calls"]:
+        for side, rec in spent.items():
+            out[side] = dict(rec, share=rec["ms"] / total)
+    return out
 
 
 def u_blocks_bytes(mesh, tree, specs) -> int:
@@ -5480,19 +5529,22 @@ def u_init(m) -> tuple:
     return full, time.perf_counter() - t0
 
 
-def u_model(m, mesh, rank: int, prefill_shape, engine: bool) -> dict:
+def u_model(m, mesh, rank: int, prefill_shape, engine: bool,
+            train_shape, world_step: bool) -> dict:
     """One rank's run of `m`: its full params from seed 0; on rank 0 the
     world of one first (no mesh: the prefill, with `engine` the Engine);
-    then the Engine built from the full params (it shards them and its
-    decode states) or the params sharded here, the full tree dropped; the
-    bytes kept beside the spec blocks' (counted on the full tree) and the
-    card's ``memory_allocated``; the Engine's 8 steps and one more with
-    the collectives timed; the prefill on the blocks (its logits and
-    routes go back to the script)."""
+    the world of one's gradient for training (``u_world_grads``); then the Engine built from the full params (it
+    shards them and its decode states) or the params sharded here, the
+    full tree dropped; the bytes kept beside the spec blocks' (counted on
+    the full tree) and the card's ``memory_allocated``; the Engine's 8
+    steps and one more with the collectives timed; the prefill on the
+    blocks (its logits and routes go back to the script); last, the
+    blocks trained at `train_shape` (``u_train``: the step updates them
+    in place)."""
     full, init_s = u_init(m)
+    specs = SH.param_specs(full, mesh)
     out = dict(init_s=init_s, full_param_bytes=_tensors_bytes(full),
-               spec_block_bytes=u_blocks_bytes(
-                   mesh, full, SH.param_specs(full, mesh)))
+               spec_block_bytes=u_blocks_bytes(mesh, full, specs))
     if rank == 0:
         with recorded_routes() as routes:
             one = u_prefill(m, full, prefill_shape)
@@ -5501,6 +5553,8 @@ def u_model(m, mesh, rank: int, prefill_shape, engine: bool) -> dict:
             one["engine"] = u_engine(m, full)
             del one["engine"]["engine"]
         out["world_of_one"] = one
+    batch = lm_train_batch(m, 0, train_shape)
+    world = u_world_grads(m, full, batch, specs, mesh, rank, world_step)
     if engine:
         run = u_engine(m, full, mesh)
         eng = run.pop("engine")
@@ -5528,6 +5582,9 @@ def u_model(m, mesh, rank: int, prefill_shape, engine: bool) -> dict:
     with recorded_routes() as routes:
         out["prefill"] = u_prefill(m, local, prefill_shape, mesh)
     out["prefill"]["routes"] = [r.cpu() for r in routes]
+    out["train"] = dict(u_train(m, mesh, local, specs, world, batch),
+                        shape=list(train_shape), n_layers=m.n_layers,
+                        spec_block_bytes=out["spec_block_bytes"])
     return out
 
 
@@ -5558,6 +5615,115 @@ def u_dse(mesh, rank: int, sels: list) -> dict:
     return out
 
 
+def _replicated_sha256(tree, specs, mesh) -> dict:
+    """sha256 of the bits of every leaf that no mesh axis splits, by its
+    index in ``tree_leaves`` order."""
+    import hashlib
+
+    out = {}
+    for i, (t, spec) in enumerate(zip(tree_leaves(tree),
+                                      _spec_leaves(specs))):
+        if all(SH.norm_axes(e, mesh) is None for e in spec):
+            out[i] = hashlib.sha256(t.detach().cpu().numpy().tobytes()
+                                    ).hexdigest()
+    return out
+
+
+def u_world_grads(m, full, batch, specs, mesh, rank: int,
+                  world_step: bool) -> dict:
+    """The world of one's training on the full tree: its gradient (remat
+    on) on every rank at once, each keeping its loss, global norm, each
+    leaf's norm and this rank's block of each leaf (on the host); then on
+    rank 0 alone, warm and timed while the other waits at a barrier, the
+    forward and backward again, and with `world_step` AdamW's update of a
+    copy of the tree (the step's other half)."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import adamw
+
+    loss, g = TS.loss_and_grads(m, full, batch, remat=True)
+    leaves = tree_leaves(g)
+    one = dict(loss=float(loss), grad_norm=float(global_norm(g)),
+               norms=[float(torch.linalg.vector_norm(x)) for x in leaves],
+               blocks=[SH.local_block(x, sp, mesh).cpu()
+                       for x, sp in zip(leaves, _spec_leaves(specs))])
+    del g, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, g = TS.loss_and_grads(m, full, batch, remat=True)
+        torch.cuda.synchronize()
+        one["fwd_bwd_ms"] = 1e3 * (time.perf_counter() - t0)
+        if world_step:
+            optim = adamw(3e-4, weight_decay=0.1, clip_norm=1.0)
+            copy = tree_map(torch.clone, full)
+            opt = optim.init(copy)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            optim.update_in_place(g, opt, copy)
+            torch.cuda.synchronize()
+            one["step_ms"] = one["fwd_bwd_ms"] + 1e3 * (
+                time.perf_counter() - t0)
+            del copy, opt
+        del g
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return one
+
+
+def u_train(m, mesh, local, specs, one: dict, batch) -> dict:
+    """One train step on this rank's blocks `local` (remat on, act_shard
+    'model'): ``make_train_step(mesh=)``'s gradient with the launches
+    counted from zero just before it, the flash heads and MoE routes
+    recorded and the collectives timed, forward and backward apart
+    (``u_timed_split``); its loss, global norm and every gradient block
+    held to the world of one's `one` (``u_world_grads``); AdamW's update
+    with the global norm of the blocks, timed; the bytes of params, mu
+    and nu; the peak memory and the sha256 of every replicated leaf
+    after the step."""
+    step, optim = TS.make_train_step(m, mesh=mesh)
+    opt = optim.init(local)
+    got = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with recorded_heads() as heads, recorded_routes() as routes:
+        split = u_timed_split(lambda: got.extend(
+            step.loss_and_grads(local, batch)))
+    launches = counts()
+    loss, grads = got
+    norm = step.grad_norm(grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    optim.update_in_place(grads, opt, local, norm=norm)
+    torch.cuda.synchronize()
+    update_ms = 1e3 * (time.perf_counter() - t0)
+    errs = [float(torch.linalg.vector_norm(
+        a.double() - b_.to(a.device).double())) / max(n, 1e-30)
+        for a, b_, n in zip(tree_leaves(grads), one.pop("blocks"),
+                            one.pop("norms"))]
+    del grads, got
+    cfg = m.segments[0].pattern[0].cfg
+    return dict(
+        loss=float(loss), world_loss=one["loss"], grad_norm=float(norm),
+        world_grad_norm=one["grad_norm"], max_grad_block_err=max(errs),
+        worst_leaf=int(np.argmax(errs)), n_leaves=len(errs),
+        ms_per_step=split["ms"] + update_ms, update_ms=update_ms,
+        split=split, launches=launches, heads=sorted(set(heads)),
+        flash_launches=len(heads), routes=[r.cpu() for r in routes],
+        param_bytes=_tensors_bytes(local), mu_bytes=_tensors_bytes(opt.mu),
+        nu_bytes=_tensors_bytes(opt.nu),
+        experts_per_rank=(local["segments"][0][0]["ffn"]["w_gate"].shape[1]
+                          if cfg.n_experts else None),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        replicated_sha256=_replicated_sha256(local, specs, mesh),
+        world_of_one=one)
+
+
 def u_rank(rank: int, tmp: str) -> int:
     """One rank of phase u (``--u-rank``): gloo over a FileStore in `tmp`,
     ``cuda:0``, a (1, 2) ('data', 'model') mesh; its record to
@@ -5574,12 +5740,14 @@ def u_rank(rank: int, tmp: str) -> int:
     t1 = torch.load(os.path.join(tmp, "t1.pt"))
     out = dict(rank=rank, coordinate=tuple(mesh.get_coordinate()))
     out["lm"] = u_model(configs.get_arch(U_ARCH), mesh, rank, U_PREFILL,
-                        engine=True)
+                        engine=True, train_shape=U_LM_TRAIN,
+                        world_step=True)
     gc.collect()
     torch.cuda.empty_cache()
     out["moe"] = u_model(cut_config(configs.get_arch(MOE_ARCH),
-                                    MOE_TRAIN_LAYERS),
-                         mesh, rank, U_MOE_PREFILL, engine=False)
+                                    MOE_LAYERS),
+                         mesh, rank, U_MOE_PREFILL, engine=False,
+                         train_shape=U_MOE_TRAIN, world_step=False)
     gc.collect()
     torch.cuda.empty_cache()
     out["dse"] = u_dse(mesh, rank, t1["sels"])
@@ -5648,6 +5816,17 @@ def u_summary(ranks: list) -> dict:
                 run["engine"]["tokens"] = {
                     str(k): v for k, v in run["engine"]["tokens"].items()}
             rec[name] = run
+        for name in U_TRAINED:
+            tr, tr0 = r[name]["train"], ranks[0][name]["train"]
+            rec[name]["train"] = dict(
+                {k: v for k, v in tr.items()
+                 if k not in ("routes", "replicated_sha256",
+                              "world_of_one")},
+                routing_flips_vs_rank0=routing_flips(tr["routes"],
+                                                     tr0["routes"]),
+                replicated_leaves=len(tr["replicated_sha256"]),
+                same_replicated_bits=(tr["replicated_sha256"]
+                                      == tr0["replicated_sha256"]))
         dse = r["dse"]
         rec["dse"] = dict(explore=dse["explore"], train=dict(
             ms_per_step=dse["train"]["ms_per_step"],
@@ -5659,7 +5838,9 @@ def u_summary(ranks: list) -> dict:
                  engine_ms_per_step=one["lm"]["engine"]["ms_per_step"],
                  engine_first_step_ms=one["lm"]["engine"]["first_step_ms"],
                  moe_prefill_ms=one["moe"]["ms"],
-                 train_ms_per_step=dse_one["ms_per_step"])
+                 train_ms_per_step=dse_one["ms_per_step"],
+                 **{f"{name}_train": ranks[0][name]["train"]["world_of_one"]
+                    for name in U_TRAINED})
     return dict(world_of_one=world, ranks=out)
 
 
@@ -5679,13 +5860,21 @@ def u_failures(ranks: dict) -> list:
     - explore_batch's Selections are t1's, bit for bit, with the whole MLP
       launched; train_gan's first step's gradients and losses are the
       world of one's within T_GRAD_TOL, with the three dense kernels
-      launched."""
+      launched;
+    - stablelm's and the cut mixtral's train steps on the blocks: the loss
+      within 1e-5 relative of the world of one's, every gradient block
+      within U_GRAD_TOL of its leaf's norm, the global norm of the blocks
+      within 1e-4 relative; after two steps every replicated leaf the
+      same bits on both ranks; flash with lse on H/2 heads twice a layer
+      (the forward and the remat recompute); params, mu and nu each the
+      spec blocks' bytes; mixtral's E/2 experts a rank, routed alike on
+      both ranks."""
     bad = []
     for tag, r in ranks.items():
         if r["coordinate"] != (0, r["rank"]):
             bad.append(f"{tag}: coordinate {r['coordinate']}")
         for name, arch, layers in (("lm", U_ARCH, None),
-                                   ("moe", MOE_ARCH, MOE_TRAIN_LAYERS)):
+                                   ("moe", MOE_ARCH, MOE_LAYERS)):
             run, cfg = r[name], configs.get_arch(arch)
             if run["param_bytes"] != run["spec_block_bytes"]:
                 bad.append(f"{tag}: {name} param bytes")
@@ -5719,6 +5908,44 @@ def u_failures(ranks: dict) -> list:
         for name in DENSE_KERNELS:
             if not tr["launches"][name]:
                 bad.append(f"{tag}: {name} not launched")
+        bad += u_train_failures(tag, r)
+    return bad
+
+
+def u_train_failures(tag: str, r: dict) -> list:
+    """The train gates of ``u_failures`` on one rank's record (of
+    ``u_summary``)."""
+    bad = []
+    for name, arch in U_TRAINED.items():
+        tr, cfg = r[name]["train"], configs.get_arch(arch).segments[
+            0].pattern[0].cfg
+        if not abs(tr["loss"] - tr["world_loss"]) <= 1e-5 * abs(
+                tr["world_loss"]):
+            bad.append(f"{tag}: {name} loss {tr['loss']} vs "
+                       f"{tr['world_loss']}")
+        if not tr["max_grad_block_err"] <= U_GRAD_TOL:
+            bad.append(f"{tag}: {name} gradient leaf {tr['worst_leaf']}"
+                       f" {tr['max_grad_block_err']} of its norm")
+        if not abs(tr["grad_norm"] - tr["world_grad_norm"]) <= 1e-4 * \
+                tr["world_grad_norm"]:
+            bad.append(f"{tag}: {name} global norm")
+        if not tr["same_replicated_bits"]:
+            bad.append(f"{tag}: {name} replicated leaves' bits")
+        # remat: each layer's flash runs in the forward and again in
+        # the backward's recompute, always with lse
+        want = 2 * tr["n_layers"]
+        if tr["heads"] != [cfg.n_heads // U_RANKS] or not (
+                tr["flash_launches"] == want == tr["launches"][
+                    "flash_attention_f32 with lse"]):
+            bad.append(f"{tag}: {name} flash heads {tr['heads']} x "
+                       f"{tr['flash_launches']}")
+        if not (tr["param_bytes"] == tr["mu_bytes"] == tr["nu_bytes"]
+                == tr["spec_block_bytes"]):
+            bad.append(f"{tag}: {name} bytes kept")
+        if cfg.n_experts and (tr["experts_per_rank"] != cfg.n_experts
+                              // U_RANKS or any(
+                                  tr["routing_flips_vs_rank0"])):
+            bad.append(f"{tag}: {name} experts or routing flips")
     return bad
 
 
@@ -5729,7 +5956,7 @@ def phase_u(t1_state: dict) -> dict:
     t0 = time.perf_counter()
     out = u_summary(run_u_ranks(t1_state["sels"][N_TASKS]))
     out.update(card=smi(), seconds=time.perf_counter() - t0,
-               moe_reduced=dict(n_layers=MOE_TRAIN_LAYERS,
+               moe_reduced=dict(n_layers=MOE_LAYERS,
                                 of=configs.get_arch(MOE_ARCH).n_layers))
     print("phase u: " + json.dumps(out), flush=True)
     failed = u_failures(out["ranks"])
@@ -5784,15 +6011,14 @@ def run_phases(args, counting: tuple) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # phase 1: build every kernel, one nvcc per source, in parallel
-    slstm_build = build_all()
-    spills = check_spills([src for src, _, _ in SPILL_CHECKS
-                           if src != "slstm_scan.cu"])
+    flash_build, slstm_build = build_all()
+    spills = check_spills([src for src, _, _ in SPILL_CHECKS if src not in (
+        "flash_attention.cu", "slstm_scan.cu")])
 
     elapsed("phase 2")
     # phase 2: each kernel against its plain version; one full-width step
     kern = check_kernel()
     dense = check_dense()
-    flash = check_flash()
     step = check_step(Im2colModel())
 
     elapsed("phase 3")
@@ -5874,8 +6100,13 @@ def run_phases(args, counting: tuple) -> int:
     online_run = drive_online(step["launches"])
 
     elapsed("phase 6")
-    # phase 6: the LM serving path at full width, counts zeroed just before
-    # its prefill (inside drive_prefill)
+    # phase 6: flash against its plain version (its build ran on beside
+    # phases 2-h), then the LM serving path at full width, counts zeroed
+    # just before its prefill (inside drive_prefill)
+    flash_build.result()
+    print_builds(["flash_attention.cu"])
+    spills.update(check_spills(["flash_attention.cu"]))
+    flash = check_flash()
     m, params = lm_model()
     prefill = drive_prefill(m, params)
     lm_serve = drive_serve(m, params)
@@ -5907,14 +6138,14 @@ def run_phases(args, counting: tuple) -> int:
     zero_counts()
     moe_layers = {arch: check_moe_layer(arch) for arch in MOE_LAYER_ARCHS}
     moe_layer_launches = counts()
-    m, params, reduced = moe_model(MOE_SERVE_LAYERS)
+    m, params, reduced = moe_model(MOE_LAYERS)
     moe_prefill = dict(drive_prefill(m, params, "moe prefill"),
                        reduced=reduced)
     moe_serve = dict(drive_moe_serve(m, params), reduced=reduced)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
-    moe_train = check_moe_train()
+    moe_train = check_moe_train(m, params, reduced)   # updates params
+    del params
 
     elapsed("phase m")
     # phase m: hymba-1.5b at full width, once phase l's state is freed;
@@ -5954,8 +6185,12 @@ def run_phases(args, counting: tuple) -> int:
     m, params, xlstm_init = xlstm_model()
     slstm = check_slstm_scan(m, params)
     xlstm_layers = check_xlstm_layers(m, params)
-    xlstm_prefill = drive_xlstm_prefill(m, params)
-    xlstm_serve = drive_xlstm_serve(m, params)
+    served = cut_repeats(m, params, XLSTM_SERVE_REPEATS)
+    reduced = dict(n_layers=served[0].n_layers, of=m.n_layers,
+                   why="the script's time limit")
+    xlstm_prefill = dict(drive_xlstm_prefill(*served), reduced=reduced)
+    xlstm_serve = dict(drive_xlstm_serve(*served), reduced=reduced)
+    del served
 
     # phase p: xlstm-1.3b training on phase o's params (the train step
     # updates them in place, so it runs last); the gradient's, the train
@@ -6065,9 +6300,9 @@ def run_phases(args, counting: tuple) -> int:
                                  runs["im2col"]["warm"])
 
     elapsed("phase u")
-    # phase u: serving across a 'model' axis, two ranks on the card; each
-    # rank's launches counted from zero just before each path (inside
-    # u_engine, u_prefill, u_dse and t_train)
+    # phase u: serving and training across a 'model' axis, two ranks on
+    # the card; each rank's launches counted from zero just before each
+    # path (inside u_engine, u_prefill, u_dse, t_train and u_train)
     gc.collect()
     torch.cuda.empty_cache()
     model_run = phase_u(t1_state)
@@ -6151,9 +6386,16 @@ def run_phases(args, counting: tuple) -> int:
                      "bound_4d_ms")},
         "per_prefill": per_prefill,
         "model_axis": {f"rank {r['rank']}": {
-            name: {k: r[name]["prefill"][k] for k in (
+            **{name: {k: r[name]["prefill"][k] for k in (
                 "flash_launches", "heads", "ms", "max_abs_err", "tol")}
-            for name in ("lm", "moe")} for r in u_ranks},
+               for name in ("lm", "moe")},
+            **{f"{name}_train": {
+                "flash_launches": r[name]["train"]["flash_launches"],
+                "lse_launches": r[name]["train"]["launches"][
+                    "flash_attention_f32 with lse"],
+                "heads": r[name]["train"]["heads"],
+                "ms_per_step": r[name]["train"]["ms_per_step"]}
+               for name in U_TRAINED}} for r in u_ranks},
         "launches_by_path": {
             "prefill": prefill["launches"]["flash_attention_f32"],
             "lm_train_steps": lm_train["launches"]["flash_attention_f32"],

@@ -33,8 +33,9 @@ def main() -> int:
     print(f"card: {cs.smi()}", flush=True)
     counting = cs.start_counting()
     try:
-        cs.build_all().result()
-        cs.print_builds(["slstm_scan.cu"])
+        for late in cs.build_all():
+            late.result()
+        cs.print_builds(["flash_attention.cu", "slstm_scan.cu"])
         out = cs.phase_s(counting, {}, {})
     finally:
         if counting[0].poll() is None:

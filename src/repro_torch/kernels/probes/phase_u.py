@@ -9,7 +9,8 @@ phase u holds its ranks to) with no mesh, then runs ``chip_smoke.phase_u``:
 two ranks on the one card over a (1, 2) ('data', 'model') mesh, rank 0
 first running the world of one (stablelm-1.6b's and the cut
 mixtral-8x7b's prefills, the Engine, train_gan's step) that both are
-held to.  Prints phase u's JSON and writes it to ``--out`` where it is
+held to, then each model's train step on the blocks against the world
+of one's gradient.  Prints phase u's JSON and writes it to ``--out`` where it is
 given.  Needs the card.
 """
 from __future__ import annotations

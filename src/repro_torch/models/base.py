@@ -45,7 +45,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.core import prng
 from repro_torch.nn import blocks as B
@@ -301,7 +301,8 @@ def forward(params, m: ModelCfg, tokens: torch.Tensor,
             use_fused: Optional[bool] = None,
             remat: bool = False,
             enc_out: Optional[torch.Tensor] = None,
-            last_only: bool = False) -> torch.Tensor:
+            last_only: bool = False,
+            vocab_block: bool = False) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, V).  positions defaults to arange.
     ``use_fused=False`` takes the plain attention instead of the kernel;
     ``remat=True`` recomputes each repeat of a segment's pattern in the
@@ -312,14 +313,18 @@ def forward(params, m: ModelCfg, tokens: torch.Tensor,
     V).  Under a mesh with a 'model' axis larger than 1
     (``shardings.use_mesh``) `params` are this rank's blocks
     (``shardings.shard_params``) and the forward is
-    ``_forward_sharded``'s."""
+    ``_forward_sharded``'s; with `vocab_block` there the logits are this
+    rank's block of the vocab where 'model' splits the head's (rank r's
+    Vr columns from r·Vr, for ``train/step``'s vocab-parallel loss), not
+    gathered."""
     ax = PAR.model_axis()
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)[
             None].expand(tokens.shape)
     if ax is not None:
         return _forward_sharded(params, m, tokens, positions, use_fused, ax,
-                                last_only)
+                                last_only, remat=remat,
+                                vocab_block=vocab_block)
     x = L.embed_apply(params["embed"], tokens)
     x = _run_segments(params["segments"], m.segments, x, positions,
                       use_fused=use_fused, remat=remat, enc_out=enc_out)
@@ -327,29 +332,57 @@ def forward(params, m: ModelCfg, tokens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# across a 'model' axis (serving): this rank's blocks, explicit collectives
+# across a 'model' axis (serving and training): this rank's blocks,
+# explicit collectives under autograd (``train/parallel``)
 # ---------------------------------------------------------------------------
-def _sharded_layer(seg_p, seg_specs, r: int, ax) -> list:
-    """Layer r of a segment from this rank's stacks, one tree a pattern
-    spec, its FSDP dims gathered (``PAR.unshard_data``).  A dense FFN
-    whose stacks put the layer axis on 'model' comes as ``PAR.Owned``:
-    layer r lies on the rank r // (L/m)."""
+def _sharded_layers(seg_p, seg_specs, seg: Segment, ax) -> list:
+    """The layers of a segment from this rank's stacks, one list a repeat
+    of one tree a pattern spec, each stack split by one ``unbind(0)``
+    (the FSDP dims not yet gathered).  A dense FFN whose stacks put the
+    layer axis on 'model' comes as ``PAR.Owned``: layer r lies on the
+    rank r // (L/m)."""
     mesh = SH.current_mesh()
-    out = []
+    per_spec = []
     for sp, spec in zip(seg_p, seg_specs):
-        layer = {}
+        trees = {}
         for k, v in sp.items():
             on_model = (k == "ffn" and SH.norm_axes(
                 spec["ffn"]["w_gate"][0], mesh) is not None)
+            layers = _unstacked(v)
             if on_model:
-                n = v["w_gate"].shape[0]
-                mine = r // n == ax.rank
-                layer[k] = PAR.Owned(_layer(v, r % n) if mine else None,
-                                     mine)
-            else:
-                layer[k] = _layer(v, r)
-        out.append(PAR.unshard_data(layer, PAR.drop_layer_axis(spec)))
-    return out
+                n = len(layers)
+                layers = [PAR.Owned(layers[r % n], True) if r // n == ax.rank
+                          else PAR.Owned(None, False)
+                          for r in range(seg.repeats)]
+            trees[k] = layers
+        per_spec.append([{k: trees[k][r] for k in trees}
+                         for r in range(seg.repeats)])
+    return [[layers[r] for layers in per_spec] for r in range(seg.repeats)]
+
+
+def _save_dim(x, ax):
+    """The dim of the residual stream (B, S, D) that an ``act_shard``
+    save point keeps this rank's block of: D under 'model', S under
+    'seq', where 'model' divides it; None keeps it whole."""
+    policy = SH.current_act_shard()
+    if policy == "model" and x.shape[-1] % ax.size == 0:
+        return x.dim() - 1
+    if policy == "seq" and x.shape[1] % ax.size == 0:
+        return 1
+    return None
+
+
+def _sharded_body(x, layers, seg: Segment, seg_specs, positions, use_fused,
+                  ax, saved_dim):
+    """One repeat of a segment's pattern on this rank's blocks: the
+    residual stream gathered back where its save point kept a block, each
+    layer's FSDP dims gathered just before it."""
+    if saved_dim is not None:
+        x = PAR.gather_dim(x, saved_dim, ax.group, grad_group=None)
+    for spec, lp, ls in zip(seg.pattern, layers, seg_specs):
+        lp = PAR.unshard_data(lp, PAR.drop_layer_axis(ls))
+        x = spec_apply(lp, x, spec, positions, use_fused=use_fused)
+    return x
 
 
 def _embed_sharded(emb, m: ModelCfg, tokens, ax):
@@ -358,40 +391,63 @@ def _embed_sharded(emb, m: ModelCfg, tokens, ax):
     return L.embed_apply(emb, tokens)
 
 
-def _head_sharded(params, specs, emb, m: ModelCfg, x, ax):
+def _head_sharded(params, specs, emb, m: ModelCfg, x, ax,
+                  vocab_block: bool = False):
     """The logits from this rank's vocab block (the tied table's rows or
-    ``lm_head``'s columns), gathered over 'model': (.., V) on every
-    rank."""
+    ``lm_head``'s columns): rank-local work from the entered x, gathered
+    over 'model' to (.., V) on every rank, or with `vocab_block` left as
+    the rank's block.  A head that 'model' does not split is replicated
+    work."""
     x = L.rmsnorm_apply(params["ln_f"], x)
-    if m.tied_embeddings:
-        logits = L.embed_logits(emb, x)
-    else:
-        logits = x @ PAR.unshard_data(params["lm_head"], specs["lm_head"])
-    if logits.shape[-1] != m.vocab:
-        logits = PAR.gather_dim(logits, -1, ax.group)
+    w = emb["table"] if m.tied_embeddings else PAR.unshard_data(
+        params["lm_head"], specs["lm_head"])
+    split = w.shape[0 if m.tied_embeddings else -1] != m.vocab
+    if split:
+        x = PAR.enter_local(x, ax.group)
+    logits = x @ (w.t() if m.tied_embeddings else w)
+    if split and not vocab_block:
+        logits = PAR.gather_dim(logits, -1, ax.group, grad_group=None)
     return logits
 
 
 def _forward_sharded(params, m: ModelCfg, tokens, positions, use_fused, ax,
-                     last_only: bool):
+                     last_only: bool, remat: bool = False,
+                     vocab_block: bool = False):
     """``forward`` across a 'model' axis: the vocab-parallel embedding,
     each layer on this rank's blocks (``nn/blocks``' sharded attention,
-    FFN and MoE), the head's logits gathered over 'model'.  The residual
-    stream is replicated over 'model' at every layer boundary (in serving
-    there is no remat save point to shard)."""
+    FFN and MoE), the head's logits gathered over 'model' (or this rank's
+    vocab block, `vocab_block`).  The residual stream is replicated over
+    'model' at every layer boundary.  ``remat`` runs each repeat of a
+    segment's pattern under ``torch.utils.checkpoint``, the layers' FSDP
+    gathers and collectives inside it (the recompute issues them again),
+    and its save point keeps the residual stream by ``use_mesh``'s
+    ``act_shard``: this rank's D/m slice under 'model', its S/m slice
+    under 'seq' (where 'model' divides them), the whole under 'none',
+    gathered again at the recompute (the reference's
+    ``activation_spec``)."""
     SH.require_model_axis_arch(m, SH.current_mesh())
     specs = PAR.param_layout(m, SH.current_mesh())
     emb = PAR.unshard_data(params["embed"], specs["embed"])
     x = _embed_sharded(emb, m, tokens, ax)
     for seg_p, seg_s, seg in zip(params["segments"], specs["segments"],
                                  m.segments):
-        for r in range(seg.repeats):
-            for spec, lp in zip(seg.pattern,
-                                _sharded_layer(seg_p, seg_s, r, ax)):
-                x = spec_apply(lp, x, spec, positions, use_fused=use_fused)
+        for layers in _sharded_layers(seg_p, seg_s, seg, ax):
+            if remat:
+                dim = _save_dim(x, ax)
+                if dim is not None:
+                    x = PAR.keep_block(x, dim, ax.group)
+                # the whole body again at the recompute, so every rank
+                # issues its collectives
+                with set_checkpoint_early_stop(False):
+                    x = checkpoint(_sharded_body, x, layers, seg, seg_s,
+                                   positions, use_fused, ax, dim,
+                                   use_reentrant=False)
+            else:
+                x = _sharded_body(x, layers, seg, seg_s, positions,
+                                  use_fused, ax, None)
     if last_only:
         x = x[:, -1:]
-    return _head_sharded(params, specs, emb, m, x, ax)
+    return _head_sharded(params, specs, emb, m, x, ax, vocab_block)
 
 
 def _decode_sharded(params, m: ModelCfg, token, pos_b, states, start,
@@ -410,9 +466,10 @@ def _decode_sharded(params, m: ModelCfg, token, pos_b, states, start,
     for seg_p, seg_s, seg, seg_st, seg_ss in zip(
             params["segments"], specs["segments"], m.segments, states,
             state_specs):
-        for r in range(seg.repeats):
-            layers = _sharded_layer(seg_p, seg_s, r, ax)
-            for spec, lp, st, ss in zip(seg.pattern, layers, seg_st, seg_ss):
+        for r, layers in enumerate(_sharded_layers(seg_p, seg_s, seg, ax)):
+            for spec, lp, ls, st, ss in zip(seg.pattern, layers, seg_s,
+                                            seg_st, seg_ss):
+                lp = PAR.unshard_data(lp, PAR.drop_layer_axis(ls))
                 x, _ = B.block_decode(
                     lp, x, spec.cfg, pos_b, dict(st, kv=_layer(st["kv"], r)),
                     ring=spec.cfg.window is not None, start=start,

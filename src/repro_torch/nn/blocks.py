@@ -190,19 +190,25 @@ def _swiglu(params, x):
 
 
 # ---------------------------------------------------------------------------
-# across a 'model' axis (serving; ``train/parallel``): each rank computes
-# on its blocks of the leaves, the FSDP dims already gathered, and every
-# rank returns the whole (B, S, D) output
+# across a 'model' axis (``train/parallel``): each rank computes on its
+# blocks of the leaves, the FSDP dims already gathered, and every rank
+# returns the whole (B, S, D) output.  A sub-layer that 'model' splits is
+# rank-local work between ``enter_local`` (its input, and any leaf it
+# reads whole) and ``sum_over`` (its row-parallel exit), so the same code
+# serves and trains
 # ---------------------------------------------------------------------------
-def _project(x, w, cols: int, ax):
+def _project(x, w, cols: int, ax, local: bool):
     """``x @ w`` with all `cols` output columns where `w` holds this rank's
     column block: the weight gathered where x has more rows than w (a
-    prefill), else the product's columns (a decode step)."""
+    prefill, a train step), else the product's columns (a decode step).
+    `local`: whether the consumer is rank-local work, so the gather's
+    gradient is summed over 'model' (``gather_dim``)."""
     if w.shape[-1] == cols:
         return x @ w
+    grad_group = ax.group if local else None
     if x.numel() // x.shape[-1] > w.shape[0]:
-        return x @ PAR.gather_dim(w, -1, ax.group)
-    return PAR.gather_dim(x @ w, -1, ax.group)
+        return x @ PAR.gather_dim(w, -1, ax.group, grad_group)
+    return PAR.gather_dim(x @ w, -1, ax.group, grad_group)
 
 
 def _qkv_sharded(params, x, cfg: BlockCfg, positions, ax, local: bool):
@@ -210,20 +216,24 @@ def _qkv_sharded(params, x, cfg: BlockCfg, positions, ax, local: bool):
     ... (wq's column block, where 'model' divides H; else every head, h0
     = 0), and k, v the KV heads those read.  ``wkv`` stores all K heads,
     then all V heads, so its column block is not the rank's heads: its
-    columns are gathered first.  Where the heads a rank reads form whole
-    GQA groups of one size the KV heads are taken once (``n_kv < m``
-    included: every q head of the rank in one group), else one a q head."""
+    columns are gathered first (where 'model' splits wo's rows, the
+    attention is rank-local work, and each rank's gradient of them covers
+    the KV heads its q heads read, summed over the ranks by the gather's
+    backward).  Where the heads a rank reads form whole GQA groups of one
+    size the KV heads are taken once (``n_kv < m`` included: every q head
+    of the rank in one group), else one a q head."""
     b, s, _ = x.shape
     dh, h, kv = cfg.dh, cfg.n_heads, cfg.n_kv
     wq = params["wq"]
+    work = params["wo"].shape[0] != h * dh      # rank-local work
     if local and wq.shape[-1] != h * dh and h % ax.size == 0:
         hl = h // ax.size
         h0 = ax.rank * hl
         q = (x @ wq).reshape(b, s, hl, dh)
     else:
         h0, hl = 0, h
-        q = _project(x, wq, h * dh, ax).reshape(b, s, h, dh)
-    kvf = _project(x, params["wkv"], 2 * kv * dh, ax).reshape(
+        q = _project(x, wq, h * dh, ax, work).reshape(b, s, h, dh)
+    kvf = _project(x, params["wkv"], 2 * kv * dh, ax, work).reshape(
         b, s, 2 * kv, dh)
     idx = [(h0 + i) // (h // kv) for i in range(hl)]
     lo, hi = idx[0], idx[-1] + 1
@@ -239,11 +249,11 @@ def _qkv_sharded(params, x, cfg: BlockCfg, positions, ax, local: bool):
 def _out_sharded(wo, o, cfg: BlockCfg, ax):
     """``o @ wo`` for o (B, S, width) holding heads from h0 = 0 (all of
     them) or this rank's heads: wo's row block is row parallel, its
-    partial products summed over 'model'."""
+    partial products summed over 'model'; a whole wo is replicated work."""
     full = cfg.n_heads * cfg.dh
     if wo.shape[0] == full:
         if o.shape[-1] != full:
-            o = PAR.gather_dim(o, -1, ax.group)
+            o = PAR.gather_dim(o, -1, ax.group, grad_group=None)
         return o @ wo
     rows = wo.shape[0]
     if o.shape[-1] == full:
@@ -251,11 +261,35 @@ def _out_sharded(wo, o, cfg: BlockCfg, ax):
     return PAR.sum_over(o @ wo, ax.group)
 
 
+def _entered(params, ax, names):
+    """`params` with the leaves under `names`, whole on every rank, passed
+    through ``enter_local``: rank-local work reads them, so each rank's
+    gradient of them is partial."""
+    out = dict(params)
+    for k in names:
+        v = out.get(k)
+        if isinstance(v, dict):
+            out[k] = {n: PAR.enter_local(t, ax.group) for n, t in v.items()}
+        elif v is not None:
+            out[k] = PAR.enter_local(v, ax.group)
+    return out
+
+
 def _attn_apply_sharded(params, x, cfg: BlockCfg, positions, causal,
                         use_fused, ax):
     """Full-sequence attention on this rank's q heads (flash on H/m
-    heads), then the row-parallel ``wo``."""
+    heads), then the row-parallel ``wo``: rank-local work from the
+    entered x (and the qk-norm scales, and a ``wkv`` that 'model' does
+    not split) to the sum.  Where 'model' does not split wo's rows (nor
+    then wq's columns) every rank computes the whole attention."""
     b, s, _ = x.shape
+    local = params["wo"].shape[0] != cfg.n_heads * cfg.dh
+    if local:
+        x = PAR.enter_local(x, ax.group)
+        whole = ["q_norm", "k_norm"]
+        if params["wkv"].shape[-1] == 2 * cfg.n_kv * cfg.dh:
+            whole.append("wkv")
+        params = _entered(params, ax, whole)
     q, k, v, _ = _qkv_sharded(params, x, cfg, positions, ax, local=True)
     o = A.flash_attention(q, k, v, causal=causal, window=cfg.window,
                           use_fused=use_fused)
@@ -313,11 +347,19 @@ def _ffn_apply_sharded(params, x, cfg: BlockCfg, ax):
     """The FFN on this rank's blocks.  A dense FFN stacked with its layer
     axis over 'model' (``param_specs`` reads a stacked (L, D, F) w_gate as
     an expert tensor) comes as ``PAR.Owned``: the layer's owner computes
-    it whole, the others add zeros.  Column-parallel w_gate / w_up and
-    row-parallel w_down sum their partial outputs over 'model'; the MoE
-    FFN is ``moe_apply_sharded``'s."""
+    it whole, the others add ``x · 0`` (an op on x, so every rank's
+    backward meets the same collectives).  Column-parallel w_gate / w_up
+    and row-parallel w_down sum their partial outputs over 'model'; the
+    MoE FFN is ``moe_apply_sharded``'s; an FFN that 'model' does not
+    split is replicated work."""
     if isinstance(params, PAR.Owned):
-        y = _swiglu(params.tree, x) if params.mine else torch.zeros_like(x)
+        x = PAR.enter_local(x, ax.group)
+        if params.mine:
+            y = _swiglu(params.tree, x)
+        elif x.requires_grad and torch.is_grad_enabled():
+            y = x * x.new_zeros(())
+        else:
+            y = torch.zeros_like(x)
         return PAR.sum_over(y, ax.group)
     if cfg.n_experts:
         b, s, d = x.shape
@@ -325,10 +367,10 @@ def _ffn_apply_sharded(params, x, cfg: BlockCfg, ax):
                                 n_experts=cfg.n_experts, d_ff=cfg.d_ff,
                                 top_k=cfg.top_k)
         return y.reshape(b, s, d)
-    y = _swiglu(params, x)
     if params["w_down"].shape[0] != cfg.d_ff:
-        return PAR.sum_over(y, ax.group)
-    return y
+        return PAR.sum_over(_swiglu(params, PAR.enter_local(x, ax.group)),
+                            ax.group)
+    return _swiglu(params, x)
 
 
 # ---------------------------------------------------------------------------

@@ -18,9 +18,10 @@ is expert parallel (``e_par``: a gather by capacity position from every
 expert, then a one-hot contraction over E) — on one card, every mesh with
 a 'model' axis.  G comes from the global T: where the step split its batch
 k ways (``shardings.current_split``), this rank's T/k tokens are G/k whole
-groups.  Across a 'model' axis (serving, ``moe_apply_sharded``) each rank
-stores and runs its E/m experts where m divides E, and its F/m block of
-every expert otherwise, and the ranks' outputs are summed.
+groups.  Across a 'model' axis (serving and training,
+``moe_apply_sharded``) each rank stores and runs its E/m experts where m
+divides E, and its F/m block of every expert otherwise, and the ranks'
+weighted outputs are summed.
 
 Copied from the reference as written (ROADMAP Queue 3):
 
@@ -274,21 +275,29 @@ def moe_apply(params, x: torch.Tensor, *, top_k: int = 2,
 def moe_apply_sharded(params, x: torch.Tensor, ax, *, n_experts: int,
                       d_ff: int, top_k: int = 2,
                       capacity_factor: float = 1.25) -> torch.Tensor:
-    """``moe_apply`` across a 'model' axis `ax` (serving, no autograd), on
-    this rank's blocks of the leaves (their FSDP dims gathered).  Every
-    rank routes every token the same way (the router's (D, E), tiny, is
-    gathered where its E is split), in ``_num_groups``'s groups with their
-    capacity.  Where m divides E (the reference's ``e_par``) rank r runs
-    experts [r·E/m, (r+1)·E/m) on their buffers and its share of the
+    """``moe_apply`` across a 'model' axis `ax` on this rank's blocks of
+    the leaves (their FSDP dims gathered), for serving and training.
+    Every rank routes every token the same way (the router's (D, E), tiny,
+    is gathered where its E is split), in ``_num_groups``'s groups with
+    their capacity.  Where m divides E (the reference's ``e_par``) rank r
+    runs experts [r·E/m, (r+1)·E/m) on their buffers and its share of the
     expert-parallel combine, the sum over its experts; else each expert's
     F is split m ways where m divides it, and each rank combines its
-    partial outputs.  Either way the ranks' (T, D) parts are summed over
-    'model'."""
+    partial outputs.  Either way the rank's weighted (T, D) part is
+    rank-local work from the entered x (and router) and the parts are
+    summed over 'model'; where 'model' splits neither, every rank computes
+    the layer whole."""
     t = x.shape[0]
     e = n_experts
+    el = params["w_gate"].shape[0]
+    local = el != e or params["w_down"].shape[-2] != d_ff
     router = params["router"]
     if router.shape[-1] != e:
         router = PAR.gather_dim(router, -1, ax.group)
+    elif local:
+        router = PAR.enter_local(router, ax.group)
+    if local:
+        x = PAR.enter_local(x, ax.group)
     split = SH.current_split()
     g_all = _num_groups(t * split)
     assert g_all % split == 0, (g_all, split)
@@ -299,27 +308,31 @@ def moe_apply_sharded(params, x: torch.Tensor, ax, *, n_experts: int,
     idx, wts = route_topk(xf @ router, top_k)
     buf_tok, occupied, slot, keep = _dispatch_group(
         idx.reshape(g, tg, top_k), e, cap)
-    el = params["w_gate"].shape[0]
     if el != e:                                   # e_par: this rank's experts
         lo = ax.rank * el
         mine = lambda a: a.reshape(g, e, cap)[:, lo:lo + el].reshape(-1)  # noqa: E731
-        xe = xf.index_select(0, mine(buf_tok)) * mine(occupied)[:, None]
-        ye = expert_ffn(params, xe.reshape(g * el, cap, -1))
-        local = slot.reshape(g, -1) - torch.arange(
+        local_slot = slot.reshape(g, -1) - torch.arange(
             g, device=slot.device)[:, None] * (e * cap)
-        pos = (local % cap).clamp(max=cap - 1)
+        ex, pos = local_slot // cap, local_slot % cap
+        ours = (ex >= lo) & (ex < lo + el)
+        base = torch.arange(g, device=slot.device)[:, None] * (el * cap)
+        slot_l = torch.where(ours, base + (ex - lo) * cap + pos, 0)
+        xe = _Dispatch.apply(xf, mine(buf_tok), mine(occupied),
+                             slot_l.reshape(-1), keep & ours.reshape(-1))
+        ye = expert_ffn(params, xe.reshape(g * el, cap, -1))
+        pos = pos.clamp(max=cap - 1)
         d = ye.shape[-1]
         gathered = torch.gather(ye.reshape(g, el, cap, d), 2,
                                 pos[:, None, :, None].expand(g, el,
                                                              pos.shape[1], d))
-        own = F.one_hot(local // cap, e)[..., lo:lo + el].to(ye.dtype)
+        own = F.one_hot(ex, e)[..., lo:lo + el].to(ye.dtype)
         per = (gathered * own.transpose(1, 2)[..., None]).sum(1)
-        per = PAR.sum_over(per.reshape(-1, d), ax.group)
-        return _weighted_sum(per, keep, wts).to(x.dtype)
-    xe = xf.index_select(0, buf_tok) * occupied[:, None]
-    ye = expert_ffn(params, xe.reshape(g * e, cap, -1))
-    per = ye.reshape(-1, ye.shape[-1]).index_select(0, slot)
-    y = _weighted_sum(per, keep, wts)
-    if params["w_down"].shape[-2] != d_ff:        # F split: partial outputs
+        y = _weighted_sum(per.reshape(-1, d), keep, wts)
+    else:
+        xe = _Dispatch.apply(xf, buf_tok, occupied, slot, keep)
+        ye = expert_ffn(params, xe.reshape(g * e, cap, -1))
+        y = _weighted_sum(_Combine.apply(ye.reshape(-1, ye.shape[-1]), slot,
+                                         keep), keep, wts)
+    if local:
         y = PAR.sum_over(y, ax.group)
     return y.to(x.dtype)

@@ -149,7 +149,8 @@ def adamw(lr: Union[Callable[[torch.Tensor], Any], float], b1: float = 0.9,
                           nu=tree_unflatten(state.nu, [o[1] for o in out])))
 
     @torch.no_grad()
-    def update_in_place(grads, state: AdamState, params) -> AdamState:
+    def update_in_place(grads, state: AdamState, params,
+                        norm: Optional[torch.Tensor] = None) -> AdamState:
         """``update`` and ``apply_updates`` in one pass that writes params,
         mu and nu in place, one slice of IN_PLACE_CHUNK elements of a leaf
         at a time: the same bits (every step is elementwise), with no
@@ -158,8 +159,10 @@ def adamw(lr: Union[Callable[[torch.Tensor], Any], float], b1: float = 0.9,
         leaf's temporaries are ~10 times its float32 size: 38 GB for
         mixtral's stacked w_gate at two layers).  Params, mu and nu must
         be contiguous.  Returns the new state, which holds the same mu and
-        nu tensors."""
-        scale = (clip_scale(grads, clip_norm) if clip_norm is not None
+        nu tensors.  `norm`, where given, is the whole gradient's global
+        norm that the clip reads, for `grads` that are one rank's blocks
+        of it (``train/parallel.global_norm``)."""
+        scale = (clip_scale(grads, clip_norm, norm) if clip_norm is not None
                  else None)
         step, *consts = scalars(state)
         for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
@@ -193,9 +196,12 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
-def clip_scale(grads, max_norm: float) -> torch.Tensor:
-    """The factor ``clip_by_global_norm`` multiplies every leaf by."""
-    return torch.clamp(max_norm / (global_norm(grads) + 1e-9), max=1.0)
+def clip_scale(grads, max_norm: float,
+               norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The factor ``clip_by_global_norm`` multiplies every leaf by
+    (`norm`: the gradient's global norm, where the caller has it)."""
+    norm = global_norm(grads) if norm is None else norm
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
 
 
 def clip_by_global_norm(grads, max_norm: float):

@@ -1,27 +1,51 @@
-"""The forward collectives of serving across a 'model' axis, and the
-layout the layers read.
+"""The collectives of serving and training across a 'model' axis, and
+the layout the layers read.
 
 Each rank holds its block of every param leaf (``param_specs(fsdp=True)``)
 and decode-state leaf (``state_specs``), ``train/shardings.shard_params``
 and ``shard_states``.  The layers compute on those blocks and meet the
-other ranks' through three collectives, built on c10d's ``all_gather``
-and ``all_reduce`` alone, with no autograd (serving only; ROADMAP Queue 1
-item 6b):
+other ranks' through c10d's ``all_gather`` and ``all_reduce`` alone (no
+reduce-scatter: gloo has none), each wrapped as an autograd Function
+whose backward depends on what consumes its output:
 
-  gather_dim(t, dim, group)   # the blocks of every rank, concatenated
-  sum_over(t, group)          # partial sums -> the sum, in place
-  max_over(t, group)          # the elementwise max, in place
+  gather_dim(t, dim, group)   # the blocks of every rank, concatenated;
+                              # backward: the gradient summed over the
+                              # group (the consumer is rank-local work),
+                              # then this rank's block; with
+                              # grad_group=None (a replicated consumer)
+                              # the block alone
+  sum_over(t, group)          # partial sums -> the sum, out of place
+                              # (a row-parallel exit); backward: identity
+  enter_local(t, group)       # identity (the replicated residual stream,
+                              # or a replicated leaf, entering rank-local
+                              # work); backward: the sum over the group
+  keep_block(t, dim, ax)      # this rank's block (an ``act_shard`` save
+                              # point); backward: the blocks gathered
+  max_over(t, group)          # the elementwise max, in place, no
+                              # gradient (a softmax's stabiliser)
 
-A group of None is one rank: each is then the identity.  The group of an
-axis comes from ``launch/mesh.axis_group``.
+Megatron's f and g are ``enter_local`` and ``sum_over``: between them a
+rank's gradients are partial, outside them replicated and complete.  So
+every rank issues the same collectives in the same order in the backward
+too (autograd runs the nodes of one graph in reverse creation order), as
+long as each rank builds the same Functions in the same order: a layer
+with no work on a rank still passes its input through an op (``x · 0``),
+never a fresh ``zeros_like``.  A group of None is one rank: each is then
+the identity.  The group of an axis comes from ``launch/mesh.axis_group``.
 
 ``model_axis()`` is the 'model' axis of the mesh that the running step
 installed (``shardings.use_mesh``), as (group, coordinate, size), or None
 where there is none larger than 1: the layers then run as on one rank.
 ``unshard_data(tree, specs)`` gathers every leaf's FSDP dims (its
-'pod'/'data' entries) just before a layer uses it; the copy is dropped
-with the layer.  ``param_layout(m, mesh)`` is the spec tree of a model's
-params, from their full shapes on the meta device.
+'pod'/'data' entries) just before a layer uses it, the copy dropped with
+the layer; its backward sums the gradient over the batch axes the step
+split its rows over (FSDP's reduce-scatter) and takes the rank's block,
+and where the rows did not split (every rank computed the whole batch)
+takes the block alone.  ``finish_grads`` then sums each leaf's gradient
+over the split axes its spec does not shard, and ``global_norm`` is the
+norm of the whole gradient from the blocks.  ``param_layout(m, mesh)`` is
+the spec tree of a model's params, from their full shapes on the meta
+device.
 """
 from __future__ import annotations
 
@@ -46,27 +70,130 @@ class Owned:
         self.tree, self.mine = tree, mine
 
 
-def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Every rank's `t` along `dim`, in the group's rank order."""
-    if group is None:
-        return t
+def _all_gather(t: torch.Tensor, group) -> list:
+    """Every rank's `t` (contiguous), in the group's rank order."""
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim)
+    return parts
 
 
-def sum_over(t: torch.Tensor, group) -> torch.Tensor:
-    """`t` summed over the group's ranks, in place."""
-    if group is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """`t` reduced over the group, in place."""
+    dist.all_reduce(t, op=op, group=group)
     return t
 
 
+def _block(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = t.shape[dim] // dist.get_world_size(group)
+    return t.narrow(dim, dist.get_rank(group) * n, n)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group, grad_group):
+        ctx.dim, ctx.group, ctx.grad_group = dim, group, grad_group
+        return torch.cat(_all_gather(t, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad_group is not None:
+            g = _all_reduce(g.contiguous().clone(), ctx.grad_group)
+        return _block(g, ctx.dim, ctx.group).contiguous(), None, None, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce(t.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous().clone(), ctx.group), None
+
+
+class _Keep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _block(t, dim, group).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(_all_gather(g, ctx.group), dim=ctx.dim), None, None
+
+
+def _graph(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+#: ``gather_dim``'s default `grad_group`: the gather's own group
+OWN = object()
+
+
+def gather_dim(t: torch.Tensor, dim: int, group,
+               grad_group=OWN) -> torch.Tensor:
+    """Every rank's `t` along `dim`, in the group's rank order.  Its
+    gradient is summed over `grad_group` before this rank's block is
+    taken: by default over the gather's own group (the consumer computes
+    rank-local work: a gathered weight or activation), with None only
+    cut (the consumer is replicated over the group)."""
+    if group is None:
+        return t
+    if _graph(t):
+        return _Gather.apply(t, dim, group,
+                             group if grad_group is OWN else grad_group)
+    return torch.cat(_all_gather(t, group), dim=dim)
+
+
+def sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` summed over the group's ranks: the exit of rank-local work
+    (a row-parallel product's partial sums), whose gradient passes
+    through unchanged.  In place where no gradient is taken."""
+    if group is None:
+        return t
+    if _graph(t):
+        return _Sum.apply(t, group)
+    return _all_reduce(t, group)
+
+
+def enter_local(t: torch.Tensor, group) -> torch.Tensor:
+    """`t`, replicated over the group, as the input of rank-local work
+    (Megatron's f): the identity, whose gradient is summed over the
+    group."""
+    if group is None or not _graph(t):
+        return t
+    return _Enter.apply(t, group)
+
+
+def keep_block(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block of `t` (replicated over the group) along `dim`, a
+    copy: what an ``act_shard`` save point keeps; its gradient is the
+    ranks' blocks gathered.  ``gather_dim(.., grad_group=None)`` undoes
+    it."""
+    if group is None:
+        return t
+    if _graph(t):
+        return _Keep.apply(t, dim, group)
+    return _block(t, dim, group).clone()
+
+
 def max_over(t: torch.Tensor, group) -> torch.Tensor:
-    """The elementwise max of `t` over the group's ranks, in place."""
+    """The elementwise max of `t` over the group's ranks, in place (no
+    gradient)."""
     if group is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        _all_reduce(t, group, dist.ReduceOp.MAX)
     return t
 
 
@@ -90,19 +217,43 @@ def model_axis() -> Optional[ModelAxis]:
     return axis(mesh, "model")
 
 
+def split_axes(mesh):
+    """The batch axes the running step split its rows over
+    (``shardings.current_split``, ``batch_axes_for``'s rule), or None."""
+    k = SH.current_split()
+    if k <= 1:
+        return None
+    ba = SH.norm_axes(SH.batch_axes(mesh), mesh)
+    if ba is not None and SH.axis_size(mesh, ba) == k:
+        return ba
+    return SH.norm_axes("data", mesh)
+
+
+def _batch_entries(spec, mesh):
+    """(dim, axes) of each entry of `spec` on the batch axes alone."""
+    batch = set(SH.batch_axes(mesh))
+    out = []
+    for d, entry in enumerate(spec):
+        axes = SH.norm_axes(entry, mesh)
+        if axes is not None and batch.issuperset(axes):
+            out.append((d, axes))
+    return out
+
+
 def unshard_data(tree, specs):
     """`tree` (a rank's blocks) with every dim that its spec puts on the
     batch axes ('pod', 'data': FSDP) gathered over them, so each leaf is
     sharded over 'model' at most.  Leaves whose specs hold no batch axis
-    are passed through."""
+    are passed through.  A gathered leaf's gradient is summed over the
+    axes the step split its rows over, then cut to this rank's block."""
     mesh = SH.current_mesh()
-    batch = set(SH.batch_axes(mesh))
+    split = set(split_axes(mesh) or ())
 
     def one(t, spec):
-        for d, entry in enumerate(spec):
-            axes = SH.norm_axes(entry, mesh)
-            if axes is not None and batch.issuperset(axes):
-                t = gather_dim(t, d, axis(mesh, axes).group)
+        for d, axes in _batch_entries(spec, mesh):
+            summed = tuple(a for a in axes if a in split)
+            t = gather_dim(t, d, axis(mesh, axes).group, grad_group=(
+                axis(mesh, summed).group if summed else None))
         return t
 
     def walk(x, s):
@@ -115,6 +266,81 @@ def unshard_data(tree, specs):
         return one(x, s) if isinstance(x, torch.Tensor) else x
 
     return walk(tree, specs)
+
+
+def spec_leaves(specs) -> list:
+    """The ``P``s of a spec tree in ``tree_leaves``' order."""
+    if isinstance(specs, SH.P):
+        return [specs]
+    if isinstance(specs, dict):
+        return [p for v in specs.values() for p in spec_leaves(v)]
+    return [p for v in specs for p in spec_leaves(v)]
+
+
+def _by_axes(leaves, axes_of) -> dict:
+    """{axes: [leaf index, ...]} of the leaves with an axes tuple."""
+    groups: dict = {}
+    for i, t in enumerate(leaves):
+        axes = axes_of(i)
+        if axes:
+            groups.setdefault(axes, []).append(i)
+    return groups
+
+
+def finish_grads(grads: list, specs: list, mesh) -> list:
+    """The gradient blocks `grads` (one a leaf of `specs`) summed over the
+    split batch axes (``split_axes``) that their specs do not put on a
+    dim: those leaves' gradients are partial sums of the rows of each
+    rank, where ``unshard_data``'s backward has already summed the
+    sharded ones.  One collective an axes set, the leaves flattened into
+    one buffer."""
+    split = split_axes(mesh)
+    if split is None:
+        return grads
+
+    def axes_of(i):
+        done = {a for _, axes in _batch_entries(specs[i], mesh)
+                for a in axes}
+        return tuple(a for a in split if a not in done)
+
+    grads = list(grads)
+    for axes, idx in _by_axes(grads, axes_of).items():
+        flat = _all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]),
+                           axis(mesh, axes).group)
+        o = 0
+        for i in idx:
+            n = grads[i].numel()
+            grads[i] = flat[o:o + n].view_as(grads[i])
+            o += n
+    return grads
+
+
+def global_norm(grads: list, specs: list, mesh) -> torch.Tensor:
+    """The norm of the whole gradient from this rank's blocks: each
+    leaf's sum of squares summed over the mesh axes its spec shards it
+    over and no other (a leaf replicated over an axis counts once), the
+    leaves that share those axes in one collective.  The same value on
+    every rank."""
+    order = list(SH.mesh_sizes(mesh))
+
+    def axes_of(i):
+        axes = {a for entry in specs[i]
+                for a in (SH.norm_axes(entry, mesh) or ())}
+        return tuple(a for a in order if a in axes)
+
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    groups = _by_axes(grads, axes_of)
+    sharded = {i for idx in groups.values() for i in idx}
+    for i, g in enumerate(grads):
+        if i not in sharded:
+            total = total + torch.sum(torch.square(g.float()))
+    for axes, idx in sorted(groups.items()):
+        part = sum(torch.sum(torch.square(grads[i].float()))
+                   for i in idx).reshape(1)
+        for a in axes:          # the sum over the axes, one at a time
+            part = _all_reduce(part, axis(mesh, a).group)
+        total = total + part[0]
+    return torch.sqrt(total)
 
 
 def drop_layer_axis(specs):

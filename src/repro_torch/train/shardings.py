@@ -21,15 +21,16 @@ mapping of name to size (the reference's ``AbstractMesh``, a test's fake).
 
 What the port executes of these rules: the batch axes ('pod', 'data') are
 data parallel (``core/shard``, ``core/train``, ``train/step``).  Across a
-'model' axis larger than 1 the port serves (``train/step``'s prefill and
-decode steps, ``launch/serve.Engine``): each rank stores exactly its
-block of every leaf, ``shard_params`` under ``param_specs(fsdp=True)``
-and ``shard_states`` under ``state_specs`` (``local_block`` cuts one
-leaf, ``gather_leaf`` puts one back together), and the layers compute on
-those blocks with explicit collectives (``train/parallel``).  Training
-there (ROADMAP Queue 1 item 6b) and hymba's, xlstm's and whisper's
-blocks there (item 6c) raise (``require_no_model_axis``,
-``require_model_axis_arch``).  ``placements`` turns a spec into
+'model' axis larger than 1 the port serves and trains (``train/step``'s
+steps, ``launch/serve.Engine``): each rank stores exactly its block of
+every leaf, ``shard_params`` under ``param_specs(fsdp=True)`` and
+``shard_states`` under ``state_specs`` (``local_block`` cuts one leaf,
+``gather_leaf`` puts one back together), and the layers compute on those
+blocks with explicit collectives under autograd (``train/parallel``);
+the residual stream's ``act_shard`` policy applies at the remat save
+points (``models/base._forward_sharded``).  Hymba's, xlstm's and
+whisper's blocks there (ROADMAP Queue 1 item 6c) raise
+(``require_model_axis_arch``).  ``placements`` turns a spec into
 ``Shard``/``Replicate`` placements for state that is placed with
 DTensor.
 """
@@ -72,9 +73,10 @@ ACT_SHARD = ("model", "seq", "none")
 
 @contextlib.contextmanager
 def use_mesh(mesh, act_shard: str = "model", split: int = 1):
-    """act_shard: how the residual stream's d_model axis is sharded at the
-    layer boundaries — 'model' (tensor parallel), 'seq' (S over 'model')
-    or 'none' (replicated)."""
+    """act_shard: how the residual stream is sharded at the layer
+    boundaries — 'model' (d_model over 'model'), 'seq' (S over 'model')
+    or 'none' (replicated); across a 'model' axis the port applies it at
+    the remat save points."""
     if act_shard not in ACT_SHARD:
         raise ValueError(f"act_shard {act_shard!r} is not one of {ACT_SHARD}")
     prev = dict(_CTX)
@@ -91,6 +93,10 @@ def current_mesh():
 
 def current_split() -> int:
     return _CTX["split"]
+
+
+def current_act_shard() -> str:
+    return _CTX["act_shard"]
 
 
 def mesh_sizes(mesh) -> Dict[str, int]:
@@ -136,20 +142,9 @@ def model_axis(mesh) -> int:
     return 1 if mesh is None else axis_size(mesh, "model")
 
 
-def require_no_model_axis(mesh, what: str = "training") -> None:
-    """Training across a 'model' axis larger than 1 (the backward of every
-    collective, FSDP's gradient reduce-scatter, ``act_shard`` at the remat
-    save points, a vocab-parallel loss) is not ported."""
-    if model_axis(mesh) > 1:
-        raise NotImplementedError(
-            f"mesh {mesh_sizes(mesh)}: {what} across a 'model' axis larger "
-            f"than 1 waits for ROADMAP Queue 1 item 6b (serving there is "
-            f"item 6a)")
-
-
 def require_model_axis_arch(m, mesh) -> None:
-    """Serving across a 'model' axis larger than 1 covers the dense and
-    MoE decoders; hymba's SSM leaves, xlstm's mLSTM and sLSTM leaves and
+    """Serving and training across a 'model' axis larger than 1 cover the
+    dense and MoE decoders; hymba's SSM leaves, xlstm's mLSTM and sLSTM leaves and
     whisper's encoder and cross-attention there raise."""
     if model_axis(mesh) <= 1:
         return

@@ -10,25 +10,30 @@ with no memory and no draws, as the reference's ``jax.eval_shape`` gives
 calling a case's step on them runs every op and kernel wrapper's meta
 route, which ``utils/op_cost`` counts.
 
-Under a mesh (``launch/mesh``) the train step is data parallel over the
-mesh's batch axes: every rank is handed the global batch and takes its
-rows of every microbatch where the shard count divides them (so every
-MoE token group is the reference's), computes its loss and gradients,
-and the losses and gradients are all-reduced to the global means before
-the replicated AdamW update.  Where they do not divide, every rank
-computes the whole batch (the reference replicates it too,
-``batch_specs``).  The prefill and decode steps install the mesh, so the
-MoE layers route in the reference's groups, and compute the whole batch
-on every rank.  Training across a 'model' axis larger than 1 raises
-(``shardings.require_no_model_axis``, ROADMAP Queue 1 item 6b).
+Under a mesh (``launch/mesh``) with no 'model' axis larger than 1 the
+train step is data parallel over the mesh's batch axes: every rank is
+handed the global batch and takes its rows of every microbatch where the
+shard count divides them (so every MoE token group is the reference's),
+computes its loss and gradients, and the losses and gradients are
+all-reduced to the global means before the replicated AdamW update.
+Where they do not divide, every rank computes the whole batch (the
+reference replicates it too, ``batch_specs``).  The prefill and decode
+steps install the mesh, so the MoE layers route in the reference's
+groups, and compute the whole batch on every rank.
 
-Serving across a 'model' axis larger than 1 (the dense and MoE
-decoders): the prefill and decode steps take params and decode states
-already sharded (``shardings.shard_params``, ``shard_states``), split the
-batch's rows over the batch axes where ``batch_specs``' rule splits them,
-run the layers on this rank's blocks (``models/base._forward_sharded``,
-``_decode_sharded``) and gather the logits, so every rank returns the
-whole batch's.  ``build_case`` has no mesh, ``fsdp`` or ``act_shard``
+Across a 'model' axis larger than 1 (the dense and MoE decoders) every
+step takes params, optimizer state and decode states already sharded
+(``shardings.shard_params``, ``shard_states``; ``optim.init`` of the
+blocks), splits the batch's rows over the batch axes where
+``batch_specs``' rule splits them, and runs the layers on this rank's
+blocks (``models/base._forward_sharded``, ``_decode_sharded``) through
+``train/parallel``'s collectives.  The prefill and decode steps gather
+the logits, so every rank returns the whole batch's.  The train step
+keeps the head's vocab block: ``next_token_loss_sharded`` is the
+vocab-parallel cross entropy, the FSDP gathers' backward sums the
+gradients over the split rows, ``finish_grads`` sums the rest, the clip
+reads ``parallel.global_norm`` of the blocks, and AdamW updates the
+blocks in place.  ``build_case`` has no mesh, ``fsdp`` or ``act_shard``
 knob yet (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
@@ -57,6 +62,29 @@ def next_token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
+
+def next_token_loss_sharded(logits: torch.Tensor, labels: torch.Tensor,
+                            ax: PAR.ModelAxis) -> torch.Tensor:
+    """``next_token_loss`` of logits whose vocab splits over the 'model'
+    axis `ax`: `logits` (B, S, Vr) are rank r's block, vocab ids [r·Vr,
+    (r+1)·Vr).  The logsumexp of the blocks is the log of the ranks'
+    summed exponentials, shifted by their max (a detached stabiliser);
+    the gold logit comes from the rank whose block holds the label, the
+    others adding 0.  Its gradient on each rank is its softmax block minus
+    its one-hot block, over B·S."""
+    logits = logits.to(torch.float32)
+    vr = logits.shape[-1]
+    with torch.no_grad():
+        top = PAR.max_over(logits.amax(-1), ax.group)
+    total = PAR.sum_over(torch.exp(logits - top[..., None]).sum(-1),
+                         ax.group)
+    logz = torch.log(total) + top
+    local = labels.long() - ax.rank * vr
+    mine = (local >= 0) & (local < vr)
+    gold = torch.gather(logits, -1, local.clamp(0, vr - 1)[..., None])[..., 0]
+    gold = PAR.sum_over(torch.where(mine, gold, 0.0), ax.group)
     return (logz - gold).mean()
 
 
@@ -111,7 +139,8 @@ def _rows(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
 
 
 def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
-                    mesh=None, microbatches: int = 1, grad_compress=None,
+                    mesh=None, microbatches: int = 1,
+                    act_shard: str = "model", grad_compress=None,
                     use_fused: Optional[bool] = None
                     ) -> Tuple[Callable, Any]:
     """Returns (train_step, optimizer).  train_step(params, opt_state,
@@ -134,11 +163,21 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
     ``use_fused=False`` takes the plain attention under torch's autograd.
 
     ``mesh`` makes the step data parallel over its batch axes (module
-    docstring); every rank passes the same global batch and params.  The
-    reference's ``act_shard`` layout policy waits for training across a
-    'model' axis (ROADMAP Queue 1 item 6b).
+    docstring); every rank passes the same global batch and params.
+    Across a 'model' axis larger than 1 the params and state are this
+    rank's blocks and the step is ``_train_step_sharded``'s; `act_shard`
+    ('model', 'seq' or 'none', the reference's knob) is then the residual
+    stream's layout at the remat save points.
     """
-    SH.require_no_model_axis(mesh, "make_train_step")
+    if act_shard not in SH.ACT_SHARD:
+        raise ValueError(f"act_shard {act_shard!r} is not one of "
+                         f"{SH.ACT_SHARD}")
+    if SH.model_axis(mesh) > 1:
+        return _train_step_sharded(m, mesh, lr=lr, remat=remat,
+                                   microbatches=microbatches,
+                                   act_shard=act_shard,
+                                   grad_compress=grad_compress,
+                                   use_fused=use_fused)
     k = shard.n_task_shards(mesh)
     optim = adamw(lr, weight_decay=0.1, clip_norm=1.0)
 
@@ -178,6 +217,80 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
         opt_state = optim.update_in_place(grads, opt_state, params)
         return params, opt_state, {"loss": loss}
 
+    return train_step, optim
+
+
+def _train_step_sharded(m: MB.ModelCfg, mesh, *, lr, remat: bool,
+                        microbatches: int, act_shard: str, grad_compress,
+                        use_fused: Optional[bool]) -> Tuple[Callable, Any]:
+    """``make_train_step`` across a 'model' axis larger than 1 on this
+    rank's blocks (``shard_params``; the optimizer's ``init`` of them):
+    each microbatch's rows split over the batch axes by ``batch_specs``'
+    rule, the forward on the blocks with the head's vocab block, the
+    vocab-parallel loss (scaled by 1/the rows' shard count, so the FSDP
+    gathers' backward sums the global mean's gradient), the gradients
+    accumulated over the microbatches as the one-rank step does, then
+    summed over the split axes where a leaf's spec does not shard them
+    (``parallel.finish_grads``), clipped by the global norm of the blocks
+    and applied by AdamW in place.  The step's ``loss_and_grads(params,
+    batch)`` is its (loss, gradient blocks) before any compression or
+    clip, and ``grad_norm(grads)`` their global norm."""
+    SH.require_model_axis_arch(m, mesh)
+    specs = PAR.spec_leaves(PAR.param_layout(m, mesh))
+    optim = adamw(lr, weight_decay=0.1, clip_norm=1.0)
+
+    def loss_of(tree, piece):
+        logits = MB.forward(tree, m, piece["tokens"],
+                            positions=piece.get("positions"),
+                            use_fused=use_fused, remat=remat,
+                            vocab_block=True)
+        if logits.shape[-1] == m.vocab:
+            return next_token_loss(logits, piece["labels"])
+        return next_token_loss_sharded(logits, piece["labels"],
+                                       PAR.model_axis())
+
+    def loss_and_grads_sharded(params, batch):
+        n = max(microbatches, 1)
+        rax = _row_axis(mesh, batch["tokens"].shape[0] // n)
+        pieces = [batch]
+        if n > 1:
+            micro = {k: _split(v, n) for k, v in batch.items()}
+            pieces = [{k: v[i] for k, v in micro.items()} for i in range(n)]
+        live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss_sum, g_sum = 0.0, None
+        with SH.use_mesh(mesh, act_shard=act_shard, split=rax.size):
+            for piece in pieces:
+                piece = {k: PAR.rows(v, rax, dim=1 if k == "positions"
+                                     and v.dim() == 3 else 0)
+                         for k, v in piece.items()}
+                with torch.enable_grad():
+                    loss = loss_of(tree_unflatten(params, live), piece)
+                    g = torch.autograd.grad(loss * (1.0 / rax.size), live,
+                                            materialize_grads=True)
+                loss_sum = loss_sum + loss.detach()
+                g_sum = list(g) if g_sum is None else [
+                    acc.add_(gi) for acc, gi in zip(g_sum, g)]
+                del g
+            if n > 1:
+                loss_sum = loss_sum * (1.0 / n)
+                g_sum = [t.mul_(1.0 / n) for t in g_sum]
+            grads = PAR.finish_grads(g_sum, specs, mesh)
+        loss = PAR.sum_over(loss_sum, rax.group) * (1.0 / rax.size)
+        return loss, tree_unflatten(params, grads)
+
+    def grad_norm(grads):
+        return PAR.global_norm(tree_leaves(grads), specs, mesh)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads_sharded(params, batch)
+        if grad_compress is not None:
+            grads = grad_compress(grads)
+        opt_state = optim.update_in_place(grads, opt_state, params,
+                                          norm=grad_norm(grads))
+        return params, opt_state, {"loss": loss}
+
+    train_step.loss_and_grads = loss_and_grads_sharded
+    train_step.grad_norm = grad_norm
     return train_step, optim
 
 

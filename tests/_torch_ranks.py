@@ -4,9 +4,11 @@ starts on the CPU: joins the process group from a ``FileStore``, builds
 beside its one-rank run, then pickles what it saw for the test to hold.
 With ``model`` last, the scenarios of ``tests/test_torch_model_axis.py``
 instead: serving and the DSE task mesh on the (1, 4) and (2, 2)
-('data', 'model') meshes (``model_axis_main``).
+('data', 'model') meshes (``model_axis_main``); with ``train``, those of
+``tests/test_torch_model_axis_train.py``: training there
+(``model_axis_train_main``).
 
-    python tests/_torch_ranks.py RANK WORLD STORE_PATH OUT_DIR [model]
+    python tests/_torch_ranks.py RANK WORLD STORE_PATH OUT_DIR [model|train]
 
 Imports only ``torch`` and ``repro_torch``.
 """
@@ -447,6 +449,222 @@ def model_axis_main(rank: int, world: int, store_path: str,
     dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# training across a 'model' axis
+# ---------------------------------------------------------------------------
+#: the train batch: B 4 splits over 'data' 2 on (2, 2) and not at all on
+#: (1, 4); 24 positions (4 and 2 divide S and D = 64: 'seq' and 'model'
+#: save points both cut)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 24, 1e-3
+#: the act_shard policies held to each other
+ACT_POLICIES = ("model", "seq", "none")
+
+
+def train_batch(vocab: int, b: int = TRAIN_BATCH, s: int = TRAIN_SEQ):
+    toks = np.random.default_rng(8).integers(0, vocab, (b, s))
+    return {"tokens": torch.from_numpy(toks),
+            "labels": torch.from_numpy(np.roll(toks, -1, 1))}
+
+
+def _one_rank_grads(m, params, batch, one, micro: int = 1, remat=False):
+    """The one-rank (loss, gradient tree) in the MoE groups of `one`, the
+    microbatches accumulated as ``make_train_step``'s one-rank path
+    does."""
+    from repro_torch.optim import tree_unflatten
+    from repro_torch.train import shardings as SH
+
+    with SH.use_mesh(one):
+        if micro == 1:
+            return TS.loss_and_grads(m, params, batch, remat=remat)
+        pieces = {k: TS._split(v, micro) for k, v in batch.items()}
+        loss_sum, g_sum = torch.zeros(()), None
+        for i in range(micro):
+            loss, g = TS.loss_and_grads(
+                m, params, {k: v[i] for k, v in pieces.items()}, remat=remat)
+            loss_sum = loss_sum + loss
+            g = tree_leaves(g)
+            g_sum = g if g_sum is None else [a + b for a, b in zip(g_sum, g)]
+        return loss_sum * (1.0 / micro), tree_unflatten(
+            params, [t * (1.0 / micro) for t in g_sum])
+
+
+def train_one(m, params, one):
+    """The world of one: the loss, gradients, clip scale and params after
+    one AdamW step (``make_train_step``'s optimizer and update)."""
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import clip_scale
+
+    loss, grads = _one_rank_grads(m, params, train_batch(m.vocab), one)
+    optim = adamw(TRAIN_LR, weight_decay=0.1, clip_norm=1.0)
+    p = [t.clone() for t in tree_leaves(params)]
+    from repro_torch.optim import tree_unflatten
+    p = tree_unflatten(params, p)
+    optim.update_in_place(grads, optim.init(p), p)
+    return dict(loss=float(loss), grads=flat(grads),
+                scale=float(clip_scale(grads, 1.0)),
+                params=flat(p))
+
+
+def train_sharded(m, params, mesh, **kw):
+    """This rank's run: the step's loss and gradient blocks before the
+    clip, the clip scale from their global norm, then one step on the
+    blocks: the params after it, and the bytes of params, mu and nu."""
+    from repro_torch.train import shardings as SH
+
+    local = SH.shard_params(params, mesh)
+    step, optim = TS.make_train_step(m, lr=TRAIN_LR, mesh=mesh, **kw)
+    batch = train_batch(m.vocab)
+    loss, grads = step.loss_and_grads(local, batch)
+    norm = step.grad_norm(grads)
+    opt = optim.init(local)
+    local, opt, met = step(local, opt, batch)
+    return dict(loss=float(loss), step_loss=float(met["loss"]),
+                grads=flat(grads),
+                scale=float(torch.clamp(1.0 / (norm + 1e-9), max=1.0)),
+                params=flat(local),
+                bytes={"params": _nbytes(local), "mu": _nbytes(opt.mu),
+                       "nu": _nbytes(opt.nu)},
+                shapes=[tuple(t.shape) for t in tree_leaves(local)])
+
+
+def act_shard_runs(m, params, mesh):
+    """Remat on, each of ACT_POLICIES: the loss, the gradient blocks and
+    the bytes and shapes of every tensor saved for the backward outside
+    the checkpointed repeats (``saved_tensors_hooks``: a checkpoint's
+    inputs, the save points, among them)."""
+    from repro_torch.train import shardings as SH
+
+    local = SH.shard_params(params, mesh)
+    batch = train_batch(m.vocab)
+    out = {}
+    for policy in ACT_POLICIES:
+        step, _ = TS.make_train_step(m, lr=TRAIN_LR, mesh=mesh, remat=True,
+                                     act_shard=policy)
+        saved = []
+
+        def pack(t):
+            saved.append((tuple(t.shape), t.numel() * t.element_size()))
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, grads = step.loss_and_grads(local, batch)
+        out[policy] = dict(loss=float(loss), grads=flat(grads),
+                           saved=saved)
+    return out
+
+
+#: the microbatch counts held to one rank's: at 4 a microbatch's one row
+#: does not split over 'data', so every rank computes it whole and FSDP's
+#: gathers only cut their gradients
+MICROBATCHES = (2, 4)
+
+
+def micro_runs(m, params, mesh, one):
+    """Each of MICROBATCHES on the blocks beside one rank's."""
+    from repro_torch.train import shardings as SH
+
+    out = {}
+    for micro in MICROBATCHES:
+        step, _ = TS.make_train_step(m, lr=TRAIN_LR, mesh=mesh, remat=False,
+                                     microbatches=micro)
+        loss, grads = step.loss_and_grads(SH.shard_params(params, mesh),
+                                          train_batch(m.vocab))
+        one_loss, one_grads = _one_rank_grads(
+            m, params, train_batch(m.vocab), one, micro=micro)
+        out[micro] = dict(loss=float(loss), grads=flat(grads),
+                          one_loss=float(one_loss),
+                          one_grads=flat(one_grads))
+    return out
+
+
+def collective_grads(mesh):
+    """Each collective's backward on a (2, 2) mesh, on tensors whose
+    gradients have closed forms (``tests/test_torch_model_axis_train``
+    holds them): the f/g pair, the gather whose gradient is summed and
+    cut, the gather whose gradient is only cut, FSDP's gather with the
+    rows split and not, and a save point's block and its gather."""
+    from repro_torch.train import parallel as PAR
+    from repro_torch.train import shardings as SH
+
+    coord = SH.coordinate(mesh)
+    mr = coord["model"]
+    grp = PAR.axis(mesh, "model").group
+    base = torch.arange(8, dtype=torch.float64)
+    out = {}
+    # f/g: y = sum over 'model' of (x · w_r); loss = sum(y · c)
+    x = base.clone().requires_grad_(True)
+    w = base + 10 * mr
+    y = PAR.sum_over(PAR.enter_local(x, grp) * w, grp)
+    (y * (base + 1)).sum().backward()
+    out["fg"] = (y.detach().numpy(), x.grad.numpy())
+    # a gathered block summed and cut: loss = sum over ranks of
+    # sum(gather(b_r) · a_r)
+    b = (base[4 * mr:4 * mr + 4] + 0.5).requires_grad_(True)
+    a = base * (mr + 1)
+    loss = PAR.sum_over((PAR.gather_dim(b, 0, grp) * a).sum(), grp)
+    loss.backward()
+    out["gather_sum"] = b.grad.numpy()
+    # gathered for a replicated consumer: only cut
+    b2 = (base[4 * mr:4 * mr + 4] + 0.5).requires_grad_(True)
+    (PAR.gather_dim(b2, 0, grp, grad_group=None) * (base + 1)).sum(
+    ).backward()
+    out["gather_cut"] = b2.grad.numpy()
+    # FSDP: a leaf's dim 0 on 'data'; the consumer's rows on this rank
+    dr = coord["data"]
+    for split in (2, 1):
+        leaf = (base[4 * dr:4 * dr + 4] + 1).requires_grad_(True)
+        with SH.use_mesh(mesh, split=split):
+            full = PAR.unshard_data({"w": leaf}, {"w": SH.P("data")})["w"]
+        rows = base * (dr + 1) if split > 1 else base
+        (full * rows).sum().backward()
+        out[f"fsdp split {split}"] = leaf.grad.numpy()
+    # a save point: the block kept, gathered back; the gradient whole
+    z = (base.reshape(2, 4) + 1).requires_grad_(True)
+    kept = PAR.keep_block(z, 1, grp)
+    back = PAR.gather_dim(kept, 1, grp, grad_group=None)
+    (back * back).sum().backward()
+    out["keep"] = (tuple(kept.shape), z.grad.numpy())
+    return out
+
+
+def training(mesh, shape):
+    """Every arch of MODEL_ARCHS trained one step on the blocks beside one
+    rank, and its act_shard policies; stablelm's microbatches."""
+    one = Sizes(data=shape[0], model=1)
+    out = {}
+    for arch in MODEL_ARCHS:
+        m = configs.get_reduced(arch)
+        params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
+        out[arch] = dict(sharded=train_sharded(m, params, mesh, remat=False))
+        if dist.get_rank() == 0:
+            out[arch]["one"] = train_one(m, params, one)
+        out[arch]["act_shard"] = act_shard_runs(m, params, mesh)
+    m = configs.get_reduced("stablelm-1.6b")
+    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
+    out["micro"] = micro_runs(m, params, mesh, one)
+    return out
+
+
+def model_axis_train_main(rank: int, world: int, store_path: str,
+                          out_dir: str) -> None:
+    torch.set_num_threads(1)
+    init_process_group("gloo", dist.FileStore(store_path, world), rank,
+                       world, timeout_s=120)
+    out = {}
+    try:
+        meshes = {shape: make_host_mesh(shape, device="cpu")
+                  for shape in MODEL_MESHES}
+        for shape, mesh in meshes.items():
+            out[shape] = dict(coord=tuple(mesh.get_coordinate()),
+                              training=training(mesh, shape))
+        out["collectives"] = collective_grads(meshes[2, 2])
+    except Exception:
+        out["error"] = traceback.format_exc()
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
 def main(rank: int, world: int, store_path: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     init_process_group("gloo", dist.FileStore(store_path, world), rank,
@@ -465,5 +683,6 @@ def main(rank: int, world: int, store_path: str, out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    (model_axis_main if sys.argv[5:] == ["model"] else main)(
+    {("model",): model_axis_main, ("train",): model_axis_train_main}.get(
+        tuple(sys.argv[5:]), main)(
         int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

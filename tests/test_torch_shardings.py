@@ -253,16 +253,18 @@ def test_make_host_mesh_rejects_oversized_shape():
 
 
 def test_model_axis_execution_raises():
-    """A 'model' axis larger than 1 serves the dense and MoE decoders
-    (``tests/test_torch_model_axis.py``); training there raises (ROADMAP
-    Queue 1 item 6b), and so do hymba's, xlstm's and whisper's steps
-    (item 6c)."""
+    """A 'model' axis larger than 1 serves and trains the dense and MoE
+    decoders (``tests/test_torch_model_axis.py``,
+    ``tests/test_torch_model_axis_train.py``); hymba's, xlstm's and
+    whisper's train, prefill and decode steps there raise (ROADMAP Queue
+    1 item 6c), and stablelm's train step builds."""
     mesh = AbstractMesh((2, 2), ("data", "model"))
     m = TC.get_reduced("stablelm-1.6b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-        TTS.make_train_step(m, mesh=mesh)
+    step, optim = TTS.make_train_step(m, mesh=mesh)
+    assert callable(step) and callable(step.loss_and_grads)
     for arch in ("hymba-1.5b", "xlstm-1.3b", "whisper-small"):
-        for make in (TTS.make_prefill_step, TTS.make_decode_step):
+        for make in (TTS.make_train_step, TTS.make_prefill_step,
+                     TTS.make_decode_step):
             with pytest.raises(NotImplementedError,
                                match="Queue 1 item 6c"):
                 make(TC.get_reduced(arch), mesh=mesh)
