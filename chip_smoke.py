@@ -384,9 +384,20 @@ gradient block within U_GRAD_TOL of its leaf's norm, flash with lse on
 16 of 32 heads twice a layer (forward and recompute), params, mu and nu
 the spec blocks' bytes, mixtral's 4 experts a rank with no routing flip
 between the ranks, and after the step every replicated leaf the same
-bits on both ranks (``u_failures``).  Each path's ms and its
-collectives' share, and each rank's peak memory, beside the card's name
-and power limit.
+bits on both ranks (``u_failures``).  Then the same for hymba-1.5b,
+xlstm-1.3b and whisper-small at full width (ROADMAP Queue 1 item 6c):
+hymba at full depth, its 1 x 2048 prefill (flash on all 25 heads, which
+2 does not divide; the selective scan on 1600 of 3200 channels) and 8
+``Engine`` steps, trained at 1 x 2048 on its first global and first
+local layer; xlstm cut to one repeat (8 blocks), its 1 x 2048 prefill
+(the sLSTM kernel on all 4 heads: it runs replicated), 8 ``Engine``
+steps and one train step; whisper at full depth, a prefill of 448
+tokens on 1500 frames (flash on 6 of 12 heads: encoder, decoder and 448
+x 1500 cross-attention), ``encode`` and 8 ``make_decode_step`` steps,
+one train step at 1 x 448; each held to the world of one as above, the
+bytes kept to the spec blocks' (whisper's table stays whole).  Each
+path's ms and its collectives' share, and each rank's peak memory,
+beside the card's name and power limit.
 
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
@@ -4689,8 +4700,10 @@ def path_cases() -> dict:
     prefill = shape_of("prefill", *PREFILL)
     engine = shape_of("decode", SERVE["slots"], SERVE["cache_len"])
     train = shape_of("train", *LM_TRAIN)
+    # float32, the dtype every phase runs (the cost tools count bf16 by
+    # default, the reference's dtype)
     build = (lambda m, shape, **kw:                         # noqa: E731
-             lambda: TS.build_case(m, shape, **kw))
+             lambda: TS.build_case(m, shape, dtype=torch.float32, **kw))
     cases = {
         "prefill": build(gemma, prefill),
         "serve": build(gemma, engine),
@@ -4718,7 +4731,7 @@ def path_cases() -> dict:
     }
 
     def encode():
-        p = TS.param_structs(whisper)
+        p = TS.param_structs(whisper, torch.float32)
         return TS.Case("whisper encode", lambda p_, f: MB.encode(
             p_, whisper, f), (p, _meta((WHISPER_BATCH, whisper.max_enc_len,
                                         whisper.d_model))))
@@ -4727,7 +4740,8 @@ def path_cases() -> dict:
         frames = _meta((WHISPER_BATCH, whisper.max_enc_len, whisper.d_model))
         toks = _meta((WHISPER_BATCH, WHISPER_PROMPT), torch.int32)
         return TS.Case("whisper prefill", TS.make_prefill_step(whisper), (
-            TS.param_structs(whisper), {"frames": frames, "tokens": toks}))
+            TS.param_structs(whisper, torch.float32),
+            {"frames": frames, "tokens": toks}))
 
     def moe_layer(arch):
         cfg = get(arch).segments[0].pattern[0].cfg
@@ -5357,26 +5371,103 @@ U_TRAIN = (1024, 1, 1024)
 U_LM_TRAIN = (2, 2048)
 U_MOE_TRAIN = (1, 2048)
 #: a gradient block's distance from the world of one's over its leaf's
-#: norm (the LM gradient gate of phase j)
+#: norm (the LM gradient gate of phase j), the norm floored at
+#: U_GRAD_FLOOR of the whole gradient's: a leaf whose gradient is zero in
+#: exact arithmetic (the mLSTM's b_i: the stabiliser absorbs a shift of
+#: every input gate) holds rounding noise alone
 U_GRAD_TOL = 1e-3
+U_GRAD_FLOOR = 1e-4
+#: hymba, xlstm and whisper across the 'model' axis (ROADMAP Queue 1 item
+#: 6c), at full width: hymba-1.5b served at full depth (32 layers: 25
+#: heads, which 2 does not divide, so every rank runs every head) and
+#: trained on U_HYMBA_TRAIN_CUT (its first global and first local layer);
+#: xlstm-1.3b cut to U_XLSTM_REPEATS repeat (8 blocks: float32's
+#: conditioning at depth, ROADMAP Queue 3 item 6) for both; whisper-small
+#: at full depth, served through make_decode_step (the reference's Engine
+#: cannot serve it, Queue 3 item 7): ``encode`` of U_WHISPER_FRAMES
+#: frames, a prefill of U_WHISPER_PREFILL tokens, U_WHISPER_STEPS decode
+#: steps from empty caches of U_ENGINE's cache_len
+U_HYMBA_PREFILL = (1, 2048)
+U_HYMBA_TRAIN_CUT = 2          # segments: [global x1, local x1]
+U_XLSTM_REPEATS = 1
+U_RECURRENT_TRAIN = (1, 2048)
+U_WHISPER_FRAMES = 1500
+U_WHISPER_PREFILL = (1, 448)
+U_WHISPER_STEPS = 8
 #: phase u's records that hold a "train" record, and their archs
-U_TRAINED = {"lm": U_ARCH, "moe": MOE_ARCH}
+U_TRAINED = {"lm": U_ARCH, "moe": MOE_ARCH, "hymba_train": HYMBA_ARCH,
+             "xlstm": XLSTM_ARCH, "whisper": WHISPER_ARCH}
+#: phase u's records that serve (a prefill, and an Engine or whisper's
+#: decode steps), held to rank 0's world of one
+U_SERVED = ("lm", "moe", "hymba", "xlstm", "whisper")
+
+
+def u_hymba_train_cut():
+    """hymba-1.5b cut to its first U_HYMBA_TRAIN_CUT segments, one layer
+    each: a global (full) and a local (window 1024) layer."""
+    m = configs.get_arch(HYMBA_ARCH)
+    return dataclasses.replace(m, segments=tuple(
+        dataclasses.replace(seg, repeats=1)
+        for seg in m.segments[:U_HYMBA_TRAIN_CUT]))
+
+
+def u_heads(cfg) -> int:
+    """The q heads of a rank's flash launch: H/m where 'model' divides the
+    heads, else every head (wq's and wo's blocks end mid-head)."""
+    return cfg.n_heads // U_RANKS if cfg.n_heads % U_RANKS == 0 \
+        else cfg.n_heads
+
+
+def u_expect(m) -> dict:
+    """What one forward of `m` launches on a rank: flash (a decoder or
+    encoder layer's attention, a whisper decoder layer's self- and
+    cross-attention) at ``u_heads`` q heads, the selective scan at Di/m
+    channels, the sLSTM at every head (it runs replicated)."""
+    specs = [(seg.repeats, sp) for seg in m.segments + (m.enc_segments or ())
+             for sp in seg.pattern]
+    per = {"dense": 1, "enc": 1, "dec": 2}
+    return dict(
+        flash=sum(n * per.get(sp.kind, 0) for n, sp in specs),
+        heads=sorted({u_heads(sp.cfg) for _, sp in specs
+                      if sp.kind in per}),
+        ssm=sum(n for n, sp in specs if sp.cfg.ssm_state),
+        ssm_channels=sorted({2 * m.d_model // U_RANKS for _, sp in specs
+                             if sp.cfg.ssm_state}),
+        slstm=sum(n for n, sp in specs if sp.kind == "slstm"),
+        slstm_heads=sorted({sp.cfg.n_heads for _, sp in specs
+                            if sp.kind == "slstm"}))
 
 
 @contextlib.contextmanager
-def recorded_heads():
-    """The q heads of each flash launch through ``kernels/ops``."""
-    seen = []
+def recorded_kernels():
+    """Each launch through ``kernels/ops``: a flash launch's (q heads, Sq,
+    Sk), a selective scan's channels, an sLSTM scan's heads."""
+    seen = {"flash": [], "ssm": [], "slstm": []}
 
-    def rec(q, k, v, **kw):
-        seen.append(q.shape[1])
+    def flash(q, k, v, **kw):
+        seen["flash"].append((q.shape[1], q.shape[2], k.shape[2]))
         return fa.flash_attention(q, k, v, **kw)
 
-    ops._fa = types.SimpleNamespace(flash_attention=rec)
+    def scan(dt, *a, **kw):
+        seen["ssm"].append(dt.shape[-1])
+        return ss.ssm_scan(dt, *a, **kw)
+
+    def slstm(wx, rh, *a, **kw):
+        seen["slstm"].append(rh.shape[0])
+        return sl.slstm_scan(wx, rh, *a, **kw)
+
+    ops._fa = types.SimpleNamespace(flash_attention=flash)
+    ops._ss = types.SimpleNamespace(ssm_scan=scan)
+    ops._sl = types.SimpleNamespace(slstm_scan=slstm)
     try:
         yield seen
     finally:
-        ops._fa = fa
+        ops._fa, ops._ss, ops._sl = fa, ss, sl
+
+
+def u_kernels(seen: dict) -> dict:
+    """``recorded_kernels``' record as counts and the distinct shapes."""
+    return {k: dict(n=len(v), shapes=sorted(set(v))) for k, v in seen.items()}
 
 
 def u_requests(m) -> list:
@@ -5415,11 +5506,14 @@ def u_prefill(m, params, shape, mesh=None) -> dict:
     second one."""
     step = TS.make_prefill_step(m, mesh=mesh)
     batch = {"tokens": prefill_tokens(m, shape)}
+    if m.enc_segments is not None:
+        batch["frames"] = u_frames(m, shape[0])
     zero_counts()
     got = []
-    with recorded_heads() as heads:
+    with recorded_kernels() as seen:
         split = u_timed_split(lambda: got.append(step(params, batch)))
-    out = dict(logits=got[0].cpu(), heads=heads, launches=counts())
+    out = dict(logits=got[0].cpu(), heads=[h for h, _, _ in seen["flash"]],
+               kernels=u_kernels(seen), launches=counts())
     if mesh is not None:
         return dict(out, split=split, ms=split["ms"])
     torch.cuda.synchronize()
@@ -5427,6 +5521,61 @@ def u_prefill(m, params, shape, mesh=None) -> dict:
     step(params, batch)
     torch.cuda.synchronize()
     return dict(out, ms=1e3 * (time.perf_counter() - t0))
+
+
+def u_frames(m, b: int):
+    """`b` windows of U_WHISPER_FRAMES stub frames (``normal · 0.1``) from
+    seed 1 on the card."""
+    return 0.1 * torch.randn((b, U_WHISPER_FRAMES, m.d_model), device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(1))
+
+
+def u_decode(m, params, mesh=None) -> dict:
+    """Whisper's decode through ``make_decode_step(mesh=, cache_len=)``:
+    ``encode`` of one window of U_WHISPER_FRAMES frames (every rank the
+    whole batch), then U_WHISPER_STEPS steps from empty caches of
+    U_ENGINE's cache_len (the states cut by ``shard_states`` under a
+    mesh): the steps' logits (on the CPU), the launches from zero just
+    before the encode and the kernels' shapes, the encode's ms and the
+    median step's."""
+    b, cache = 1, U_ENGINE["cache_len"]
+    toks = prefill_tokens(m, (b, U_WHISPER_STEPS))
+    states = MB.init_decode_state(params, m, b, cache)
+    if mesh is not None:
+        states = SH.shard_states(states, mesh, b)
+    dec = TS.make_decode_step(m, mesh=mesh,
+                              cache_len=cache if mesh is not None else None)
+    frames = u_frames(m, b)
+    torch.cuda.synchronize()
+    zero_counts()
+    logits, steps = [], []
+    with recorded_kernels() as seen:
+        t0 = time.perf_counter()
+        with torch.no_grad(), SH.use_mesh(mesh):
+            enc = MB.encode(params, m, frames)
+        torch.cuda.synchronize()
+        encode_ms = 1e3 * (time.perf_counter() - t0)
+        for t in range(U_WHISPER_STEPS):
+            t0 = time.perf_counter()
+            lg, states = dec(params, toks[:, t:t + 1], t, states,
+                             enc_out=enc)
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - t0))
+            logits.append(lg[:, 0].cpu())
+    return dict(logits=torch.stack(logits, 1), launches=counts(),
+                kernels=u_kernels(seen), encode_ms=encode_ms,
+                ms_per_step=statistics.median(steps),
+                state_bytes=_tensors_bytes(states))
+
+
+def u_train_batch(m, shape) -> dict:
+    """Step 0 of the synthetic stream at `shape`, with ``u_frames``'
+    frames for an encoder-decoder."""
+    batch = lm_train_batch(m, 0, shape)
+    if m.enc_segments is not None:
+        batch["frames"] = u_frames(m, shape[0])
+    return batch
 
 
 def u_collectives():
@@ -5530,31 +5679,41 @@ def u_init(m) -> tuple:
 
 
 def u_model(m, mesh, rank: int, prefill_shape, engine: bool,
-            train_shape, world_step: bool) -> dict:
+            train_shape, world_step: bool, decode: bool = False) -> dict:
     """One rank's run of `m`: its full params from seed 0; on rank 0 the
-    world of one first (no mesh: the prefill, with `engine` the Engine);
-    the world of one's gradient for training (``u_world_grads``); then the Engine built from the full params (it
-    shards them and its decode states) or the params sharded here, the
-    full tree dropped; the bytes kept beside the spec blocks' (counted on
-    the full tree) and the card's ``memory_allocated``; the Engine's 8
-    steps and one more with the collectives timed; the prefill on the
-    blocks (its logits and routes go back to the script); last, the
-    blocks trained at `train_shape` (``u_train``: the step updates them
-    in place)."""
+    world of one first (no mesh: the prefill at `prefill_shape` where
+    given, with `engine` the Engine, with `decode` whisper's decode
+    steps); the world of one's gradient for training at `train_shape`
+    where given (``u_world_grads``); then the Engine built from the full
+    params (it shards them and its decode states) or the params sharded
+    here, the full tree dropped; the bytes kept beside the spec blocks'
+    (counted on the full tree) and the card's ``memory_allocated``; the
+    Engine's 8 steps and one more with the collectives timed; whisper's
+    decode steps; the prefill on the blocks (its logits and routes go
+    back to the script); last, the blocks trained at `train_shape`
+    (``u_train``: the step updates them in place).  ``expect`` is what a
+    forward launches on a rank (``u_expect``)."""
     full, init_s = u_init(m)
     specs = SH.param_specs(full, mesh)
     out = dict(init_s=init_s, full_param_bytes=_tensors_bytes(full),
-               spec_block_bytes=u_blocks_bytes(mesh, full, specs))
-    if rank == 0:
-        with recorded_routes() as routes:
-            one = u_prefill(m, full, prefill_shape)
-        one["routes"] = [r.cpu() for r in routes]
+               spec_block_bytes=u_blocks_bytes(mesh, full, specs),
+               n_layers=m.n_layers, expect=u_expect(m))
+    if rank == 0 and (prefill_shape or decode):
+        one = {}
+        if prefill_shape:
+            with recorded_routes() as routes:
+                one = u_prefill(m, full, prefill_shape)
+            one["routes"] = [r.cpu() for r in routes]
         if engine:
             one["engine"] = u_engine(m, full)
             del one["engine"]["engine"]
+        if decode:
+            one["decode"] = u_decode(m, full)
         out["world_of_one"] = one
-    batch = lm_train_batch(m, 0, train_shape)
-    world = u_world_grads(m, full, batch, specs, mesh, rank, world_step)
+    world = batch = None
+    if train_shape is not None:
+        batch = u_train_batch(m, train_shape)
+        world = u_world_grads(m, full, batch, specs, mesh, rank, world_step)
     if engine:
         run = u_engine(m, full, mesh)
         eng = run.pop("engine")
@@ -5568,6 +5727,11 @@ def u_model(m, mesh, rank: int, prefill_shape, engine: bool,
         del full_states
     else:
         local = SH.shard_params(full, mesh)
+    if decode:
+        full_states = MB.init_decode_state(full, m, 1, U_ENGINE["cache_len"])
+        out["state_spec_block_bytes"] = u_blocks_bytes(
+            mesh, full_states, SH.state_specs(full_states, mesh, 1))
+        del full_states
     del full
     gc.collect()
     torch.cuda.empty_cache()
@@ -5579,12 +5743,18 @@ def u_model(m, mesh, rank: int, prefill_shape, engine: bool,
         start = torch.from_numpy(eng.start).to("cuda")
         out["engine"] = dict(run, split=u_timed_split(lambda: eng._decode(
             eng.params, toks, eng.clock, eng.states, start=start)))
-    with recorded_routes() as routes:
-        out["prefill"] = u_prefill(m, local, prefill_shape, mesh)
-    out["prefill"]["routes"] = [r.cpu() for r in routes]
-    out["train"] = dict(u_train(m, mesh, local, specs, world, batch),
-                        shape=list(train_shape), n_layers=m.n_layers,
-                        spec_block_bytes=out["spec_block_bytes"])
+    if decode:
+        out["decode"] = u_decode(m, local, mesh)
+        out["state_bytes"] = out["decode"].pop("state_bytes")
+    if prefill_shape:
+        with recorded_routes() as routes:
+            out["prefill"] = u_prefill(m, local, prefill_shape, mesh)
+        out["prefill"]["routes"] = [r.cpu() for r in routes]
+    if train_shape is not None:
+        out["train"] = dict(u_train(m, mesh, local, specs, world, batch),
+                            shape=list(train_shape), n_layers=m.n_layers,
+                            spec_block_bytes=out["spec_block_bytes"],
+                            expect=out["expect"])
     return out
 
 
@@ -5691,10 +5861,11 @@ def u_train(m, mesh, local, specs, one: dict, batch) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    with recorded_heads() as heads, recorded_routes() as routes:
+    with recorded_kernels() as seen, recorded_routes() as routes:
         split = u_timed_split(lambda: got.extend(
             step.loss_and_grads(local, batch)))
     launches = counts()
+    heads = [h for h, _, _ in seen["flash"]]
     loss, grads = got
     norm = step.grad_norm(grads)
     torch.cuda.synchronize()
@@ -5702,8 +5873,9 @@ def u_train(m, mesh, local, specs, one: dict, batch) -> dict:
     optim.update_in_place(grads, opt, local, norm=norm)
     torch.cuda.synchronize()
     update_ms = 1e3 * (time.perf_counter() - t0)
+    floor = max(U_GRAD_FLOOR * one["grad_norm"], 1e-30)
     errs = [float(torch.linalg.vector_norm(
-        a.double() - b_.to(a.device).double())) / max(n, 1e-30)
+        a.double() - b_.to(a.device).double())) / max(n, floor)
         for a, b_, n in zip(tree_leaves(grads), one.pop("blocks"),
                             one.pop("norms"))]
     del grads, got
@@ -5714,7 +5886,8 @@ def u_train(m, mesh, local, specs, one: dict, batch) -> dict:
         worst_leaf=int(np.argmax(errs)), n_leaves=len(errs),
         ms_per_step=split["ms"] + update_ms, update_ms=update_ms,
         split=split, launches=launches, heads=sorted(set(heads)),
-        flash_launches=len(heads), routes=[r.cpu() for r in routes],
+        flash_launches=len(heads), kernels=u_kernels(seen),
+        routes=[r.cpu() for r in routes],
         param_bytes=_tensors_bytes(local), mu_bytes=_tensors_bytes(opt.mu),
         nu_bytes=_tensors_bytes(opt.nu),
         experts_per_rank=(local["segments"][0][0]["ffn"]["w_gate"].shape[1]
@@ -5750,6 +5923,23 @@ def u_rank(rank: int, tmp: str) -> int:
                          train_shape=U_MOE_TRAIN, world_step=False)
     gc.collect()
     torch.cuda.empty_cache()
+    for name, m, kw in (
+            ("hymba", configs.get_arch(HYMBA_ARCH),
+             dict(prefill_shape=U_HYMBA_PREFILL, engine=True,
+                  train_shape=None)),
+            ("hymba_train", u_hymba_train_cut(),
+             dict(prefill_shape=None, engine=False,
+                  train_shape=U_RECURRENT_TRAIN)),
+            ("xlstm", cut_config(configs.get_arch(XLSTM_ARCH),
+                                 U_XLSTM_REPEATS),
+             dict(prefill_shape=U_HYMBA_PREFILL, engine=True,
+                  train_shape=U_RECURRENT_TRAIN)),
+            ("whisper", configs.get_arch(WHISPER_ARCH),
+             dict(prefill_shape=U_WHISPER_PREFILL, engine=False,
+                  train_shape=U_WHISPER_PREFILL, decode=True))):
+        out[name] = u_model(m, mesh, rank, world_step=False, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
     out["dse"] = u_dse(mesh, rank, t1["sels"])
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -5794,19 +5984,20 @@ def u_agree(got, want) -> dict:
 
 def u_summary(ranks: list) -> dict:
     """Each rank's record held to rank 0's world of one: the logits'
-    agreement, the routing flips, the tokens, the first step's gradient
-    gap; the tensors dropped (a JSON-able record)."""
-    one = {name: ranks[0][name].pop("world_of_one") for name in ("lm", "moe")}
+    agreement, the routing flips, the tokens, whisper's decode steps, the
+    first step's gradient gap; the tensors dropped (a JSON-able
+    record)."""
+    one = {name: ranks[0][name].pop("world_of_one") for name in U_SERVED}
     dse_one = ranks[0]["dse"].pop("world_of_one")
     out = {}
     for r in ranks:
         rec = dict(rank=r["rank"], coordinate=r["coordinate"])
-        for name in ("lm", "moe"):
+        for name in U_SERVED:
             run, pre = dict(r[name]), r[name]["prefill"]
             run["prefill"] = dict(
                 ms=pre["ms"], split=pre["split"], launches=pre["launches"],
                 heads=sorted(set(pre["heads"])),
-                flash_launches=len(pre["heads"]),
+                flash_launches=len(pre["heads"]), kernels=pre["kernels"],
                 routing_flips=routing_flips(pre["routes"], one[name][
                     "routes"][:len(pre["routes"])]),
                 **u_agree(pre["logits"], one[name]["logits"]))
@@ -5815,9 +6006,16 @@ def u_summary(ranks: list) -> dict:
                     run["engine"]["tokens"] == one[name]["engine"]["tokens"]))
                 run["engine"]["tokens"] = {
                     str(k): v for k, v in run["engine"]["tokens"].items()}
+            if "decode" in run:
+                dec = dict(run["decode"])
+                run["decode"] = dict(
+                    {k: v for k, v in dec.items() if k != "logits"},
+                    **u_agree(dec["logits"], one[name]["decode"]["logits"]))
             rec[name] = run
         for name in U_TRAINED:
             tr, tr0 = r[name]["train"], ranks[0][name]["train"]
+            rec.setdefault(name, {k: v for k, v in r[name].items()
+                                  if k != "train"})
             rec[name]["train"] = dict(
                 {k: v for k, v in tr.items()
                  if k not in ("routes", "replicated_sha256",
@@ -5839,6 +6037,13 @@ def u_summary(ranks: list) -> dict:
                  engine_first_step_ms=one["lm"]["engine"]["first_step_ms"],
                  moe_prefill_ms=one["moe"]["ms"],
                  train_ms_per_step=dse_one["ms_per_step"],
+                 **{f"{name}_prefill_ms": one[name]["ms"]
+                    for name in U_SERVED if name not in ("lm", "moe")},
+                 **{f"{name}_engine_ms_per_step": one[name]["engine"][
+                     "ms_per_step"] for name in U_SERVED
+                    if name != "lm" and "engine" in one[name]},
+                 whisper_decode={k: one["whisper"]["decode"][k] for k in (
+                     "encode_ms", "ms_per_step", "launches")},
                  **{f"{name}_train": ranks[0][name]["train"]["world_of_one"]
                     for name in U_TRAINED})
     return dict(world_of_one=world, ranks=out)
@@ -5850,53 +6055,80 @@ def u_failures(ranks: dict) -> list:
 
     - the ranks sit at 'model' coordinates 0 and 1;
     - each rank keeps exactly its spec blocks' bytes of the params (and
-      of the Engine's decode states), under 0.55 of the full params', and
-      the card holds little more for it once the full tree is dropped;
-    - stablelm's prefill runs flash once a layer on H/2 heads a launch,
-      the cut mixtral's once a layer too; their logits are finite, within
-      TOL·max(1, max|logit|) of rank 0's world of one, with the same
-      argmax;
-    - the Engine's 8 steps give the world of one's tokens;
+      of the Engine's or whisper's decode states); stablelm's and
+      mixtral's blocks are under 0.55 of their full params' (whisper's
+      vocab does not divide, so its table stays whole: 0.57); the card
+      holds little more for a rank once the full tree is dropped;
+    - each prefill runs flash once an attention layer (whisper's encoder,
+      decoder and cross-attention each) on ``u_heads`` q heads a launch
+      (H/2, or all 25 of hymba's), hymba's selective scan once a layer on
+      Di/2 = 1600 channels, xlstm's sLSTM once a repeat on its 4 heads
+      (replicated); the logits are finite, within TOL·max(1, max|logit|)
+      of rank 0's world of one, with the same argmax;
+    - the Engine's 8 steps give the world of one's tokens (stablelm,
+      hymba, xlstm), xlstm's an sLSTM launch a step (hymba's SSM step
+      is plain ops); whisper's 8 decode steps after one ``encode`` give
+      its logits within the same tolerance, with the 448 x 1500 and 1 x
+      1500 cross-attention launched;
     - explore_batch's Selections are t1's, bit for bit, with the whole MLP
       launched; train_gan's first step's gradients and losses are the
       world of one's within T_GRAD_TOL, with the three dense kernels
       launched;
-    - stablelm's and the cut mixtral's train steps on the blocks: the loss
-      within 1e-5 relative of the world of one's, every gradient block
-      within U_GRAD_TOL of its leaf's norm, the global norm of the blocks
-      within 1e-4 relative; after two steps every replicated leaf the
-      same bits on both ranks; flash with lse on H/2 heads twice a layer
-      (the forward and the remat recompute); params, mu and nu each the
-      spec blocks' bytes; mixtral's E/2 experts a rank, routed alike on
-      both ranks."""
+    - every train step on the blocks (``u_train_failures``)."""
     bad = []
     for tag, r in ranks.items():
         if r["coordinate"] != (0, r["rank"]):
             bad.append(f"{tag}: coordinate {r['coordinate']}")
-        for name, arch, layers in (("lm", U_ARCH, None),
-                                   ("moe", MOE_ARCH, MOE_LAYERS)):
-            run, cfg = r[name], configs.get_arch(arch)
+        for name in U_SERVED + ("hymba_train",):
+            run = r[name]
             if run["param_bytes"] != run["spec_block_bytes"]:
                 bad.append(f"{tag}: {name} param bytes")
-            if not run["param_bytes"] < 0.55 * run["full_param_bytes"]:
+            if name in ("lm", "moe") and not (
+                    run["param_bytes"] < 0.55 * run["full_param_bytes"]):
                 bad.append(f"{tag}: {name} keeps more than its blocks")
             held = run["param_bytes"] + run.get("state_bytes", 0)
             if not run["memory_allocated"] < held + (256 << 20):
                 bad.append(f"{tag}: {name} memory_allocated")
-            pre = run["prefill"]
-            heads = cfg.segments[0].pattern[0].cfg.n_heads // U_RANKS
-            if pre["heads"] != [heads] or pre["flash_launches"] != (
-                    layers or cfg.n_layers):
+            if "state_bytes" in run and run["state_bytes"] != run[
+                    "state_spec_block_bytes"]:
+                bad.append(f"{tag}: {name} decode state bytes")
+            if name not in U_SERVED:
+                continue
+            pre, want = run["prefill"], run["expect"]
+            if pre["heads"] != (want["heads"] if want["flash"] else []) \
+                    or pre["flash_launches"] != want["flash"]:
                 bad.append(f"{tag}: {name} flash heads {pre['heads']} x "
                            f"{pre['flash_launches']}")
+            k = pre["kernels"]
+            if (k["ssm"]["n"], k["ssm"]["shapes"]) != (
+                    want["ssm"], want["ssm_channels"]) or (
+                    k["slstm"]["n"], k["slstm"]["shapes"]) != (
+                    want["slstm"], want["slstm_heads"]):
+                bad.append(f"{tag}: {name} scans {k['ssm']} {k['slstm']}")
             if not (pre["finite"] and pre["same_argmax"]
                     and pre["max_abs_err"] <= pre["tol"]):
                 bad.append(f"{tag}: {name} logits")
-        lm = r["lm"]
-        if lm["state_bytes"] != lm["state_spec_block_bytes"]:
-            bad.append(f"{tag}: decode state bytes")
-        if not lm["engine"]["same_tokens"] or lm["engine"]["iters"] != 8:
-            bad.append(f"{tag}: Engine tokens")
+            if "engine" in run:
+                eng = run["engine"]
+                if not eng["same_tokens"] or eng["iters"] != 8:
+                    bad.append(f"{tag}: {name} Engine tokens")
+                # a decode step's SSM step is plain ops; its sLSTM step
+                # the kernel at S = 1
+                if eng["launches"]["ssm_scan_f32"] != 0 or \
+                        eng["launches"]["slstm_scan_f32"] != \
+                        8 * want["slstm"]:
+                    bad.append(f"{tag}: {name} Engine scans")
+            if "decode" in run:
+                dec = run["decode"]
+                cross = {(h, sq, sk) for h, sq, sk in pre["kernels"][
+                    "flash"]["shapes"]}
+                if not (dec["finite"] and dec["same_argmax"]
+                        and dec["max_abs_err"] <= dec["tol"]) or (
+                        want["heads"][0], U_WHISPER_PREFILL[1],
+                        U_WHISPER_FRAMES) not in cross or (
+                        want["heads"][0], 1, U_WHISPER_FRAMES) not in {
+                        tuple(t) for t in dec["kernels"]["flash"]["shapes"]}:
+                    bad.append(f"{tag}: {name} decode")
         ex, tr = r["dse"]["explore"], r["dse"]["train"]
         if not ex["same_as_t1"]:
             bad.append(f"{tag}: Selections")
@@ -5914,11 +6146,22 @@ def u_failures(ranks: dict) -> list:
 
 def u_train_failures(tag: str, r: dict) -> list:
     """The train gates of ``u_failures`` on one rank's record (of
-    ``u_summary``)."""
+    ``u_summary``): every model of U_TRAINED trained on the blocks (remat
+    on, act_shard 'model'): the loss within 1e-5 relative of the world of
+    one's, every gradient block within U_GRAD_TOL of its leaf's norm
+    (floored at U_GRAD_FLOOR of the whole gradient's), the global norm of
+    the blocks within 1e-4 relative; every replicated leaf
+    the same bits on both ranks after the step; flash with lse on
+    ``u_heads`` q heads twice an attention (the forward and the remat
+    recompute), the selective scan's forward twice a layer and its
+    backward once on 1600 channels, the sLSTM's likewise on its 4 heads;
+    params, mu and nu each the spec blocks' bytes; mixtral's E/2 experts
+    a rank, routed alike on both ranks."""
     bad = []
     for name, arch in U_TRAINED.items():
         tr, cfg = r[name]["train"], configs.get_arch(arch).segments[
             0].pattern[0].cfg
+        want = tr["expect"]
         if not abs(tr["loss"] - tr["world_loss"]) <= 1e-5 * abs(
                 tr["world_loss"]):
             bad.append(f"{tag}: {name} loss {tr['loss']} vs "
@@ -5931,14 +6174,20 @@ def u_train_failures(tag: str, r: dict) -> list:
             bad.append(f"{tag}: {name} global norm")
         if not tr["same_replicated_bits"]:
             bad.append(f"{tag}: {name} replicated leaves' bits")
-        # remat: each layer's flash runs in the forward and again in
-        # the backward's recompute, always with lse
-        want = 2 * tr["n_layers"]
-        if tr["heads"] != [cfg.n_heads // U_RANKS] or not (
-                tr["flash_launches"] == want == tr["launches"][
+        # remat: each attention's flash runs in the forward and again in
+        # the backward's recompute, always with lse; the scans likewise
+        if tr["heads"] != (want["heads"] if want["flash"] else []) or not (
+                tr["flash_launches"] == 2 * want["flash"] == tr["launches"][
                     "flash_attention_f32 with lse"]):
             bad.append(f"{tag}: {name} flash heads {tr['heads']} x "
                        f"{tr['flash_launches']}")
+        k, n = tr["kernels"], tr["launches"]
+        if (n["ssm_scan_f32"], n["ssm_scan_bwd_f32"], k["ssm"]["shapes"]) \
+                != (2 * want["ssm"], want["ssm"], want["ssm_channels"]) or (
+                    n["slstm_scan_f32"], n["slstm_scan_bwd_f32"],
+                    k["slstm"]["shapes"]) != (
+                    2 * want["slstm"], want["slstm"], want["slstm_heads"]):
+            bad.append(f"{tag}: {name} scans {n} {k['ssm']} {k['slstm']}")
         if not (tr["param_bytes"] == tr["mu_bytes"] == tr["nu_bytes"]
                 == tr["spec_block_bytes"]):
             bad.append(f"{tag}: {name} bytes kept")
@@ -5957,7 +6206,17 @@ def phase_u(t1_state: dict) -> dict:
     out = u_summary(run_u_ranks(t1_state["sels"][N_TASKS]))
     out.update(card=smi(), seconds=time.perf_counter() - t0,
                moe_reduced=dict(n_layers=MOE_LAYERS,
-                                of=configs.get_arch(MOE_ARCH).n_layers))
+                                of=configs.get_arch(MOE_ARCH).n_layers),
+               hymba_train_reduced=dict(
+                   n_layers=u_hymba_train_cut().n_layers,
+                   of=configs.get_arch(HYMBA_ARCH).n_layers,
+                   why="a global and a local layer: the script's time"),
+               xlstm_reduced=dict(
+                   n_layers=U_XLSTM_REPEATS * len(configs.get_arch(
+                       XLSTM_ARCH).segments[0].pattern),
+                   of=configs.get_arch(XLSTM_ARCH).n_layers,
+                   why="float32's conditioning at depth (ROADMAP Queue 3 "
+                       "item 6)"))
     print("phase u: " + json.dumps(out), flush=True)
     failed = u_failures(out["ranks"])
     assert not failed, failed
@@ -6388,7 +6647,8 @@ def run_phases(args, counting: tuple) -> int:
         "model_axis": {f"rank {r['rank']}": {
             **{name: {k: r[name]["prefill"][k] for k in (
                 "flash_launches", "heads", "ms", "max_abs_err", "tol")}
-               for name in ("lm", "moe")},
+               for name in U_SERVED},
+            "whisper_decode": r["whisper"]["decode"]["kernels"]["flash"],
             **{f"{name}_train": {
                 "flash_launches": r[name]["train"]["flash_launches"],
                 "lse_launches": r[name]["train"]["launches"][
@@ -6492,6 +6752,10 @@ def run_phases(args, counting: tuple) -> int:
                                for k, r in hymba_launcher.items()}},
         "with_chunk_states_ms": {label: r["fwd_chunks_ms"]
                                  for label, r in ssm_bwd.items()},
+        "model_axis": {f"rank {r['rank']}": dict(
+            hymba_prefill=r["hymba"]["prefill"]["kernels"]["ssm"],
+            hymba_train=r["hymba_train"]["train"]["kernels"]["ssm"])
+            for r in u_ranks},
     }, {
         "name": "ssm_scan_bwd_f32",
         "route": "cuda",
@@ -6513,6 +6777,8 @@ def run_phases(args, counting: tuple) -> int:
                 hymba_train["launches"]["ssm_scan_bwd_f32"],
             "hymba_launcher": {k: r["launches"]["ssm_scan_bwd_f32"]
                                for k, r in hymba_launcher.items()}},
+        "model_axis": {f"rank {r['rank']}": r["hymba_train"]["train"][
+            "launches"]["ssm_scan_bwd_f32"] for r in u_ranks},
     }, {
         "name": "slstm_scan_f32",
         "route": "cuda",
@@ -6527,6 +6793,11 @@ def run_phases(args, counting: tuple) -> int:
         "engine_step": slstm["engine"],
         "with_chunk_states_ms": {label: r["fwd_chunks_ms"]
                                  for label, r in slstm_bwd.items()},
+        "model_axis": {f"rank {r['rank']}": dict(
+            xlstm_prefill=r["xlstm"]["prefill"]["kernels"]["slstm"],
+            xlstm_engine=r["xlstm"]["engine"]["launches"]["slstm_scan_f32"],
+            xlstm_train=r["xlstm"]["train"]["kernels"]["slstm"])
+            for r in u_ranks},
         "launches_by_path": {
             "xlstm_prefill": xlstm_prefill["launches"]["slstm_scan_f32"],
             "xlstm_engine": xlstm_serve["launches"]["slstm_scan_f32"],
@@ -6557,6 +6828,8 @@ def run_phases(args, counting: tuple) -> int:
                 xlstm_train["launches"]["slstm_scan_bwd_f32"],
             "xlstm_launcher": {k: r["launches"]["slstm_scan_bwd_f32"]
                                for k, r in xlstm_launcher.items()}},
+        "model_axis": {f"rank {r['rank']}": r["xlstm"]["train"]["launches"][
+            "slstm_scan_bwd_f32"] for r in u_ranks},
     }]}
     if args.out:
         with open(args.out, "w") as fh:

@@ -109,11 +109,25 @@ def check_card(device: torch.device, what: str) -> None:
 
 def check_operands(device: torch.device,
                    named: Iterable[Tuple[str, torch.Tensor]]) -> None:
-    """Raise unless every tensor is float32, contiguous and on `device`."""
+    """Raise unless every tensor is float32, contiguous and on `device`.
+    On meta (the cost tools' route) any floating dtype passes: a meta
+    route counts the float32 kernel's work at the dtypes it receives
+    (``meta_name``)."""
     for name, t in named:
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
+        if t.dtype != torch.float32 and not (
+                device.type == "meta" and t.is_floating_point()):
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def meta_name(kernel: str, dtype: torch.dtype) -> str:
+    """The name a float32-only kernel's meta route charges its work under:
+    the kernel's own for float32 operands, else the route it counts and
+    the dtype it was handed (``"ssm_scan_f32 at bfloat16"``: the float32
+    kernel's operations, the operands' own bytes)."""
+    if dtype == torch.float32:
+        return kernel
+    return f"{kernel} at {str(dtype).replace('torch.', '')}"

@@ -3,15 +3,16 @@ the package:
 
     python3 src/repro_torch/kernels/probes/phase_u.py [--out JSON]
 
-Builds the whole-MLP, dense and flash kernels (one nvcc a source, in
-parallel), takes phase 3's 64-task Selections on im2col (t1's, which
-phase u holds its ranks to) with no mesh, then runs ``chip_smoke.phase_u``:
-two ranks on the one card over a (1, 2) ('data', 'model') mesh, rank 0
-first running the world of one (stablelm-1.6b's and the cut
-mixtral-8x7b's prefills, the Engine, train_gan's step) that both are
-held to, then each model's train step on the blocks against the world
-of one's gradient.  Prints phase u's JSON and writes it to ``--out`` where it is
-given.  Needs the card.
+Builds the whole-MLP, dense, flash, selective-scan and sLSTM kernels
+(one nvcc a source, in parallel), takes phase 3's 64-task Selections on
+im2col (t1's, which phase u holds its ranks to) with no mesh, then runs
+``chip_smoke.phase_u``: two ranks on the one card over a (1, 2) ('data',
+'model') mesh, rank 0 first running the world of one (the prefills of
+stablelm-1.6b, the cut mixtral-8x7b, hymba-1.5b, the cut xlstm-1.3b and
+whisper-small, the Engine, whisper's decode steps, train_gan's step)
+that both are held to, then each model's train step on the blocks
+against the world of one's gradient.  Prints phase u's JSON and writes
+it to ``--out`` where it is given.  Needs the card.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    loads = (cs.fm.load_library, cs.fd.load_library, cs.fa.load_library)
+    loads = (cs.fm.load_library, cs.fd.load_library, cs.fa.load_library,
+             cs.ss.load_library, cs.sl.load_library)
     with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
         for f in [pool.submit(load) for load in loads]:
             f.result()

@@ -34,7 +34,9 @@ tensor gets the kernels or an exception (a card that is not sm_90, a
 failed build, a shape, dtype or layout the kernels do not take, a grid
 that cannot be co-resident, a refused launch); a meta tensor gets empty
 meta outputs (the chunk states too) and charges ``work`` or ``bwd_work``
-to ``utils/op_cost``'s counter, with no launch.  Nothing falls back.
+to ``utils/op_cost``'s counter, with no launch (bf16 operands there
+counted as the float32 kernel's work at their own bytes, under
+``build.meta_name``'s name).  Nothing falls back.
 Inputs that need a gradient go through ``SLSTMScanFn`` on either device.
 ``kernels/ops.slstm_scan`` adds only the caller's ``use_fused=False``
 (torch's autograd of the plain loop).
@@ -147,35 +149,42 @@ def _check(wx, rh, bias, state, backward: bool = False, **more) -> None:
     _build.check_operands(wx.device, named.items())
 
 
-def work(b: int, s: int, d: int, h: int, boundaries: bool = False
-         ) -> Tuple[float, float, str]:
+def work(b: int, s: int, d: int, h: int, boundaries: bool = False,
+         itemsize: int = 4) -> Tuple[float, float, str]:
     """The forward's own work: (operations, bytes, unit).  The recurrent
     products, 2·dh for each of the 4 gate columns of each (b, t, channel),
     and the 36 around them (8 adds into the pre-activations, tanh, the
     sigmoid's 4, log-sigmoid's 8, the stabilizer's 2, the gates' 5, c's 3,
     n's 2, h's 3; a transcendental counted as one), float32 on the SIMT
     cores (``fp32_simt``).  Bytes: wx, rh, bias and the state read once,
-    hs and the final state (and the chunk states) written once."""
+    hs and the final state (and the chunk states) written once; wx and hs
+    at `itemsize` bytes an element (the meta route's operands'), the rest
+    at float32's 4."""
     dh = d // h
-    n_bytes = (b * s * 4 * d + h * dh * 4 * dh + 4 * d + 4 * b * d
-               + b * s * d + 4 * b * d)
+    seq = b * s * 4 * d + b * s * d
+    rest = h * dh * 4 * dh + 4 * d + 8 * b * d
     if boundaries:
-        n_bytes += 3 * b * n_chunks(s) * d
-    return float(b * s * d * (8 * dh + 36)), 4.0 * n_bytes, "fp32_simt"
+        rest += 3 * b * n_chunks(s) * d
+    return (float(b * s * d * (8 * dh + 36)), float(itemsize * seq + 4 * rest),
+            "fp32_simt")
 
 
-def bwd_work(b: int, s: int, d: int, h: int) -> Tuple[float, float, str]:
+def bwd_work(b: int, s: int, d: int, h: int,
+             itemsize: int = 4) -> Tuple[float, float, str]:
     """The backward kernel's own work (d_rh and d_bias are plain products
     after it, counted as such): (operations, bytes, unit).  The
     pre-activations again and the recurrent adjoint, 2·dh for each of the
     4 gate columns of each (b, t, channel) each, and ~80 pointwise around
     them (the forward's 36 again and the adjoint's ~44).  Bytes: wx, hs,
     dys, rh, bias, h0 and the chunk states (c, n, m) read once; d_wx and
-    the initial state's four cotangents written once."""
+    the initial state's four cotangents written once; wx, hs, dys and d_wx
+    at `itemsize` bytes, as ``work``'s."""
     dh = d // h
-    n_bytes = (b * s * 4 * d + 2 * b * s * d + h * dh * 4 * dh + 4 * d
-               + b * d + 3 * b * n_chunks(s) * d + b * s * 4 * d + 4 * b * d)
-    return float(b * s * d * (16 * dh + 80)), 4.0 * n_bytes, "fp32_simt"
+    seq = 2 * b * s * 4 * d + 2 * b * s * d
+    rest = (h * dh * 4 * dh + 4 * d + b * d + 3 * b * n_chunks(s) * d
+            + 4 * b * d)
+    return (float(b * s * d * (16 * dh + 80)),
+            float(itemsize * seq + 4 * rest), "fp32_simt")
 
 
 def _row_groups(b: int) -> list:
@@ -223,12 +232,13 @@ def slstm_scan_fwd(wx: torch.Tensor, rh: torch.Tensor, bias: torch.Tensor,
     d = four_d // 4
     hs = torch.empty((b, s, d), dtype=wx.dtype, device=wx.device)
     out = tuple(torch.empty_like(t) for t in state)
-    chunks = (tuple(torch.empty((b, n_chunks(s), d), dtype=wx.dtype,
+    chunks = (tuple(torch.empty((b, n_chunks(s), d), dtype=state[0].dtype,
                                 device=wx.device) for _ in range(3))
               if boundaries else (None,) * 3)
     if wx.is_meta:
-        _cost.charge("slstm_scan_f32", *work(b, s, d, rh.shape[0],
-                                             boundaries))
+        _cost.charge(_build.meta_name("slstm_scan_f32", wx.dtype),
+                     *work(b, s, d, rh.shape[0], boundaries,
+                           wx.element_size()))
         return (hs, out, chunks) if boundaries else (hs, out)
     lib = load_library()
     stream = torch.cuda.current_stream(wx.device).cuda_stream
@@ -283,7 +293,8 @@ def _bwd_rows(wx, rh, bias, state, hs, chunks, dys, d_state):
     d_wx = torch.empty_like(wx)
     d_init = tuple(torch.empty_like(t) for t in state)
     if wx.is_meta:
-        _cost.charge("slstm_scan_bwd_f32", *bwd_work(b, s, d, rh.shape[0]))
+        _cost.charge(_build.meta_name("slstm_scan_bwd_f32", wx.dtype),
+                     *bwd_work(b, s, d, rh.shape[0], wx.element_size()))
         return (d_wx, *d_init)
     work = torch.empty((b, CHUNK, KEPT, d), dtype=wx.dtype, device=wx.device)
     lib = load_library()

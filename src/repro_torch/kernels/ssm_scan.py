@@ -25,7 +25,9 @@ versions (``kernels/ref.ssm_scan``, ``ref.ssm_scan_bwd``); a CUDA tensor
 gets the kernels or an exception (a card that is not sm_90, a failed
 build, an unsupported shape, dtype or layout, a refused launch); a meta
 tensor gets empty meta outputs (the chunk states too) and charges
-``work`` or ``bwd_work`` to ``utils/op_cost``'s counter, with no launch.
+``work`` or ``bwd_work`` to ``utils/op_cost``'s counter, with no launch;
+bf16 operands there (the cost tools' default) are counted as the float32
+kernel's work at their own bytes, under ``build.meta_name``'s name.
 Nothing falls back.  Inputs that need a gradient go through
 ``SSMScanFn`` on either device.  ``kernels/ops.ssm_scan`` adds only the
 caller's ``use_fused=False``.
@@ -90,21 +92,26 @@ def _check(dt, bmat, cmat, x, a, **more) -> None:
     _build.check_operands(dt.device, named.items())
 
 
-def work(b: int, s: int, di: int, n: int, boundaries: bool = False
-         ) -> Tuple[float, float, str]:
+def work(b: int, s: int, di: int, n: int, boundaries: bool = False,
+         itemsize: int = 4) -> Tuple[float, float, str]:
     """The forward's own work: (operations, bytes, unit).  At each (b, t,
     d, n) the product dt·a, the exponential, two products dt·b·x, a fused
     multiply-add (2) and h·c with its add to the sum over n: 8 float32
     operations on the SIMT cores (``fp32_simt``), an exponential counted
     as one.  Bytes: dt, x, bmat, cmat, a and h0 read once, ys and the
-    final state (and the chunk states) written once."""
-    n_bytes = 3 * b * s * di + 2 * b * s * n + di * n + 2 * b * di * n
+    final state (and the chunk states) written once; the (B, S, ·)
+    sequences at `itemsize` bytes an element (the meta route's operands'),
+    a, h0 and the states at float32's 4."""
+    seq = 3 * b * s * di + 2 * b * s * n
+    states = di * n + 2 * b * di * n
     if boundaries:
-        n_bytes += b * n_chunks(s) * di * n
-    return 8.0 * b * s * di * n, 4.0 * n_bytes, "fp32_simt"
+        states += b * n_chunks(s) * di * n
+    return 8.0 * b * s * di * n, float(itemsize * seq + 4 * states), \
+        "fp32_simt"
 
 
-def bwd_work(b: int, s: int, di: int, n: int) -> Tuple[float, float, str]:
+def bwd_work(b: int, s: int, di: int, n: int,
+             itemsize: int = 4) -> Tuple[float, float, str]:
     """The backward's own work: (operations, bytes, unit).  At each (b,
     t, d, n) the state again (6, as the forward's) and the adjoint's 20
     (g's fused multiply-add, exp(dt·a), its product with h, g·dt, d_a's
@@ -112,10 +119,12 @@ def bwd_work(b: int, s: int, di: int, n: int) -> Tuple[float, float, str]:
     d_b's and d_c's products and sums, the carry): 26 float32 operations.
     Bytes: dt, x, dys, bmat, cmat, a and the chunk states read once;
     d_dt, d_x, d_bmat, d_cmat, d_a and d_h0 written once (the partial
-    sums the kernel writes and reads again are its own choice)."""
-    n_bytes = (5 * b * s * di + 4 * b * s * n + 2 * di * n
-               + b * n_chunks(s) * di * n + b * di * n)
-    return 26.0 * b * s * di * n, 4.0 * n_bytes, "fp32_simt"
+    sums the kernel writes and reads again are its own choice); the
+    sequences at `itemsize` bytes, as ``work``'s."""
+    seq = 5 * b * s * di + 4 * b * s * n
+    states = 2 * di * n + b * n_chunks(s) * di * n + b * di * n
+    return 26.0 * b * s * di * n, float(itemsize * seq + 4 * states), \
+        "fp32_simt"
 
 
 def _launch(name: str, err: int) -> None:
@@ -140,10 +149,11 @@ def ssm_scan_fwd(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     n = a.shape[-1]
     ys = torch.empty_like(dt)
     h = torch.empty_like(h0)
-    h_chunks = (torch.empty((b, n_chunks(s), di, n), dtype=dt.dtype,
+    h_chunks = (torch.empty((b, n_chunks(s), di, n), dtype=h0.dtype,
                             device=dt.device) if boundaries else None)
     if dt.is_meta:
-        _cost.charge("ssm_scan_f32", *work(b, s, di, n, boundaries))
+        _cost.charge(_build.meta_name("ssm_scan_f32", dt.dtype),
+                     *work(b, s, di, n, boundaries, dt.element_size()))
         return (ys, h, h_chunks) if boundaries else (ys, h)
     lib = load_library()
     stream = torch.cuda.current_stream(dt.device).cuda_stream
@@ -179,9 +189,10 @@ def ssm_scan_bwd(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     d_dt, d_x = torch.empty_like(dt), torch.empty_like(x)
     d_b, d_c = torch.empty_like(bmat), torch.empty_like(cmat)
     d_a = torch.empty_like(a)
-    d_h0 = torch.empty((b, di, n), dtype=dt.dtype, device=dt.device)
+    d_h0 = torch.empty((b, di, n), dtype=h_chunks.dtype, device=dt.device)
     if dt.is_meta:
-        _cost.charge("ssm_scan_bwd_f32", *bwd_work(b, s, di, n))
+        _cost.charge(_build.meta_name("ssm_scan_bwd_f32", dt.dtype),
+                     *bwd_work(b, s, di, n, dt.element_size()))
         return d_dt, d_b, d_c, d_x, d_a, d_h0
     lib = load_library()
     work = torch.empty(lib.ssm_scan_bwd_workspace(b, s, di, n),

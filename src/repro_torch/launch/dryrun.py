@@ -13,7 +13,11 @@ any host, the 33B-param archs included.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
       [--arch mixtral-8x7b ...] [--shape train_4k ...] [--micro N] \\
-      [--out results/dryrun_torch.jsonl]
+      [--dtype bf16|float32] [--out results/dryrun_torch.jsonl]
+
+``--dtype`` is the params', batches' and KV caches' dtype: bf16 by
+default, the reference's (its structs' default); float32 is the dtype
+the card's LM paths run.  The recurrent states stay float32 either way.
 
 It exits 1 when a cell fails: a failure here is a bug in the port.
 """
@@ -26,6 +30,8 @@ import sys
 import time
 import traceback
 from typing import Union
+
+import torch
 
 from repro_torch import configs
 from repro_torch.configs.shapes import SHAPES, Shape, applicable
@@ -108,12 +114,18 @@ TRAIN_MICROBATCHES = {
 }
 
 
+#: ``--dtype``'s choices: bf16, the reference's dry-run's (its structs'
+#: default), and float32, the dtype the card's LM paths run
+DTYPES = {"bf16": torch.bfloat16, "float32": torch.float32}
+
+
 def count_case(m, shape: Shape, *, microbatches: int = 1,
-               remat: bool = True) -> dict:
-    """Build the cell's case, run it once under the counter: its totals,
-    its roofline terms and the trace's seconds."""
+               remat: bool = True, dtype=torch.bfloat16) -> dict:
+    """Build the cell's case in `dtype`, run it once under the counter:
+    its totals, its roofline terms and the trace's seconds."""
     t0 = time.perf_counter()
-    case = TS.build_case(m, shape, microbatches=microbatches, remat=remat)
+    case = TS.build_case(m, shape, dtype=dtype, microbatches=microbatches,
+                         remat=remat)
     counted = op_cost.analyze(case.fn, *case.args)
     rl = RL.from_counted(case.name, counted, 1,
                          model_flops=model_flops_for(m, shape, case.args[0]))
@@ -123,15 +135,17 @@ def count_case(m, shape: Shape, *, microbatches: int = 1,
 
 
 def run_cell(arch: Union[str, MB.ModelCfg], shape: Union[str, Shape],
-             verbose: bool = True, microbatches: int = 0) -> dict:
+             verbose: bool = True, microbatches: int = 0,
+             dtype: str = "bf16") -> dict:
     """One cell's record, the reference's fields: ``status``, ``flops``,
     ``hbm_bytes``, ``coll_bytes``, ``model_flops``, the ``row()`` terms;
     ``bytes_per_device`` the peak of live bytes, ``arg_bytes`` the
-    step's inputs, ``fits`` whether the peak is at most ``CARD_BYTES``.
-    `arch` and `shape` are names or a ModelCfg and a Shape."""
+    step's inputs, ``fits`` whether the peak is at most ``CARD_BYTES``;
+    ``dtype`` the structs' (a key of ``DTYPES``).  `arch` and `shape` are
+    names or a ModelCfg and a Shape."""
     m = configs.get_arch(arch) if isinstance(arch, str) else arch
     shape = SHAPES[shape] if isinstance(shape, str) else shape
-    rec = {"arch": m.name, "shape": shape.name, "chips": 1}
+    rec = {"arch": m.name, "shape": shape.name, "chips": 1, "dtype": dtype}
     if not applicable(m, shape):
         rec["status"] = "skipped"
         rec["reason"] = m.notes
@@ -141,7 +155,8 @@ def run_cell(arch: Union[str, MB.ModelCfg], shape: Union[str, Shape],
                         if shape.kind == "train" else 1)
     rec["microbatches"] = microbatches
     try:
-        c = count_case(m, shape, microbatches=microbatches)
+        c = count_case(m, shape, microbatches=microbatches,
+                       dtype=DTYPES[dtype])
         t, rl = c["counted"], c["roofline"]
         rec.update(
             status="ok",
@@ -172,6 +187,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="results/dryrun_torch.jsonl")
     ap.add_argument("--micro", type=int, default=0,
                     help="override grad-accum microbatches (train cells)")
+    ap.add_argument("--dtype", choices=list(DTYPES), default="bf16",
+                    help="the params' and batches' dtype (bf16, as the "
+                         "reference counts; float32, as the card's LM "
+                         "paths run)")
     args = ap.parse_args(argv)
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -180,7 +199,8 @@ def main(argv=None) -> int:
     with open(args.out, "a") as f:
         for arch in args.arch:
             for shape in args.shape:
-                rec = run_cell(arch, shape, microbatches=args.micro)
+                rec = run_cell(arch, shape, microbatches=args.micro,
+                               dtype=args.dtype)
                 f.write(json.dumps(rec) + "\n")
                 f.flush()
                 status = rec["status"]

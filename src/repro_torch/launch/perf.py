@@ -10,10 +10,12 @@ item 7.  No card is needed.
 
   PYTHONPATH=src python -m repro_torch.launch.perf --arch stablelm-1.6b \\
       [--shape train_4k] [--batch B] [--seq S] [--reduced] \\
-      [--micro 1,2,4] [--remat 0,1] [--out results/perf_torch_<arch>.jsonl]
+      [--micro 1,2,4] [--remat 0,1] [--dtype bf16|float32] \\
+      [--out results/perf_torch_<arch>.jsonl]
 
 ``--batch`` and ``--seq`` override the named shape's, ``--reduced``
-takes the arch's reduced config.
+takes the arch's reduced config; ``--dtype`` defaults to bf16, as the
+reference counts.
 """
 from __future__ import annotations
 
@@ -26,16 +28,18 @@ import sys
 
 from repro_torch import configs
 from repro_torch.configs.shapes import SHAPES
-from repro_torch.launch.dryrun import count_case
+from repro_torch.launch.dryrun import DTYPES, count_case
 
 
-def run_variant(m, shape, *, micro: int, remat) -> dict:
+def run_variant(m, shape, *, micro: int, remat,
+                dtype: str = "bf16") -> dict:
     """One variant's row: the reference's fields from the counted case
     (``bytes_per_device`` the peak of live bytes), ``trace_s`` in place of
-    ``compile_s``."""
-    rec = dict(micro=micro, remat=remat)
+    ``compile_s``; `dtype` a key of ``dryrun.DTYPES``."""
+    rec = dict(micro=micro, remat=remat, dtype=dtype)
     try:
-        c = count_case(m, shape, microbatches=micro, remat=bool(remat))
+        c = count_case(m, shape, microbatches=micro, remat=bool(remat),
+                       dtype=DTYPES[dtype])
         rl = c["roofline"]
         rec.update(
             status="ok",
@@ -62,6 +66,9 @@ def main(argv=None) -> int:
     ap.add_argument("--micro", default="1")
     ap.add_argument("--remat", default="1")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--dtype", choices=list(DTYPES), default="bf16",
+                    help="the structs' dtype (bf16 as the reference "
+                         "counts; float32 as the card's LM paths run)")
     args = ap.parse_args(argv)
 
     m = (configs.get_reduced if args.reduced else configs.get_arch)(args.arch)
@@ -78,7 +85,8 @@ def main(argv=None) -> int:
                              [int(x) for x in args.remat.split(",")])
     with open(out, "a") as f:
         for micro, remat in grid:
-            rec = run_variant(m, shape, micro=micro, remat=remat)
+            rec = run_variant(m, shape, micro=micro, remat=remat,
+                              dtype=args.dtype)
             rec.update(arch=args.arch, shape=shape.name)
             f.write(json.dumps(rec) + "\n")
             f.flush()

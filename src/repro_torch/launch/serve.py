@@ -102,7 +102,9 @@ class Engine:
     engine from the same full params, which it shards
     (``shardings.shard_params``: each rank keeps its blocks, the caller
     may drop the full tree), and its decode states, sharded likewise
-    (``shard_states``).  Every rank runs the same schedule; the greedy
+    (``shard_states``: a rank holds its block of the lanes where the
+    batch axes split them, and resets only those).  Every rank runs the
+    same schedule; the greedy
     token is the argmax of the gathered logits, which every rank holds
     whole, so every rank admits and retires the same requests.
     """
@@ -118,11 +120,14 @@ class Engine:
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.cache_len = cache_len
         self.eos = eos
-        SH.require_model_axis_arch(m, mesh)
         self.states = MB.init_decode_state(params, m, batch_slots, cache_len)
+        self._lanes = None
         if SH.model_axis(mesh) > 1:
             params = SH.shard_params(params, mesh)
             self.states = SH.shard_states(self.states, mesh, batch_slots)
+            ax = TS._row_axis(mesh, batch_slots)
+            n = batch_slots // ax.size
+            self._lanes = range(ax.rank * n, (ax.rank + 1) * n)
         self.params = params
         self._fresh_recurrent = _recurrent_template(self.states, m)
         self.pos = np.zeros(batch_slots, np.int32)  # per-slot prompt cursor
@@ -156,8 +161,12 @@ class Engine:
                 # [0, clock) out of this lane's attention, and re-init its
                 # recurrent cells
                 self.start[i] = self.clock
-                _reset_recurrent_lane(self.states, self._fresh_recurrent,
-                                      self.m, i)
+                if self._lanes is None:
+                    _reset_recurrent_lane(self.states, self._fresh_recurrent,
+                                          self.m, i)
+                elif i in self._lanes:          # this rank's block of lanes
+                    _reset_recurrent_lane(self.states, self._fresh_recurrent,
+                                          self.m, i - self._lanes.start)
 
     def step(self):
         """One engine iteration: every active slot advances one token."""

@@ -169,18 +169,20 @@ def spec_state_init(spec: LayerSpec, batch: int, cache_len: int,
 
 
 def spec_decode(params, x1, spec: LayerSpec, pos, state, enc_out=None,
-                start=None):
+                start=None, kv_spec=None):
     """One token through one layer -> (x1, its new state): a dense or
     whisper decoder block's dict (the latter attends to `enc_out`), an
     xLSTM block's tuple (the mLSTM's stepwise cell; the sLSTM's kernel at
-    S = 1 on the card)."""
+    S = 1 on the card).  `kv_spec`: a KV cache's spec across a 'model'
+    axis (``nn/blocks.attn_decode``)."""
     cfg = spec.cfg
     if spec.kind == "dense":
         return B.block_decode(params, x1, cfg, pos, state,
-                              ring=cfg.window is not None, start=start)
+                              ring=cfg.window is not None, start=start,
+                              kv_spec=kv_spec)
     if spec.kind == "dec":
         return B.dec_block_decode(params, x1, enc_out, cfg, pos, state,
-                                  start=start)
+                                  start=start, kv_spec=kv_spec)
     if spec.kind == "mlstm":
         y, st = X.mlstm_apply(params, x1, cfg.n_heads, state=state)
         return x1 + y, st
@@ -282,7 +284,11 @@ def encode(params, m: ModelCfg, frames: torch.Tensor, remat: bool = False,
     S_enc, D): ``pos_embed`` added (tiled cyclically when S_enc exceeds
     ``max_enc_len``), the encoder segments at positions 0..S_enc-1 (their
     attention applies RoPE too, as the reference's does), then the
-    encoder's LayerNorm ``ln_f``."""
+    encoder's LayerNorm ``ln_f``.  Across a 'model' axis on this rank's
+    blocks (``_encode_sharded``)."""
+    ax = PAR.model_axis()
+    if ax is not None:
+        return _encode_sharded(params, m, frames, remat, use_fused, ax)
     enc = params["encoder"]
     se = frames.shape[1]
     pos_tab = enc["pos_embed"]
@@ -324,7 +330,7 @@ def forward(params, m: ModelCfg, tokens: torch.Tensor,
     if ax is not None:
         return _forward_sharded(params, m, tokens, positions, use_fused, ax,
                                 last_only, remat=remat,
-                                vocab_block=vocab_block)
+                                vocab_block=vocab_block, enc_out=enc_out)
     x = L.embed_apply(params["embed"], tokens)
     x = _run_segments(params["segments"], m.segments, x, positions,
                       use_fused=use_fused, remat=remat, enc_out=enc_out)
@@ -373,15 +379,42 @@ def _save_dim(x, ax):
 
 
 def _sharded_body(x, layers, seg: Segment, seg_specs, positions, use_fused,
-                  ax, saved_dim):
+                  ax, saved_dim, enc_out=None):
     """One repeat of a segment's pattern on this rank's blocks: the
     residual stream gathered back where its save point kept a block, each
-    layer's FSDP dims gathered just before it."""
+    layer's FSDP dims gathered just before it (a ``"dec"`` layer also
+    attends to `enc_out`)."""
     if saved_dim is not None:
         x = PAR.gather_dim(x, saved_dim, ax.group, grad_group=None)
     for spec, lp, ls in zip(seg.pattern, layers, seg_specs):
         lp = PAR.unshard_data(lp, PAR.drop_layer_axis(ls))
-        x = spec_apply(lp, x, spec, positions, use_fused=use_fused)
+        x = spec_apply(lp, x, spec, positions, use_fused=use_fused,
+                       enc_out=enc_out)
+    return x
+
+
+def _run_sharded(segments_params, segments_specs, segs, x, positions,
+                 use_fused, ax, remat: bool, enc_out=None):
+    """The segments on this rank's blocks.  ``remat`` runs each repeat of
+    a segment's pattern under ``torch.utils.checkpoint``, the layers'
+    FSDP gathers and collectives inside it (the recompute issues them
+    again), its save point keeping the residual stream by ``use_mesh``'s
+    ``act_shard`` (``_save_dim``)."""
+    for seg_p, seg_s, seg in zip(segments_params, segments_specs, segs):
+        for layers in _sharded_layers(seg_p, seg_s, seg, ax):
+            if remat:
+                dim = _save_dim(x, ax)
+                if dim is not None:
+                    x = PAR.keep_block(x, dim, ax.group)
+                # the whole body again at the recompute, so every rank
+                # issues its collectives
+                with set_checkpoint_early_stop(False):
+                    x = checkpoint(_sharded_body, x, layers, seg, seg_s,
+                                   positions, use_fused, ax, dim, enc_out,
+                                   use_reentrant=False)
+            else:
+                x = _sharded_body(x, layers, seg, seg_s, positions,
+                                  use_fused, ax, None, enc_out)
     return x
 
 
@@ -412,50 +445,56 @@ def _head_sharded(params, specs, emb, m: ModelCfg, x, ax,
 
 def _forward_sharded(params, m: ModelCfg, tokens, positions, use_fused, ax,
                      last_only: bool, remat: bool = False,
-                     vocab_block: bool = False):
+                     vocab_block: bool = False, enc_out=None):
     """``forward`` across a 'model' axis: the vocab-parallel embedding,
     each layer on this rank's blocks (``nn/blocks``' sharded attention,
-    FFN and MoE), the head's logits gathered over 'model' (or this rank's
-    vocab block, `vocab_block`).  The residual stream is replicated over
-    'model' at every layer boundary.  ``remat`` runs each repeat of a
-    segment's pattern under ``torch.utils.checkpoint``, the layers' FSDP
-    gathers and collectives inside it (the recompute issues them again),
-    and its save point keeps the residual stream by ``use_mesh``'s
-    ``act_shard``: this rank's D/m slice under 'model', its S/m slice
-    under 'seq' (where 'model' divides them), the whole under 'none',
-    gathered again at the recompute (the reference's
+    FFN, MoE and SSM, ``nn/xlstm``'s mLSTM and sLSTM; a ``"dec"`` layer
+    attends to `enc_out`), the head's logits gathered over 'model' (or
+    this rank's vocab block, `vocab_block`).  The residual stream is
+    replicated over 'model' at every layer boundary.  ``remat`` as
+    ``_run_sharded``'s: the save point keeps this rank's D/m slice under
+    'model', its S/m slice under 'seq' (where 'model' divides them), the
+    whole under 'none', gathered again at the recompute (the reference's
     ``activation_spec``)."""
-    SH.require_model_axis_arch(m, SH.current_mesh())
     specs = PAR.param_layout(m, SH.current_mesh())
     emb = PAR.unshard_data(params["embed"], specs["embed"])
     x = _embed_sharded(emb, m, tokens, ax)
-    for seg_p, seg_s, seg in zip(params["segments"], specs["segments"],
-                                 m.segments):
-        for layers in _sharded_layers(seg_p, seg_s, seg, ax):
-            if remat:
-                dim = _save_dim(x, ax)
-                if dim is not None:
-                    x = PAR.keep_block(x, dim, ax.group)
-                # the whole body again at the recompute, so every rank
-                # issues its collectives
-                with set_checkpoint_early_stop(False):
-                    x = checkpoint(_sharded_body, x, layers, seg, seg_s,
-                                   positions, use_fused, ax, dim,
-                                   use_reentrant=False)
-            else:
-                x = _sharded_body(x, layers, seg, seg_s, positions,
-                                  use_fused, ax, None)
+    x = _run_sharded(params["segments"], specs["segments"], m.segments, x,
+                     positions, use_fused, ax, remat, enc_out)
     if last_only:
         x = x[:, -1:]
     return _head_sharded(params, specs, emb, m, x, ax, vocab_block)
 
 
+def _encode_sharded(params, m: ModelCfg, frames, remat: bool, use_fused,
+                    ax):
+    """``encode`` across a 'model' axis: ``pos_embed``'s row blocks
+    gathered (replicated work: the gather's gradient only cut), the
+    encoder segments on this rank's blocks under the same remat and
+    save points as the decoder's (``_run_sharded``), then ``ln_f``."""
+    specs = PAR.param_layout(m, SH.current_mesh())["encoder"]
+    enc = params["encoder"]
+    pos_tab = PAR.unshard_data(enc["pos_embed"], specs["pos_embed"])
+    if pos_tab.shape[0] != m.max_enc_len:
+        pos_tab = PAR.gather_dim(pos_tab, 0, ax.group, grad_group=None)
+    se = frames.shape[1]
+    if se > pos_tab.shape[0]:          # extend cyclically for oversize stubs
+        pos_tab = pos_tab.repeat(-(-se // pos_tab.shape[0]), 1)
+    x = frames + pos_tab[None, :se]
+    positions = torch.arange(se, device=frames.device)[None].expand(
+        frames.shape[:2])
+    x = _run_sharded(enc["segments"], specs["segments"], m.enc_segments, x,
+                     positions, use_fused, ax, remat)
+    return L.layernorm_apply(PAR.unshard_data(enc["ln_f"], specs["ln_f"]), x)
+
+
 def _decode_sharded(params, m: ModelCfg, token, pos_b, states, start,
-                    state_specs, ax):
+                    state_specs, ax, enc_out=None):
     """``decode_step`` across a 'model' axis on this rank's lanes and
     blocks: each layer's cache block under its ``state_spec`` (S over
-    'model': the ranks combine their partial softmaxes)."""
-    SH.require_model_axis_arch(m, SH.current_mesh())
+    'model': the ranks combine their partial softmaxes), hymba's SSM
+    state and the xLSTM states the blocks of their specs (``nn/ssm``,
+    ``nn/xlstm``), a whisper decoder layer attending to `enc_out`."""
     if state_specs is None:
         raise ValueError("decode across a 'model' axis needs the states' "
                          "specs (train/step.make_decode_step's cache_len)")
@@ -470,12 +509,59 @@ def _decode_sharded(params, m: ModelCfg, token, pos_b, states, start,
             for spec, lp, ls, st, ss in zip(seg.pattern, layers, seg_s,
                                             seg_st, seg_ss):
                 lp = PAR.unshard_data(lp, PAR.drop_layer_axis(ls))
-                x, _ = B.block_decode(
-                    lp, x, spec.cfg, pos_b, dict(st, kv=_layer(st["kv"], r)),
-                    ring=spec.cfg.window is not None, start=start,
-                    kv_spec=SH.P(*ss["kv"][0][1:]))
-        new_states.append([dict(st, len=st["len"] + 1) for st in seg_st])
+                _check_recurrent_specs(ss, spec)
+                kv_spec = (None if spec.kind in RECURRENT
+                           else SH.P(*ss["kv"][0][1:]))
+                x = _decode_layer(lp, x, spec, pos_b, st, r, enc_out, start,
+                                  kv_spec)
+        new_states.append(_advanced(seg_st, seg))
     return _head_sharded(params, specs, emb, m, x, ax), new_states
+
+
+def _check_recurrent_specs(ss, spec: LayerSpec) -> None:
+    """Raise unless a layer's recurrent state (an xLSTM tuple, hymba's
+    SSM state) splits its non-batch dims over 'model' alone: its layers
+    step on 'model' blocks (``nn/ssm``, ``nn/xlstm``), and ``state_spec``
+    puts 'data' on a dim of 1024 or more where the batch does not divide
+    over it."""
+    mesh = SH.current_mesh()
+    leaves = ss if spec.kind in RECURRENT else ss.get("ssm") or ()
+    for leaf in leaves:
+        if any(SH.norm_axes(e, mesh) not in (None, ("model",))
+               for e in leaf[2:]):
+            raise ValueError(f"a {spec.kind} layer's decode state spec "
+                             f"{leaf} splits a dim over a batch axis; "
+                             f"its step takes 'model' blocks alone")
+
+
+def _decode_layer(lp, x, spec: LayerSpec, pos_b, st, r: int, enc_out, start,
+                  kv_spec=None):
+    """Layer r of a segment's spec decodes one token from its views of
+    the stacked state `st`, written back in place (an xLSTM layer's new
+    tuple, hymba's new (h, tail); the KV cache is written by the layer)."""
+    if spec.kind in RECURRENT:
+        views = _layer(st, r)
+        x, out = spec_decode(lp, x, spec, pos_b, views)
+        for view, new in zip(views, out):
+            view.copy_(new)
+        return x
+    layer_st = dict(st, kv=_layer(st["kv"], r))
+    ssm = st.get("ssm")
+    if ssm is not None:
+        layer_st["ssm"] = _layer(ssm, r)
+    x, out = spec_decode(lp, x, spec, pos_b, layer_st, enc_out=enc_out,
+                         start=start, kv_spec=kv_spec)
+    if ssm is not None:
+        for view, new in zip(layer_st["ssm"], out["ssm"]):
+            view.copy_(new)
+    return x
+
+
+def _advanced(seg_st, seg: Segment) -> list:
+    """A segment's states after a step: each cache's count of tokens one
+    more (the tensors were written in place)."""
+    return [st if spec.kind in RECURRENT else dict(st, len=st["len"] + 1)
+            for st, spec in zip(seg_st, seg.pattern)]
 
 
 def init_decode_state(params, m: ModelCfg, batch: int, cache_len: int):
@@ -533,30 +619,15 @@ def decode_step(params, m: ModelCfg, token: torch.Tensor, pos: int, states,
     ax = PAR.model_axis()
     if ax is not None:
         return _decode_sharded(params, m, token, pos_b, states, start,
-                               state_specs, ax)
+                               state_specs, ax, enc_out)
     x = L.embed_apply(params["embed"], token)
     new_states = []
     for seg_p, seg, seg_st in zip(params["segments"], m.segments, states):
         for r in range(seg.repeats):
             for spec, sp, st in zip(seg.pattern, seg_p, seg_st):
-                if spec.kind in RECURRENT:
-                    views = _layer(st, r)
-                    x, out = spec_decode(_layer(sp, r), x, spec, pos_b, views)
-                    for view, new in zip(views, out):
-                        view.copy_(new)
-                    continue
-                layer_st = dict(st, kv=_layer(st["kv"], r))
-                ssm = st.get("ssm")
-                if ssm is not None:
-                    layer_st["ssm"] = _layer(ssm, r)
-                x, out = spec_decode(_layer(sp, r), x, spec, pos_b, layer_st,
-                                     enc_out=enc_out, start=start)
-                if ssm is not None:
-                    for view, new in zip(layer_st["ssm"], out["ssm"]):
-                        view.copy_(new)
-        new_states.append([st if spec.kind in RECURRENT
-                           else dict(st, len=st["len"] + 1)
-                           for st, spec in zip(seg_st, seg.pattern)])
+                x = _decode_layer(_layer(sp, r), x, spec, pos_b, st, r,
+                                  enc_out, start)
+        new_states.append(_advanced(seg_st, seg))
     return _head(params, m, x), new_states
 
 

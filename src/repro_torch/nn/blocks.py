@@ -173,15 +173,19 @@ def ffn_init(key: torch.Tensor, cfg: BlockCfg, device):
     }
 
 
-def ffn_apply(params, x, cfg: BlockCfg):
+def ffn_apply(params, x, cfg: BlockCfg, glu=None):
+    """The FFN: the MoE's, or the gated unit `glu` (``_swiglu`` by
+    default; whisper's blocks pass ``_geglu``) of w_gate, w_up and
+    w_down."""
+    glu = glu or _swiglu
     ax = PAR.model_axis()
     if ax is not None:
-        return _ffn_apply_sharded(params, x, cfg, ax)
+        return _ffn_apply_sharded(params, x, cfg, ax, glu)
     if cfg.n_experts:
         b, s, d = x.shape
         y = M.moe_apply(params, x.reshape(b * s, d), top_k=cfg.top_k)
         return y.reshape(b, s, d)
-    return _swiglu(params, x)
+    return glu(params, x)
 
 
 def _swiglu(params, x):
@@ -197,21 +201,8 @@ def _swiglu(params, x):
 # reads whole) and ``sum_over`` (its row-parallel exit), so the same code
 # serves and trains
 # ---------------------------------------------------------------------------
-def _project(x, w, cols: int, ax, local: bool):
-    """``x @ w`` with all `cols` output columns where `w` holds this rank's
-    column block: the weight gathered where x has more rows than w (a
-    prefill, a train step), else the product's columns (a decode step).
-    `local`: whether the consumer is rank-local work, so the gather's
-    gradient is summed over 'model' (``gather_dim``)."""
-    if w.shape[-1] == cols:
-        return x @ w
-    grad_group = ax.group if local else None
-    if x.numel() // x.shape[-1] > w.shape[0]:
-        return x @ PAR.gather_dim(w, -1, ax.group, grad_group)
-    return PAR.gather_dim(x @ w, -1, ax.group, grad_group)
-
-
-def _qkv_sharded(params, x, cfg: BlockCfg, positions, ax, local: bool):
+def _qkv_sharded(params, x, cfg: BlockCfg, positions, ax, local: bool,
+                 kv_src=None):
     """(q, k, v, h0): with `local`, q holds this rank's H/m heads h0, h0 + 1,
     ... (wq's column block, where 'model' divides H; else every head, h0
     = 0), and k, v the KV heads those read.  ``wkv`` stores all K heads,
@@ -221,7 +212,9 @@ def _qkv_sharded(params, x, cfg: BlockCfg, positions, ax, local: bool):
     the KV heads its q heads read, summed over the ranks by the gather's
     backward).  Where the heads a rank reads form whole GQA groups of one
     size the KV heads are taken once (``n_kv < m`` included: every q head
-    of the rank in one group), else one a q head."""
+    of the rank in one group), else one a q head.  K and V come from
+    `kv_src` where given (cross-attention: the encoder's output, no RoPE,
+    `positions` None), else from x."""
     b, s, _ = x.shape
     dh, h, kv = cfg.dh, cfg.n_heads, cfg.n_kv
     wq = params["wq"]
@@ -232,9 +225,10 @@ def _qkv_sharded(params, x, cfg: BlockCfg, positions, ax, local: bool):
         q = (x @ wq).reshape(b, s, hl, dh)
     else:
         h0, hl = 0, h
-        q = _project(x, wq, h * dh, ax, work).reshape(b, s, h, dh)
-    kvf = _project(x, params["wkv"], 2 * kv * dh, ax, work).reshape(
-        b, s, 2 * kv, dh)
+        q = PAR.project(x, wq, h * dh, ax, work).reshape(b, s, h, dh)
+    src = x if kv_src is None else kv_src
+    kvf = PAR.project(src, params["wkv"], 2 * kv * dh, ax, work).reshape(
+        b, src.shape[1], 2 * kv, dh)
     idx = [(h0 + i) // (h // kv) for i in range(hl)]
     lo, hi = idx[0], idx[-1] + 1
     per = hl // (hi - lo)
@@ -242,7 +236,8 @@ def _qkv_sharded(params, x, cfg: BlockCfg, positions, ax, local: bool):
         k, v = kvf[:, :, lo:hi], kvf[:, :, kv + lo:kv + hi]
     else:
         k, v = kvf[:, :, idx], kvf[:, :, [kv + i for i in idx]]
-    q, k = _norm_rope(params, q, k, cfg, positions)
+    if positions is not None:
+        q, k = _norm_rope(params, q, k, cfg, positions)
     return q, k, v, h0
 
 
@@ -276,21 +271,26 @@ def _entered(params, ax, names):
 
 
 def _attn_apply_sharded(params, x, cfg: BlockCfg, positions, causal,
-                        use_fused, ax):
+                        use_fused, ax, kv_src=None):
     """Full-sequence attention on this rank's q heads (flash on H/m
     heads), then the row-parallel ``wo``: rank-local work from the
-    entered x (and the qk-norm scales, and a ``wkv`` that 'model' does
-    not split) to the sum.  Where 'model' does not split wo's rows (nor
-    then wq's columns) every rank computes the whole attention."""
+    entered x (and `kv_src`, the qk-norm scales, and a ``wkv`` that
+    'model' does not split) to the sum.  Where 'model' does not split
+    wo's rows (nor then wq's columns) every rank computes the whole
+    attention.  With `kv_src` (whisper's cross-attention: the encoder's
+    output) K and V come from it (``_qkv_sharded``)."""
     b, s, _ = x.shape
     local = params["wo"].shape[0] != cfg.n_heads * cfg.dh
     if local:
         x = PAR.enter_local(x, ax.group)
+        if kv_src is not None:
+            kv_src = PAR.enter_local(kv_src, ax.group)
         whole = ["q_norm", "k_norm"]
         if params["wkv"].shape[-1] == 2 * cfg.n_kv * cfg.dh:
             whole.append("wkv")
         params = _entered(params, ax, whole)
-    q, k, v, _ = _qkv_sharded(params, x, cfg, positions, ax, local=True)
+    q, k, v, _ = _qkv_sharded(params, x, cfg, positions, ax, local=True,
+                              kv_src=kv_src)
     o = A.flash_attention(q, k, v, causal=causal, window=cfg.window,
                           use_fused=use_fused)
     return _out_sharded(params["wo"], o.reshape(b, s, -1), cfg, ax)
@@ -343,7 +343,7 @@ def _attn_decode_sharded(params, x1, cfg: BlockCfg, pos, kv_cache,
     return y, (kc, vc)
 
 
-def _ffn_apply_sharded(params, x, cfg: BlockCfg, ax):
+def _ffn_apply_sharded(params, x, cfg: BlockCfg, ax, glu):
     """The FFN on this rank's blocks.  A dense FFN stacked with its layer
     axis over 'model' (``param_specs`` reads a stacked (L, D, F) w_gate as
     an expert tensor) comes as ``PAR.Owned``: the layer's owner computes
@@ -351,11 +351,12 @@ def _ffn_apply_sharded(params, x, cfg: BlockCfg, ax):
     backward meets the same collectives).  Column-parallel w_gate / w_up
     and row-parallel w_down sum their partial outputs over 'model'; the
     MoE FFN is ``moe_apply_sharded``'s; an FFN that 'model' does not
-    split is replicated work."""
+    split is replicated work.  `glu` is the gated unit (``ffn_apply``'s)
+    on every path."""
     if isinstance(params, PAR.Owned):
         x = PAR.enter_local(x, ax.group)
         if params.mine:
-            y = _swiglu(params.tree, x)
+            y = glu(params.tree, x)
         elif x.requires_grad and torch.is_grad_enabled():
             y = x * x.new_zeros(())
         else:
@@ -368,9 +369,9 @@ def _ffn_apply_sharded(params, x, cfg: BlockCfg, ax):
                                 top_k=cfg.top_k)
         return y.reshape(b, s, d)
     if params["w_down"].shape[0] != cfg.d_ff:
-        return PAR.sum_over(_swiglu(params, PAR.enter_local(x, ax.group)),
+        return PAR.sum_over(glu(params, PAR.enter_local(x, ax.group)),
                             ax.group)
-    return _swiglu(params, x)
+    return glu(params, x)
 
 
 # ---------------------------------------------------------------------------
@@ -457,7 +458,7 @@ def enc_block_apply(params, x, cfg: BlockCfg, positions,
     x = x + attn_apply(params["attn"], h, cfg, positions, causal=False,
                        use_fused=use_fused)
     h = L.layernorm_apply(params["ln2"], x)
-    return x + _geglu(params["ffn"], h)
+    return x + ffn_apply(params["ffn"], h, cfg, glu=_geglu)
 
 
 def dec_block_init(key: torch.Tensor, cfg: BlockCfg, device):
@@ -476,7 +477,17 @@ def dec_block_init(key: torch.Tensor, cfg: BlockCfg, device):
 def _cross_attn(params, x, enc_out, cfg: BlockCfg,
                 use_fused: Optional[bool] = None):
     """q from x (B, S, D), k and v from ``enc_out @ wkv`` (B, S_enc, D);
-    no RoPE, no mask."""
+    no RoPE, no mask.  Across a 'model' axis on this rank's blocks
+    (``_attn_apply_sharded`` with the encoder's output as `kv_src`).
+    With no encoder output it raises, as the reference's (whose
+    ``Engine`` passes none: ROADMAP Queue 3 item 7)."""
+    if enc_out is None:
+        raise ValueError("whisper's cross-attention needs the encoder's "
+                         "output (enc_out)")
+    ax = PAR.model_axis()
+    if ax is not None:
+        return _attn_apply_sharded(params, x, cfg, None, False, use_fused,
+                                   ax, kv_src=enc_out)
     b, s, _ = x.shape
     dh = cfg.dh
     q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, dh)
@@ -496,20 +507,21 @@ def dec_block_apply(params, x, enc_out, cfg: BlockCfg, positions,
     x = x + _cross_attn(params["cross_attn"], h, enc_out, cfg,
                         use_fused=use_fused)
     h = L.layernorm_apply(params["ln2"], x)
-    return x + _geglu(params["ffn"], h)
+    return x + ffn_apply(params["ffn"], h, cfg, glu=_geglu)
 
 
 def dec_block_decode(params, x1, enc_out, cfg: BlockCfg, pos, state,
-                     start=None):
+                     start=None, kv_spec=None):
     """One token: self-attention against the KV cache (written in place),
     then cross-attention over all of ``enc_out``, whose K and V are
-    recomputed every step as the reference's are."""
+    recomputed every step as the reference's are.  `kv_spec`: the cache's
+    spec across a 'model' axis (``attn_decode``)."""
     h = L.layernorm_apply(params["ln1"], x1)
     mix, kv = attn_decode(params["self_attn"], h, cfg, pos, state["kv"],
-                          state["len"], start=start)
+                          state["len"], start=start, kv_spec=kv_spec)
     x1 = x1 + mix
     h = L.layernorm_apply(params["ln_x"], x1)
     x1 = x1 + _cross_attn(params["cross_attn"], h, enc_out, cfg)
     h = L.layernorm_apply(params["ln2"], x1)
-    return x1 + _geglu(params["ffn"], h), dict(state, kv=kv,
-                                                len=state["len"] + 1)
+    return (x1 + ffn_apply(params["ffn"], h, cfg, glu=_geglu),
+            dict(state, kv=kv, len=state["len"] + 1))

@@ -177,13 +177,15 @@ def dispatch(x: torch.Tensor, idx: torch.Tensor, e: int, cap: int):
 
 def expert_ffn(params, xe: torch.Tensor) -> torch.Tensor:
     """The experts' SwiGLU on their buffers: xe (G·E, cap, D) -> (G·E,
-    cap, D), three batched products (each expert's G buffers in one)."""
+    cap, D), three batched products (each expert's G buffers in one), in
+    xe's float32 whatever the weights' dtype, as the reference's."""
     e, cap, d = params["w_gate"].shape[0], xe.shape[1], xe.shape[2]
     g = xe.shape[0] // e
+    w_gate, w_up, w_down = (params[k].to(xe.dtype)
+                            for k in ("w_gate", "w_up", "w_down"))
     xe = xe.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
-    h = F.silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(xe,
-                                                            params["w_up"])
-    ye = torch.bmm(h, params["w_down"])
+    h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
+    ye = torch.bmm(h, w_down)
     return ye.reshape(e, g, cap, -1).transpose(0, 1).reshape(g * e, cap, -1)
 
 

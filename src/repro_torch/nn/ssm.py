@@ -13,6 +13,12 @@ torch ops and no loop.
 
 Params keep the reference's layout and initial bits (``ssm_init`` draws
 through ``core/prng`` from the same keys).
+
+Across a 'model' axis (``train/parallel``) the mixer is channel
+parallel: each rank runs the conv, the scan (the same kernels at Di/m
+channels) and the gate on its block of the Di channels, the (dt, B, C)
+projection's contraction over Di and ``out_proj``'s are summed over
+'model'; the decode state is the same block (``_channel_params``).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import softplus
+from repro_torch.train import parallel as PAR
 
 
 def ssm_init(key: torch.Tensor, d_model: int, d_state: int = 16,
@@ -73,11 +80,16 @@ def _conv_causal(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b
 
 
-def _selective_inputs(params, x: torch.Tensor):
+def _selective_inputs(params, x: torch.Tensor, ax=None):
     """dt (B, S, Di), bmat and cmat (B, S, N) of the conv's output x, and
-    a = -exp(A_log) (Di, N)."""
+    a = -exp(A_log) (Di, N).  With `ax` (a 'model' axis whose rank holds
+    a block of the Di channels) ``x @ x_proj`` contracts the rank's
+    channels only: its partial sums are summed over 'model' and entered
+    again, the rank's channels reading (dt, B, C) whole."""
     d_state = (params["x_proj"].shape[1] - 1) // 2
     proj = x @ params["x_proj"]                           # (B, S, 1+2N)
+    if ax is not None:
+        proj = PAR.enter_local(PAR.sum_over(proj, ax.group), ax.group)
     dt = softplus(proj[..., :1] @ params["dt_w"] + params["dt_bias"])
     bmat = proj[..., 1:1 + d_state]
     cmat = proj[..., 1 + d_state:]
@@ -86,7 +98,7 @@ def _selective_inputs(params, x: torch.Tensor):
 
 
 def ssm_scan(params, xz: torch.Tensor, h0: Optional[torch.Tensor] = None,
-             chunk: int = 64, use_fused: Optional[bool] = None
+             chunk: int = 64, use_fused: Optional[bool] = None, ax=None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The selective scan: xz (B, S, 2·Di) from in_proj -> (y (B, S, Di),
     h_final (B, Di, N)).  The conv, SiLU, the (dt, B, C) projections,
@@ -95,12 +107,14 @@ def ssm_scan(params, xz: torch.Tensor, h0: Optional[torch.Tensor] = None,
     ``SSMScanFn``, which keeps the state every 64 steps as the reference's
     ``jax.checkpoint``-ed chunks do; ``use_fused=False`` the plain loop,
     which runs its chunks of `chunk` steps under ``torch.utils.checkpoint``
-    with autograd on), then ``+ x·D_skip`` and ``· silu(z)``."""
+    with autograd on), then ``+ x·D_skip`` and ``· silu(z)``.  With `ax`
+    every leaf and xz hold this rank's block of the channels
+    (``_selective_inputs``)."""
     d_inner = params["conv_w"].shape[1]
     d_state = (params["x_proj"].shape[1] - 1) // 2
     x, z = xz.split(d_inner, dim=-1)                      # (B, S, Di) each
     x = F.silu(_conv_causal(x, params["conv_w"], params["conv_b"]))
-    dt, bmat, cmat, a = _selective_inputs(params, x)
+    dt, bmat, cmat, a = _selective_inputs(params, x, ax)
     if h0 is None:
         h0 = x.new_zeros((x.shape[0], d_inner, d_state), dtype=torch.float32)
     ys, h = ops.ssm_scan(dt, bmat.contiguous(), cmat.contiguous(), x, a, h0,
@@ -112,9 +126,42 @@ def ssm_scan(params, xz: torch.Tensor, h0: Optional[torch.Tensor] = None,
 
 def ssm_apply(params, x: torch.Tensor,
               use_fused: Optional[bool] = None) -> torch.Tensor:
-    """Full-sequence mixer: (B, S, D) -> (B, S, D)."""
-    y, _ = ssm_scan(params, x @ params["in_proj"], use_fused=use_fused)
-    return y @ params["out_proj"]
+    """Full-sequence mixer: (B, S, D) -> (B, S, D).  Across a 'model'
+    axis, channel parallel (``_channel_params``)."""
+    ax = PAR.model_axis()
+    if ax is None:
+        y, _ = ssm_scan(params, x @ params["in_proj"], use_fused=use_fused)
+        return y @ params["out_proj"]
+    params, x, xz, ax = _channel_params(params, x, ax)
+    y, _ = ssm_scan(params, xz, use_fused=use_fused, ax=ax)
+    return _out(y @ params["out_proj"], ax)
+
+
+def _channel_params(params, x: torch.Tensor, ax):
+    """(params, x, xz, ax) of the mixer across the 'model' axis `ax`.
+    Where 'model' splits the Di channels (every (.., Di) leaf and x_proj's
+    and out_proj's Di rows; in_proj's 2·Di columns, x then z, so a rank's
+    block of them is not its channels) the rank computes its channels
+    (rank-local work from the entered x): xz its x and z columns of
+    in_proj (``PAR.column_blocks``), conv_b (replicated) its block, and
+    `ax` is returned for ``x @ x_proj``'s sum and ``_out``'s.  Else every
+    rank computes every channel (replicated work: in_proj's columns
+    gathered, `ax` None)."""
+    di = params["conv_b"].shape[-1]
+    dr = params["conv_w"].shape[-1]
+    if dr == di:
+        return params, x, PAR.project(x, params["in_proj"], 2 * di, ax,
+                                      local=False), None
+    x = PAR.enter_local(x, ax.group)
+    conv_b = PAR.enter_local(params["conv_b"], ax.group)
+    params = dict(params, conv_b=conv_b[ax.rank * dr:(ax.rank + 1) * dr])
+    return params, x, PAR.column_blocks(x, params["in_proj"], di, 2, ax), ax
+
+
+def _out(y: torch.Tensor, ax) -> torch.Tensor:
+    """The row-parallel ``out_proj``'s partial sums summed over 'model'
+    (`ax`), or y where every rank computed every channel."""
+    return y if ax is None else PAR.sum_over(y, ax.group)
 
 
 def ssm_decode_init(params, batch: int, device) -> Tuple[torch.Tensor,
@@ -131,18 +178,31 @@ def ssm_decode_init(params, batch: int, device) -> Tuple[torch.Tensor,
 
 def ssm_decode_step(params, x1: torch.Tensor, state):
     """One-token decode: x1 (B, 1, D), state (h, tail) -> (y1 (B, 1, D),
-    the new (h, tail)).  The recurrence's one step in plain torch ops."""
+    the new (h, tail)).  The recurrence's one step in plain torch ops.
+    Across a 'model' axis that splits the channels, (h, tail) are this
+    rank's block of them (``state_specs`` puts their Di on 'model', as
+    ``param_specs`` puts the params'), and the step is
+    ``_channel_params``'s."""
     h, tail = state
+    ax = PAR.model_axis()
+    if ax is None:
+        xz = x1 @ params["in_proj"]
+    else:
+        params, x1, xz, ax = _channel_params(params, x1, ax)
     d_inner = params["conv_w"].shape[1]
-    x, z = (x1 @ params["in_proj"]).split(d_inner, dim=-1)   # (B, 1, Di)
+    if h.shape[1] != d_inner:
+        raise ValueError(f"the SSM state holds {h.shape[1]} channels, the "
+                         f"params {d_inner}")
+    x, z = xz.split(d_inner, dim=-1)                         # (B, 1, Di)
     xc = F.silu(_conv_causal(x, params["conv_w"], params["conv_b"],
                              tail=tail))
     new_tail = torch.cat([tail[:, 1:], x.to(tail.dtype)], dim=1)
-    dt, bmat, cmat, a = _selective_inputs(params, xc)
+    dt, bmat, cmat, a = _selective_inputs(params, xc, ax)
     da = torch.exp(dt[:, 0, :, None] * a)                    # (B, Di, N)
     dbx = dt[:, 0, :, None] * bmat[:, 0, None] * xc[:, 0, :, None]
     h = da * h + dbx
-    y = torch.einsum("bdn,bn->bd", h, cmat[:, 0])[:, None]
+    y = torch.einsum("bdn,bn->bd", h, cmat[:, 0].to(h.dtype))[:, None]
     y = y + xc * params["D_skip"]
     y = y * F.silu(z)
-    return (y @ params["out_proj"]).to(x1.dtype), (h, new_tail)
+    y = _out(y @ params["out_proj"].to(y.dtype), ax)
+    return y.to(x1.dtype), (h, new_tail)

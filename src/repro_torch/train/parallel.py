@@ -24,6 +24,12 @@ whose backward depends on what consumes its output:
   max_over(t, group)          # the elementwise max, in place, no
                               # gradient (a softmax's stabiliser)
 
+On top of them: ``project`` (a column-split weight's product with every
+column, the weight or the product gathered), ``column_blocks`` (a rank's
+block of each part of a side-by-side layout: hymba's x | z, xlstm's
+q | k | v) and ``rmsnorm_blocks`` (an RMSNorm over a feature dim split
+over 'model': the sum of squares summed).
+
 Megatron's f and g are ``enter_local`` and ``sum_over``: between them a
 rank's gradients are partial, outside them replicated and complete.  So
 every rank issues the same collectives in the same order in the backward
@@ -187,6 +193,62 @@ def keep_block(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     if _graph(t):
         return _Keep.apply(t, dim, group)
     return _block(t, dim, group).clone()
+
+
+def project(x: torch.Tensor, w: torch.Tensor, cols: int, ax: ModelAxis,
+            local: bool) -> torch.Tensor:
+    """``x @ w`` with all `cols` output columns where `w` holds this rank's
+    column block: the weight gathered where x has more rows than w (a
+    prefill, a train step), else the product's columns (a decode step).
+    `local`: whether the consumer is rank-local work, so the gather's
+    gradient is summed over 'model' (``gather_dim``).  A gathered product
+    gives each rank x's gradient through its columns alone, so for a
+    replicated consumer x enters as rank-local work (``enter_local``: the
+    ranks' parts summed)."""
+    if w.shape[-1] == cols:
+        return x @ w
+    grad_group = ax.group if local else None
+    if x.numel() // x.shape[-1] > w.shape[0]:
+        return x @ gather_dim(w, -1, ax.group, grad_group)
+    if not local:
+        x = enter_local(x, ax.group)
+    return gather_dim(x @ w, -1, ax.group, grad_group)
+
+
+def column_blocks(x: torch.Tensor, w: torch.Tensor, width: int, parts: int,
+                  ax: ModelAxis) -> torch.Tensor:
+    """``x @ w[:, cols]`` for the columns of this rank's block of each of
+    the `parts` contiguous blocks of `width` columns that a layout lays
+    side by side (hymba's x | z, xlstm's q | k | v), where `w` holds this
+    rank's block of all ``parts · width`` columns (not the rank's block of
+    each part): its columns gathered first (rank-local work, so the
+    gather's gradient is summed over 'model'), or at a decode step the
+    product's."""
+    n = width // ax.size
+    lo = ax.rank * n
+
+    def pick(t):
+        return torch.cat([t[..., p * width + lo:p * width + lo + n]
+                          for p in range(parts)], dim=-1)
+
+    if x.numel() // x.shape[-1] > w.shape[0]:
+        return x @ pick(gather_dim(w, -1, ax.group))
+    return pick(gather_dim(x @ w, -1, ax.group))
+
+
+def rmsnorm_blocks(params, h: torch.Tensor, d: int, ax: ModelAxis,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """``nn/layers.rmsnorm_apply`` over a width-`d` feature dim of which
+    `h` (.., d/m) is this rank's block (rank-local work): the sum of
+    squares summed over 'model' and entered again (its gradient is every
+    rank's), the scale's block from the whole entered scale."""
+    hf = h.to(torch.float32)
+    ss = enter_local(sum_over(hf.square().sum(-1, keepdim=True), ax.group),
+                     ax.group)
+    n = h.shape[-1]
+    scale = enter_local(params["scale"], ax.group)[ax.rank * n:
+                                                   (ax.rank + 1) * n]
+    return (h * torch.rsqrt(ss / d + eps) * scale).to(h.dtype)
 
 
 def max_over(t: torch.Tensor, group) -> torch.Tensor:

@@ -28,9 +28,8 @@ every leaf, ``shard_params`` under ``param_specs(fsdp=True)`` and
 ``gather_leaf`` puts one back together), and the layers compute on those
 blocks with explicit collectives under autograd (``train/parallel``);
 the residual stream's ``act_shard`` policy applies at the remat save
-points (``models/base._forward_sharded``).  Hymba's, xlstm's and
-whisper's blocks there (ROADMAP Queue 1 item 6c) raise
-(``require_model_axis_arch``).  ``placements`` turns a spec into
+points (``models/base._forward_sharded``), every ported arch's blocks
+included.  ``placements`` turns a spec into
 ``Shard``/``Replicate`` placements for state that is placed with
 DTensor.
 """
@@ -140,22 +139,6 @@ def batch_axes(mesh) -> Tuple[str, ...]:
 def model_axis(mesh) -> int:
     """The size of `mesh`'s 'model' axis (1 with no mesh)."""
     return 1 if mesh is None else axis_size(mesh, "model")
-
-
-def require_model_axis_arch(m, mesh) -> None:
-    """Serving and training across a 'model' axis larger than 1 cover the
-    dense and MoE decoders; hymba's SSM leaves, xlstm's mLSTM and sLSTM leaves and
-    whisper's encoder and cross-attention there raise."""
-    if model_axis(mesh) <= 1:
-        return
-    kinds = {(sp.kind, bool(sp.cfg.ssm_state)) for seg in m.segments
-             for sp in seg.pattern}
-    if m.enc_segments is not None or kinds - {("dense", False)}:
-        raise NotImplementedError(
-            f"{m.name} on mesh {mesh_sizes(mesh)}: hymba's SSM branch, "
-            f"xlstm's mLSTM/sLSTM blocks and whisper's encoder-decoder "
-            f"across a 'model' axis larger than 1 wait for ROADMAP Queue 1 "
-            f"item 6c")
 
 
 def activation_spec(mesh, batch: int, d_model: int,

@@ -21,14 +21,16 @@ reference replicates it too, ``batch_specs``).  The prefill and decode
 steps install the mesh, so the MoE layers route in the reference's
 groups, and compute the whole batch on every rank.
 
-Across a 'model' axis larger than 1 (the dense and MoE decoders) every
-step takes params, optimizer state and decode states already sharded
+Across a 'model' axis larger than 1 (every ported arch) every step
+takes params, optimizer state and decode states already sharded
 (``shardings.shard_params``, ``shard_states``; ``optim.init`` of the
 blocks), splits the batch's rows over the batch axes where
-``batch_specs``' rule splits them, and runs the layers on this rank's
-blocks (``models/base._forward_sharded``, ``_decode_sharded``) through
-``train/parallel``'s collectives.  The prefill and decode steps gather
-the logits, so every rank returns the whole batch's.  The train step
+``batch_specs``' rule splits them (an encoder-decoder's frames and
+``enc_out`` too), and runs the layers on this rank's blocks
+(``models/base._forward_sharded``, ``_encode_sharded``,
+``_decode_sharded``) through ``train/parallel``'s collectives.  The
+prefill and decode steps gather the logits, so every rank returns the
+whole batch's.  The train step
 keeps the head's vocab block: ``next_token_loss_sharded`` is the
 vocab-parallel cross entropy, the FSDP gathers' backward sums the
 gradients over the split rows, ``finish_grads`` sums the rest, the clip
@@ -235,15 +237,18 @@ def _train_step_sharded(m: MB.ModelCfg, mesh, *, lr, remat: bool,
     and applied by AdamW in place.  The step's ``loss_and_grads(params,
     batch)`` is its (loss, gradient blocks) before any compression or
     clip, and ``grad_norm(grads)`` their global norm."""
-    SH.require_model_axis_arch(m, mesh)
     specs = PAR.spec_leaves(PAR.param_layout(m, mesh))
     optim = adamw(lr, weight_decay=0.1, clip_norm=1.0)
 
     def loss_of(tree, piece):
+        enc_out = None
+        if m.enc_segments is not None:
+            enc_out = MB.encode(tree, m, piece["frames"], remat=remat,
+                                use_fused=use_fused)
         logits = MB.forward(tree, m, piece["tokens"],
                             positions=piece.get("positions"),
                             use_fused=use_fused, remat=remat,
-                            vocab_block=True)
+                            vocab_block=True, enc_out=enc_out)
         if logits.shape[-1] == m.vocab:
             return next_token_loss(logits, piece["labels"])
         return next_token_loss_sharded(logits, piece["labels"],
@@ -306,7 +311,6 @@ def make_prefill_step(m: MB.ModelCfg, *, mesh=None,
     computes the whole batch.  Across a 'model' axis larger than 1 the
     params are this rank's blocks and the rows split (module docstring);
     the head runs on the last position alone."""
-    SH.require_model_axis_arch(m, mesh)
 
     def prefill_sharded(params, batch):
         tokens = batch["tokens"]
@@ -315,9 +319,13 @@ def make_prefill_step(m: MB.ModelCfg, *, mesh=None,
         if pos is not None:
             pos = PAR.rows(pos, ax, dim=1 if pos.dim() == 3 else 0)
         with torch.no_grad(), SH.use_mesh(mesh, split=ax.size):
+            enc_out = None
+            if m.enc_segments is not None:
+                enc_out = MB.encode(params, m, PAR.rows(batch["frames"], ax),
+                                    use_fused=use_fused)
             logits = MB.forward(params, m, PAR.rows(tokens, ax),
                                 positions=pos, use_fused=use_fused,
-                                last_only=True)[:, -1]
+                                last_only=True, enc_out=enc_out)[:, -1]
         return PAR.gather_dim(logits, 0, ax.group)
 
     if SH.model_axis(mesh) > 1:
@@ -354,8 +362,8 @@ def make_decode_step(m: MB.ModelCfg, *, mesh=None,
     in ``make_prefill_step``.  Across a 'model' axis larger than 1 the
     params and states are this rank's blocks, `cache_len` (the cache the
     states were made for) gives the states' specs, each rank decodes its
-    lanes (the states' batch dim) and the logits are gathered."""
-    SH.require_model_axis_arch(m, mesh)
+    lanes (the states' batch dim; an encoder-decoder's `enc_out` rows
+    alike) and the logits are gathered."""
     if SH.model_axis(mesh) > 1:
         if cache_len is None:
             raise ValueError("make_decode_step across a 'model' axis needs "
@@ -377,15 +385,18 @@ def _decode_sharded(m: MB.ModelCfg, mesh, cache_len: int) -> Callable:
     def decode_step(params, token, pos, states, enc_out=None, start=None):
         b = token.shape[0]
         if b not in specs:      # the specs of the full states, from meta
-            specs[b] = SH.state_specs(MB.init_decode_state(
-                {"ln_f": {"scale": _struct((m.d_model,), torch.float32)}},
-                m, b, cache_len), mesh, b)
+            specs[b] = SH.state_specs(state_structs(
+                param_structs(m, torch.float32), m, b, cache_len,
+                torch.float32), mesh, b)
         ax = _row_axis(mesh, b)
         if start is not None:
             start = PAR.rows(start, ax)
+        if enc_out is not None:
+            enc_out = PAR.rows(enc_out, ax)
         with torch.no_grad(), SH.use_mesh(mesh, split=ax.size):
             logits, states = MB.decode_step(params, m, PAR.rows(token, ax),
-                                            pos, states, start=start,
+                                            pos, states, enc_out=enc_out,
+                                            start=start,
                                             state_specs=specs[b])
         return PAR.gather_dim(logits, 0, ax.group), states
 
@@ -403,7 +414,7 @@ def _struct(shape, dtype) -> torch.Tensor:
 
 
 def batch_structs(m: MB.ModelCfg, shape: Shape,
-                  dtype=torch.float32) -> Dict[str, torch.Tensor]:
+                  dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
     """One batch of `shape`: tokens and labels (B, S) int32, qwen2-vl's
     (3, B, S) positions; an encoder-decoder's cell length is its encoder
     frames (B, S, D) of `dtype`, and its tokens and labels take the
@@ -438,7 +449,7 @@ def batch_specs(m: MB.ModelCfg, shape: Shape, mesh) -> Dict[str, SH.P]:
     return out
 
 
-def param_structs(m: MB.ModelCfg, dtype=torch.float32):
+def param_structs(m: MB.ModelCfg, dtype=torch.bfloat16):
     """``init_params``'s tree on the meta device: every leaf's shape, no
     draw (``core/prng`` skips the draws on meta), in `dtype`."""
     p = MB.init_params(prng.prng_key(torch.tensor(0)), m, META)
@@ -447,7 +458,7 @@ def param_structs(m: MB.ModelCfg, dtype=torch.float32):
 
 
 def state_structs(params_struct, m: MB.ModelCfg, batch: int, cache_len: int,
-                  dtype=torch.float32):
+                  dtype=torch.bfloat16):
     """``init_decode_state``'s tree for `params_struct`'s model: the KV
     caches in `dtype`, the recurrent states in float32."""
     states = MB.init_decode_state(params_struct, m, batch, cache_len)
@@ -469,7 +480,7 @@ class Case:
     args: Tuple[Any, ...]        # meta structs
 
 
-def build_case(m: MB.ModelCfg, shape: Shape, *, dtype=torch.float32,
+def build_case(m: MB.ModelCfg, shape: Shape, *, dtype=torch.bfloat16,
                lr: float = 3e-4, remat: bool = True,
                microbatches: int = 1) -> Case:
     """One (arch x shape) cell: the train, prefill or decode step of

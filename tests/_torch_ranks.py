@@ -6,12 +6,18 @@ With ``model`` last, the scenarios of ``tests/test_torch_model_axis.py``
 instead: serving and the DSE task mesh on the (1, 4) and (2, 2)
 ('data', 'model') meshes (``model_axis_main``); with ``train``, those of
 ``tests/test_torch_model_axis_train.py``: training there
-(``model_axis_train_main``).
+(``model_axis_train_main``); with ``recurrent``, those of
+``tests/test_torch_model_axis_recurrent.py``: hymba, xlstm and whisper
+served and trained there (``recurrent_main``); with ``steps``, those three
+once on a (1, WORLD) mesh (``steps_main``, for
+``tests/test_torch_shardings.py``).
 
-    python tests/_torch_ranks.py RANK WORLD STORE_PATH OUT_DIR [model|train]
+    python tests/_torch_ranks.py RANK WORLD STORE_PATH OUT_DIR \
+        [model|train|recurrent|steps]
 
 Imports only ``torch`` and ``repro_torch``.
 """
+import contextlib
 import pickle
 import sys
 import traceback
@@ -442,6 +448,7 @@ def model_axis_main(rank: int, world: int, store_path: str,
                               heads_6=heads_not_split(mesh, shape))
         out["dse"] = task_mesh_dse(meshes[2, 2])
         out["plane"] = plane_group()
+        out["other_archs"] = recurrent(meshes[2, 2], (2, 2), OTHER_ARCHS)
     except Exception:
         out["error"] = traceback.format_exc()
     with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
@@ -488,13 +495,15 @@ def _one_rank_grads(m, params, batch, one, micro: int = 1, remat=False):
             params, [t * (1.0 / micro) for t in g_sum])
 
 
-def train_one(m, params, one):
+def train_one(m, params, one, batch=None):
     """The world of one: the loss, gradients, clip scale and params after
-    one AdamW step (``make_train_step``'s optimizer and update)."""
+    one AdamW step (``make_train_step``'s optimizer and update), on
+    `batch` (default ``train_batch``)."""
     from repro_torch.optim import adamw
     from repro_torch.optim.adamw import clip_scale
 
-    loss, grads = _one_rank_grads(m, params, train_batch(m.vocab), one)
+    batch = train_batch(m.vocab) if batch is None else batch
+    loss, grads = _one_rank_grads(m, params, batch, one)
     optim = adamw(TRAIN_LR, weight_decay=0.1, clip_norm=1.0)
     p = [t.clone() for t in tree_leaves(params)]
     from repro_torch.optim import tree_unflatten
@@ -505,15 +514,16 @@ def train_one(m, params, one):
                 params=flat(p))
 
 
-def train_sharded(m, params, mesh, **kw):
+def train_sharded(m, params, mesh, batch=None, **kw):
     """This rank's run: the step's loss and gradient blocks before the
     clip, the clip scale from their global norm, then one step on the
-    blocks: the params after it, and the bytes of params, mu and nu."""
+    blocks: the params after it, and the bytes of params, mu and nu; on
+    `batch` (default ``train_batch``)."""
     from repro_torch.train import shardings as SH
 
     local = SH.shard_params(params, mesh)
     step, optim = TS.make_train_step(m, lr=TRAIN_LR, mesh=mesh, **kw)
-    batch = train_batch(m.vocab)
+    batch = train_batch(m.vocab) if batch is None else batch
     loss, grads = step.loss_and_grads(local, batch)
     norm = step.grad_norm(grads)
     opt = optim.init(local)
@@ -658,6 +668,185 @@ def model_axis_train_main(rank: int, world: int, store_path: str,
             out[shape] = dict(coord=tuple(mesh.get_coordinate()),
                               training=training(mesh, shape))
         out["collectives"] = collective_grads(meshes[2, 2])
+        out["other_archs"] = recurrent(meshes[2, 2], (2, 2), OTHER_ARCHS,
+                                       serve=False)
+    except Exception:
+        out["error"] = traceback.format_exc()
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# hymba, xlstm and whisper across a 'model' axis
+# ---------------------------------------------------------------------------
+#: the archs of ``tests/test_torch_model_axis_recurrent.py``: reduced
+#: hymba; hymba with 5 heads and one KV head, which 'model' 2 and 4 do not
+#: divide (every rank forms every head, wo's rows split mid-head); reduced
+#: xlstm; xlstm with 2 heads, which 'model' 4 does not divide (every rank
+#: runs every mLSTM head, the decode state's m whole); reduced whisper
+RECURRENT_ARCHS = ("hymba-1.5b", "hymba-5-heads", "xlstm-1.3b",
+                   "xlstm-2-heads", "whisper-small")
+#: whisper's encoder frames, and its decode steps' cache and count
+REC_FRAMES, REC_CACHE, REC_STEPS = 32, 16, 8
+
+
+def recurrent_config(configs_mod, builders_mod, arch: str):
+    """`arch`'s reduced config from either package's ``configs`` and
+    ``models.builders``; "hymba-5-heads" is reduced hymba with 5 heads of
+    16 and one KV head, "xlstm-2-heads" reduced xlstm with 2 heads of
+    32."""
+    if arch == "hymba-5-heads":
+        return builders_mod.sandwich_arch(
+            "hymba-5-heads", "hybrid", 5, 64, 5, 1, 128, 512, head_dim=16,
+            local_window=32, ssm_state=8, n_globals=3, tied=True)
+    if arch == "xlstm-2-heads":
+        return builders_mod.xlstm_arch("xlstm-2-heads", 4, 64, 2, 512,
+                                       slstm_every=2, tied=True)
+    return configs_mod.get_reduced(arch)
+
+
+def rec_batch(m, b: int = MODEL_BATCH, s: int = MODEL_SEQ) -> dict:
+    """{"tokens", "labels"[, "frames" (B, REC_FRAMES, D) float32]} as
+    numpy arrays."""
+    toks = model_tokens(m.vocab, b, s)
+    out = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+    if m.enc_segments is not None:
+        out["frames"] = np.random.default_rng(9).normal(
+            size=(b, REC_FRAMES, m.d_model)).astype(np.float32)
+    return out
+
+
+def _torch_batch(batch: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def _heads_seen():
+    """The q heads of every attention call through ``kernels/ops``."""
+    from repro_torch.kernels import ops
+
+    seen, fa = [], ops._fa
+
+    class Rec:
+        @staticmethod
+        def flash_attention(q, k, v, **kw):
+            seen.append(q.shape[1])
+            return fa.flash_attention(q, k, v, **kw)
+
+    ops._fa = Rec
+    try:
+        yield seen
+    finally:
+        ops._fa = fa
+
+
+def whisper_decode(m, params, mesh, sharded: bool):
+    """REC_STEPS decode steps of whisper from empty caches of REC_CACHE
+    slots after one ``encode`` of the frames (every rank the whole
+    batch's), the steps' logits (B, REC_STEPS, V) and the states'
+    bytes."""
+    from repro_torch.train import shardings as SH
+
+    batch = _torch_batch(rec_batch(m))
+    p = SH.shard_params(params, mesh) if sharded else params
+    with torch.no_grad(), SH.use_mesh(mesh):
+        enc = MB.encode(p, m, batch["frames"])
+    states = MB.init_decode_state(params, m, MODEL_BATCH, REC_CACHE)
+    if sharded:
+        states = SH.shard_states(states, mesh, MODEL_BATCH)
+    dec = TS.make_decode_step(m, mesh=mesh,
+                              cache_len=REC_CACHE if sharded else None)
+    seen = []
+    for t in range(REC_STEPS):
+        logits, states = dec(p, batch["tokens"][:, t:t + 1], t, states,
+                             enc_out=enc)
+        seen.append(logits[:, 0].numpy().copy())
+    return np.stack(seen, 1), _nbytes(states)
+
+
+#: the archs whose steps across 'model' raised before they were ported
+#: there; ``tests/test_torch_model_axis.py``, ``_train.py`` and
+#: ``test_torch_shardings.py`` run each once on a small mesh
+OTHER_ARCHS = ("hymba-1.5b", "xlstm-1.3b", "whisper-small")
+
+
+def recurrent(mesh, shape, archs=RECURRENT_ARCHS, serve: bool = True,
+              train: bool = True):
+    """Each arch of `archs` on this rank's blocks beside one rank: with
+    `serve` the prefill's logits (and the q heads of its attention
+    calls), the Engine's tokens (hymba, xlstm) or whisper's decode steps,
+    the bytes and shapes of the blocks kept; with `train` one train step
+    (remat on, act_shard 'model'; rank 0 also the world of one's)."""
+    from repro_torch.models import builders
+    from repro_torch.train import shardings as SH
+
+    one = Sizes(data=shape[0], model=1)
+    out = {}
+    for arch in archs:
+        m = recurrent_config(configs, builders, arch)
+        params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
+        rec = out[arch] = {}
+        if train:
+            tb = _torch_batch(rec_batch(m))
+            rec["train"] = train_sharded(m, params, mesh, batch=tb,
+                                         remat=True, act_shard="model")
+            if dist.get_rank() == 0:
+                rec["one"] = train_one(m, params, one, batch=tb)
+        if not serve:
+            continue
+        local = SH.shard_params(params, mesh)
+        batch = _torch_batch(rec_batch(m))
+        del batch["labels"]
+        with _heads_seen() as heads:
+            got = TS.make_prefill_step(m, mesh=mesh)(local, batch)
+        want = TS.make_prefill_step(m, mesh=one)(params, batch)
+        rec.update(logits=got.numpy(), one_logits=want.numpy(),
+                   heads=sorted(set(heads)), param_bytes=_nbytes(local),
+                   shapes=[tuple(t.shape) for t in tree_leaves(local)])
+        if m.enc_segments is None:
+            toks, iters, pbytes, sbytes = _engine_tokens(m, params, mesh)
+            rec.update(tokens=toks, iters=iters, state_bytes=sbytes,
+                       one_tokens=_engine_tokens(m, params, one)[0])
+        else:
+            rec["decode"], rec["state_bytes"] = whisper_decode(
+                m, params, mesh, True)
+            rec["one_decode"] = whisper_decode(m, params, one, False)[0]
+            try:        # the Engine passes no enc_out (ROADMAP Queue 3 item 7)
+                _engine_tokens(m, params, mesh)
+            except ValueError as e:
+                rec["engine_error"] = str(e)
+    return out
+
+
+def recurrent_main(rank: int, world: int, store_path: str,
+                   out_dir: str) -> None:
+    torch.set_num_threads(1)
+    init_process_group("gloo", dist.FileStore(store_path, world), rank,
+                       world, timeout_s=120)
+    out = {}
+    try:
+        for shape in MODEL_MESHES:
+            mesh = make_host_mesh(shape, device="cpu")
+            out[shape] = dict(coord=tuple(mesh.get_coordinate()),
+                              runs=recurrent(mesh, shape))
+    except Exception:
+        out["error"] = traceback.format_exc()
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def steps_main(rank: int, world: int, store_path: str,
+               out_dir: str) -> None:
+    """OTHER_ARCHS served and trained once on a (1, world) mesh."""
+    torch.set_num_threads(1)
+    init_process_group("gloo", dist.FileStore(store_path, world), rank,
+                       world, timeout_s=120)
+    out = {}
+    try:
+        mesh = make_host_mesh((1, world), device="cpu")
+        out["runs"] = recurrent(mesh, (1, world), OTHER_ARCHS)
     except Exception:
         out["error"] = traceback.format_exc()
     with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
@@ -683,6 +872,7 @@ def main(rank: int, world: int, store_path: str, out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    {("model",): model_axis_main, ("train",): model_axis_train_main}.get(
+    {("model",): model_axis_main, ("train",): model_axis_train_main,
+     ("recurrent",): recurrent_main, ("steps",): steps_main}.get(
         tuple(sys.argv[5:]), main)(
         int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

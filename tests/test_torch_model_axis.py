@@ -24,9 +24,10 @@ for bit and ``train_gan`` at batch 32 stays within the reference's
 tolerance.  Beside them the reference runs the same prefills and its
 ``moe_apply`` on its 4-device meshes in a subprocess
 (``XLA_FLAGS=--xla_force_host_platform_device_count=4``): the port's
-logits and layer within 1e-4 of them.  Hymba, xlstm and whisper on a
-'model' axis larger than 1 raise, naming ROADMAP item 6c; training there
-is ``tests/test_torch_model_axis_train.py``'s.
+logits and layer within 1e-4 of them.  On (2, 2) the ranks also serve
+and train reduced hymba, xlstm and whisper once against one rank (their
+parity in full is ``tests/test_torch_model_axis_recurrent.py``'s);
+training there is ``tests/test_torch_model_axis_train.py``'s.
 
 The ranks alone:
 ``for r in 0 1 2 3; do PYTHONPATH=src python tests/_torch_ranks.py $r 4
@@ -45,7 +46,7 @@ import torch
 
 from repro_torch import configs as TC
 from repro_torch.core import prng
-from repro_torch.launch.serve import Engine
+from repro_torch.launch.serve import Engine, Request
 from repro_torch.models import base as MB
 from repro_torch.optim import tree_leaves
 from repro_torch.train import shardings as SH
@@ -54,7 +55,7 @@ from repro_torch.train import step as TS
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tests"))
 from _torch_ranks import (ENGINE, MODEL_ARCHS, MODEL_MESHES,  # noqa: E402
-                          RING_CACHES, Sizes)
+                          OTHER_ARCHS, RING_CACHES, Sizes)
 
 WORLD = 4
 TIMEOUT_S = 240
@@ -376,26 +377,49 @@ def test_cache_blocks_combine_to_the_whole_cache(ring, start):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
-def test_training_on_a_model_axis_raises():
-    """Training there (``tests/test_torch_model_axis_train.py``) builds
-    for the dense and MoE decoders and raises for hymba, xlstm and
-    whisper, naming ROADMAP item 6c."""
-    step, _ = TS.make_train_step(TC.get_reduced("stablelm-1.6b"),
-                                 mesh=MESH22)
-    assert callable(step)
-    for arch in ("hymba-1.5b", "xlstm-1.3b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="item 6c"):
-            TS.make_train_step(TC.get_reduced(arch), mesh=MESH22)
+def test_training_on_a_model_axis_raises(world):
+    """Training there (``tests/test_torch_model_axis_train.py``,
+    ``tests/test_torch_model_axis_recurrent.py``) builds for every ported
+    arch: the dense and MoE decoders and hymba, xlstm and whisper (ROADMAP
+    Queue 1 item 6c, done); on the (2, 2) world one train step of each of
+    the last three gives one rank's loss within 1e-5."""
+    for arch in ("stablelm-1.6b",) + OTHER_ARCHS:
+        step, _ = TS.make_train_step(TC.get_reduced(arch), mesh=MESH22)
+        assert callable(step) and callable(step.loss_and_grads)
+    for arch in OTHER_ARCHS:
+        want = world[0][0]["other_archs"][arch]["one"]["loss"]
+        for r in range(WORLD):
+            got = world[0][r]["other_archs"][arch]["train"]
+            assert abs(got["loss"] - want) <= 1e-5 * abs(want)
+            assert abs(got["step_loss"] - want) <= 1e-5 * abs(want)
 
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-1.3b",
                                   "whisper-small"])
-def test_other_archs_on_a_model_axis_raise(arch):
+def test_other_archs_on_a_model_axis_raise(world, arch):
+    """Their prefill and decode steps build on a 'model' axis and run on
+    the (2, 2) world: one rank's prefill logits within 1e-5·max(1,
+    max|logit|), hymba's and xlstm's ``Engine`` one rank's tokens,
+    whisper's decode steps one rank's logits.  Whisper's ``Engine`` passes
+    no encoder output and fails at its first step there as on one rank
+    (the reference's, ROADMAP Queue 3 item 7)."""
     m = TC.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        TS.make_prefill_step(m, mesh=MESH22)
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        TS.make_decode_step(m, mesh=MESH22, cache_len=16)
-    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        Engine(m, params, 2, 16, mesh=MESH22, device="cpu")
+    assert callable(TS.make_prefill_step(m, mesh=MESH22))
+    assert callable(TS.make_decode_step(m, mesh=MESH22, cache_len=16))
+    for r in range(WORLD):
+        seen = world[0][r]["other_archs"][arch]
+        want = seen["one_logits"]
+        assert np.abs(seen["logits"] - want).max() <= 1e-5 * _scale(want)
+        if m.enc_segments is None:
+            assert seen["iters"] == 8
+            assert seen["tokens"] == seen["one_tokens"]
+            continue
+        want = seen["one_decode"]
+        assert np.abs(seen["decode"] - want).max() <= 1e-5 * _scale(want)
+        assert "enc_out" in seen["engine_error"]
+    if m.enc_segments is not None:
+        params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
+        eng = Engine(m, params, 2, 16, device="cpu")
+        eng.submit(Request(rid=0, prompt=[1, 2], max_new=2))
+        with pytest.raises(ValueError, match="enc_out"):
+            eng.step()

@@ -427,7 +427,8 @@ def test_meta_reaches_no_card_check(monkeypatch, no_launch):
     monkeypatch.setattr(build, "check_card", boom)
     monkeypatch.setattr(build, "load", boom)
     m = TC.get_reduced("hymba-1.5b")
-    case = TTS.build_case(m, Shape("t", 64, 2, "train"), remat=False)
+    case = TTS.build_case(m, Shape("t", 64, 2, "train"), remat=False,
+                          dtype=torch.float32)
     t = op_cost.analyze(case.fn, *case.args)
     assert t["flops_by_unit"]["tf32x3"] > 0       # flash, forward only
 
@@ -443,9 +444,9 @@ def test_param_structs_make_no_draw(monkeypatch):
     monkeypatch.setattr(prng, "uniform", no_draw)
     for arch in ("hymba-1.5b", "mixtral-8x7b", "whisper-small"):
         m = TC.get_arch(arch)
-        p = TTS.param_structs(m)
+        p = TTS.param_structs(m)         # bf16 by default, the reference's
         leaves = [t for t in jax.tree.leaves(p, is_leaf=torch.is_tensor)]
-        assert all(t.is_meta and t.dtype == torch.float32 for t in leaves)
+        assert all(t.is_meta and t.dtype == torch.bfloat16 for t in leaves)
 
 
 def test_meta_shapes_are_the_cpu_draws_shapes_and_the_bits_stay():

@@ -12,7 +12,8 @@ reference's, on one process.
   following the task mesh, and ``pad_tasks`` held to the reference's
   under the same fake mesh.
 - The meshes of one rank: a world of one started from a store, the
-  production meshes' errors, 'model' > 1 execution raising.
+  production meshes' errors; hymba's, xlstm's and whisper's steps on a
+  'model' axis, run on two gloo ranks.
 """
 import jax
 import numpy as np
@@ -252,23 +253,62 @@ def test_make_host_mesh_rejects_oversized_shape():
         == {"data": n}
 
 
-def test_model_axis_execution_raises():
-    """A 'model' axis larger than 1 serves and trains the dense and MoE
-    decoders (``tests/test_torch_model_axis.py``,
-    ``tests/test_torch_model_axis_train.py``); hymba's, xlstm's and
-    whisper's train, prefill and decode steps there raise (ROADMAP Queue
-    1 item 6c), and stablelm's train step builds."""
+def test_model_axis_execution_raises(tmp_path):
+    """A 'model' axis larger than 1 serves and trains every ported arch
+    (``tests/test_torch_model_axis.py``, ``_train.py``, ``_recurrent.py``):
+    hymba's, xlstm's and whisper's train, prefill and decode steps build
+    there (ROADMAP Queue 1 item 6c, done) and, on two gloo ranks of a
+    (1, 2) mesh, run: the prefill's logits within 1e-5·max(1, max|logit|)
+    and the train step's loss within 1e-5 relative of one rank's,
+    hymba's and xlstm's ``Engine`` one rank's tokens.  The decode step
+    still needs the states' cache length there, and 'model' of size 1
+    executes."""
+    import os
+    import pathlib
+    import pickle
+    import subprocess
+    import sys
+
     mesh = AbstractMesh((2, 2), ("data", "model"))
-    m = TC.get_reduced("stablelm-1.6b")
-    step, optim = TTS.make_train_step(m, mesh=mesh)
-    assert callable(step) and callable(step.loss_and_grads)
-    for arch in ("hymba-1.5b", "xlstm-1.3b", "whisper-small"):
-        for make in (TTS.make_train_step, TTS.make_prefill_step,
-                     TTS.make_decode_step):
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1 item 6c"):
-                make(TC.get_reduced(arch), mesh=mesh)
+    arches = ("hymba-1.5b", "xlstm-1.3b", "whisper-small")
+    for arch in ("stablelm-1.6b",) + arches:
+        m = TC.get_reduced(arch)
+        step, _ = TTS.make_train_step(m, mesh=mesh)
+        assert callable(step) and callable(step.loss_and_grads)
+        assert callable(TTS.make_prefill_step(m, mesh=mesh))
+        assert callable(TTS.make_decode_step(m, mesh=mesh, cache_len=16))
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(
+        root / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    ranks = [subprocess.Popen(
+        [sys.executable, str(root / "tests" / "_torch_ranks.py"), str(r),
+         "2", str(tmp_path / "store"), str(tmp_path), "steps"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in ranks]
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(ranks, logs):
+        assert p.returncode == 0, log.decode(errors="replace")[-4000:]
+    seen = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            seen.append(pickle.load(f))
+    assert "error" not in seen[0] and "error" not in seen[1], seen
+    for arch in arches:
+        one = seen[0]["runs"][arch]["one"]["loss"]
+        for rec in (seen[r]["runs"][arch] for r in range(2)):
+            want = rec["one_logits"]
+            scale = max(1.0, float(np.abs(want).max()))
+            assert np.abs(rec["logits"] - want).max() <= 1e-5 * scale
+            assert abs(rec["train"]["loss"] - one) <= 1e-5 * abs(one)
+            if "tokens" in rec:
+                assert rec["tokens"] == rec["one_tokens"]
     # the decode step needs the states' cache length there
+    m = TC.get_reduced("stablelm-1.6b")
     with pytest.raises(ValueError, match="cache_len"):
         TTS.make_decode_step(m, mesh=mesh)
     # 'model' of size 1 executes
