@@ -399,6 +399,17 @@ bytes kept to the spec blocks' (whisper's table stays whole).  Each
 path's ms and its collectives' share, and each rank's peak memory,
 beside the card's name and power limit.
 
+Then the cost tools across a mesh (phase s4): ``launch/perf
+--mesh-shape 1x2 --dtype float32`` counts stablelm-1.6b's prefill (2 x
+2048) and train step (2 x 2048, remat, act_shard 'model') as rank 0 of
+a fake process group of 2 on meta (``launch/mesh.counting_world``), in
+two processes started with the script beside s2's; their collective
+calls and bytes equal, exactly, what phase u measured on each rank (the
+train step's global norm included), printed beside each rank's
+``max_memory_allocated`` and the counted peak, phase u's ms and the
+counted ``t_bound``, and the card's torch's process-group backends
+(the fake one among them).
+
 Exits non-zero on any failure, and when no CUDA device is present.  The
 last line of output is ``{"ok": true, "device": {...}}``; the lines before
 it are the kernel table (JSON) and the card's name and power limit.
@@ -414,6 +425,7 @@ import gc
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -5510,10 +5522,13 @@ def u_prefill(m, params, shape, mesh=None) -> dict:
         batch["frames"] = u_frames(m, shape[0])
     zero_counts()
     got = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with recorded_kernels() as seen:
         split = u_timed_split(lambda: got.append(step(params, batch)))
     out = dict(logits=got[0].cpu(), heads=[h for h, _, _ in seen["flash"]],
-               kernels=u_kernels(seen), launches=counts())
+               kernels=u_kernels(seen), launches=counts(),
+               max_memory_allocated=torch.cuda.max_memory_allocated())
     if mesh is not None:
         return dict(out, split=split, ms=split["ms"])
     torch.cuda.synchronize()
@@ -5638,32 +5653,6 @@ def u_timed_split(fn) -> dict:
     return out
 
 
-def u_blocks_bytes(mesh, tree, specs) -> int:
-    """The bytes of this rank's blocks of every tensor leaf of the full
-    `tree` under `specs`, from the leaves' shapes and the mesh's axis
-    sizes."""
-    leaves = [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
-    specs = _spec_leaves(specs)
-    assert len(leaves) == len(specs), (len(leaves), len(specs))
-    total = 0
-    for t, spec in zip(leaves, specs):
-        n = t.element_size()
-        for dim, entry in zip(t.shape, spec):
-            n *= dim // SH.axis_size(mesh, SH.norm_axes(entry, mesh) or ())
-        total += n
-    return total
-
-
-def _spec_leaves(specs) -> list:
-    if isinstance(specs, SH.P):
-        return [specs]
-    if isinstance(specs, dict):
-        return [p for v in specs.values() for p in _spec_leaves(v)]
-    if isinstance(specs, (list, tuple)):
-        return [p for v in specs for p in _spec_leaves(v)]
-    return []
-
-
 def _tensors_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
                if isinstance(t, torch.Tensor))
@@ -5696,7 +5685,7 @@ def u_model(m, mesh, rank: int, prefill_shape, engine: bool,
     full, init_s = u_init(m)
     specs = SH.param_specs(full, mesh)
     out = dict(init_s=init_s, full_param_bytes=_tensors_bytes(full),
-               spec_block_bytes=u_blocks_bytes(mesh, full, specs),
+               spec_block_bytes=SH.block_bytes(full, specs, mesh),
                n_layers=m.n_layers, expect=u_expect(m))
     if rank == 0 and (prefill_shape or decode):
         one = {}
@@ -5721,16 +5710,16 @@ def u_model(m, mesh, rank: int, prefill_shape, engine: bool,
         full_states = MB.init_decode_state(full, m, U_ENGINE["slots"],
                                            U_ENGINE["cache_len"])
         out.update(state_bytes=_tensors_bytes(eng.states),
-                   state_spec_block_bytes=u_blocks_bytes(
-                       mesh, full_states, SH.state_specs(
-                           full_states, mesh, U_ENGINE["slots"])))
+                   state_spec_block_bytes=SH.block_bytes(
+                       full_states, SH.state_specs(
+                           full_states, mesh, U_ENGINE["slots"]), mesh))
         del full_states
     else:
         local = SH.shard_params(full, mesh)
     if decode:
         full_states = MB.init_decode_state(full, m, 1, U_ENGINE["cache_len"])
-        out["state_spec_block_bytes"] = u_blocks_bytes(
-            mesh, full_states, SH.state_specs(full_states, mesh, 1))
+        out["state_spec_block_bytes"] = SH.block_bytes(
+            full_states, SH.state_specs(full_states, mesh, 1), mesh)
         del full_states
     del full
     gc.collect()
@@ -5792,7 +5781,7 @@ def _replicated_sha256(tree, specs, mesh) -> dict:
 
     out = {}
     for i, (t, spec) in enumerate(zip(tree_leaves(tree),
-                                      _spec_leaves(specs))):
+                                      SH.spec_leaves(specs))):
         if all(SH.norm_axes(e, mesh) is None for e in spec):
             out[i] = hashlib.sha256(t.detach().cpu().numpy().tobytes()
                                     ).hexdigest()
@@ -5816,7 +5805,7 @@ def u_world_grads(m, full, batch, specs, mesh, rank: int,
     one = dict(loss=float(loss), grad_norm=float(global_norm(g)),
                norms=[float(torch.linalg.vector_norm(x)) for x in leaves],
                blocks=[SH.local_block(x, sp, mesh).cpu()
-                       for x, sp in zip(leaves, _spec_leaves(specs))])
+                       for x, sp in zip(leaves, SH.spec_leaves(specs))])
     del g, leaves
     gc.collect()
     torch.cuda.empty_cache()
@@ -5851,8 +5840,9 @@ def u_train(m, mesh, local, specs, one: dict, batch) -> dict:
     counted from zero just before it, the flash heads and MoE routes
     recorded and the collectives timed, forward and backward apart
     (``u_timed_split``); its loss, global norm and every gradient block
-    held to the world of one's `one` (``u_world_grads``); AdamW's update
-    with the global norm of the blocks, timed; the bytes of params, mu
+    held to the world of one's `one` (``u_world_grads``); the global
+    norm of the blocks with its collectives timed (``norm_split``);
+    AdamW's update with it, timed; the bytes of params, mu
     and nu; the peak memory and the sha256 of every replicated leaf
     after the step."""
     step, optim = TS.make_train_step(m, mesh=mesh)
@@ -5867,7 +5857,9 @@ def u_train(m, mesh, local, specs, one: dict, batch) -> dict:
     launches = counts()
     heads = [h for h, _, _ in seen["flash"]]
     loss, grads = got
-    norm = step.grad_norm(grads)
+    norms = []
+    norm_split = u_timed_split(lambda: norms.append(step.grad_norm(grads)))
+    norm = norms[0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     optim.update_in_place(grads, opt, local, norm=norm)
@@ -5885,7 +5877,8 @@ def u_train(m, mesh, local, specs, one: dict, batch) -> dict:
         world_grad_norm=one["grad_norm"], max_grad_block_err=max(errs),
         worst_leaf=int(np.argmax(errs)), n_leaves=len(errs),
         ms_per_step=split["ms"] + update_ms, update_ms=update_ms,
-        split=split, launches=launches, heads=sorted(set(heads)),
+        split=split, norm_split=norm_split, launches=launches,
+        heads=sorted(set(heads)),
         flash_launches=len(heads), kernels=u_kernels(seen),
         routes=[r.cpu() for r in routes],
         param_bytes=_tensors_bytes(local), mu_bytes=_tensors_bytes(opt.mu),
@@ -5996,6 +5989,7 @@ def u_summary(ranks: list) -> dict:
             run, pre = dict(r[name]), r[name]["prefill"]
             run["prefill"] = dict(
                 ms=pre["ms"], split=pre["split"], launches=pre["launches"],
+                max_memory_allocated=pre["max_memory_allocated"],
                 heads=sorted(set(pre["heads"])),
                 flash_launches=len(pre["heads"]), kernels=pre["kernels"],
                 routing_flips=routing_flips(pre["routes"], one[name][
@@ -6224,6 +6218,115 @@ def phase_u(t1_state: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase s4: the cost tools across a mesh (launch/perf --mesh-shape) beside
+# phase u's measured collectives
+# ---------------------------------------------------------------------------
+#: phase u's stablelm cells that s4 counts: label -> (shape name, (B, S))
+S4_CELLS = {"prefill": ("prefill_32k", U_PREFILL),
+            "train": ("train_4k", U_LM_TRAIN)}
+
+
+def start_s4() -> tuple:
+    """Phase s4's counts, started with the script beside s2's (they need
+    no card, and the script's own process will hold t1's group, which a
+    counting world may not meet): ``launch/perf --mesh-shape 1xU_RANKS
+    --dtype float32`` on U_ARCH's S4_CELLS (remat on, act_shard 'model',
+    one microbatch: phase u's knobs), one process a cell.  Returns ({label:
+    (the row's file, the process)}, their directory)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               OMP_NUM_THREADS="1")
+    tmp = tempfile.mkdtemp(prefix="phase_s4_")
+    procs = {}
+    for label, (name, (b, s_)) in S4_CELLS.items():
+        path = os.path.join(tmp, f"{label}.jsonl")
+        procs[label] = (path, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.perf", "--arch",
+             U_ARCH, "--shape", name, "--batch", str(b), "--seq", str(s_),
+             "--mesh-shape", f"1x{U_RANKS}", "--dtype", "float32", "--out",
+             path], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs, tmp
+
+
+def s4_rows(started: tuple) -> dict:
+    """Each S4_CELLS row of the processes `start_s4` started."""
+    rows = {}
+    for label, (path, p) in started[0].items():
+        log = p.communicate(timeout=300)[0]
+        assert p.returncode == 0, log[-4000:]
+        with open(path) as fh:
+            rows[label] = json.loads(fh.readline())
+    return rows
+
+
+def stop_s4(started: tuple) -> None:
+    """Ends `start_s4`'s processes where they still run and removes their
+    directory."""
+    for _, p in started[0].values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    shutil.rmtree(started[1], ignore_errors=True)
+
+
+def phase_s4(model_run: dict, started: tuple) -> dict:
+    """Phase s4: the counted collectives of phase u's stablelm prefill and
+    train step on its (1, U_RANKS) mesh (`start_s4`'s processes, rank 0
+    of a fake world of U_RANKS on meta) held equal to what phase u
+    measured on each rank: its ``PAR._all_gather`` and ``_all_reduce``
+    calls and the bytes of their results, the train step's global norm
+    (``norm_split``) included; beside them each rank's
+    ``max_memory_allocated`` against the counted peak and phase u's ms
+    against the counted ``t_bound``, with the card's name and power
+    limit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed import fake_pg
+
+    t0 = time.perf_counter()
+    rows = s4_rows(started)
+    out = dict(fake_backend=dict(module=fake_pg.__name__,
+                                 torch=torch.__version__,
+                                 backends=list(dist.Backend.backend_list)),
+               card=smi(), counted={k: {f: r[f] for f in (
+                   "n_coll", "coll_bytes", "collectives", "bytes_per_device",
+                   "t_bound", "t_collective_s", "bottleneck", "trace_s",
+                   "mesh", "rank")} for k, r in rows.items()}, ranks={})
+    failed = []
+    for name, r in model_run["ranks"].items():
+        lm = r["lm"]
+        measured = {"prefill": (lm["prefill"]["split"], None,
+                                lm["prefill"]["ms"],
+                                lm["prefill"]["max_memory_allocated"]),
+                    "train": (lm["train"]["split"],
+                              lm["train"]["norm_split"],
+                              lm["train"]["ms_per_step"],
+                              lm["train"]["max_memory_allocated"])}
+        out["ranks"][name] = {}
+        for label, (split, norm, ms, peak) in measured.items():
+            row = rows[label]
+            calls = split["collective_calls"] + (
+                norm["collective_calls"] if norm else 0)
+            n_bytes = split["collective_bytes"] + (
+                norm["collective_bytes"] if norm else 0)
+            rec = dict(measured_calls=calls, counted_calls=row["n_coll"],
+                       measured_bytes=n_bytes,
+                       counted_bytes=row["coll_bytes"],
+                       max_memory_allocated=peak,
+                       counted_peak_bytes=row["bytes_per_device"],
+                       ms=ms, t_bound_ms=1e3 * row["t_bound"],
+                       ms_over_t_bound=ms / (1e3 * row["t_bound"]))
+            out["ranks"][name][label] = rec
+            if calls != row["n_coll"] or n_bytes != row["coll_bytes"]:
+                failed.append((name, label, rec))
+    out["seconds"] = time.perf_counter() - t0
+    print("phase s4: " + json.dumps(out), flush=True)
+    assert not failed, failed
+    print(f"phase s4: {out['seconds']:.1f} s on {out['card']}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the measurements to this JSON")
@@ -6248,15 +6351,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     counting = start_counting()
+    s4 = start_s4()
     try:
-        return run_phases(args, counting)
+        return run_phases(args, counting, s4)
     finally:
         if counting[0].poll() is None:
             counting[0].kill()
             counting[0].wait()
+        stop_s4(s4)
 
 
-def run_phases(args, counting: tuple) -> int:
+def run_phases(args, counting: tuple, s4: tuple) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -6566,6 +6671,12 @@ def run_phases(args, counting: tuple) -> int:
     torch.cuda.empty_cache()
     model_run = phase_u(t1_state)
     u_ranks = list(model_run["ranks"].values())
+
+    elapsed("phase s4")
+    # phase s4: launch/perf's counts of phase u's stablelm steps on its
+    # mesh (made on meta in processes started with the script), beside
+    # what phase u measured
+    cost_mesh = phase_s4(model_run, s4)
     print("init seconds on the card: " + json.dumps(INIT_S), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to here",
           flush=True)
@@ -6865,7 +6976,7 @@ def run_phases(args, counting: tuple) -> int:
                        "whisper_grad": whisper_grad,
                        "whisper_train": whisper_train, "qwen": qwen,
                        "phase_s": cost, "phase_t": mesh_run,
-                       "phase_u": model_run,
+                       "phase_u": model_run, "phase_s4": cost_mesh,
                        "init_s": INIT_S,
                        "build": build.build_info,
                        "ptxas_tensor_core_kernels": spills},

@@ -1,5 +1,5 @@
-"""Phase u of ``chip_smoke.py`` alone, on one H100.  A probe, not part of
-the package:
+"""Phases u and s4 of ``chip_smoke.py`` alone, on one H100.  A probe, not
+part of the package:
 
     python3 src/repro_torch/kernels/probes/phase_u.py [--out JSON]
 
@@ -11,8 +11,11 @@ im2col (t1's, which phase u holds its ranks to) with no mesh, then runs
 stablelm-1.6b, the cut mixtral-8x7b, hymba-1.5b, the cut xlstm-1.3b and
 whisper-small, the Engine, whisper's decode steps, train_gan's step)
 that both are held to, then each model's train step on the blocks
-against the world of one's gradient.  Prints phase u's JSON and writes
-it to ``--out`` where it is given.  Needs the card.
+against the world of one's gradient; then ``chip_smoke.phase_s4``:
+``launch/perf --mesh-shape 1x2`` counts stablelm's prefill and train
+step on meta, their collectives held to what phase u measured.  Prints
+both phases' JSON and writes it to ``--out`` where it is given.  Needs
+the card.
 """
 from __future__ import annotations
 
@@ -41,6 +44,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    s4 = cs.start_s4()
+    try:
+        return run(args, t0, s4)
+    finally:
+        cs.stop_s4(s4)
+
+
+def run(args, t0: float, s4: tuple) -> int:
     loads = (cs.fm.load_library, cs.fd.load_library, cs.fa.load_library,
              cs.ss.load_library, cs.sl.load_library)
     with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
@@ -53,6 +64,7 @@ def main() -> int:
             for r in engine.explore_batch(tasks, seed=0)]
     del engine
     out = cs.phase_u({"sels": {cs.N_TASKS: sels}})
+    out["phase_s4"] = cs.phase_s4(out, s4)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as fh:

@@ -1,19 +1,27 @@
-"""Dry-run of every (architecture x input shape) cell on one H100: each
-cell's step run once on the ``meta`` device under ``utils/op_cost``'s
-counter, its roofline on the card (``utils/roofline``), and whether its
-peak of live bytes fits the card.
+"""Dry-run of every (architecture x input shape) cell on one H100 or on
+the production meshes of them: each cell's step run once on the ``meta``
+device under ``utils/op_cost``'s counter, its roofline on the card
+(``utils/roofline``), and whether its peak of live bytes fits the card.
 
 The port's counterpart of the reference's ``launch/dryrun.py``, which
-lowers and compiles each cell on TPU meshes.  Here there is one card
-(``chips = 1``) and no ``--mesh`` yet: the per-device bytes of a
-sharded cell wait for ROADMAP Queue 1 item 7.  No card is
-needed: meta tensors carry shapes and no memory, so every cell runs on
-any host, the 33B-param archs included.
+lowers and compiles each cell on TPU meshes.  ``--mesh card`` (the
+default) counts the one-card step (``chips = 1``).  ``single`` counts
+one rank of the (data 16, model 16) mesh, ``multi`` one of the (pod 2,
+data 16, model 16) mesh and ``both`` the two, as the reference's
+default: each cell inside ``launch/mesh.counting_world``, a fake process
+group of 256 or 512 ranks in this process, rank 0's sharded step on its
+blocks (``train/step.build_case(mesh=)``) with its collectives counted
+by kind, and each input's per-device bytes from its specs
+(``bytes_by_part``).  The collective term reads NVLink's rate, though a
+256-card mesh spans 32 nodes: it is a floor.  No card is needed: meta
+tensors carry shapes and no memory, so every cell runs on any host, the
+33B-param archs included.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
       [--arch mixtral-8x7b ...] [--shape train_4k ...] [--micro N] \\
-      [--dtype bf16|float32] [--out results/dryrun_torch.jsonl]
+      [--mesh card|single|multi|both] [--dtype bf16|float32] \\
+      [--out results/dryrun_torch.jsonl]
 
 ``--dtype`` is the params', batches' and KV caches' dtype: bf16 by
 default, the reference's (its structs' default); float32 is the dtype
@@ -24,20 +32,25 @@ It exits 1 when a cell fails: a failure here is a bug in the port.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import json
 import os
 import sys
 import time
 import traceback
-from typing import Union
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch import configs
 from repro_torch.configs.shapes import SHAPES, Shape, applicable
 from repro_torch.configs.whisper_small import DECODER_TRAIN_LEN
+from repro_torch.launch import mesh as LM
 from repro_torch.models import base as MB
 from repro_torch.optim import tree_leaves
+from repro_torch.train import shardings as SH
 from repro_torch.train import step as TS
 from repro_torch.utils import op_cost
 from repro_torch.utils import roofline as RL
@@ -119,33 +132,49 @@ TRAIN_MICROBATCHES = {
 DTYPES = {"bf16": torch.bfloat16, "float32": torch.float32}
 
 
-def count_case(m, shape: Shape, *, microbatches: int = 1,
-               remat: bool = True, dtype=torch.bfloat16) -> dict:
-    """Build the cell's case in `dtype`, run it once under the counter:
-    its totals, its roofline terms and the trace's seconds."""
+#: ``--mesh``'s production meshes: (the record's name, multi_pod)
+MESHES = {"single": ("single_pod_16x16", False),
+          "multi": ("multi_pod_2x16x16", True)}
+
+
+def count_case(m, shape: Shape, mesh=None, *, microbatches: int = 1,
+               remat: bool = True, dtype=torch.bfloat16, fsdp: bool = True,
+               act_shard: str = "model") -> dict:
+    """Build the cell's case in `dtype` (on `mesh`: this rank's, see
+    ``build_case``), run it once under the counter: the case, its totals,
+    its roofline terms over the mesh's chips and the trace's seconds."""
     t0 = time.perf_counter()
-    case = TS.build_case(m, shape, dtype=dtype, microbatches=microbatches,
-                         remat=remat)
+    case = TS.build_case(m, shape, mesh, dtype=dtype,
+                         microbatches=microbatches, remat=remat, fsdp=fsdp,
+                         act_shard=act_shard)
     counted = op_cost.analyze(case.fn, *case.args)
-    rl = RL.from_counted(case.name, counted, 1,
-                         model_flops=model_flops_for(m, shape, case.args[0]))
-    return dict(counted=counted, roofline=rl,
-                n_params=MB.param_count(case.args[0]),
+    full = case.args[0] if case.mesh is None else TS.param_structs(m, dtype)
+    chips = int(np.prod(list((case.mesh or {}).values())))
+    rl = RL.from_counted(case.name, counted, chips,
+                         model_flops=model_flops_for(m, shape, full))
+    return dict(case=case, counted=counted, roofline=rl,
+                n_params=MB.param_count(full),
                 t_trace_s=time.perf_counter() - t0)
 
 
 def run_cell(arch: Union[str, MB.ModelCfg], shape: Union[str, Shape],
              verbose: bool = True, microbatches: int = 0,
-             dtype: str = "bf16") -> dict:
+             dtype: str = "bf16", mesh=None, mesh_name: str = "") -> dict:
     """One cell's record, the reference's fields: ``status``, ``flops``,
     ``hbm_bytes``, ``coll_bytes``, ``model_flops``, the ``row()`` terms;
     ``bytes_per_device`` the peak of live bytes, ``arg_bytes`` the
     step's inputs, ``fits`` whether the peak is at most ``CARD_BYTES``;
     ``dtype`` the structs' (a key of ``DTYPES``).  `arch` and `shape` are
-    names or a ModelCfg and a Shape."""
+    names or a ModelCfg and a Shape.  On `mesh` (named `mesh_name`, a
+    mesh of a running world) the record is the counted rank's, with
+    ``mesh``, ``chips`` the world's size, ``rank`` and ``bytes_by_part``
+    (each input's per-device bytes from its specs, ``build_case``)."""
     m = configs.get_arch(arch) if isinstance(arch, str) else arch
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     rec = {"arch": m.name, "shape": shape.name, "chips": 1, "dtype": dtype}
+    if mesh is not None:
+        rec.update(mesh=mesh_name, chips=int(np.prod(
+            list(SH.mesh_sizes(mesh).values()))))
     if not applicable(m, shape):
         rec["status"] = "skipped"
         rec["reason"] = m.notes
@@ -155,7 +184,7 @@ def run_cell(arch: Union[str, MB.ModelCfg], shape: Union[str, Shape],
                         if shape.kind == "train" else 1)
     rec["microbatches"] = microbatches
     try:
-        c = count_case(m, shape, microbatches=microbatches,
+        c = count_case(m, shape, mesh, microbatches=microbatches,
                        dtype=DTYPES[dtype])
         t, rl = c["counted"], c["roofline"]
         rec.update(
@@ -172,12 +201,36 @@ def run_cell(arch: Union[str, MB.ModelCfg], shape: Union[str, Shape],
         )
         rec["collectives"] = {k: v for k, v in t.items()
                               if k.startswith("coll")}
+        if mesh is not None:
+            rec.update(rank=c["case"].rank,
+                       bytes_by_part=c["case"].bytes_by_part,
+                       n_coll=int(t["n_coll"]))
     except Exception as e:  # a failure here is a bug in the port
         rec["status"] = "fail"
         rec["error"] = f"{type(e).__name__}: {e}"
         if verbose:
             traceback.print_exc()
     return rec
+
+
+@contextlib.contextmanager
+def counted_mesh(key: str = "card", mesh_shape: Optional[str] = None):
+    """(the records' mesh name, the mesh): one card ("card", None), the
+    production mesh ``MESHES[key]``, or a (data D, model M) mesh of
+    `mesh_shape` "DxM" (named so), the last two inside a
+    ``counting_world`` of their size, whose rank 0 this process is."""
+    if mesh_shape:
+        d, mm = (int(x) for x in mesh_shape.split("x"))
+        shape, axes, name = (d, mm), ("data", "model"), mesh_shape
+    elif key == "card":
+        yield "card", None
+        return
+    else:
+        name, multi = MESHES[key]
+        shape = (2, 16, 16) if multi else (16, 16)
+        axes = ("pod", "data", "model") if multi else ("data", "model")
+    with LM.counting_world(int(np.prod(shape))):
+        yield name, LM.make_mesh(shape, axes, device="cpu")
 
 
 def main(argv=None) -> int:
@@ -191,16 +244,25 @@ def main(argv=None) -> int:
                     help="the params' and batches' dtype (bf16, as the "
                          "reference counts; float32, as the card's LM "
                          "paths run)")
+    ap.add_argument("--mesh", choices=["card", "single", "multi", "both"],
+                    default="card",
+                    help="one H100 (card), or rank 0 of the (16, 16) "
+                         "(single) or (2, 16, 16) (multi) mesh of them, "
+                         "or both meshes")
     args = ap.parse_args(argv)
+    meshes = ["card"] if args.mesh == "card" else [
+        k for k in MESHES if args.mesh in (k, "both")]
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     n_fail = 0
     t_all = time.perf_counter()
     with open(args.out, "a") as f:
         for arch in args.arch:
-            for shape in args.shape:
-                rec = run_cell(arch, shape, microbatches=args.micro,
-                               dtype=args.dtype)
+            for shape, key in itertools.product(args.shape, meshes):
+                with counted_mesh(key) as (name, mesh):
+                    rec = run_cell(arch, shape, microbatches=args.micro,
+                                   dtype=args.dtype, mesh=mesh,
+                                   mesh_name=name)
                 f.write(json.dumps(rec) + "\n")
                 f.flush()
                 status = rec["status"]
@@ -213,10 +275,14 @@ def main(argv=None) -> int:
                              f" GB={rec['bytes_per_device'] / 1e9:.1f}"
                              f" fits={rec['fits']}"
                              f" trace={rec['t_trace_s']}s")
+                    if key != "card":
+                        extra += (f" coll={rec['coll_bytes'] / 1e9:.2f}GB"
+                                  f" n_coll={rec['n_coll']}")
                 else:
                     extra = " " + rec.get("error", rec.get("reason", ""))
-                print(f"[dryrun] {arch:22s} {shape:12s} {status:7s}{extra}",
-                      flush=True)
+                where = "" if key == "card" else f" {rec['mesh']:18s}"
+                print(f"[dryrun] {arch:22s} {shape:12s}{where} {status:7s}"
+                      f"{extra}", flush=True)
     print(f"[dryrun] {time.perf_counter() - t_all:.1f} s in all", flush=True)
     return 1 if n_fail else 0
 

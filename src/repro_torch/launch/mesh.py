@@ -13,6 +13,9 @@ environment), and a mesh built with none running starts a world of one
   make_host_mesh((2, 1))      # a submesh over ranks 0 and 1
   make_production_mesh()      # (data=16, model=16): needs 256 ranks
 
+  with counting_world(256):   # rank 0 of a world of 256 in this process
+      mesh = make_production_mesh(device="cpu")
+
 ``axis_group(mesh, name)`` is this rank's process group along one mesh
 axis ('model', 'data') or a tuple of them (the batch axes ('pod',
 'data')), with its coordinate there: the groups the layers' collectives
@@ -20,6 +23,7 @@ run over (``train/parallel``).  The rules read only the mesh.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -117,6 +121,30 @@ def flat_group(mesh):
     if len(ranks) == dist.get_world_size():
         return dist.group.WORLD
     return _FLAT_GROUPS[ranks]
+
+
+@contextlib.contextmanager
+def counting_world(world_size: int, rank: int = 0):
+    """One rank of a world of `world_size` in this process, for counting a
+    sharded step on ``meta`` (``utils/op_cost``): torch's fake process
+    group (backend "fake", ``FakeStore``), whose collectives return at
+    once and move nothing, so ``make_mesh`` builds a mesh of any size.
+    Raises if a process group is already running.  On exit the group and
+    the submesh and plane groups built under it are dropped, so a later
+    world in the process starts clean."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("counting_world: a process group is already "
+                           "running")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        _FLAT_GROUPS.clear()
+        _PLANE_GROUPS.clear()
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):

@@ -456,7 +456,7 @@ def _forward_sharded(params, m: ModelCfg, tokens, positions, use_fused, ax,
     'model', its S/m slice under 'seq' (where 'model' divides them), the
     whole under 'none', gathered again at the recompute (the reference's
     ``activation_spec``)."""
-    specs = PAR.param_layout(m, SH.current_mesh())
+    specs = PAR.current_layout(m)
     emb = PAR.unshard_data(params["embed"], specs["embed"])
     x = _embed_sharded(emb, m, tokens, ax)
     x = _run_sharded(params["segments"], specs["segments"], m.segments, x,
@@ -472,7 +472,7 @@ def _encode_sharded(params, m: ModelCfg, frames, remat: bool, use_fused,
     gathered (replicated work: the gather's gradient only cut), the
     encoder segments on this rank's blocks under the same remat and
     save points as the decoder's (``_run_sharded``), then ``ln_f``."""
-    specs = PAR.param_layout(m, SH.current_mesh())["encoder"]
+    specs = PAR.current_layout(m)["encoder"]
     enc = params["encoder"]
     pos_tab = PAR.unshard_data(enc["pos_embed"], specs["pos_embed"])
     if pos_tab.shape[0] != m.max_enc_len:
@@ -494,44 +494,69 @@ def _decode_sharded(params, m: ModelCfg, token, pos_b, states, start,
     blocks: each layer's cache block under its ``state_spec`` (S over
     'model': the ranks combine their partial softmaxes), hymba's SSM
     state and the xLSTM states the blocks of their specs (``nn/ssm``,
-    ``nn/xlstm``), a whisper decoder layer attending to `enc_out`."""
+    ``nn/xlstm``; ``_step_layout`` where a batch axis splits them), a
+    whisper decoder layer attending to `enc_out`."""
     if state_specs is None:
         raise ValueError("decode across a 'model' axis needs the states' "
                          "specs (train/step.make_decode_step's cache_len)")
-    specs = PAR.param_layout(m, SH.current_mesh())
+    mesh = SH.current_mesh()
+    specs = PAR.current_layout(m)
     emb = PAR.unshard_data(params["embed"], specs["embed"])
     x = _embed_sharded(emb, m, token, ax)
     new_states = []
     for seg_p, seg_s, seg, seg_st, seg_ss in zip(
             params["segments"], specs["segments"], m.segments, states,
             state_specs):
+        work, moved = _step_layout(seg_st, seg_ss, seg, mesh)
         for r, layers in enumerate(_sharded_layers(seg_p, seg_s, seg, ax)):
             for spec, lp, ls, st, ss in zip(seg.pattern, layers, seg_s,
-                                            seg_st, seg_ss):
+                                            work, seg_ss):
                 lp = PAR.unshard_data(lp, PAR.drop_layer_axis(ls))
-                _check_recurrent_specs(ss, spec)
                 kv_spec = (None if spec.kind in RECURRENT
                            else SH.P(*ss["kv"][0][1:]))
                 x = _decode_layer(lp, x, spec, pos_b, st, r, enc_out, start,
                                   kv_spec)
+        for stored, have, t, want in moved:
+            stored.copy_(PAR.relayout(t, want, have, mesh))
         new_states.append(_advanced(seg_st, seg))
     return _head_sharded(params, specs, emb, m, x, ax), new_states
 
 
-def _check_recurrent_specs(ss, spec: LayerSpec) -> None:
-    """Raise unless a layer's recurrent state (an xLSTM tuple, hymba's
-    SSM state) splits its non-batch dims over 'model' alone: its layers
-    step on 'model' blocks (``nn/ssm``, ``nn/xlstm``), and ``state_spec``
-    puts 'data' on a dim of 1024 or more where the batch does not divide
-    over it."""
-    mesh = SH.current_mesh()
-    leaves = ss if spec.kind in RECURRENT else ss.get("ssm") or ()
-    for leaf in leaves:
-        if any(SH.norm_axes(e, mesh) not in (None, ("model",))
-               for e in leaf[2:]):
-            raise ValueError(f"a {spec.kind} layer's decode state spec "
-                             f"{leaf} splits a dim over a batch axis; "
-                             f"its step takes 'model' blocks alone")
+def _step_layout(seg_st, seg_ss, seg: Segment, mesh) -> tuple:
+    """A segment's states in the layout its layers step on, and the
+    leaves moved there.  A recurrent state (an xLSTM tuple, hymba's SSM
+    state) steps on 'model' blocks alone (``nn/ssm``, ``nn/xlstm``); where
+    the batch does not divide over the batch axes, ``state_spec`` puts
+    'data' on a non-batch dim of 1024 or more, so such a leaf is moved
+    (``parallel.relayout``: that dim gathered over 'data') to the spec
+    ``state_spec`` gives it with the batch axes left out, and each moved
+    leaf is returned as (the stored block, its spec, the moved block, its
+    spec) for this rank's block of the new state to be written back."""
+    batch = set(SH.batch_axes(mesh))
+    steps = {a: (1 if a in batch else n)
+             for a, n in SH.mesh_sizes(mesh).items()}
+    moved = []
+
+    def move(t, have):
+        if not any(batch & set(SH.norm_axes(e, mesh) or ())
+                   for e in have[2:]):
+            return t
+        full = tuple(n * SH.axis_size(mesh, SH.norm_axes(e, mesh) or ())
+                     for n, e in zip(t.shape, have))
+        want = SH.state_spec(full, SH.Sizes(steps), full[1])
+        out = PAR.relayout(t, have, want, mesh)
+        moved.append((t, have, out, want))
+        return out
+
+    work = []
+    for st, ss, spec in zip(seg_st, seg_ss, seg.pattern):
+        if spec.kind in RECURRENT:
+            st = tuple(move(t, h) for t, h in zip(st, ss))
+        elif st.get("ssm") is not None:
+            st = dict(st, ssm=tuple(move(t, h)
+                                    for t, h in zip(st["ssm"], ss["ssm"])))
+        work.append(st)
+    return work, moved
 
 
 def _decode_layer(lp, x, spec: LayerSpec, pos_b, st, r: int, enc_out, start,

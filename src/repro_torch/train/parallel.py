@@ -1,12 +1,13 @@
 """The collectives of serving and training across a 'model' axis, and
 the layout the layers read.
 
-Each rank holds its block of every param leaf (``param_specs(fsdp=True)``)
-and decode-state leaf (``state_specs``), ``train/shardings.shard_params``
-and ``shard_states``.  The layers compute on those blocks and meet the
-other ranks' through c10d's ``all_gather`` and ``all_reduce`` alone (no
-reduce-scatter: gloo has none), each wrapped as an autograd Function
-whose backward depends on what consumes its output:
+Each rank holds its block of every param leaf (``param_specs(fsdp)``,
+FSDP's by default) and decode-state leaf (``state_specs``),
+``train/shardings.shard_params`` and ``shard_states``.  The layers
+compute on those blocks and meet the other ranks' through c10d's
+``all_gather`` and ``all_reduce`` alone (no reduce-scatter: gloo has
+none), each wrapped as an autograd Function whose backward depends on
+what consumes its output:
 
   gather_dim(t, dim, group)   # the blocks of every rank, concatenated;
                               # backward: the gradient summed over the
@@ -49,9 +50,11 @@ split its rows over (FSDP's reduce-scatter) and takes the rank's block,
 and where the rows did not split (every rank computed the whole batch)
 takes the block alone.  ``finish_grads`` then sums each leaf's gradient
 over the split axes its spec does not shard, and ``global_norm`` is the
-norm of the whole gradient from the blocks.  ``param_layout(m, mesh)`` is
-the spec tree of a model's params, from their full shapes on the meta
-device.
+norm of the whole gradient from the blocks.  ``param_layout(m, mesh,
+fsdp)`` is the spec tree of a model's params and ``state_layout`` that of
+its decode states, from their full shapes on the meta device, out of a
+counter's sight; ``relayout`` moves a state leaf's block between two
+specs.
 """
 from __future__ import annotations
 
@@ -330,15 +333,6 @@ def unshard_data(tree, specs):
     return walk(tree, specs)
 
 
-def spec_leaves(specs) -> list:
-    """The ``P``s of a spec tree in ``tree_leaves``' order."""
-    if isinstance(specs, SH.P):
-        return [specs]
-    if isinstance(specs, dict):
-        return [p for v in specs.values() for p in spec_leaves(v)]
-    return [p for v in specs for p in spec_leaves(v)]
-
-
 def _by_axes(leaves, axes_of) -> dict:
     """{axes: [leaf index, ...]} of the leaves with an axes tuple."""
     groups: dict = {}
@@ -414,24 +408,74 @@ def drop_layer_axis(specs):
     return type(specs)(drop_layer_axis(v) for v in specs)
 
 
-@functools.lru_cache(maxsize=16)
-def _layout(m, sizes: tuple):
+def _param_structs(m):
     from repro_torch.core import prng
     from repro_torch.models import base as MB
 
-    class Sizes:
-        shape = dict(sizes)
-
-    structs = MB.init_params(prng.prng_key(torch.tensor(0)), m,
-                             torch.device("meta"))
-    return SH.param_specs(structs, Sizes(), fsdp=True)
+    return MB.init_params(prng.prng_key(torch.tensor(0)), m,
+                          torch.device("meta"))
 
 
-def param_layout(m, mesh):
-    """``param_specs(fsdp=True)`` of `m`'s params on `mesh`, from their
-    full shapes (``init_params`` on meta), cached by model and mesh
-    shape."""
-    return _layout(m, tuple(SH.mesh_sizes(mesh).items()))
+@functools.lru_cache(maxsize=16)
+def _layout(m, sizes: tuple, fsdp: bool):
+    return SH.param_specs(_param_structs(m), SH.Sizes(sizes), fsdp=fsdp)
+
+
+@functools.lru_cache(maxsize=16)
+def _state_layout(m, sizes: tuple, batch: int, cache_len: int):
+    from repro_torch.models import base as MB
+
+    states = MB.init_decode_state(_param_structs(m), m, batch, cache_len)
+    return SH.state_specs(states, SH.Sizes(sizes), batch)
+
+
+def _unseen(fn, *args):
+    """``fn(*args)`` with no dispatch mode in effect: the structs it makes
+    on meta are set-up, which a counter (``utils/op_cost``) running the
+    step must not see."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        return fn(*args)
+
+
+def param_layout(m, mesh, fsdp: bool = True):
+    """``param_specs(fsdp=fsdp)`` of `m`'s params on `mesh`, from their
+    full shapes (``init_params`` on meta), cached by model, mesh shape
+    and `fsdp`."""
+    return _unseen(_layout, m, tuple(SH.mesh_sizes(mesh).items()),
+                   bool(fsdp))
+
+
+def current_layout(m):
+    """``param_layout`` of `m` on the running step's mesh, by its
+    ``fsdp``."""
+    return param_layout(m, SH.current_mesh(), SH.current_fsdp())
+
+
+def state_layout(m, mesh, batch: int, cache_len: int):
+    """``state_specs`` of `m`'s decode states for `batch` lanes and a
+    cache of `cache_len` on `mesh`, from their full shapes (on meta),
+    cached by model, mesh shape, batch and cache length."""
+    return _unseen(_state_layout, m, tuple(SH.mesh_sizes(mesh).items()),
+                   int(batch), int(cache_len))
+
+
+def relayout(t: torch.Tensor, have: SH.P, want: SH.P, mesh) -> torch.Tensor:
+    """This rank's block of a leaf under `want`, from its block `t` under
+    `have`: every dim whose entries differ gathered over `have`'s axes,
+    all of them before any is cut (a dim cut first would gather other
+    ranks' different blocks), then cut to this rank's block of `want`'s.
+    No gradient (a decode step's state)."""
+    changed = [d for d, (h, w) in enumerate(zip(have, want))
+               if SH.norm_axes(h, mesh) != SH.norm_axes(w, mesh)]
+    for d in changed:
+        if SH.norm_axes(have[d], mesh) is not None:
+            t = gather_dim(t, d, axis(mesh, have[d]).group)
+    for d in changed:
+        if SH.norm_axes(want[d], mesh) is not None:
+            t = rows(t, axis(mesh, want[d]), d)
+    return t
 
 
 def batch_axes_for(mesh, batch: int):

@@ -40,6 +40,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.optim import tree_leaves
+
 
 class P(tuple):
     """A partition spec: ``P(None, "model")``, ``P(("pod", "data"), None)``.
@@ -64,22 +66,27 @@ class P(tuple):
 #: mesh: the active mesh; act_shard: the residual stream's policy; split:
 #: how many ways the running step split its batch over the batch axes (1:
 #: every rank holds the whole batch), which ``nn/moe`` reads to place the
-#: reference's token groups
-_CTX: Dict[str, Any] = {"mesh": None, "act_shard": "model", "split": 1}
+#: reference's token groups; fsdp: whether the params' blocks are
+#: ``param_specs(fsdp=True)``'s (the layers read their layout from it)
+_CTX: Dict[str, Any] = {"mesh": None, "act_shard": "model", "split": 1,
+                        "fsdp": True}
 
 ACT_SHARD = ("model", "seq", "none")
 
 
 @contextlib.contextmanager
-def use_mesh(mesh, act_shard: str = "model", split: int = 1):
+def use_mesh(mesh, act_shard: str = "model", split: int = 1,
+             fsdp: bool = True):
     """act_shard: how the residual stream is sharded at the layer
     boundaries — 'model' (d_model over 'model'), 'seq' (S over 'model')
     or 'none' (replicated); across a 'model' axis the port applies it at
-    the remat save points."""
+    the remat save points.  fsdp: the ``param_specs`` the params' blocks
+    were cut by."""
     if act_shard not in ACT_SHARD:
         raise ValueError(f"act_shard {act_shard!r} is not one of {ACT_SHARD}")
     prev = dict(_CTX)
-    _CTX.update(mesh=mesh, act_shard=act_shard, split=int(split))
+    _CTX.update(mesh=mesh, act_shard=act_shard, split=int(split),
+                fsdp=bool(fsdp))
     try:
         yield
     finally:
@@ -96,6 +103,18 @@ def current_split() -> int:
 
 def current_act_shard() -> str:
     return _CTX["act_shard"]
+
+
+def current_fsdp() -> bool:
+    return _CTX["fsdp"]
+
+
+class Sizes:
+    """A mesh that the rules read and no collective runs on: its axis
+    sizes alone, from a mapping or (name, size) pairs."""
+
+    def __init__(self, sizes):
+        self.shape = dict(sizes)
 
 
 def mesh_sizes(mesh) -> Dict[str, int]:
@@ -258,6 +277,36 @@ def state_spec(shape: Tuple[int, ...], mesh, batch: int) -> P:
             spec[i] = "model"
             used_model = True
     return P(*spec)
+
+
+def spec_leaves(specs) -> list:
+    """The ``P``s of a spec tree in ``tree_leaves``' order (a decode
+    state's ``len`` ints dropped)."""
+    if isinstance(specs, P):
+        return [specs]
+    if isinstance(specs, dict):
+        return [p for v in specs.values() for p in spec_leaves(v)]
+    if isinstance(specs, (list, tuple)):
+        return [p for v in specs for p in spec_leaves(v)]
+    return []
+
+
+def block_bytes(tree, specs, mesh) -> int:
+    """The bytes of a rank's blocks of every tensor leaf of the full
+    `tree` under `specs` (a tree of ``P``s like it), from the leaves'
+    shapes and dtypes and the mesh's axis sizes: what a device holds of
+    it."""
+    leaves = [t for t in tree_leaves(tree) if hasattr(t, "shape")]
+    flat = spec_leaves(specs)
+    if len(leaves) != len(flat):
+        raise ValueError(f"{len(leaves)} leaves, {len(flat)} specs")
+    total = 0
+    for t, spec in zip(leaves, flat):
+        n = t.element_size()
+        for dim, entry in zip(t.shape, spec):
+            n *= dim // axis_size(mesh, norm_axes(entry, mesh) or ())
+        total += n
+    return total
 
 
 def state_specs(states, mesh, batch: int):

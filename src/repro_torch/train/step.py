@@ -35,15 +35,19 @@ keeps the head's vocab block: ``next_token_loss_sharded`` is the
 vocab-parallel cross entropy, the FSDP gathers' backward sums the
 gradients over the split rows, ``finish_grads`` sums the rest, the clip
 reads ``parallel.global_norm`` of the blocks, and AdamW updates the
-blocks in place.  ``build_case`` has no mesh, ``fsdp`` or ``act_shard``
-knob yet (ROADMAP Queue 1 item 7).
+blocks in place.  ``fsdp`` (the reference's knob) picks the blocks'
+specs: ``param_specs(fsdp=True)`` by default.  ``build_case`` takes the
+reference's ``mesh``, ``fsdp`` and ``act_shard`` and packages one rank's
+step on its blocks.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.shapes import Shape
 from repro_torch.configs.whisper_small import DECODER_TRAIN_LEN
@@ -142,8 +146,8 @@ def _rows(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
 
 def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
                     mesh=None, microbatches: int = 1,
-                    act_shard: str = "model", grad_compress=None,
-                    use_fused: Optional[bool] = None
+                    act_shard: str = "model", fsdp: bool = True,
+                    grad_compress=None, use_fused: Optional[bool] = None
                     ) -> Tuple[Callable, Any]:
     """Returns (train_step, optimizer).  train_step(params, opt_state,
     batch) -> (params, opt_state, {"loss": loss}).
@@ -169,7 +173,10 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
     Across a 'model' axis larger than 1 the params and state are this
     rank's blocks and the step is ``_train_step_sharded``'s; `act_shard`
     ('model', 'seq' or 'none', the reference's knob) is then the residual
-    stream's layout at the remat save points.
+    stream's layout at the remat save points, and `fsdp` (the reference's
+    knob too) says whether the blocks are ``param_specs(fsdp=True)``'s,
+    each leaf's other large dim split over 'data' and gathered before its
+    layer, or ``fsdp=False``'s, replicated over 'data'.
     """
     if act_shard not in SH.ACT_SHARD:
         raise ValueError(f"act_shard {act_shard!r} is not one of "
@@ -177,7 +184,7 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
     if SH.model_axis(mesh) > 1:
         return _train_step_sharded(m, mesh, lr=lr, remat=remat,
                                    microbatches=microbatches,
-                                   act_shard=act_shard,
+                                   act_shard=act_shard, fsdp=fsdp,
                                    grad_compress=grad_compress,
                                    use_fused=use_fused)
     k = shard.n_task_shards(mesh)
@@ -223,10 +230,12 @@ def make_train_step(m: MB.ModelCfg, *, lr=3e-4, remat: bool = True,
 
 
 def _train_step_sharded(m: MB.ModelCfg, mesh, *, lr, remat: bool,
-                        microbatches: int, act_shard: str, grad_compress,
-                        use_fused: Optional[bool]) -> Tuple[Callable, Any]:
+                        microbatches: int, act_shard: str, fsdp: bool,
+                        grad_compress, use_fused: Optional[bool]
+                        ) -> Tuple[Callable, Any]:
     """``make_train_step`` across a 'model' axis larger than 1 on this
-    rank's blocks (``shard_params``; the optimizer's ``init`` of them):
+    rank's blocks (``shard_params(fsdp=fsdp)``; the optimizer's ``init``
+    of them):
     each microbatch's rows split over the batch axes by ``batch_specs``'
     rule, the forward on the blocks with the head's vocab block, the
     vocab-parallel loss (scaled by 1/the rows' shard count, so the FSDP
@@ -237,7 +246,7 @@ def _train_step_sharded(m: MB.ModelCfg, mesh, *, lr, remat: bool,
     and applied by AdamW in place.  The step's ``loss_and_grads(params,
     batch)`` is its (loss, gradient blocks) before any compression or
     clip, and ``grad_norm(grads)`` their global norm."""
-    specs = PAR.spec_leaves(PAR.param_layout(m, mesh))
+    specs = SH.spec_leaves(PAR.param_layout(m, mesh, fsdp))
     optim = adamw(lr, weight_decay=0.1, clip_norm=1.0)
 
     def loss_of(tree, piece):
@@ -263,7 +272,8 @@ def _train_step_sharded(m: MB.ModelCfg, mesh, *, lr, remat: bool,
             pieces = [{k: v[i] for k, v in micro.items()} for i in range(n)]
         live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         loss_sum, g_sum = 0.0, None
-        with SH.use_mesh(mesh, act_shard=act_shard, split=rax.size):
+        with SH.use_mesh(mesh, act_shard=act_shard, split=rax.size,
+                         fsdp=fsdp):
             for piece in pieces:
                 piece = {k: PAR.rows(v, rax, dim=1 if k == "positions"
                                      and v.dim() == 3 else 0)
@@ -299,7 +309,7 @@ def _train_step_sharded(m: MB.ModelCfg, mesh, *, lr, remat: bool,
     return train_step, optim
 
 
-def make_prefill_step(m: MB.ModelCfg, *, mesh=None,
+def make_prefill_step(m: MB.ModelCfg, *, mesh=None, fsdp: bool = True,
                       use_fused: Optional[bool] = None) -> Callable:
     """prefill_step(params, batch) -> last-position logits (B, V).
 
@@ -309,8 +319,9 @@ def make_prefill_step(m: MB.ModelCfg, *, mesh=None,
     ``use_fused=False`` takes the plain attention instead.  ``mesh`` is
     installed for the step (the MoE layers' groups follow it); every rank
     computes the whole batch.  Across a 'model' axis larger than 1 the
-    params are this rank's blocks and the rows split (module docstring);
-    the head runs on the last position alone."""
+    params are this rank's blocks under ``param_specs(fsdp=fsdp)`` and
+    the rows split (module docstring); the head runs on the last position
+    alone."""
 
     def prefill_sharded(params, batch):
         tokens = batch["tokens"]
@@ -318,7 +329,7 @@ def make_prefill_step(m: MB.ModelCfg, *, mesh=None,
         pos = batch.get("positions")
         if pos is not None:
             pos = PAR.rows(pos, ax, dim=1 if pos.dim() == 3 else 0)
-        with torch.no_grad(), SH.use_mesh(mesh, split=ax.size):
+        with torch.no_grad(), SH.use_mesh(mesh, split=ax.size, fsdp=fsdp):
             enc_out = None
             if m.enc_segments is not None:
                 enc_out = MB.encode(params, m, PAR.rows(batch["frames"], ax),
@@ -329,7 +340,7 @@ def make_prefill_step(m: MB.ModelCfg, *, mesh=None,
         return PAR.gather_dim(logits, 0, ax.group)
 
     if SH.model_axis(mesh) > 1:
-        PAR.param_layout(m, mesh)           # the specs, once, at set-up
+        PAR.param_layout(m, mesh, fsdp)     # the specs, once, at set-up
         return prefill_sharded
 
     def prefill_step(params, batch):
@@ -355,20 +366,23 @@ def _row_axis(mesh, batch: int) -> PAR.ModelAxis:
 
 
 def make_decode_step(m: MB.ModelCfg, *, mesh=None,
-                     cache_len: Optional[int] = None) -> Callable:
+                     cache_len: Optional[int] = None,
+                     fsdp: bool = True) -> Callable:
     """decode_step(params, token, pos, states, enc_out=None, start=None)
     -> (logits (B, 1, V), states), the reference's argument order; see
     ``models/base.decode_step``.  ``mesh`` is installed for the step, as
     in ``make_prefill_step``.  Across a 'model' axis larger than 1 the
-    params and states are this rank's blocks, `cache_len` (the cache the
-    states were made for) gives the states' specs, each rank decodes its
-    lanes (the states' batch dim; an encoder-decoder's `enc_out` rows
-    alike) and the logits are gathered."""
+    params and states are this rank's blocks (the params' under
+    ``param_specs(fsdp=fsdp)``), `cache_len` (the cache the states were
+    made for) gives the states' specs (``parallel.state_layout``, built
+    out of a counter's sight at a batch size's first call), each rank
+    decodes its lanes (the states' batch dim; an encoder-decoder's
+    `enc_out` rows alike) and the logits are gathered."""
     if SH.model_axis(mesh) > 1:
         if cache_len is None:
             raise ValueError("make_decode_step across a 'model' axis needs "
                              "the states' cache_len")
-        return _decode_sharded(m, mesh, cache_len)
+        return _decode_sharded(m, mesh, cache_len, fsdp)
 
     def decode_step(params, token, pos, states, enc_out=None, start=None):
         with torch.no_grad(), SH.use_mesh(mesh):
@@ -378,26 +392,22 @@ def make_decode_step(m: MB.ModelCfg, *, mesh=None,
     return decode_step
 
 
-def _decode_sharded(m: MB.ModelCfg, mesh, cache_len: int) -> Callable:
-    PAR.param_layout(m, mesh)               # the specs, once, at set-up
-    specs: Dict[int, Any] = {}
+def _decode_sharded(m: MB.ModelCfg, mesh, cache_len: int,
+                    fsdp: bool) -> Callable:
+    PAR.param_layout(m, mesh, fsdp)         # the specs, once, at set-up
 
     def decode_step(params, token, pos, states, enc_out=None, start=None):
         b = token.shape[0]
-        if b not in specs:      # the specs of the full states, from meta
-            specs[b] = SH.state_specs(state_structs(
-                param_structs(m, torch.float32), m, b, cache_len,
-                torch.float32), mesh, b)
+        specs = PAR.state_layout(m, mesh, b, cache_len)
         ax = _row_axis(mesh, b)
         if start is not None:
             start = PAR.rows(start, ax)
         if enc_out is not None:
             enc_out = PAR.rows(enc_out, ax)
-        with torch.no_grad(), SH.use_mesh(mesh, split=ax.size):
+        with torch.no_grad(), SH.use_mesh(mesh, split=ax.size, fsdp=fsdp):
             logits, states = MB.decode_step(params, m, PAR.rows(token, ax),
                                             pos, states, enc_out=enc_out,
-                                            start=start,
-                                            state_specs=specs[b])
+                                            start=start, state_specs=specs)
         return PAR.gather_dim(logits, 0, ax.group), states
 
     return decode_step
@@ -473,38 +483,141 @@ def state_structs(params_struct, m: MB.ModelCfg, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 # the packaged case: everything the cost tools need for one cell
 # ---------------------------------------------------------------------------
+#: ``Case.bytes_by_part``'s entry that is no argument of the step
+SAVED = "remat_saves"
+
+
 @dataclasses.dataclass
 class Case:
     name: str
     fn: Callable                 # fn(*args) runs the step once
-    args: Tuple[Any, ...]        # meta structs
+    args: Tuple[Any, ...]        # meta structs (this rank's blocks)
+    #: the mesh's axis sizes and the rank counted; None: one card
+    mesh: Optional[Dict[str, int]] = None
+    rank: int = 0
+    #: a device's bytes of each input from its specs (``block_bytes``):
+    #: params, opt_state (mu, nu and the step), batch, states, pos; and
+    #: ``SAVED``, a train step's residual stream at its remat save points
+    bytes_by_part: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def arg_bytes(self) -> int:
+        """A device's bytes of the step's inputs, from the specs: the
+        parts but ``SAVED``."""
+        return sum(v for k, v in self.bytes_by_part.items() if k != SAVED)
 
 
-def build_case(m: MB.ModelCfg, shape: Shape, *, dtype=torch.bfloat16,
-               lr: float = 3e-4, remat: bool = True,
-               microbatches: int = 1) -> Case:
+def _whole(tree):
+    """Specs that shard nothing, for every tensor leaf of `tree`."""
+    return tree_map(lambda t: SH.P(*([None] * t.dim()))
+                    if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _saved_bytes(m: MB.ModelCfg, shape: Shape, mesh, rows: int, dtype,
+                 act_shard: str) -> int:
+    """A device's bytes of the residual stream that a train step's remat
+    save points keep (one a repeat of every segment, the encoder's too),
+    a microbatch of `rows` under ``activation_spec``."""
+    seqs = [(sum(seg.repeats for seg in m.segments),
+             min(DECODER_TRAIN_LEN, shape.seq_len)
+             if m.enc_segments is not None else shape.seq_len)]
+    if m.enc_segments is not None:
+        seqs.append((sum(seg.repeats for seg in m.enc_segments),
+                     shape.seq_len))
+    total = 0
+    with SH.use_mesh(mesh, act_shard=act_shard):
+        for n, s in seqs:
+            x = _struct((rows, s, m.d_model), dtype)
+            total += n * SH.block_bytes(
+                x, SH.activation_spec(mesh, rows, m.d_model, s), mesh)
+    return total
+
+
+def build_case(m: MB.ModelCfg, shape: Shape, mesh=None, *,
+               dtype=torch.bfloat16, lr: float = 3e-4, remat: bool = True,
+               microbatches: int = 1, fsdp: bool = True,
+               act_shard: str = "model") -> Case:
     """One (arch x shape) cell: the train, prefill or decode step of
     ``shape.kind`` and its meta inputs.  Any `Shape` is taken, not only
     those of ``SHAPES``.  A train case's args are (params, optimizer
     state, batch); a prefill's (params, batch without labels); a decode
     step's (params, token (B, 1), its position, the states of a cache of
     ``seq_len`` tokens[, an encoder-decoder's ``enc_out``]).  The keyword
-    knobs (microbatches, remat) are ``launch/perf``'s sweep."""
+    knobs (microbatches, remat, fsdp, act_shard) are ``launch/perf``'s
+    sweep, the reference's.
+
+    With no `mesh` or a mesh of one rank the case is one card's.  On a
+    larger mesh (``launch/mesh``; ``counting_world`` makes one of any
+    size in this process) the case is this rank's: across a 'model' axis
+    larger than 1 the params are its blocks under
+    ``param_specs(fsdp=fsdp)``, the optimizer's ``init`` of them and the
+    decode states its blocks under ``state_specs``, as the sharded steps
+    take them; with no such axis the step is data parallel on whole
+    params and states.  Every rank is handed the global batch (the steps
+    take their rows) and a decode step's position is a Python int, so
+    the counted call's ``arg_bytes`` are not a device's:
+    ``bytes_by_part`` counts each input's block under its specs
+    (``param_specs``, ``batch_specs``, ``state_specs``; ``pos`` and each
+    cached layer's count of tokens, Python ints here, an int32's 4 bytes
+    each as the reference's), as its compiled ``argument_size_in_bytes``
+    does.  The ranks are not all alike (a ``PAR.Owned`` FFN's layers lie
+    on some), so the case records the rank it counts."""
     name = f"{m.name}:{shape.name}"
     p_struct = param_structs(m, dtype)
-    if shape.kind == "train":
-        step, optim = make_train_step(m, lr=lr, remat=remat,
-                                      microbatches=microbatches)
-        return Case(name, step, (p_struct, optim.init(p_struct),
-                                 batch_structs(m, shape, dtype)))
-    if shape.kind == "prefill":
+    sizes = None if mesh is None else SH.mesh_sizes(mesh)
+    if sizes is not None and int(np.prod(list(sizes.values()))) == 1:
+        mesh = sizes = None
+    sharded = SH.model_axis(mesh) > 1
+    rank = dist.get_rank() if mesh is not None else 0
+    p_specs = (SH.param_specs(p_struct, mesh, fsdp=fsdp) if sharded
+               else _whole(p_struct))
+    params = SH.shard_params(p_struct, mesh, fsdp=fsdp) if sharded \
+        else p_struct
+    parts = {"params": SH.block_bytes(p_struct, p_specs, mesh)}
+
+    def case(fn, *args) -> Case:
+        return Case(name, fn, args, sizes, rank, parts)
+
+    if shape.kind in ("train", "prefill"):
         batch = batch_structs(m, shape, dtype)
-        del batch["labels"]
-        return Case(name, make_prefill_step(m), (p_struct, batch))
+        b_specs = (batch_specs(m, shape, mesh) if mesh is not None
+                   else _whole(batch))
+        if shape.kind == "prefill":
+            del batch["labels"], b_specs["labels"]
+        parts["batch"] = SH.block_bytes(batch, b_specs, mesh)
+    if shape.kind == "train":
+        step, optim = make_train_step(m, lr=lr, remat=remat, mesh=mesh,
+                                      microbatches=microbatches,
+                                      act_shard=act_shard, fsdp=fsdp)
+        full = optim.init(p_struct)
+        parts["opt_state"] = SH.block_bytes(
+            full, type(full)(SH.P(), p_specs, p_specs), mesh)
+        if remat and sharded:
+            parts[SAVED] = _saved_bytes(
+                m, shape, mesh, shape.global_batch // max(microbatches, 1),
+                dtype, act_shard)
+        return case(step, params, optim.init(params), batch)
+    if shape.kind == "prefill":
+        return case(make_prefill_step(m, mesh=mesh, fsdp=fsdp), params,
+                    batch)
     # decode: one new token against a cache of seq_len
     b = shape.global_batch
-    args = [p_struct, _struct((b, 1), torch.int32), shape.seq_len - 1,
-            state_structs(p_struct, m, b, shape.seq_len, dtype)]
+    full = state_structs(p_struct, m, b, shape.seq_len, dtype)
+    s_specs = SH.state_specs(full, mesh, b) if sharded else _whole(full)
+    states = SH.shard_states(full, mesh, b) if sharded else full
+    b_ax = PAR.batch_axes_for(mesh, b) if mesh is not None else None
+    inputs = {"token": (_struct((b, 1), torch.int32), SH.P(b_ax, None))}
     if m.enc_segments is not None:
-        args.append(_struct((b, m.max_enc_len, m.d_model), dtype))
-    return Case(name, make_decode_step(m), tuple(args))
+        inputs["enc_out"] = (_struct((b, m.max_enc_len, m.d_model), dtype),
+                             SH.P(b_ax, None, None))
+    layers = sum(seg.repeats for seg, seg_st in zip(m.segments, full)
+                 for st in seg_st if isinstance(st, dict))
+    parts.update(
+        batch=sum(SH.block_bytes(t, p, mesh) for t, p in inputs.values()),
+        pos=4, states=SH.block_bytes(full, s_specs, mesh) + 4 * layers)
+    args = [params, inputs["token"][0], shape.seq_len - 1, states]
+    if m.enc_segments is not None:
+        args.append(inputs["enc_out"][0])
+    step = make_decode_step(m, mesh=mesh, fsdp=fsdp,
+                            cache_len=shape.seq_len if sharded else None)
+    return case(step, *args)

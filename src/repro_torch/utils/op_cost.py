@@ -29,8 +29,16 @@ traffic" the reference counts per top-level HLO op.
   storage an op makes is tracked through a weak reference to it, so what
   autograd keeps for the backward stays counted until it is freed, and
   what goes out of scope leaves the total.
-* ``coll_bytes``, ``coll_<kind>`` and ``n_coll``: result bytes of the c10d
-  collectives, by the reference's categories.  They stay 0 on one card.
+* ``coll_bytes``, ``coll_<kind>`` and ``n_coll``: the result bytes and the
+  calls of every c10d collective (``c10d``'s in-place ops and
+  ``_c10d_functional``'s, whose ``wait_tensor`` is no collective), by the
+  reference's categories: an all-reduce counts its tensors, an all-gather
+  its gathered outputs, a reduce-scatter its outputs.  As the
+  reference's ``hlo_cost`` counts every top-level op's operand and result
+  bytes, a collective's also count in ``hbm_bytes``: the inputs it reads
+  (not the outputs it is handed to fill) and its results.  They stay 0
+  with no process group; ``launch/mesh.counting_world`` gives one rank of
+  a mesh of any size in one process.
 
 Run it on ``meta`` tensors to count a step at any size with no memory and
 no card (``train/step.build_case``), or on CPU tensors to count the plain
@@ -101,13 +109,13 @@ def tensor_bytes(t: torch.Tensor) -> int:
 
 
 def _tensors(values) -> Iterator[torch.Tensor]:
-    """The tensors among an op's arguments or results (one level of
-    lists and tuples, as aten's signatures take them)."""
+    """The tensors among an op's arguments or results, through nested
+    lists and tuples (c10d's ``Tensor[][]``)."""
     for v in values:
         if isinstance(v, torch.Tensor):
             yield v
         elif isinstance(v, (list, tuple)):
-            yield from (t for t in v if isinstance(t, torch.Tensor))
+            yield from _tensors(v)
 
 
 def _written(func, args, kwargs) -> Tuple[List[torch.Tensor], List[bool]]:
@@ -126,6 +134,8 @@ def _written(func, args, kwargs) -> Tuple[List[torch.Tensor], List[bool]]:
 
 
 def _collective(func) -> str:
+    """The reference's category of a c10d collective, "" for any other
+    op."""
     if func.namespace not in _COLL_NAMESPACES:
         return ""
     name = func.overloadpacket.__name__
@@ -200,6 +210,10 @@ class OpCounter(TorchDispatchMode):
         packet = func.overloadpacket
         if packet in _ALLOCATIONS:
             return out
+        kind = _collective(func)
+        if kind:                # c10d's schemas mark nothing as written
+            self._count_collective(kind, func, args, kwargs, results)
+            return out
         written, only = _written(func, args, kwargs)
         inputs = list(_tensors(args)) + list(_tensors(kwargs.values()))
         if not written:
@@ -223,14 +237,25 @@ class OpCounter(TorchDispatchMode):
         if packet in flop_registry:
             flops = float(flop_registry[packet](*args, **kwargs, out_val=out))
             unit = unit_of(inputs[0].dtype)
-        kind = _collective(func)
-        if kind:
-            c = float(sum(tensor_bytes(t) for t in results))
-            self.coll[kind] += c
-            self.n_coll += 1
         shape = tuple(results[0].shape) if results else ()
         self.add(packet.__name__, shape, flops, n_bytes, unit)
         return out
+
+    def _count_collective(self, kind: str, func, args, kwargs,
+                          results) -> None:
+        """One collective: its results' bytes under `kind`; its inputs
+        (every argument but the ``output*`` ones it fills) and results in
+        ``hbm_bytes``."""
+        c = sum(tensor_bytes(t) for t in results)
+        read = 0
+        for i, a in enumerate(func._schema.arguments):
+            if not a.name.startswith("output"):
+                v = args[i] if i < len(args) else kwargs.get(a.name)
+                read += sum(tensor_bytes(t) for t in _tensors((v,)))
+        self.coll[kind] += c
+        self.n_coll += 1
+        shape = tuple(results[0].shape) if results else ()
+        self.add(func.overloadpacket.__name__, shape, 0.0, read + c, "")
 
     def __enter__(self):
         _ACTIVE.append(self)

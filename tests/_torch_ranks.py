@@ -10,10 +10,13 @@ instead: serving and the DSE task mesh on the (1, 4) and (2, 2)
 ``tests/test_torch_model_axis_recurrent.py``: hymba, xlstm and whisper
 served and trained there (``recurrent_main``); with ``steps``, those three
 once on a (1, WORLD) mesh (``steps_main``, for
-``tests/test_torch_shardings.py``).
+``tests/test_torch_shardings.py``); with ``costs``, those of
+``tests/test_torch_dryrun_mesh.py``: the reduced steps on the (2, 2)
+mesh counted by ``utils/op_cost``, then on rank 0 the same steps counted
+on meta in ``counting_world`` (``costs_main``).
 
     python tests/_torch_ranks.py RANK WORLD STORE_PATH OUT_DIR \
-        [model|train|recurrent|steps]
+        [model|train|recurrent|steps|costs]
 
 Imports only ``torch`` and ``repro_torch``.
 """
@@ -819,6 +822,66 @@ def recurrent(mesh, shape, archs=RECURRENT_ARCHS, serve: bool = True,
     return out
 
 
+#: configs wide enough that ``state_spec`` puts 'data' on a recurrent
+#: state's non-batch dim at one lane on (2, 2) (a dim of 1024 or more the
+#: batch does not take): hymba's SSM Di = 2·512 and the sLSTM's D = 1024
+WIDE_ARCHS = ("hymba-wide", "xlstm-wide")
+WIDE_STEPS = 4
+
+
+def wide_config(builders_mod, arch: str):
+    if arch == "hymba-wide":
+        return builders_mod.sandwich_arch(
+            "hymba-wide", "hybrid", 5, 512, 4, 2, 128, 512, head_dim=16,
+            local_window=32, ssm_state=8, n_globals=3, tied=True)
+    return builders_mod.xlstm_arch("xlstm-wide", 2, 1024, 4, 512,
+                                   slstm_every=2, tied=True)
+
+
+def batch_one_decode(mesh, shape):
+    """Each WIDE_ARCHS config decoded at one lane for WIDE_STEPS steps from
+    empty states, on this rank's blocks and on one rank: the logits, the
+    shapes of this rank's state blocks, and the new states (the blocks
+    gathered into whole leaves)."""
+    from repro_torch.models import builders
+    from repro_torch.train import shardings as SH
+
+    one = Sizes(data=shape[0], model=1)
+    out = {}
+    for arch in WIDE_ARCHS:
+        m = wide_config(builders, arch)
+        params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
+        toks = torch.from_numpy(model_tokens(m.vocab, 1, WIDE_STEPS))
+        rec = out[arch] = {}
+        for active in (mesh, one):
+            states = MB.init_decode_state(params, m, 1, REC_CACHE)
+            p = params
+            if active is mesh:
+                specs = SH.state_specs(states, mesh, 1)
+                states = SH.shard_states(states, mesh, 1)
+                p = SH.shard_params(params, mesh)
+                rec["shapes"] = [tuple(t.shape) for t in tree_leaves(states)
+                                 if isinstance(t, torch.Tensor)]
+            dec = TS.make_decode_step(
+                m, mesh=active, cache_len=REC_CACHE if active is mesh
+                else None)
+            seen = []
+            for t in range(WIDE_STEPS):
+                logits, states = dec(p, toks[:, t:t + 1], t, states)
+                seen.append(logits[:, 0].numpy().copy())
+            if active is mesh:
+                states = [SH.gather_leaf(t, sp, mesh).numpy() for t, sp in
+                          zip([t for t in tree_leaves(states)
+                               if isinstance(t, torch.Tensor)],
+                              SH.spec_leaves(specs))]
+            else:
+                states = [t.numpy() for t in tree_leaves(states)
+                          if isinstance(t, torch.Tensor)]
+            key = "sharded" if active is mesh else "one"
+            rec[key] = dict(logits=np.stack(seen, 1), states=states)
+    return out
+
+
 def recurrent_main(rank: int, world: int, store_path: str,
                    out_dir: str) -> None:
     torch.set_num_threads(1)
@@ -830,6 +893,8 @@ def recurrent_main(rank: int, world: int, store_path: str,
             mesh = make_host_mesh(shape, device="cpu")
             out[shape] = dict(coord=tuple(mesh.get_coordinate()),
                               runs=recurrent(mesh, shape))
+            if shape[0] > 1:
+                out[shape]["wide"] = batch_one_decode(mesh, shape)
     except Exception:
         out["error"] = traceback.format_exc()
     with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
@@ -854,6 +919,107 @@ def steps_main(rank: int, world: int, store_path: str,
     dist.destroy_process_group()
 
 
+def drop_world() -> None:
+    """No process group running in this process: a world that an earlier
+    test in a pytest worker left (``make_host_mesh`` starts a world of one
+    where none runs) is destroyed, with the groups built under it, so
+    ``counting_world`` may start."""
+    from repro_torch.launch import mesh as LM
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+        LM._FLAT_GROUPS.clear()
+        LM._PLANE_GROUPS.clear()
+
+
+#: the steps counted on 4 gloo ranks and on meta: (arch, kind, fsdp) at
+#: COST_BATCH x COST_SEQ, float32, on the (2, 2) mesh
+COST_CASES = tuple([("stablelm-1.6b", k, f) for k in ("prefill", "train",
+                                                      "decode")
+                    for f in (False, True)]
+                   + [(a, k, True) for a in ("mixtral-8x7b", "hymba-1.5b")
+                      for k in ("prefill", "train", "decode")])
+COST_BATCH, COST_SEQ = 4, 128
+COST_MESH = (2, 2)
+
+
+def _collectives(totals: dict) -> dict:
+    return {k: v for k, v in totals.items() if k.startswith("coll")
+            or k == "n_coll"}
+
+
+def _real_case(m, kind: str, fsdp: bool, mesh):
+    """(step, args) of a COST_CASES step on this rank's real blocks: the
+    params from seed 0, a batch of tokens, the decode states of a cache
+    of COST_SEQ."""
+    from repro_torch.train import shardings as SH
+
+    params = MB.init_params(prng.prng_key(torch.tensor(0)), m, "cpu")
+    local = SH.shard_params(params, mesh, fsdp=fsdp)
+    toks = torch.from_numpy(model_tokens(m.vocab, COST_BATCH, COST_SEQ)
+                            ).to(torch.int32)
+    if kind == "train":
+        step, optim = TS.make_train_step(m, mesh=mesh, fsdp=fsdp)
+        return step, (local, optim.init(local),
+                      {"tokens": toks, "labels": toks.roll(-1, 1)})
+    if kind == "prefill":
+        return TS.make_prefill_step(m, mesh=mesh, fsdp=fsdp), (
+            local, {"tokens": toks})
+    states = SH.shard_states(MB.init_decode_state(params, m, COST_BATCH,
+                                                  COST_SEQ),
+                             mesh, COST_BATCH)
+    return TS.make_decode_step(m, mesh=mesh, cache_len=COST_SEQ,
+                               fsdp=fsdp), (local, toks[:, :1],
+                                            COST_SEQ - 1, states)
+
+
+def costs_main(rank: int, world: int, store_path: str,
+               out_dir: str) -> None:
+    """COST_CASES' reduced steps on this rank's blocks of the (2, 2) gloo
+    mesh, each counted by ``utils/op_cost`` (its collectives); whether
+    ``counting_world`` refuses to start inside the running group; then,
+    on rank 0 with the group destroyed, the same steps built by
+    ``build_case`` on meta and counted inside ``counting_world(4)``."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch.mesh import counting_world, make_mesh
+    from repro_torch.utils import op_cost
+
+    torch.set_num_threads(1)
+    init_process_group("gloo", dist.FileStore(store_path, world), rank,
+                       world, timeout_s=120)
+    out = {"gloo": {}, "fake": {}}
+    try:
+        mesh = make_host_mesh(COST_MESH, device="cpu")
+        try:
+            with counting_world(world):
+                out["refused"] = False
+        except RuntimeError as e:
+            out["refused"] = str(e)
+        for arch, kind, fsdp in COST_CASES:
+            step, args = _real_case(configs.get_reduced(arch), kind, fsdp,
+                                    mesh)
+            out["gloo"][arch, kind, fsdp] = _collectives(
+                op_cost.analyze(step, *args))
+    except Exception:
+        out["error"] = traceback.format_exc()
+    dist.destroy_process_group()
+    if rank == 0 and "error" not in out:
+        try:
+            with counting_world(world):
+                mesh = make_mesh(COST_MESH, ("data", "model"), device="cpu")
+                for arch, kind, fsdp in COST_CASES:
+                    case = TS.build_case(
+                        configs.get_reduced(arch),
+                        Shape(f"{kind}_cost", COST_SEQ, COST_BATCH, kind),
+                        mesh, dtype=torch.float32, fsdp=fsdp)
+                    out["fake"][arch, kind, fsdp] = _collectives(
+                        op_cost.analyze(case.fn, *case.args))
+        except Exception:
+            out["error"] = traceback.format_exc()
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
 def main(rank: int, world: int, store_path: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     init_process_group("gloo", dist.FileStore(store_path, world), rank,
@@ -873,6 +1039,7 @@ def main(rank: int, world: int, store_path: str, out_dir: str) -> None:
 
 if __name__ == "__main__":
     {("model",): model_axis_main, ("train",): model_axis_train_main,
-     ("recurrent",): recurrent_main, ("steps",): steps_main}.get(
+     ("recurrent",): recurrent_main, ("steps",): steps_main,
+     ("costs",): costs_main}.get(
         tuple(sys.argv[5:]), main)(
         int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4])

@@ -23,6 +23,10 @@ and 4 do not divide), reduced xlstm (4 heads), xlstm with 2 heads (which
   1e-5 relative of one rank's, every gradient block within 1e-4 of its
   leaf's norm, params, mu and nu exactly the spec blocks' bytes.
 
+On (2, 2) every rank also decodes one lane of a hymba and an xlstm wide
+enough that ``state_spec`` puts 'data' on their recurrent states' Di
+and D: its logits and new states against one rank's.
+
 The layouts a naive port gets wrong each have a case: ``in_proj``'s x | z
 and ``wqkv``'s q | k | v columns, heads that 'model' does not divide,
 whisper's layer-owned GEGLU FFN, xlstm's blocked decode state, whisper's
@@ -56,8 +60,8 @@ from repro_torch.train import shardings as SH
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "tests"))
 from _torch_ranks import (ENGINE, MODEL_BATCH, MODEL_MESHES,  # noqa: E402
-                          REC_CACHE, REC_STEPS, RECURRENT_ARCHS, Sizes,
-                          recurrent_config)
+                          REC_CACHE, REC_STEPS, RECURRENT_ARCHS, WIDE_ARCHS,
+                          WIDE_STEPS, Sizes, recurrent_config, wide_config)
 
 WORLD = 4
 TIMEOUT_S = 240
@@ -451,26 +455,36 @@ def test_the_input_gate_bias_has_no_gradient():
                 assert float(g["b_f"].abs().max()) > 1e-5 * total
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-1.3b"])
-def test_a_recurrent_state_split_by_a_batch_axis_is_refused(arch):
-    """At full width and one lane on (2, 2), ``state_spec`` puts 'data' on
-    the SSM state's Di and the sLSTM state's D (the batch does not divide
-    over it): those layers step on 'model' blocks alone, so the decode
-    refuses the layout (``models/base._check_recurrent_specs``); on
-    (1, 2) it passes."""
-    from repro_torch.train import step as TS
-
-    m = TC.get_arch(arch)
-    states = TS.state_structs(TS.param_structs(m, torch.float32), m, 1, 16,
-                              torch.float32)
-    for shape, ok in (((2, 2), False), ((1, 2), True)):
-        mesh = Sizes(data=shape[0], model=shape[1])
-        specs = SH.state_specs(states, mesh, 1)
-        with SH.use_mesh(mesh):
-            for seg, seg_specs in zip(m.segments, specs):
-                for sp, ss in zip(seg.pattern, seg_specs):
-                    if ok or not (sp.kind == "slstm" or sp.cfg.ssm_state):
-                        MB._check_recurrent_specs(ss, sp)
-                        continue
-                    with pytest.raises(ValueError, match="batch axis"):
-                        MB._check_recurrent_specs(ss, sp)
+@pytest.mark.parametrize("arch", WIDE_ARCHS)
+def test_a_recurrent_state_split_by_a_batch_axis_decodes(world, arch):
+    """At one lane on (2, 2), ``state_spec`` puts 'data' on the SSM
+    state's Di (2·512) and the sLSTM state's D (1024), since the batch
+    does not divide over it; the decode step gathers that dim before the
+    layer's step and keeps this rank's block of the new state after it
+    (``models/base._step_layout``): each rank stores its spec blocks, and
+    WIDE_STEPS steps' logits and the new states are one rank's."""
+    shape = (2, 2)
+    mesh = Sizes(data=shape[0], model=shape[1])
+    m = wide_config(TB, arch)
+    states = MB.init_decode_state(_structs(m), m, 1, REC_CACHE)
+    specs = SH.state_specs(states, mesh, 1)
+    recurrent = [leaf for seg, seg_ss in zip(m.segments, specs)
+                 for sp, ss in zip(seg.pattern, seg_ss)
+                 for leaf in (ss if sp.kind in MB.RECURRENT
+                              else ss.get("ssm", ()))]
+    assert recurrent and any(e == "data" for leaf in recurrent
+                             for e in leaf[2:])
+    want = _blocks(states, specs, mesh)
+    for r in range(WORLD):
+        wide = world[0][r][shape]["wide"][arch]
+        assert wide["shapes"] == want
+        got, one = wide["sharded"], wide["one"]
+        assert got["logits"].shape == one["logits"].shape == (
+            1, WIDE_STEPS, m.vocab)
+        assert np.isfinite(got["logits"]).all()
+        assert np.abs(got["logits"] - one["logits"]).max() <= \
+            1e-5 * _scale(one["logits"])
+        assert len(got["states"]) == len(one["states"])
+        for a, b in zip(got["states"], one["states"]):
+            assert a.shape == b.shape
+            assert np.abs(a - b).max() <= 1e-5 * _scale(b)

@@ -20,15 +20,22 @@ test names the ops and holds the difference to their formulas:
   S = QKᵀ from lse, where jax's autodiff keeps P: one QKᵀ more a layer.
 
 The kernels' meta routes launch nothing and charge their own work,
-``PERF.md`` §6's figures included.
+``PERF.md`` §6's figures included.  In a fake world of 4
+(``launch/mesh.counting_world``) c10d's all-reduce, all-gather and
+reduce-scatter count their calls and result bytes by kind, on meta and
+CPU tensors alike, and a sharded decode step's first count is its
+second.
 """
 import functools
+import pathlib
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro import configs as JC
 from repro.models import base as JMB
@@ -45,11 +52,15 @@ from repro_torch.kernels import fused_mlp as fm
 from repro_torch.kernels import slstm_scan as sl
 from repro_torch.kernels import ssm_scan as ss
 from repro_torch.launch import dryrun as TDR
+from repro_torch.launch import mesh as LM
 from repro_torch.launch import perf as TPF
 from repro_torch.models import base as TMB
 from repro_torch.train import step as TTS
 from repro_torch.utils import op_cost
 from repro_torch.utils import roofline as TRL
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+from _torch_ranks import drop_world  # noqa: E402
 
 B, S = 2, 64
 META = torch.device("meta")
@@ -180,6 +191,63 @@ def test_bytes_count_reads_and_writes_once():
     got = op_cost.analyze(f, a, b, bias)
     assert got["hbm_bytes"] == 4 * (96 + 8 + 40 + 64)
     assert got["flops"] == 0.0 and got["coll_bytes"] == 0.0
+
+
+@pytest.fixture
+def world4():
+    """Rank 0 of a fake world of 4 (``launch/mesh.counting_world``), any
+    world an earlier test in this process left dropped first."""
+    drop_world()
+    with LM.counting_world(4):
+        yield
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_collectives_count_their_results_by_kind(world4, device):
+    """c10d's all-reduce (its tensors, in place), all-gather (the gathered
+    outputs, a ``Tensor[][]``) and reduce-scatter (its output): one call
+    each under the reference's kind, its result bytes there, and its
+    inputs and results in ``hbm_bytes``, as ``hlo_cost`` counts a
+    collective's operands and result."""
+    t = torch.ones(32, device=device)
+
+    def f(t):
+        dist.all_reduce(t)                                  # 128 + 128
+        parts = [torch.empty_like(t) for _ in range(4)]
+        dist.all_gather(parts, t)                           # 128 + 512
+        out = torch.empty(8, device=device)
+        dist.reduce_scatter(out, list(t.split(8)))          # 128 + 32
+        return parts, out
+
+    got = op_cost.analyze(f, t)
+    assert got["n_coll"] == 3.0
+    assert (got["coll_all-reduce"], got["coll_all-gather"],
+            got["coll_reduce-scatter"]) == (128.0, 512.0, 32.0)
+    assert got["coll_bytes"] == 672.0
+    assert got["coll_all-to-all"] == got["coll_collective-permute"] == 0.0
+    # t.split's views move nothing; the collectives alone add bytes
+    assert got["hbm_bytes"] == 256 + 640 + 160
+
+
+def test_a_sharded_decode_steps_first_count_is_its_second(world4):
+    """The decode step's state specs are set-up, out of the counter's
+    sight: its first call for a batch size counts what its second does."""
+    from repro_torch.train import shardings as SH
+
+    mesh = LM.make_mesh((2, 2), ("data", "model"), device="cpu")
+    for arch in ("stablelm-1.6b", "hymba-1.5b"):
+        m = TC.get_reduced(arch)
+        params = TTS.param_structs(m, torch.float32)
+        states = SH.shard_states(TTS.state_structs(params, m, 4, 128,
+                                                   torch.float32), mesh, 4)
+        step = TTS.make_decode_step(m, mesh=mesh, cache_len=128)
+        args = (SH.shard_params(params, mesh),
+                torch.empty((4, 1), dtype=torch.int32, device=META), 127,
+                states)
+        first, second = (op_cost.analyze(step, *args) for _ in range(2))
+        for key in ("peak_bytes", "hbm_bytes", "n_coll", "coll_bytes"):
+            assert first[key] == second[key], (arch, key)
+        assert first["n_coll"] > 0
 
 
 def test_peak_counts_what_autograd_keeps_and_frees_the_rest():
